@@ -1,0 +1,503 @@
+"""The VB sweep as hand-written CUDA, with its plain PyTorch version.
+
+Counterpart of ``ccfindr_tpu/ops/pallas/sol.py``.  One sweep is four
+CUDA kernels launched in order on the current stream
+(``csrc/sol.cu``): K1 ``xpass`` (suffstats, ``x*log(wth)``,
+``rowSums(eh)``), K2 ``w_post`` (W gamma posterior), K3 ``h_post`` (H
+gamma posterior) and K4 ``finish`` (ELBO pieces and the damped hyper
+Newton).  :func:`sol_sweep_plain` is the same sweep in plain PyTorch
+(``torch.matmul`` for the three products, full-matrix elementwise
+math); :func:`sol_sweep` takes it only for tensors on the CPU and
+launches the kernels for CUDA tensors, with no fallback between them.
+
+Layouts carry a leading lane axis B: X ``(np, mp)`` shared by all
+lanes; W transposed ``lwt (B, rp, np)``; ``lh``/``eh (B, rp, mp)``;
+``sc (B, 8)`` float64 ``[aw, bw, ah, bh, fudge, r_live, lgx,
+do_elbo]``; the result ``scal (B, 16)`` float64 in the slot layout
+below.  ``n``/``m`` are the true gene/cell counts (columns past them
+are padding: X 0, lwt/lh 1, eh 0), ``r`` the state's rank (rows in
+``[r, rp)`` pad 0; rows in ``[r_live, r)`` are a lane's masked
+components, pinned at ``fudge``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..vb import (VBRunResult, VBState, digamma_approx,
+                  digamma_gammaln_both, gammaln_approx,
+                  mask_initial_state, trigamma)
+
+# scal slots (csrc/sol.cu enum)
+(XLOG, U2, U3, SEW, SLW, SEH, SLH, DTW, DTH,
+ PEND, DTERM, AW, BW, AH, BH, HFAIL) = range(16)
+NSCAL = 16
+
+# tiling of csrc/sol.cu: K1 blocks cover CHUNK x CHUNK of X, K2/K3
+# blocks POST_COLS columns
+CHUNK = 512
+POST_COLS = 256
+MAX_RP = 128
+
+# the convergence loop asks the device whether any lane is still
+# running every HOST_CHECK_EVERY sweeps (one device->host sync each);
+# stopped lanes are frozen, so any value gives the same result
+HOST_CHECK_EVERY = 1
+
+# launches per kernel since the last reset (bumped only where a kernel
+# is launched)
+LAUNCHES = {"xpass": 0, "w_post": 0, "h_post": 0, "finish": 0}
+
+_TCODE = {torch.float32: 0, torch.float64: 1}
+_XCODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2,
+          torch.float64: 3}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def round_up(v: int, mult: int) -> int:
+    return -(-v // mult) * mult
+
+
+def _check(x, lwt, lh, eh, sc, n, m, r):
+    """Validate what the kernels (and the plain version) take."""
+    if lwt.dtype not in _TCODE:
+        raise TypeError(f"factors must be float32 or float64, got "
+                        f"{lwt.dtype}")
+    if x.dtype not in _XCODE:
+        raise TypeError(f"X must be int8, int16, float32 or float64, "
+                        f"got {x.dtype}")
+    if lh.dtype != lwt.dtype or eh.dtype != lwt.dtype:
+        raise TypeError("lwt, lh and eh must share one dtype")
+    if sc.dtype != torch.float64:
+        raise TypeError("sc must be float64")
+    if x.dim() != 2 or lwt.dim() != 3:
+        raise ValueError("X must be (np, mp) and lwt (B, rp, np)")
+    np_, mp_ = x.shape
+    nb, rp_, npw = lwt.shape
+    if npw != np_ or lh.shape != (nb, rp_, mp_) or eh.shape != lh.shape:
+        raise ValueError(f"shape mismatch: X {tuple(x.shape)}, lwt "
+                         f"{tuple(lwt.shape)}, lh {tuple(lh.shape)}, eh "
+                         f"{tuple(eh.shape)}")
+    if sc.shape != (nb, 8):
+        raise ValueError(f"sc must be ({nb}, 8), got {tuple(sc.shape)}")
+    if rp_ % 8 or rp_ > MAX_RP or not 0 < r <= rp_:
+        raise ValueError(f"padded rank {rp_} must be a multiple of 8, "
+                         f"at most {MAX_RP}, and hold r={r}")
+    if not (0 < n <= np_ and 0 < m <= mp_):
+        raise ValueError(f"true extents ({n}, {m}) exceed X {np_}x{mp_}")
+    devs = {t.device for t in (x, lwt, lh, eh, sc)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    for name, t in (("x", x), ("lwt", lwt), ("lh", lh), ("eh", eh),
+                    ("sc", sc)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------
+# Plain PyTorch version, phase by phase
+# ---------------------------------------------------------------------
+
+def xpass_plain(x, lwt, lh, eh, sc):
+    """K1's function: (swnt (B,rp,np), shn (B,rp,mp), xlog (B,) f64,
+    ehs (B,rp) f64 = rowSums of the incoming eh)."""
+    dt = lwt.dtype
+    xf = x.to(dt)
+    wth = lwt.transpose(-1, -2) @ lh
+    u = xf / wth
+    swnt = lh @ u.transpose(-1, -2)
+    shn = lwt @ u
+    xlog = torch.where(sc[:, 7] > 0,
+                       (xf * torch.log(wth)).sum((-2, -1),
+                                                 dtype=torch.float64),
+                       0.0)
+    return swnt, shn, xlog, eh.sum(-1, dtype=torch.float64)
+
+
+def post_plain(sfx, lf, denom, a, b, fudge, r_live, r, ncol):
+    """K2/K3's function (``_post_tile``): the gamma posterior of one
+    factor in (rank rows, long-axis columns) layout.  ``denom`` (B, rp)
+    float64 enters the beta; a, b, fudge, r_live are (B,) in the
+    factor dtype; ``ncol`` is the true long-axis extent.
+
+    Returns (e, ln, d, rank_sums (B,rp) f64, scalars (B,4) f64 =
+    [U, sum e, sum logl, dterm])."""
+    dt = lf.dtype
+    _, rows, cols = lf.shape
+    row = torch.arange(rows, device=lf.device)[:, None]
+    col = torch.arange(cols, device=lf.device)[None, :]
+    live = (row.to(dt) < r_live[:, None, None]) & (col < ncol)
+    pin = (row < r) & (col < ncol)
+    a3, b3, f3 = a[:, None, None], b[:, None, None], fudge[:, None, None]
+
+    be = (1.0 / (a[:, None] / b[:, None] + denom.to(dt)))[..., None]
+    log_be = torch.log(be)
+    al = a3 + lf * sfx
+    psi, lgam = digamma_gammaln_both(al)
+    e = torch.where(live, al * be, 0.0)
+    ln_raw = torch.exp(psi) * be
+    pad = torch.where(row < r, 1.0, 0.0).to(dt)
+    ln = torch.where(live, torch.maximum(ln_raw, f3),
+                     torch.where(pin, f3, pad))
+    d = torch.where(live, al * (be * be), 0.0)
+    u = torch.where(live, -(a3 / b3) * e + al * (1.0 + log_be) + lgam,
+                    0.0)
+    logl = torch.where(live & (ln_raw > f3), psi + log_be,
+                       torch.where(live, torch.log(f3), 0.0))
+    dterm = torch.where(live, sfx * lf * torch.log(torch.where(live, lf,
+                                                               1.0)),
+                        0.0)
+    f64 = torch.float64
+    scal = torch.stack([t.sum((-2, -1), dtype=f64)
+                        for t in (u, e, logl, dterm)], dim=-1)
+    return e, ln, d, e.sum(-1, dtype=f64), scal
+
+
+def _newton_plain(aw0, ah0, bw0, bh0, lwm, ewm, lhm, ehm, mask, niter,
+                  tol):
+    """``_newton_scalar`` per lane: Newton on the gamma shapes with
+    iterated halving (non-finite steps zeroed), means closed-form."""
+    def nstep(a0, mean_e, mean_l, b0, enabled):
+        if not enabled:
+            return torch.zeros_like(a0)
+        return ((torch.log(a0) - digamma_approx(a0) - mean_e / b0 + 1.0
+                 + mean_l - torch.log(b0))
+                / (1.0 / a0 - trigamma(a0)))
+
+    def pstep(a0, d):
+        d = torch.where(torch.isfinite(d), d, 0.0)
+        for _ in range(4096):
+            bad = a0 - d <= 0
+            if not bool(bad.any()):
+                break
+            d = torch.where(bad, d * 0.5, d)
+        return d
+
+    aw1, ah1 = aw0, ah0
+    failed = torch.zeros(aw0.shape, dtype=torch.bool, device=aw0.device)
+    if mask[0] or mask[2]:
+        done = torch.zeros_like(failed)
+        for _ in range(niter - 1):
+            active = ~done
+            if not bool(active.any()):
+                break
+            dw = pstep(aw1, nstep(aw1, ewm, lwm, bw0, mask[0]))
+            dh = pstep(ah1, nstep(ah1, ehm, lhm, bh0, mask[2]))
+            a1 = aw1 - dw
+            h1 = ah1 - dh
+            df = (1.0 - a1 / aw1) ** 2 + (1.0 - h1 / ah1) ** 2
+            aw1 = torch.where(active, a1, aw1)
+            ah1 = torch.where(active, h1, ah1)
+            done = torch.where(active, df < tol, done)
+        failed = ~done
+    bw1 = ewm if mask[1] else bw0
+    bh1 = ehm if mask[3] else bh0
+    return aw1, bw1, ah1, bh1, failed
+
+
+def finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt, mask,
+                 niter, tol):
+    """K4's function: scal (B, 16) float64.  The ELBO is assembled in
+    float64, the Newton runs in the factor dtype ``dt``."""
+    aw, bw, ah, bh = sc[:, 0], sc[:, 1], sc[:, 2], sc[:, 3]
+    r_live, lgx = sc[:, 5], sc[:, 6]
+    nr = n * r_live
+    rm = r_live * m
+    u1 = -(csum * rsum).sum(-1) - lgx
+    const_w = nr * (aw * torch.log(aw / bw) - gammaln_approx(aw))
+    const_h = rm * (ah * torch.log(ah / bh) - gammaln_approx(ah))
+    scal = torch.zeros(sc.shape[0], NSCAL, dtype=torch.float64,
+                       device=sc.device)
+    scal[:, XLOG] = xlog
+    scal[:, [U2, SEW, SLW, DTW]] = wscal
+    scal[:, [U3, SEH, SLH, DTH]] = hscal
+    scal[:, PEND] = u1 + wscal[:, 0] + const_w + hscal[:, 0] + const_h
+    scal[:, DTERM] = -(wscal[:, 3] + hscal[:, 3]) + xlog
+    aw1, bw1, ah1, bh1, failed = _newton_plain(
+        aw.to(dt), ah.to(dt), bw.to(dt), bh.to(dt),
+        (wscal[:, 2] / nr).to(dt), (wscal[:, 1] / nr).to(dt),
+        (hscal[:, 2] / rm).to(dt), (hscal[:, 1] / rm).to(dt),
+        mask, niter, tol)
+    scal[:, AW] = aw1.double()
+    scal[:, BW] = bw1.double()
+    scal[:, AH] = ah1.double()
+    scal[:, BH] = bh1.double()
+    scal[:, HFAIL] = failed.double()
+    return scal
+
+
+def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
+                    hyper_mask=(True,) * 4, newton_niter=100,
+                    newton_tol=1e-4):
+    """One VB sweep in plain PyTorch; the function K1-K4 compute.
+
+    Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    _check(x, lwt, lh, eh, sc, n, m, r)
+    dt = lwt.dtype
+    a = [sc[:, q].to(dt) for q in range(6)]
+    aw, bw, ah, bh, fudge, r_live = a
+    swnt, shn, xlog, ehs = xpass_plain(x, lwt, lh, eh, sc)
+    ewt, lwtn, dwt, csum, wscal = post_plain(swnt, lwt, ehs, aw, bw,
+                                             fudge, r_live, r, n)
+    ehn, lhn, dhn, rsum, hscal = post_plain(shn, lh, csum, ah, bh,
+                                            fudge, r_live, r, m)
+    scal = finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt,
+                        tuple(bool(v) for v in hyper_mask),
+                        newton_niter, newton_tol)
+    return ewt, lwtn, dwt, ehn, lhn, dhn, scal
+
+
+# ---------------------------------------------------------------------
+# CUDA wrappers (one per kernel)
+# ---------------------------------------------------------------------
+
+def _lib():
+    from .build import library
+
+    return library()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def _require_cuda(*ts):
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got "
+                             f"{t.device}")
+
+
+def xpass(x, lwt, lh, eh, sc):
+    """Launch K1.  Returns the partials (swn_part (B, ncc, rp, np),
+    shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64, ehs_part
+    (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X."""
+    _require_cuda(x, lwt, lh, eh, sc)
+    nb, rp_, np_ = lwt.shape
+    mp_ = x.shape[1]
+    ncc, ngc = -(-mp_ // CHUNK), -(-np_ // CHUNK)
+    swn_part = torch.empty(nb, ncc, rp_, np_, dtype=lwt.dtype,
+                           device=x.device)
+    shn_part = torch.empty(nb, ngc, rp_, mp_, dtype=lwt.dtype,
+                           device=x.device)
+    xlog_part = torch.empty(nb, ngc * ncc, dtype=torch.float64,
+                            device=x.device)
+    ehs_part = torch.empty(nb, ncc, rp_, dtype=torch.float64,
+                           device=x.device)
+    rc = _lib().sol_xpass(
+        _TCODE[lwt.dtype], _XCODE[x.dtype], x.data_ptr(), lwt.data_ptr(),
+        lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_, rp_,
+        swn_part.data_ptr(), shn_part.data_ptr(), xlog_part.data_ptr(),
+        ehs_part.data_ptr(), _stream())
+    _raise("sol_xpass", rc)
+    LAUNCHES["xpass"] += 1
+    return swn_part, shn_part, xlog_part, ehs_part
+
+
+def _post(name, side, sfx_part, lf, denom_part, sc, r, ncol):
+    _require_cuda(sfx_part, lf, denom_part, sc)
+    nb, rp_, ext = lf.shape
+    nblk = -(-ext // POST_COLS)
+    e = torch.empty_like(lf)
+    ln = torch.empty_like(lf)
+    d = torch.empty_like(lf)
+    rsum_part = torch.empty(nb, nblk, rp_, dtype=torch.float64,
+                            device=lf.device)
+    scal_part = torch.empty(nb, nblk, 4, dtype=torch.float64,
+                            device=lf.device)
+    fn = getattr(_lib(), name)
+    rc = fn(_TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
+            lf.data_ptr(), denom_part.data_ptr(), denom_part.shape[1],
+            sc.data_ptr(), nb, ext, rp_, r, ncol, e.data_ptr(),
+            ln.data_ptr(), d.data_ptr(), rsum_part.data_ptr(),
+            scal_part.data_ptr(), _stream())
+    _raise(name, rc)
+    LAUNCHES[side] += 1
+    return e, ln, d, rsum_part, scal_part
+
+
+def w_post(swn_part, lwt, ehs_part, sc, r, n):
+    """Launch K2: (ewt, lwtn, dwt, csum_part, wscal_part)."""
+    return _post("sol_w_post", "w_post", swn_part, lwt, ehs_part, sc, r,
+                 n)
+
+
+def h_post(shn_part, lh, csum_part, sc, r, m):
+    """Launch K3: (ehn, lhn, dhn, rsum_part, hscal_part)."""
+    return _post("sol_h_post", "h_post", shn_part, lh, csum_part, sc, r,
+                 m)
+
+
+def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
+           *, n, m, dt, hyper_mask, newton_niter, newton_tol):
+    """Launch K4: scal (B, 16) float64."""
+    _require_cuda(sc, xlog_part, csum_part, rsum_part)
+    nb, _, rp_ = csum_part.shape
+    scal = torch.empty(nb, NSCAL, dtype=torch.float64, device=sc.device)
+    mask = sum(1 << i for i, v in enumerate(hyper_mask) if v)
+    rc = _lib().sol_finish(
+        _TCODE[dt], sc.data_ptr(), xlog_part.data_ptr(),
+        xlog_part.shape[1], csum_part.data_ptr(), wscal_part.data_ptr(),
+        csum_part.shape[1], rsum_part.data_ptr(), hscal_part.data_ptr(),
+        rsum_part.shape[1], nb, rp_, n, m, mask, int(newton_niter),
+        float(newton_tol), scal.data_ptr(), _stream())
+    _raise("sol_finish", rc)
+    LAUNCHES["finish"] += 1
+    return scal
+
+
+def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
+              newton_niter=100, newton_tol=1e-4):
+    """One VB sweep: K1-K4 on CUDA tensors, :func:`sol_sweep_plain` on
+    CPU tensors.  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    _check(x, lwt, lh, eh, sc, n, m, r)
+    if x.device.type == "cpu":
+        return sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m=m, r=r,
+                               hyper_mask=hyper_mask,
+                               newton_niter=newton_niter,
+                               newton_tol=newton_tol)
+    swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc)
+    ewt, lwtn, dwt, csum_part, wscal_part = w_post(swn_part, lwt,
+                                                   ehs_part, sc, r, n)
+    ehn, lhn, dhn, rsum_part, hscal_part = h_post(shn_part, lh,
+                                                  csum_part, sc, r, m)
+    scal = finish(sc, xlog_part, csum_part, wscal_part, rsum_part,
+                  hscal_part, n=n, m=m, dt=lwt.dtype,
+                  hyper_mask=hyper_mask, newton_niter=newton_niter,
+                  newton_tol=newton_tol)
+    return ewt, lwtn, dwt, ehn, lhn, dhn, scal
+
+
+# ---------------------------------------------------------------------
+# Convergence loop over a lane batch
+# ---------------------------------------------------------------------
+
+def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
+               tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
+               n0: int = 10, dn: int = 1, rank_mask=None, r_true=None,
+               it0: int = 1, lk0_init=None, elbo_every: int = 1,
+               sweep_fn=None) -> VBRunResult:
+    """The deferred-ELBO convergence loop of ``ccfindr_tpu``'s
+    ``vb_run_sol`` over a lane batch, one :func:`sol_sweep` a sweep.
+
+    ``x`` is the (n, m) count matrix (or a zero-padded copy; columns
+    past the state's extents are padding); ``state0``/``hyper0`` are
+    lane-batched; ``rank_mask`` (B, r) and ``r_true`` (B,) give each
+    lane's live rank prefix.  Each lane keeps its own sweep counter
+    and is frozen once its stopping rule fired or its sweep bound ran
+    out, so the host may test for running lanes only every
+    ``HOST_CHECK_EVERY`` sweeps: extra sweeps leave frozen lanes
+    unchanged.
+    ``sweep_fn`` swaps the sweep (``sol_sweep_plain`` to time the
+    plain version on the card).
+    """
+    sweep = sweep_fn if sweep_fn is not None else sol_sweep
+    nb, n, r = state0.lw.shape
+    m = state0.lh.shape[-1]
+    ref_t = state0.lw.dtype
+    dev = state0.lw.device
+    np_, mp_ = x.shape
+    rp_ = round_up(max(r, 8), 8)
+    if fudge is None:
+        fudge = torch.finfo(ref_t).eps
+    fudge = torch.as_tensor(fudge, dtype=ref_t, device=dev)
+    tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
+    lgx = torch.lgamma(x.to(torch.float64) + 1.0).sum()
+    state0 = mask_initial_state(state0, rank_mask, fudge)
+    r_live = (r_true.to(torch.float64) if rank_mask is not None
+              else torch.full((nb,), float(r), dtype=torch.float64,
+                              device=dev))
+
+    def pad_wt(a, fill):        # (B, n, r) -> (B, rp, np)
+        out = torch.zeros(nb, rp_, np_, dtype=ref_t, device=dev)
+        out[:, :r, n:] = fill
+        out[:, :r, :n] = a.transpose(-1, -2)
+        return out
+
+    def pad_h(a, fill):         # (B, r, m) -> (B, rp, mp)
+        out = torch.zeros(nb, rp_, mp_, dtype=ref_t, device=dev)
+        out[:, :r, m:] = fill
+        out[:, :r, :m] = a
+        return out
+
+    lwt = pad_wt(state0.lw, 1.0)
+    ewt = pad_wt(state0.ew, 0.0)
+    dwt = pad_wt(state0.dw, 0.0)
+    lh = pad_h(state0.lh, 1.0)
+    eh = pad_h(state0.eh, 0.0)
+    dh = pad_h(state0.dh, 0.0)
+    aw, bw, ah, bh = (h.to(ref_t).expand(nb).clone() for h in hyper0)
+    it = torch.full((nb,), int(it0), dtype=torch.int64, device=dev)
+    lk0 = torch.as_tensor(0.0 if lk0_init is None else lk0_init,
+                          dtype=ref_t, device=dev).expand(nb).clone()
+    lkh = state0.lkh.to(ref_t).expand(nb).clone()
+    pending = torch.zeros(nb, dtype=torch.float64, device=dev)
+    done = torch.zeros(nb, dtype=torch.bool, device=dev)
+    hfail = torch.zeros_like(done)
+    fud64 = fudge.to(torch.float64).expand(nb)
+    lgx_b = lgx.expand(nb)
+    nm = float(n) * float(m)
+
+    def lane(flag, t):
+        return flag.view((nb,) + (1,) * (t.dim() - 1))
+
+    sweeps = 0
+    while True:
+        active = (~done) & (it <= itmax + 1)
+        if sweeps % HOST_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        sweeps += 1
+        itp = it - 1
+        elbo_now = ((itp % elbo_every == 0) if elbo_every > 1
+                    else torch.ones_like(done))
+        sc = torch.stack([aw.double(), bw.double(), ah.double(),
+                          bh.double(), fud64, r_live, lgx_b,
+                          elbo_now.double()], dim=1).contiguous()
+        (ewt_n, lwt_n, dwt_n, eh_n, lh_n, dh_n, scal) = sweep(
+            x, lwt, lh, eh, sc, n=n, m=m, r=r, hyper_mask=hyper_mask)
+
+        # complete sweep it-1's ELBO (deferred data term)
+        lkh_prev = ((pending + scal[:, DTERM]) / nm).to(ref_t)
+        valid = (itp >= it0) & elbo_now
+        conv = (valid & (itp > 1) & (itp > n0) & (lkh_prev >= lk0)
+                & (torch.abs(1.0 - lkh_prev / lk0) < tol))
+        stop = (torch.isnan(lkh_prev) & valid) | conv
+        lk0 = torch.where(active & valid & ~stop, lkh_prev, lk0)
+        lkh = torch.where(active & valid, lkh_prev, lkh)
+
+        do_sweep = active & ~stop & (it <= itmax)
+        do_hyper = do_sweep & (it > n0) & (it % dn == 0)
+        aw = torch.where(do_hyper, scal[:, AW].to(ref_t), aw)
+        bw = torch.where(do_hyper, scal[:, BW].to(ref_t), bw)
+        ah = torch.where(do_hyper, scal[:, AH].to(ref_t), ah)
+        bh = torch.where(do_hyper, scal[:, BH].to(ref_t), bh)
+        hfail = hfail | (do_hyper & (scal[:, HFAIL] > 0))
+        lwt = torch.where(lane(do_sweep, lwt), lwt_n, lwt)
+        lh = torch.where(lane(do_sweep, lh), lh_n, lh)
+        ewt = torch.where(lane(do_sweep, ewt), ewt_n, ewt)
+        eh = torch.where(lane(do_sweep, eh), eh_n, eh)
+        dwt = torch.where(lane(do_sweep, dwt), dwt_n, dwt)
+        dh = torch.where(lane(do_sweep, dh), dh_n, dh)
+        pending = torch.where(do_sweep, scal[:, PEND], pending)
+        done = torch.where(active, stop, done)
+        it = it + active.to(it.dtype)
+
+    def unpad_w(a):
+        return a[:, :r, :n].transpose(-1, -2)
+
+    state = VBState(ew=unpad_w(ewt), eh=eh[:, :r, :m], lw=unpad_w(lwt),
+                    lh=lh[:, :r, :m], dw=unpad_w(dwt), dh=dh[:, :r, :m],
+                    lkh=lkh)
+    hyper = type(hyper0)(aw=aw, bw=bw, ah=ah, bh=bh)
+    return VBRunResult(state=state, hyper=hyper, lml=lk0, n_iter=it - 2,
+                       hyper_failed=hfail, done=done)

@@ -1,0 +1,228 @@
+"""The port's sweep (ccfindr_tpu_torch.ops.kernels.sol) against the JAX
+package's single-launch Pallas sweep (ccfindr_tpu.ops.pallas.sol), which
+runs here in interpret mode with BN, BM = 8, 128 as tests/test_sol.py
+runs it.  Everything is float64; tolerances are those of
+tests/test_sol.py (one sweep 1e-10 on factors and 1e-9 on scalar sums;
+loops: equal n_iter, lml 1e-9, factors 1e-7, hypers 1e-8).
+
+On the CPU the wrapper takes the plain PyTorch version; the CUDA kernels
+are compared with it on the card (tests/test_torch_kernels.py and
+chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ccfindr_tpu.ops.pallas import sol as jsol
+from ccfindr_tpu.ops.pallas import vb_kernels as pk
+from ccfindr_tpu.ops.vb import Hyper as JHyper, VBState as JVBState
+from ccfindr_tpu_torch.ops import vb as tvb
+from ccfindr_tpu_torch.ops.kernels import sol as tsol
+
+torch.set_num_threads(2)
+
+BN, BM = 8, 128
+SLOTS = [(jsol._XLOG, tsol.XLOG), (jsol._U2, tsol.U2),
+         (jsol._U3, tsol.U3), (jsol._SEW, tsol.SEW),
+         (jsol._SLW, tsol.SLW), (jsol._SEH, tsol.SEH),
+         (jsol._SLH, tsol.SLH), (jsol._DTW, tsol.DTW),
+         (jsol._DTH, tsol.DTH), (jsol._PEND, tsol.PEND),
+         (jsol._DTERM, tsol.DTERM), (jsol._AW, tsol.AW),
+         (jsol._BW, tsol.BW), (jsol._AH, tsol.AH), (jsol._BH, tsol.BH),
+         (jsol._HFAIL, tsol.HFAIL)]
+
+
+def _planted(n, m, r, seed=0):
+    rng = np.random.default_rng(seed)
+    wf = rng.gamma(0.8, 1.0, (n, r))
+    hf = rng.gamma(0.8, 1.0, (r, m))
+    return np.minimum(rng.poisson(wf @ hf * (2.0 * n * m / (wf @ hf).sum())),
+                      127).astype(np.float64)
+
+
+def _t(a, dtype=None):
+    t = torch.tensor(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+@pytest.mark.parametrize("xdt,r_live,do_elbo", [
+    (torch.float64, 5, 1.0), (torch.int8, 3, 1.0),
+    (torch.int16, 3, 0.0), (torch.float64, 4, 0.0)])
+def test_sweep_plain_matches_jax(xdt, r_live, do_elbo):
+    n, m, r, rp = 21, 200, 5, 8
+    rng = np.random.default_rng(7)
+    x = _planted(n, m, r)
+    lw = rng.gamma(1.0, 1.0, (n, r))
+    lh = rng.gamma(1.0, 1.0, (r, m))
+    eh = lh * rng.uniform(0.5, 1.5, (r, m))
+    xp = pk.pad_matrix(jnp.asarray(x), BN, BM)
+    np_, mp_ = xp.shape
+    lwt_p, lh_p = jsol._pad_factors_t(jnp.asarray(lw), jnp.asarray(lh),
+                                      np_, mp_, rp)
+    eh_p = jnp.pad(jnp.asarray(eh), ((0, rp - r), (0, mp_ - m)))
+    sc = jnp.asarray([[1.1, 0.9, 1.2, 0.8, np.finfo(np.float64).eps,
+                       float(r_live), 123.0, do_elbo]])
+    want = jsol.sol_sweep(xp, lwt_p, lh_p, eh_p, sc, n=n, m_arr=m,
+                          m_live=m, r=r, bn=BN, bm=BM)
+    tsol.reset_launches()
+    got = tsol.sol_sweep(_t(xp, xdt), _t(lwt_p)[None], _t(lh_p)[None],
+                         _t(eh_p)[None], _t(sc), n=n, m=m, r=r)
+    names = ("ewt", "lwtn", "dwt", "eh", "lhn", "dh")
+    for g, w, name in zip(got[:6], want[:6], names):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w),
+                                   rtol=1e-10, atol=0, err_msg=name)
+    gs, ws = got[6][0].numpy(), np.asarray(want[6])[0]
+    for js, ts in SLOTS:
+        np.testing.assert_allclose(gs[ts], ws[js], rtol=1e-9, atol=1e-300,
+                                   err_msg=str(ts))
+    # CPU tensors take the plain version: no kernel was launched
+    assert all(v == 0 for v in tsol.LAUNCHES.values())
+
+
+def test_sweep_plain_unpadded_equals_padded():
+    """The port's own layout (X unpadded) gives the padded sweep's
+    values on the live extent."""
+    n, m, r, rp = 13, 70, 3, 8
+    rng = np.random.default_rng(2)
+    x = _planted(n, m, r, seed=4)
+    lw = rng.gamma(1.0, 1.0, (n, r))
+    lh = rng.gamma(1.0, 1.0, (r, m))
+    sc = torch.tensor([[1.0, 1.0, 1.0, 1.0, 2.2e-16, 3.0, 0.0, 1.0]],
+                      dtype=torch.float64)
+
+    def layout(np_, mp_):
+        lwt = torch.zeros(1, rp, np_, dtype=torch.float64)
+        lwt[0, :r] = 1.0
+        lwt[0, :r, :n] = _t(lw.T)
+        lhp = torch.zeros(1, rp, mp_, dtype=torch.float64)
+        lhp[0, :r] = 1.0
+        lhp[0, :r, :m] = _t(lh)
+        ehp = torch.zeros_like(lhp)
+        ehp[0, :r, :m] = _t(lh)
+        xp = torch.zeros(np_, mp_, dtype=torch.int8)
+        xp[:n, :m] = _t(x, torch.int8)
+        return tsol.sol_sweep(xp, lwt, lhp, ehp, sc, n=n, m=m, r=r)
+
+    a = layout(n, m)
+    b = layout(16, 128)
+    for u, v in zip(a[:3], b[:3]):
+        torch.testing.assert_close(u, v[..., :n], rtol=1e-12, atol=0)
+    for u, v in zip(a[3:6], b[3:6]):
+        torch.testing.assert_close(u, v[..., :m], rtol=1e-12, atol=0)
+    torch.testing.assert_close(a[6], b[6], rtol=1e-12, atol=0)
+
+
+def _batched_pair(ranks, itmax, elbo_every=1, seed=0):
+    """JAX vmap(vb_run_sol) with prefix rank masks, as
+    ccfindr_tpu/drivers/vb_driver.py:993-1005 builds it, vs the port's
+    lane-batched vb_run_sol on the same initial states."""
+    n, m = 24, 150
+    rmax = max(ranks)
+    nb = len(ranks)
+    x = _planted(n, m, 3, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    w = rng.gamma(1.0, 1.0, (nb, n, rmax))
+    h = rng.gamma(1.0, 1.0, (nb, rmax, m))
+    st = JVBState(ew=w, eh=h, lw=w, lh=h, dw=np.zeros_like(w),
+                  dh=np.zeros_like(h), lkh=np.full(nb, -np.inf))
+    rmask = (np.arange(rmax)[None] < np.asarray(ranks)[:, None]
+             ).astype(np.float64)
+    rtrue = np.asarray(ranks, np.float64)
+    kw = dict(itmax=itmax, tol=1e-6, elbo_every=elbo_every)
+    xp = pk.pad_matrix(jnp.asarray(x), BN, BM)
+    jout = jax.vmap(lambda s, hy, rm, rt: jsol.vb_run_sol(
+        xp, s, hy, rank_mask=rm, r_true=rt, bn=BN, bm=BM, **kw))(
+            jax.tree.map(jnp.asarray, st),
+            JHyper(*(jnp.ones(nb),) * 4), jnp.asarray(rmask),
+            jnp.asarray(rtrue))
+    tout = tsol.vb_run_sol(
+        _t(x, torch.int16), tvb.state_from_numpy(st),
+        tvb.Hyper(*(torch.ones(nb, dtype=torch.float64),) * 4),
+        rank_mask=_t(rmask), r_true=_t(rtrue), **kw)
+    return jax.tree.map(np.asarray, jout), tvb.state_to_numpy(tout)
+
+
+def _assert_runs_close(jout, tout):
+    np.testing.assert_array_equal(tout.n_iter, jout.n_iter)
+    np.testing.assert_array_equal(tout.done, jout.done)
+    np.testing.assert_array_equal(tout.hyper_failed, jout.hyper_failed)
+    np.testing.assert_allclose(tout.lml, jout.lml, rtol=1e-9)
+    for f in ("ew", "eh", "lw", "lh", "dw", "dh"):
+        np.testing.assert_allclose(getattr(tout.state, f),
+                                   getattr(jout.state, f), rtol=1e-7,
+                                   atol=1e-300, err_msg=f)
+    for f in ("aw", "bw", "ah", "bh"):
+        np.testing.assert_allclose(getattr(tout.hyper, f),
+                                   getattr(jout.hyper, f), rtol=1e-8,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("itmax", [4, 300])
+def test_batched_vb_run_sol_matches_vmapped_jax(itmax):
+    jout, tout = _batched_pair([2, 3, 4, 5], itmax)
+    _assert_runs_close(jout, tout)
+    if itmax == 300:
+        assert tout.done.all() and len(set(tout.n_iter.tolist())) > 1
+
+
+def test_batched_vb_run_sol_elbo_every_matches_jax():
+    jout, tout = _batched_pair([2, 4], 200, elbo_every=3, seed=5)
+    _assert_runs_close(jout, tout)
+
+
+def test_vb_run_sol_sparse_host_checks_are_exact(monkeypatch):
+    """Testing ``done`` only every few sweeps changes nothing: stopped
+    lanes are frozen."""
+    n, m, r, nb = 20, 90, 3, 3
+    x = torch.tensor(_planted(n, m, r, seed=8), dtype=torch.int8)
+    gen = torch.Generator().manual_seed(1)
+    hy1 = tvb.Hyper(1.0, 1.0, 1.0, 1.0)
+    sts = [tvb.vb_init_random(gen, n, m, r, hy1, torch.float64)
+           for _ in range(nb)]
+    st = tvb.VBState(*(torch.stack(f) for f in zip(*sts)))
+    hy = tvb.Hyper(*(torch.ones(nb, dtype=torch.float64),) * 4)
+    a = tsol.vb_run_sol(x, st, hy, itmax=250, tol=1e-6)
+    monkeypatch.setattr(tsol, "HOST_CHECK_EVERY", 7)
+    b = tsol.vb_run_sol(x, st, hy, itmax=250, tol=1e-6)
+    assert torch.equal(a.n_iter, b.n_iter) and bool(a.done.all())
+    for u, v in zip(a.state, b.state):
+        assert torch.equal(u, v)
+    assert torch.equal(a.lml, b.lml)
+
+
+def _sweep_args(**over):
+    nb, rp, n, m = 2, 8, 10, 20
+    args = dict(x=torch.zeros(n, m, dtype=torch.int8),
+                lwt=torch.ones(nb, rp, n, dtype=torch.float64),
+                lh=torch.ones(nb, rp, m, dtype=torch.float64),
+                eh=torch.ones(nb, rp, m, dtype=torch.float64),
+                sc=torch.ones(nb, 8, dtype=torch.float64))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,exc", [
+    (dict(x=torch.zeros(10, 20, dtype=torch.uint8)), TypeError),
+    (dict(lwt=torch.ones(2, 8, 10, dtype=torch.float16)), TypeError),
+    (dict(sc=torch.ones(2, 8, dtype=torch.float32)), TypeError),
+    (dict(sc=torch.ones(3, 8, dtype=torch.float64)), ValueError),
+    (dict(lh=torch.ones(2, 8, 21, dtype=torch.float64)), ValueError),
+    (dict(lwt=torch.ones(2, 12, 10, dtype=torch.float64)), ValueError),
+    (dict(x=torch.zeros(20, 10, dtype=torch.int8).t()), ValueError),
+])
+def test_sweep_rejects_bad_inputs(over, exc):
+    a = _sweep_args(**over)
+    with pytest.raises(exc):
+        tsol.sol_sweep(a["x"], a["lwt"], a["lh"], a["eh"], a["sc"], n=10,
+                       m=20, r=5)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    a = _sweep_args()
+    with pytest.raises(ValueError, match="CUDA"):
+        tsol.xpass(a["x"], a["lwt"], a["lh"], a["eh"], a["sc"])
+    assert tsol.LAUNCHES["xpass"] == 0
