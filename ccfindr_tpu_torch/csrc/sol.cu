@@ -35,6 +35,7 @@
 
 #include <cstdint>
 
+#include "reduce.cuh"
 #include "specials.cuh"
 
 namespace ccfindr {
@@ -57,25 +58,6 @@ template <typename T>
 __device__ __forceinline__ bool is_nan(T v) { return v != v; }
 template <typename T>
 __device__ __forceinline__ bool is_finite(T v) { return v - v == T(0); }
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;  // the same value in every lane
-}
-
-// Sum over the block; the result is valid in thread 0.  Every thread
-// must call it.
-__device__ double block_sum(double v, double* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kWarps; ++i) s += red[i];
-  return s;
-}
 
 // ---------------------------------------------------------------------
 // K1 sol_xpass
@@ -319,13 +301,6 @@ post_kernel(const T* __restrict__ sfx_part, int nsfx,
 //   ELBO in double and runs the Newton in the factor type, as the JAX
 //   kernel ran it in its factor dtype.
 // ---------------------------------------------------------------------
-__device__ double warp_strided_sum(const double* p, int count, int stride,
-                                   int lane) {
-  double s = 0.0;
-  for (int i = lane; i < count; i += 32) s += p[(size_t)i * stride];
-  return warp_sum(s);
-}
-
 template <typename T>
 __device__ T newton_step(T a0, T mean_e, T mean_l, T b0, bool enabled) {
   if (!enabled) return T(0);
@@ -421,8 +396,6 @@ __global__ void finish_kernel(const double* __restrict__ sc,
 // ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
 template <typename T, typename XT>
 cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
                          const void* eh, const double* sc, int B, int np,

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``ccfindr_tpu_torch/csrc`` have a plain C interface
-and are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library at first use, cached under ``ccfindr_tpu_torch/_build/`` by a
-hash of the sources and flags, and loaded with ``ctypes``.  Nothing is
-compiled or loaded when this module is imported.  There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+and are compiled with ``nvcc`` for Hopper (``sm_90a``) at first use:
+one ``nvcc -c`` a source, all started together, then one link into a
+shared library, cached under ``ccfindr_tpu_torch/_build/`` by a hash of
+the sources and flags, and loaded with ``ctypes``.  Nothing is compiled
+or loaded when this module is imported.  There is no fallback: a
+missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 
 def _nvcc() -> str:
@@ -49,6 +52,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libccfindr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that failed.
+    Returns their joined stderr (ptxas's reports)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these exact sources
     exists; returns its path.  ``verbose`` prints ptxas's register,
@@ -57,18 +74,18 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, so)   # atomic: no reader sees a half-written library
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o")
+                for p in sorted(CSRC.glob("*.cu"))]
+        report = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, str(p)]
+             for o, p in zip(objs, sorted(CSRC.glob("*.cu")))])
+        lib = os.path.join(tmp, so.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        if verbose:
+            print(report, flush=True)
+        os.replace(lib, so)   # atomic: no reader sees a half-written library
     return so
 
 
@@ -84,6 +101,9 @@ _SIGNATURES = {
                    _P, _P, _P, _P, _P, _P],
     "sol_finish": [_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
                    _I, _I, _I, _I, _D, _P, _P],
+    "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ml_wpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ml_xlog_sum": [_P, _I, _I, _P, _P],
 }
 
 
@@ -96,3 +116,30 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------
+# What every wrapper shares
+# ---------------------------------------------------------------------
+
+# the C entry points' type codes
+TCODE = {torch.float32: 0, torch.float64: 1}
+XCODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.float64: 3}
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the C entry points take it."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def require_cuda(*ts):
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got "
+                             f"{t.device}")

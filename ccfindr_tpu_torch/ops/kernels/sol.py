@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .build import (TCODE, XCODE, check_launch, library, require_cuda,
+                    stream)
 from ..vb import (VBRunResult, VBState, digamma_approx,
                   digamma_gammaln_both, gammaln_approx,
                   mask_initial_state, trigamma)
@@ -48,9 +50,6 @@ HOST_CHECK_EVERY = 1
 # is launched)
 LAUNCHES = {"xpass": 0, "w_post": 0, "h_post": 0, "finish": 0}
 
-_TCODE = {torch.float32: 0, torch.float64: 1}
-_XCODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2,
-          torch.float64: 3}
 
 
 def reset_launches():
@@ -64,10 +63,10 @@ def round_up(v: int, mult: int) -> int:
 
 def _check(x, lwt, lh, eh, sc, n, m, r):
     """Validate what the kernels (and the plain version) take."""
-    if lwt.dtype not in _TCODE:
+    if lwt.dtype not in TCODE:
         raise TypeError(f"factors must be float32 or float64, got "
                         f"{lwt.dtype}")
-    if x.dtype not in _XCODE:
+    if x.dtype not in XCODE:
         raise TypeError(f"X must be int8, int16, float32 or float64, "
                         f"got {x.dtype}")
     if lh.dtype != lwt.dtype or eh.dtype != lwt.dtype:
@@ -255,34 +254,11 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
 # CUDA wrappers (one per kernel)
 # ---------------------------------------------------------------------
 
-def _lib():
-    from .build import library
-
-    return library()
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _raise(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {rc}")
-
-
-def _require_cuda(*ts):
-    for t in ts:
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernels take CUDA tensors, got "
-                             f"{t.device}")
-
-
 def xpass(x, lwt, lh, eh, sc):
     """Launch K1.  Returns the partials (swn_part (B, ncc, rp, np),
     shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64, ehs_part
     (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X."""
-    _require_cuda(x, lwt, lh, eh, sc)
+    require_cuda(x, lwt, lh, eh, sc)
     nb, rp_, np_ = lwt.shape
     mp_ = x.shape[1]
     ncc, ngc = -(-mp_ // CHUNK), -(-np_ // CHUNK)
@@ -294,18 +270,18 @@ def xpass(x, lwt, lh, eh, sc):
                             device=x.device)
     ehs_part = torch.empty(nb, ncc, rp_, dtype=torch.float64,
                            device=x.device)
-    rc = _lib().sol_xpass(
-        _TCODE[lwt.dtype], _XCODE[x.dtype], x.data_ptr(), lwt.data_ptr(),
+    rc = library().sol_xpass(
+        TCODE[lwt.dtype], XCODE[x.dtype], x.data_ptr(), lwt.data_ptr(),
         lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_, rp_,
         swn_part.data_ptr(), shn_part.data_ptr(), xlog_part.data_ptr(),
-        ehs_part.data_ptr(), _stream())
-    _raise("sol_xpass", rc)
+        ehs_part.data_ptr(), stream())
+    check_launch("sol_xpass", rc)
     LAUNCHES["xpass"] += 1
     return swn_part, shn_part, xlog_part, ehs_part
 
 
 def _post(name, side, sfx_part, lf, denom_part, sc, r, ncol):
-    _require_cuda(sfx_part, lf, denom_part, sc)
+    require_cuda(sfx_part, lf, denom_part, sc)
     nb, rp_, ext = lf.shape
     nblk = -(-ext // POST_COLS)
     e = torch.empty_like(lf)
@@ -315,13 +291,13 @@ def _post(name, side, sfx_part, lf, denom_part, sc, r, ncol):
                             device=lf.device)
     scal_part = torch.empty(nb, nblk, 4, dtype=torch.float64,
                             device=lf.device)
-    fn = getattr(_lib(), name)
-    rc = fn(_TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
+    fn = getattr(library(), name)
+    rc = fn(TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
             lf.data_ptr(), denom_part.data_ptr(), denom_part.shape[1],
             sc.data_ptr(), nb, ext, rp_, r, ncol, e.data_ptr(),
             ln.data_ptr(), d.data_ptr(), rsum_part.data_ptr(),
-            scal_part.data_ptr(), _stream())
-    _raise(name, rc)
+            scal_part.data_ptr(), stream())
+    check_launch(name, rc)
     LAUNCHES[side] += 1
     return e, ln, d, rsum_part, scal_part
 
@@ -341,17 +317,17 @@ def h_post(shn_part, lh, csum_part, sc, r, m):
 def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
            *, n, m, dt, hyper_mask, newton_niter, newton_tol):
     """Launch K4: scal (B, 16) float64."""
-    _require_cuda(sc, xlog_part, csum_part, rsum_part)
+    require_cuda(sc, xlog_part, csum_part, rsum_part)
     nb, _, rp_ = csum_part.shape
     scal = torch.empty(nb, NSCAL, dtype=torch.float64, device=sc.device)
     mask = sum(1 << i for i, v in enumerate(hyper_mask) if v)
-    rc = _lib().sol_finish(
-        _TCODE[dt], sc.data_ptr(), xlog_part.data_ptr(),
+    rc = library().sol_finish(
+        TCODE[dt], sc.data_ptr(), xlog_part.data_ptr(),
         xlog_part.shape[1], csum_part.data_ptr(), wscal_part.data_ptr(),
         csum_part.shape[1], rsum_part.data_ptr(), hscal_part.data_ptr(),
         rsum_part.shape[1], nb, rp_, n, m, mask, int(newton_niter),
-        float(newton_tol), scal.data_ptr(), _stream())
-    _raise("sol_finish", rc)
+        float(newton_tol), scal.data_ptr(), stream())
+    check_launch("sol_finish", rc)
     LAUNCHES["finish"] += 1
     return scal
 

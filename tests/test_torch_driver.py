@@ -180,8 +180,11 @@ def test_port_never_imports_jax():
             "x = np.random.default_rng(0).poisson(3.0, (12, 15))\n"
             "s = ct.vb_factorize(x, ranks=[2, 3], Itmax=20, verbose=0,\n"
             "                    backend='pallas', device='cpu')\n"
+            "f = ct.factorize(x, ranks=[2, 3], nrun=2, Itmax=20, verbose=0,\n"
+            "                 backend='pallas', device='cpu')\n"
+            "ct.meta_gene_cv(f, rank=2)\n"
             "ct.read_10x(pbmc_sim_dir())\n"
-            "assert len(s.measure) >= 1\n"
+            "assert len(s.measure) >= 1 and len(f.measure) == 2\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
