@@ -10,8 +10,11 @@ replicates x ``nrun`` restarts.
   ``nrun`` restarts at a time;
 * ``backend='pallas'`` runs the H and W phases as the CUDA kernels of
   :mod:`ccfindr_tpu_torch.ops.kernels.ml` on the card (their plain
-  PyTorch versions on the CPU); ``'dense'`` and ``'dense_fused'`` are
-  the matmul paths of :mod:`ccfindr_tpu_torch.ops.ml`;
+  PyTorch versions on the CPU); ``backend='sparse'`` keeps X as its
+  nonzeros and runs them as the CUDA kernels of
+  :mod:`ccfindr_tpu_torch.ops.kernels.sparse`; ``'dense'`` and
+  ``'dense_fused'`` are the matmul paths of
+  :mod:`ccfindr_tpu_torch.ops.ml`;
 * consensus statistics stream through
   :class:`~ccfindr_tpu_torch.ops.consensus.ConsensusAccumulator`: exact
   dispersion without the m(m-1)/2 connectivity vector, and a
@@ -27,9 +30,11 @@ import torch
 from ..container import SCSet
 from ..ops import consensus as cons
 from ..ops import ml as ml_ops
+from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, auto_storage_dtype
-from .vb_driver import _not_ported, _resolve_device
+from .vb_driver import (_check_sparse_options, _not_ported, _resolve_device,
+                        _sparse_counts)
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -51,6 +56,27 @@ def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
         ws.append(w)
         hs.append(h)
     return torch.stack(ws), torch.stack(hs)
+
+
+def _shuffle_sparse_columns(csr, rng):
+    """Sparse analog of the reference's per-column shuffle
+    (R/factorize.R:172-173): each column's nonzeros move to a uniform
+    random subset of rows (shuffling a column with its zeros included
+    is exactly that), preserving sparsity end to end.  The JAX
+    package's function, so one ``rng`` stream gives the same matrix."""
+    import scipy.sparse as sp
+
+    csc = sp.csc_matrix(csr)
+    n, m = csc.shape
+    rows = np.empty_like(csc.indices)
+    for j in range(m):
+        j0, j1 = csc.indptr[j], csc.indptr[j + 1]
+        k = j1 - j0
+        if k:
+            rows[j0:j1] = rng.permutation(n)[:k]
+    out = sp.csc_matrix((csc.data, rows, csc.indptr), shape=(n, m))
+    out.sum_duplicates()
+    return sp.csr_matrix(out)
 
 
 def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
@@ -79,7 +105,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
       over X a sweep);
     * ``'pallas'`` — the deferred-likelihood loop over the hand-written
       CUDA phases (``csrc/ml.cu``) on the card, their plain PyTorch
-      versions on the CPU.
+      versions on the CPU;
+    * ``'sparse'`` — the same loop over X's nonzeros only, never
+      densified: CSR on the device and the CUDA kernels S1/S2
+      (``csrc/sparse.cu``; ``sparse_layout='tile'``, the ``'auto'``
+      default); ``randomize`` shuffles the nonzeros of each column.
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there are
     several ranks.  ``storage_dtype='auto'`` keeps integer counts that
@@ -92,8 +122,8 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
     ``mesh`` and ``distributed`` (A7), ``checkpoint_dir``/
-    ``checkpoint_every``/``compact_every`` (A3), ``backend='sparse'``
-    (A6).
+    ``checkpoint_every``/``compact_every`` (A3),
+    ``sparse_layout='ell'`` (A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
@@ -108,10 +138,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         raise _not_ported("checkpoint_dir/checkpoint_every", "A3")
     if compact_every is not None:
         raise _not_ported("compact_every", "A3")
-    if backend == "sparse":
-        raise _not_ported("backend='sparse'", "A6")
-    if backend not in ("dense", "dense_fused", "pallas"):
+    if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "sparse":
+        _check_sparse_options(sparse_layout, storage_dtype,
+                              ("auto", "tile"))
     if criterion not in ("likelihood", "connectivity"):
         raise ValueError("Unknown stopping criterion.")
 
@@ -125,16 +156,21 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
 
     obj = object if isinstance(object, SCSet) else SCSet(
         count=object, remove_zeros=False)
-    mat0 = obj.counts_dense(dtype=np_dtype)
+    if backend == "sparse":
+        mat0 = _sparse_counts(obj)        # nothing is densified
+    else:
+        mat0 = obj.counts_dense(dtype=np_dtype)
+        if (mat0.sum(axis=1) == 0).any():
+            raise ValueError("Input matrix contains empty rows")
+        if (mat0.sum(axis=0) == 0).any():
+            raise ValueError("Input matrix contains empty columns")
     n, m = mat0.shape
-    if (mat0.sum(axis=1) == 0).any():
-        raise ValueError("Input matrix contains empty rows")
-    if (mat0.sum(axis=0) == 0).any():
-        raise ValueError("Input matrix contains empty columns")
 
     # compressed integer X storage (exact; see utils.auto_storage_dtype)
     x_dtype = dtype
-    if isinstance(storage_dtype, str) and storage_dtype == "auto":
+    if backend == "sparse":
+        storage_dtype = None
+    elif isinstance(storage_dtype, str) and storage_dtype == "auto":
         storage_dtype = auto_storage_dtype(mat0)
     if storage_dtype is not None:
         sd = np.dtype(storage_dtype)
@@ -160,6 +196,9 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                           fused_w=ml_ops.ml_w_dense)
     elif backend == "pallas":
         fh, fw = ml_kernels.make_ml_backend()
+        run_kwargs.update(fused_h=fh, fused_w=fw)
+    elif backend == "sparse":
+        fh, fw = tile_ops.make_tile_ml_backend()
         run_kwargs.update(fused_h=fh, fused_w=fw)
 
     nrank = len(ranks)
@@ -224,13 +263,19 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             # per-sample deterministic stream (the JAX package's own)
             rng_i = np.random.default_rng(
                 np.random.SeedSequence([seed, 104729 + ismpl]))
-            mat = np.empty_like(mat0)
-            for j in range(m):
-                mat[:, j] = rng_i.permutation(mat0[:, j])
+            if backend == "sparse":
+                mat = _shuffle_sparse_columns(mat0, rng_i)
+            else:
+                mat = np.empty_like(mat0)
+                for j in range(m):
+                    mat[:, j] = rng_i.permutation(mat0[:, j])
         else:
             mat = mat0
         with timings.phase("ml_setup", sample=ismpl):
-            x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
+            if backend == "sparse":
+                x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
+            else:
+                x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
 
         if batch_ranks:
             pairs = [(k, i) for k in range(nrank) for i in range(nrun)]

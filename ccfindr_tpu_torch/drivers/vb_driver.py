@@ -9,8 +9,11 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   ``nrun`` restarts at a time;
 * ``backend='pallas'`` runs the sweep as the CUDA kernels of
   :mod:`ccfindr_tpu_torch.ops.kernels.sol` on the card (their plain
-  PyTorch version on the CPU); ``'dense'`` and ``'dense_fused'`` are
-  the matmul parity paths of :mod:`ccfindr_tpu_torch.ops.vb`;
+  PyTorch version on the CPU); ``backend='sparse'`` keeps X as its
+  nonzeros and runs the sweep as the CUDA kernels of
+  :mod:`ccfindr_tpu_torch.ops.kernels.sparse`; ``'dense'`` and
+  ``'dense_fused'`` are the matmul parity paths of
+  :mod:`ccfindr_tpu_torch.ops.vb`;
 * degeneracy (a uniform basis column) aborts the rank scan for that
   run, and best-of-nrun selection fills the measure table, as in the
   reference (R/bayesian.R:268-291, 368-378).
@@ -24,6 +27,7 @@ import torch
 
 from ..container import SCSet
 from ..ops import consensus as cons
+from ..ops import tile as tile_ops
 from ..ops import vb as vb_ops
 from ..ops.kernels import sol as sol_ops
 from ..ops.vb import Hyper, VBState
@@ -42,6 +46,32 @@ def _resolve_device(device):
                            "is available; pass device='cpu' to run the "
                            "plain PyTorch path")
     return device
+
+
+def _sparse_counts(obj):
+    """The CSR of an SCSet, with the drivers' empty row/column guards
+    taken on it: nothing is densified."""
+    import scipy.sparse as sp
+
+    mat = sp.csr_matrix(obj.counts)
+    if (np.asarray(mat.sum(axis=1)).ravel() == 0).any():
+        raise ValueError("Input matrix contains empty rows")
+    if (np.asarray(mat.sum(axis=0)).ravel() == 0).any():
+        raise ValueError("Input matrix contains empty columns")
+    return mat
+
+
+def _check_sparse_options(sparse_layout, storage_dtype, layouts):
+    if sparse_layout == "ell":
+        raise _not_ported("sparse_layout='ell' (ELL worked around the "
+                          "TPU's slow XLA gathers; the CSR kernels "
+                          "replace it)", "A6")
+    if sparse_layout not in layouts:
+        raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
+    if storage_dtype is not None and not (
+            isinstance(storage_dtype, str) and storage_dtype == "auto"):
+        raise ValueError("storage_dtype applies to the dense layouts; the "
+                         "sparse backend already stores only nonzeros")
 
 
 def _as_counts_matrix(obj, dtype):
@@ -80,8 +110,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                  batch_ranks="auto", checkpoint_dir=None,
                  checkpoint_every=None, compact_every=None,
                  distributed="auto", svd_method="auto",
-                 storage_dtype="auto", elbo_every=1, precision="f32",
-                 device="cuda"):
+                 storage_dtype="auto", sparse_layout="auto", elbo_every=1,
+                 precision="f32", device="cuda"):
     """Bayesian NMF inference of a count matrix.
 
     The keywords mirror the reference (R/bayesian.R:229-236) and the
@@ -93,8 +123,17 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     * ``'dense_fused'`` — matmul sweep, one pass over X (deferred ELBO);
     * ``'pallas'`` — the hand-written CUDA sweep
       (ops/kernels/sol.py, ``csrc/sol.cu``) on the card, its plain
-      PyTorch version on the CPU.  ``elbo_every=k`` evaluates the ELBO
-      and the stopping test only every k-th sweep on this backend.
+      PyTorch version on the CPU;
+    * ``'sparse'`` — X as its nonzeros only, never densified (the
+      capacity path for atlas-scale matrices): CSR on the device and
+      the CUDA kernels S1/S2 (ops/tile.py, ``csrc/sparse.cu``) on the
+      card, their plain PyTorch version on the CPU.  ``sparse_layout``
+      ``'auto'``, ``'tile'`` and ``'coo'`` all take this layout: the
+      JAX package's COO scan was a TPU alternative to its tile kernel,
+      with the same result, and the CSR kernels serve both here.
+
+    ``elbo_every=k`` evaluates the ELBO and the stopping test only
+    every k-th sweep (``'pallas'`` and ``'sparse'``).
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there
     are several ranks.  ``storage_dtype='auto'`` keeps integer counts
@@ -104,8 +143,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
     ``mesh``, ``distributed``, ``checkpoint_*``, ``compact_every``,
-    ``backend='sparse'``/``'pallas2pass'``, ``precision='bf16'`` and
-    ``svd_method='randomized'``.
+    ``backend='pallas2pass'``, ``sparse_layout='ell'``,
+    ``precision='bf16'`` and ``svd_method='randomized'``.
 
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
@@ -118,19 +157,25 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise _not_ported("checkpoint_dir/checkpoint_every", "A3")
     if compact_every is not None:
         raise _not_ported("compact_every", "A3")
-    if backend in ("sparse", "pallas2pass"):
-        raise _not_ported(f"backend={backend!r}",
-                          "A6" if backend == "sparse" else "B5")
-    if backend not in ("dense", "dense_fused", "pallas"):
+    if backend == "pallas2pass":
+        raise _not_ported("backend='pallas2pass'", "B5")
+    if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "sparse":
+        _check_sparse_options(sparse_layout, storage_dtype,
+                              ("auto", "tile", "coo"))
     if precision == "bf16":
         raise _not_ported("precision='bf16'", "B1")
     if precision != "f32":
         raise ValueError(f"unknown precision {precision!r}")
     if svd_method == "randomized":
         raise _not_ported("svd_method='randomized'", "A8")
-    if elbo_every != 1 and backend != "pallas":
-        raise ValueError("elbo_every is supported by backend='pallas'")
+    if int(elbo_every) < 1:
+        raise ValueError(f"elbo_every must be a positive integer, got "
+                         f"{elbo_every!r}")
+    if elbo_every != 1 and backend not in ("pallas", "sparse"):
+        raise ValueError("elbo_every is supported by backend='pallas' and "
+                         "backend='sparse'")
 
     device = _resolve_device(device)
     if dtype is None:
@@ -149,12 +194,17 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     obj = object if isinstance(object, SCSet) else SCSet(
         count=object, remove_zeros=False)
-    mat = _as_counts_matrix(obj, np_dtype)
+    if backend == "sparse":
+        # no densification anywhere: guards, shapes and the device
+        # layout all come from the CSR
+        mat = _sparse_counts(obj)
+    else:
+        mat = _as_counts_matrix(obj, np_dtype)
+        if (mat.sum(axis=1) == 0).any():
+            raise ValueError("Input matrix contains empty rows")
+        if (mat.sum(axis=0) == 0).any():
+            raise ValueError("Input matrix contains empty columns")
     n, m = mat.shape
-    if (mat.sum(axis=1) == 0).any():
-        raise ValueError("Input matrix contains empty rows")
-    if (mat.sum(axis=0) == 0).any():
-        raise ValueError("Input matrix contains empty columns")
     ranks = [r for r in ranks if r <= m]
     for r in ranks:
         if r > min(n, m):
@@ -175,7 +225,9 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     # compressed integer X storage (exact; see utils.auto_storage_dtype)
     x_dtype = dtype
-    if isinstance(storage_dtype, str) and storage_dtype == "auto":
+    if backend == "sparse":
+        storage_dtype = None
+    elif isinstance(storage_dtype, str) and storage_dtype == "auto":
         storage_dtype = auto_storage_dtype(mat)
     if storage_dtype is not None:
         sd = np.dtype(storage_dtype)
@@ -190,17 +242,21 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                 f"counts up to {mat.max():.0f} overflow "
                 f"storage_dtype {sd.name}; use a wider type")
         x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
-    x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
 
     run_kwargs = dict(tol=float(Tol), fudge=fudge, hyper_mask=hyper_mask,
                       n0=int(hyper_update_n0), dn=int(hyper_update_dn))
+    run_fn = vb_ops.vb_run
+    if backend == "sparse":
+        x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
+        run_kwargs.update(fused=tile_ops.make_tile_fused(),
+                          elbo_every=int(elbo_every))
+    else:
+        x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
     if backend == "pallas":
         run_fn = sol_ops.vb_run_sol
         run_kwargs["elbo_every"] = int(elbo_every)
-    else:
-        run_fn = vb_ops.vb_run
-        if backend == "dense_fused":
-            run_kwargs["fused"] = vb_ops.fused_dense
+    elif backend == "dense_fused":
+        run_kwargs["fused"] = vb_ops.fused_dense
     itmax = int(Itmax)
 
     def init_state(rank):
@@ -287,6 +343,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
         timings.records[-1]["lane_sweeps_executed"] = (
             nb * (int(np.max(out.n_iter)) + 1))
+        timings.records[-1]["n_iter"] = out.n_iter.tolist()
         if out.hyper_failed.any():
             print("Warning: hyperparameter update did not converge "
                   "in some runs")
@@ -310,6 +367,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                          itmax=itmax, **run_kwargs)
             out = vb_ops.state_to_numpy(out)
         timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
+        timings.records[-1]["n_iter"] = out.n_iter.tolist()
         if out.hyper_failed.any():
             print("Warning: hyperparameter update did not converge "
                   "in some runs")

@@ -92,6 +92,7 @@ def build(verbose: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_int64
 _SIGNATURES = {
     "sol_xpass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P],
@@ -104,6 +105,9 @@ _SIGNATURES = {
     "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ml_wpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ml_xlog_sum": [_P, _I, _I, _P, _P],
+    "sp_rowpass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                   _P, _P, _P, _P],
+    "sp_colpass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
 }
 
 

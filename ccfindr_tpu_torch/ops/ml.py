@@ -65,7 +65,11 @@ def likelihood(x, w, h, lgx_zero_term):
 
 
 def likelihood_const(x, dtype=None):
-    """The data-only term sum_{x>0}(-x log x + x) of the likelihood."""
+    """The data-only term sum_{x>0}(-x log x + x) of the likelihood.
+    ``x`` is a dense tensor or a sparse layout, whose ``.val`` holds
+    every nonzero once (zeros contribute 0 either way)."""
+    if not isinstance(x, torch.Tensor):
+        x = x.val
     if dtype is not None:
         x = x.to(dtype)
     pos = x > 0
@@ -165,8 +169,10 @@ def ml_run(x, w0, h0, *, itmax=10000, tol: float = 1e-5,
     tol*|lkold|.  criterion='connectivity': it stops after
     ``ncnn_step`` consecutive sweeps with an unchanged hard partition.
 
-    ``fused_h``/``fused_w`` (``ml_h_dense``/``ml_w_dense``, or the CUDA
-    pair of :func:`ccfindr_tpu_torch.ops.kernels.ml.make_ml_backend`):
+    ``fused_h``/``fused_w`` (``ml_h_dense``/``ml_w_dense``, the CUDA
+    pair of :func:`ccfindr_tpu_torch.ops.kernels.ml.make_ml_backend`, or
+    the sparse pair of :func:`ccfindr_tpu_torch.ops.tile.
+    make_tile_ml_backend` over a ``TileCounts`` X):
     ``fused_h(x, w, h) -> (hn (B,r,m), xlogwh (B,))``, ``fused_w(x, w,
     h') -> wn (B,n,r)``, select the deferred-likelihood loop
     :func:`_ml_run_fused` (two passes over X a sweep instead of three,

@@ -1,0 +1,93 @@
+"""Sparse count-matrix passes over the nonzeros, in plain PyTorch.
+
+Counterpart of ``ccfindr_tpu.ops.sparse``.  The reference densifies X
+before every sweep (as.matrix at R/bayesian.R:339); every X-dependent
+quantity of a sweep touches only the nonzeros:
+
+* the sw-numerator ``(X/wth) @ lh^T`` and the sh-numerator
+  ``lw^T @ (X/wth)`` need ``x / wth`` only where ``x > 0``;
+* the ELBO's ``-sum lgamma(x+1)`` and ``sum x log wth`` vanish at 0.
+
+So a sweep costs O(nnz r) instead of O(n m r).  :func:`coo_pass`
+gathers the factor rows of a chunk of nonzeros and scatters with
+``index_add_``, over the same leading lane axis as the rest of the port
+(factors ``lw (B, n, r)``, ``lh (B, r, m)``).  It is the plain version
+of the CUDA kernels S1/S2 (:mod:`ccfindr_tpu_torch.ops.kernels.sparse`),
+which run the sparse backend over the CSR layout of
+:mod:`ccfindr_tpu_torch.ops.tile`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# nonzeros a chunk gathers at once (bounds the (B, chunk, r) temporaries)
+CHUNK = 1 << 16
+
+
+def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
+             want_a=False, want_xlog=True, do_elbo=None):
+    """One pass over the nonzeros ``(row[p], col[p], val[p])`` for a
+    lane batch ``lw (B, n, r)``, ``lht (B, m, r)`` (lh transposed).
+
+    At each nonzero ``wth = lw[row] . lht[col]`` (a non-positive one is
+    replaced by 1, as in the JAX package) and ``a = val / wth``.
+    Returns ``(swn (B, n, r), shn_t (B, m, r), a (B, nnz), xlog (B,)
+    float64)``: ``swn`` sums ``a lht[col]`` into ``row``, ``shn_t``
+    sums ``a lw[row]`` into ``col``, ``a`` in the order of the
+    nonzeros, ``xlog`` the sum of ``val log wth`` (0 for a lane whose
+    ``do_elbo`` is 0).  An output whose ``want_*`` is False is None.
+    """
+    nb, n, r = lw.shape
+    dt, dev = lw.dtype, lw.device
+    nnz = val.shape[0]
+    swn = torch.zeros_like(lw) if want_swn else None
+    shn_t = (torch.zeros(nb, m, r, dtype=dt, device=dev) if want_shn
+             else None)
+    a_all = torch.empty(nb, nnz, dtype=dt, device=dev) if want_a else None
+    xlog = torch.zeros(nb, dtype=torch.float64, device=dev)
+    for p0 in range(0, nnz, CHUNK):
+        rr = row[p0:p0 + CHUNK].long()
+        cc = col[p0:p0 + CHUNK].long()
+        vv = val[p0:p0 + CHUNK].to(dt)
+        lw_g = lw[:, rr]                          # (B, chunk, r)
+        lh_g = lht[:, cc]
+        wth = (lw_g * lh_g).sum(-1)
+        safe = torch.where(wth > 0, wth, 1.0)
+        a = vv / safe                             # (B, chunk)
+        if want_swn:
+            swn.index_add_(1, rr, a[..., None] * lh_g)
+        if want_shn:
+            shn_t.index_add_(1, cc, a[..., None] * lw_g)
+        if want_a:
+            a_all[:, p0:p0 + CHUNK] = a
+        if want_xlog:
+            xlog += (vv * torch.log(safe)).sum(-1, dtype=torch.float64)
+    if not want_xlog:
+        xlog = None
+    elif do_elbo is not None:
+        xlog = torch.where(do_elbo > 0, xlog, 0.0)
+    return swn, shn_t, a_all, xlog
+
+
+def coo_colpass(row, col, a, lw, m):
+    """``shn_t (B, m, r)``: ``a[:, p] lw[:, row[p]]`` summed into
+    ``col[p]`` over the nonzeros."""
+    nb, _, r = lw.shape
+    shn_t = torch.zeros(nb, m, r, dtype=lw.dtype, device=lw.device)
+    for p0 in range(0, col.shape[0], CHUNK):
+        rr = row[p0:p0 + CHUNK].long()
+        cc = col[p0:p0 + CHUNK].long()
+        shn_t.index_add_(1, cc, a[:, p0:p0 + CHUNK, None] * lw[:, rr])
+    return shn_t
+
+
+def fold_dterm(swn, shn, xlog, lw, lh):
+    """The ELBO data term from a fused pass's outputs, in the factor
+    dtype: ``-(sum swn lw log lw + sum shn lh log lh) + xlog`` (the
+    fold of ``ccfindr_tpu.ops.pallas.vb_kernels.fold_dterm``; the sums
+    are taken in float64)."""
+    f64 = torch.float64
+    return (xlog - (swn * (lw * torch.log(lw))).sum((-2, -1), dtype=f64)
+            - (shn * (lh * torch.log(lh))).sum((-2, -1), dtype=f64)
+            ).to(lw.dtype)

@@ -549,7 +549,9 @@ def _loop_scalars(x, state0, fudge, tol, lk0_init, it0):
         fudge = torch.finfo(ref_t).eps
     fudge = torch.as_tensor(fudge, dtype=ref_t, device=dev)
     tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
-    lgx = torch.lgamma(x.to(ref_t) + 1.0).sum()
+    # a sparse layout's .val holds every nonzero once; zeros add 0
+    xval = x if isinstance(x, torch.Tensor) else x.val
+    lgx = torch.lgamma(xval.to(ref_t) + 1.0).sum()
     lk0 = torch.as_tensor(0.0 if lk0_init is None else lk0_init,
                           dtype=ref_t, device=dev).expand(nb).clone()
     it = torch.full((nb,), int(it0), dtype=torch.int64, device=dev)
@@ -561,22 +563,29 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
            tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
            n0: int = 10, dn: int = 1, fused=None,
            rank_mask=None, r_true=None, it0=1,
-           lk0_init=None) -> VBRunResult:
+           lk0_init=None, elbo_every: int = 1) -> VBRunResult:
     """Iterate :func:`vb_sweep` to convergence for a lane batch.
 
     Stopping mirrors the reference (R/bayesian.R:345-348): after the
     first ``n0`` sweeps, stop when the ELBO is non-decreasing and its
     relative change is below ``tol`` (or on NaN); ``lml`` is the ELBO
-    of the penultimate sweep.  ``fused`` (a ``(x, lw, lh) -> (swn, shn,
-    dterm)`` function such as :func:`fused_dense`) selects the
-    deferred-ELBO loop :func:`_vb_run_fused`.  ``it0``/``lk0_init``
-    resume a bounded run exactly.
+    of the penultimate sweep.  ``x`` is a dense tensor, or the sparse
+    layout ``ops.tile.TileCounts`` that ``fused`` takes.  ``fused`` (a
+    ``(x, lw, lh) -> (swn, shn, dterm)`` function such as
+    :func:`fused_dense`) selects the deferred-ELBO loop
+    :func:`_vb_run_fused`; ``elbo_every=k`` then checks the ELBO every
+    k-th sweep only, and ``fused`` must take the ``do_elbo`` flag.
+    ``it0``/``lk0_init`` resume a bounded run exactly.
     """
+    if elbo_every != 1 and fused is None:
+        raise ValueError("elbo_every needs a fused backend whose "
+                         "kernel takes the do_elbo flag")
     if fused is not None:
         return _vb_run_fused(x, state0, hyper0, itmax=itmax, tol=tol,
                              fudge=fudge, hyper_mask=hyper_mask, n0=n0,
                              dn=dn, fused=fused, rank_mask=rank_mask,
-                             r_true=r_true, it0=it0, lk0_init=lk0_init)
+                             r_true=r_true, it0=it0, lk0_init=lk0_init,
+                             elbo_every=elbo_every)
     fudge, tol, lgx, lk0, it, done = _loop_scalars(
         x, state0, fudge, tol, lk0_init, it0)
     hfail = done.clone()
@@ -609,10 +618,15 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
 
 def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
                   fudge, hyper_mask, n0, dn, fused, rank_mask=None,
-                  r_true=None, it0=1, lk0_init=None) -> VBRunResult:
+                  r_true=None, it0=1, lk0_init=None,
+                  elbo_every: int = 1) -> VBRunResult:
     """Deferred-ELBO loop over a fused single-pass function: fused
     iteration i completes sweep i-1's ELBO while its suffstats begin
-    sweep i (see ``ccfindr_tpu.ops.vb._vb_run_fused``)."""
+    sweep i (see ``ccfindr_tpu.ops.vb._vb_run_fused``).  With
+    ``elbo_every=k > 1`` only the sweeps ``itp % k == 0`` are checked,
+    and ``fused`` gets ``do_elbo`` (B,) so that it can skip the data
+    term's ``x log wth`` on the others; stopping is conservative, as
+    the ELBO is monotone."""
     n = state0.lw.shape[-2]
     m = state0.lh.shape[-1]
     fudge, tol, lgx, lk0, it, done = _loop_scalars(
@@ -627,9 +641,15 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
         if not bool(active.any()):
             break
         itp = it - 1                      # the sweep being checked
-        swn, shn, dterm = fused(x, state.lw, state.lh)
+        if elbo_every > 1:
+            elbo_now = itp % elbo_every == 0
+            swn, shn, dterm = fused(x, state.lw, state.lh,
+                                    do_elbo=elbo_now.to(lk0.dtype))
+        else:
+            elbo_now = True
+            swn, shn, dterm = fused(x, state.lw, state.lh)
         lkh_prev = (pending + dterm) / (float(n) * float(m))
-        valid = itp >= it_start
+        valid = (itp >= it_start) & elbo_now
         conv = (valid & (itp > 1) & (itp > n0) & (lkh_prev >= lk0)
                 & (torch.abs(1.0 - lkh_prev / lk0) < tol))
         stop = (torch.isnan(lkh_prev) & valid) | conv

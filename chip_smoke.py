@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of ccfindr_tpu_torch on one NVIDIA GPU.
 
-Drives the port's two main paths through their public entry points,
-the batched VB rank scan (``vb_factorize``) and the ML rank scan
-(``factorize``), both on ``backend='pallas'``, after checking each CUDA
-kernel of those paths against its plain PyTorch version on the card.
-Phases (each prints its result and seconds):
+Drives the port's paths through their public entry points, the
+batched VB rank scan (``vb_factorize``) and the ML rank scan
+(``factorize``), on ``backend='pallas'`` and on ``backend='sparse'``,
+after checking each CUDA kernel of those paths against its plain
+PyTorch version on the card.  Phases (each prints its result and
+seconds):
 
 1. device and build: requires a CUDA device, prints the card's name
    and power limit (nvidia-smi), builds the kernels with nvcc (one
@@ -51,7 +52,32 @@ Phases (each prints its result and seconds):
 7. ML at 10x scale: factorize on phase 4's planted matrix, ranks
    [8, 12, 16], nrun 2, Itmax 300: wall time, lane-sweeps per second,
    the same loop on the plain version, M1-M3 against plain, peak device
-   memory.
+   memory;
+8. sparse kernels vs plain: S1 sp_rowpass (+ M3) and S2 sp_colpass on
+   the bundled 684 x 447 CSR after QC (21 lanes of ranks 2..8 padded to
+   8, the masked components at fudge) and on phase 4's matrix masked to
+   10% density as bench.py:62-63 masks it (3 lanes of r = 16), values
+   int16 (the counts) and in the factor type (the counts + 0.25),
+   factors float64 and float32, do_elbo 1 and 0.  Tolerances as phase 2: float64 1e-10 on every output;
+   float32 2e-4 on swn, a and shn and 1e-5 on the per-element data
+   term.  Two launches must be bit-identical;
+9. the bundled workflow on backend='sparse': vb_factorize(ranks 2..8,
+   nrun 3) in float64 must equal backend='dense_fused' (n_iter of every
+   lane, lml to 1e-9); in float32 optimal_rank must be 5 for seed 0
+   (seeds 1 and 2 printed); factorize(ranks [4, 5, 6], nrun 4, Itmax
+   400, Tol 1e-4) in float64 must equal dense_fused as in phase 6; S1,
+   S2 and M3 launched by both scans;
+10. sparse at scale: the 10%-density matrix of phase 8, ranks [8, 12,
+   16], nrun 2, Itmax 300, through vb_factorize and factorize, each on
+   sparse and, beside it, on pallas over the same matrix: wall time,
+   loop time, lane-sweeps per second, peak device memory, and the loop
+   ratio sparse/pallas of each driver; S1/S2/M3 against plain.
+   Then the atlas leg: the JAX bench's atlas shape 20480 x 100352
+   masked to 2% density (built on the host without the dense matrix),
+   vb_factorize(backend='sparse', ranks [16], nrun 2, Itmax 20): its
+   lane-sweeps per second and peak device memory beside the dense int8
+   image it does not allocate; gated on a finite lml and the launch
+   counts.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
@@ -81,6 +107,10 @@ ML_KERNELS = {"ml_hpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:39",
               "ml_wpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:64",
               "ml_xlog_sum": "ccfindr_tpu/ops/pallas/ml_kernels.py:39"}
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
+SP_KERNELS = ("sp_rowpass", "sp_colpass")
+SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
+SP_REPLACES = "ccfindr_tpu/ops/tile.py:348"
+ATLAS = (20480, 100352, 20, 0.02)   # bench.py:696 shape, bench.py:330 density
 MARKERS = {                      # tests/test_integration_workflow.py:81-87
     "B cell": ["CD74", "IG", "HLA", "MS4A1", "CD79A"],
     "CD8+ T": ["CD8A", "CD8B", "GZMK", "CCR7", "LTB"],
@@ -113,6 +143,62 @@ def planted_10x():
     print(f"  planted X int8 (empty rows/cols dropped: "
           f"{int((~keep_r).sum())}/{int((~keep_c).sum())})")
     return np.ascontiguousarray(x_np[keep_r][:, keep_c])
+
+
+def masked_10x(x10, density=0.10, seed=4):
+    """Phase 8's and phase 10's X: the planted 10x matrix masked to
+    ``density`` as bench.py:62-63 masks it (a Bernoulli mask), empty
+    rows and columns dropped.  Returns (dense int8, CSR) of one
+    matrix."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    x = x10 * (rng.random(x10.shape) < density)
+    x = x[x.sum(axis=1) > 0]
+    x = np.ascontiguousarray(x[:, x.sum(axis=0) > 0])
+    return x, sp.csr_matrix(x)
+
+
+def atlas_csr(n, m, r, density, seed=0, block=1024):
+    """Planted rank-r Poisson counts at mean 2.0 (as :func:`planted`),
+    masked to ``density``, built without the dense matrix: the masked
+    positions are drawn first, as a Bernoulli process by geometric gaps,
+    and the Poisson counts only there, which gives the distribution of
+    masking a dense draw.  Empty rows and columns are dropped."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    wf = rng.gamma(0.5, 1.0, (n, r)).astype(np.float32)
+    hf = rng.gamma(0.5, 1.0, (r, m)).astype(np.float32)
+    scale = 2.0 * n * m / float(wf.sum(axis=0) @ hf.sum(axis=1))
+    hft = np.ascontiguousarray(hf.T)
+    rows, cols, vals = [], [], []
+    for i0 in range(0, n, block):
+        nrow = min(block, n - i0)
+        size = nrow * m
+        pos = np.cumsum(rng.geometric(density, int(size * density * 1.1)
+                                      + 1024)) - 1
+        while pos[-1] < size:
+            more = np.cumsum(rng.geometric(density, 1 << 16)) + pos[-1]
+            pos = np.concatenate([pos, more])
+        pos = pos[pos < size]
+        ri, ci = pos // m, pos % m
+        mu = np.einsum("ij,ij->i", wf[i0 + ri], hft[ci]) * scale
+        v = np.minimum(rng.poisson(mu), 127)
+        keep = v > 0
+        rows.append((i0 + ri[keep]).astype(np.int32))
+        cols.append(ci[keep].astype(np.int32))
+        vals.append(v[keep].astype(np.int16))
+    csr = sp.csr_matrix((np.concatenate(vals),
+                         (np.concatenate(rows), np.concatenate(cols))),
+                        shape=(n, m))
+    keep_r = np.diff(csr.indptr) > 0
+    keep_c = np.bincount(csr.indices, minlength=m) > 0
+    if not keep_r.all():
+        csr = csr[keep_r]
+    if not keep_c.all():
+        csr = csr[:, keep_c]
+    return csr
 
 
 def bundled_filtered():
@@ -313,6 +399,76 @@ def compare_ml(x, w, h, dt):
                 deterministic=det, finite=finite)
 
 
+def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
+    """The layout of ``csr`` and lane-batched factors lw (B, n, r), lh
+    (B, r, m): lane b has live rank ranks[b], its components [ranks[b],
+    r) at fudge as a batched rank scan pins them.  ``vdt`` int16 keeps
+    the integer counts (stored as int16); ``vdt`` == ``dt`` adds 0.25
+    to each, so that the layout keeps them in ``dt``."""
+    import torch
+
+    from ccfindr_tpu_torch.ops import tile
+
+    rng = np.random.default_rng(seed)
+    n, m = csr.shape
+    nb = len(ranks)
+    fudge = float(torch.finfo(dt).eps)
+    lw = rng.gamma(1.0, 1.0, (nb, n, r))
+    lh = rng.gamma(1.0, 1.0, (nb, r, m))
+    for b, rk in enumerate(ranks):
+        lw[b, :, rk:] = fudge
+        lh[b, rk:] = fudge
+    if vdt != torch.int16:
+        csr = csr.copy()
+        csr.data = csr.data + 0.25
+    tc = tile.from_scipy_tile(csr, dtype=dt, device=dev)
+    assert tc.val.dtype == vdt, tc.val.dtype
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return tc, t(lw), t(lh)
+
+
+def compare_sparse(tc, lw, lh, do_elbo, dt):
+    """S1 + M3 and S2 vs their plain versions on the same inputs (the VB
+    sweep's outputs: swn, a, shn and the per-element data term), and a
+    second launch of each for bit-identity."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sparse as spk
+    from ccfindr_tpu_torch.ops.sparse import fold_dterm
+
+    nb = lw.shape[0]
+    flags = torch.full((nb,), float(do_elbo), device=lw.device)
+    lht = lh.transpose(-1, -2).contiguous()
+
+    def launch():
+        swn, a, xlog = spk.rowpass(tc, lw, lht, do_elbo=flags)
+        return swn, a, xlog, spk.colpass(tc, a, lw)
+
+    swn, a, xlog, shn = launch()
+    torch.cuda.synchronize()
+    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, do_elbo=flags)
+    shn_p = spk.colpass_plain(tc, a_p, lw)
+    nm = tc.n * tc.m
+    d = fold_dterm(swn, shn, xlog, lw, lh) / nm
+    d_p = fold_dterm(swn_p, shn_p, xlog_p, lw, lh) / nm
+    err = dict(swn=rel_err(swn, swn_p), a=rel_err(a, a_p),
+               shn=rel_err(shn, shn_p), dterm=rel_err(d, d_p))
+    if dt == torch.float64:
+        err["xlog"] = rel_err(xlog, xlog_p)
+        ok = all(v <= F64_TOL for v in err.values())
+    else:
+        ok = (max(err["swn"], err["a"], err["shn"]) <= F32_FACTOR_TOL
+              and err["dterm"] <= F32_ELBO_TOL)
+    again = launch()
+    det = all(torch.equal(u, v) for u, v in zip((swn, a, xlog, shn), again))
+    finite = all(bool(torch.isfinite(t).all()) for t in (swn, a, shn, d))
+    abs_err = {"sp_rowpass": max(float((swn - swn_p).abs().max()),
+                                 float((a - a_p).abs().max())),
+               "sp_colpass": float((shn - shn_p).abs().max())}
+    return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
+                deterministic=det, finite=finite)
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
     import torch
@@ -338,10 +494,14 @@ class Smoke:
         self.kernels.update({k: dict(name=k, route="cuda", source=ML_SOURCE,
                                      replaces=rep)
                              for k, rep in ML_KERNELS.items()})
+        self.kernels.update({k: dict(name=k, route="cuda", source=SP_SOURCE,
+                                     replaces=SP_REPLACES)
+                             for k in SP_KERNELS})
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
         self.x10 = None          # the planted 10x matrix (phase 4)
+        self.x10m = None         # it masked to 10% density (phase 8)
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -773,9 +933,241 @@ class Smoke:
         return bool(np.isfinite(f.measure.drop(columns="rank").values).all())
 
 
+    # -- 8 ------------------------------------------------------------
+    def sparse_kernel_vs_plain(self):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        if self.x10 is None:
+            self.x10 = planted_10x()
+        self.x10m = masked_10x(self.x10)
+        print(f"  10x masked: {self.x10m[1].shape}, nnz "
+              f"{self.x10m[1].nnz}")
+        cases = [("ragged", s.counts,
+                  [rk for rk in range(2, 9) for _ in range(3)], 8),
+                 ("10x", self.x10m[1], [16] * 3, 16)]
+        ok_all = True
+        for cname, csr, ranks, r in cases:
+            for dt in (torch.float64, torch.float32):
+                for vdt in (torch.int16, dt):
+                    tc, lw, lh = sparse_inputs(csr, ranks, r, dt, vdt, 7,
+                                               dev)
+                    for do_elbo in (1, 0):
+                        res = compare_sparse(tc, lw, lh, do_elbo, dt)
+                        print(f"  {cname} {str(dt)[6:]} val="
+                              f"{str(vdt)[6:]} do_elbo={do_elbo}: "
+                              f"{'ok' if res['ok'] else 'MISMATCH'} "
+                              + " ".join(f"{k}={v:.3g}"
+                                         for k, v in res["err"].items())
+                              + f" deterministic={res['deterministic']}",
+                              flush=True)
+                        ok_all = ok_all and res["ok"]
+                        if (cname == "10x" and dt == torch.float32
+                                and vdt == torch.int16 and do_elbo == 1):
+                            for k in SP_KERNELS:
+                                self.kernels[k]["max_abs_err"] = \
+                                    res["abs_err"][k]
+                    del tc, lw, lh
+                torch.cuda.empty_cache()
+        print(f"  tolerances: f64 {F64_TOL:g}; f32 swn/a/shn "
+              f"{F32_FACTOR_TOL:g}, data term per element {F32_ELBO_TOL:g}")
+        return ok_all
+
+    # -- 9 ------------------------------------------------------------
+    def sparse_workflow(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import ml as mlk
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                  backend="sparse", device="cuda", verbose=0)
+
+        def launches():
+            return dict(spk.LAUNCHES, ml_xlog_sum=mlk.LAUNCHES["ml_xlog_sum"])
+
+        def reset():
+            spk.reset_launches()
+            mlk.reset_launches()
+            torch.cuda.synchronize()
+
+        # float64: the kernels against the matmul sweep on the card
+        a = ct.vb_factorize(s, seed=0, dtype=torch.float64, **kw)
+        b = ct.vb_factorize(s, seed=0, dtype=torch.float64,
+                            **dict(kw, backend="dense_fused"))
+        nit_a = a.metadata["timings"][0]["n_iter"]
+        nit_b = b.metadata["timings"][0]["n_iter"]
+        lml_err = float(np.max(np.abs(a.measure["lml"] - b.measure["lml"])
+                               / np.abs(b.measure["lml"])))
+        ok64 = nit_a == nit_b and lml_err <= 1e-9
+        print(f"  VB float64 sparse vs dense_fused: n_iter equal "
+              f"{nit_a == nit_b} ({nit_a}), lml rel {lml_err:.3g}")
+
+        # float32: the documented call (seed 0) is the sparse VB path
+        reset()
+        t0 = time.perf_counter()
+        f = ct.vb_factorize(s, seed=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vb_counts = launches()
+        for k in SP_KERNELS:
+            self.kernels[k]["launches"] = vb_counts[k]
+        opt = ct.optimal_rank(f)
+        cid = ct.cluster_id(f, rank=5)
+        print(f"  vb_factorize sparse float32 seed 0: {wall:.2f} s, "
+              f"launches {vb_counts}")
+        print(f.measure.to_string())
+        print(f"  ropt={opt['ropt']} clusters={sorted(cid.unique())}")
+        ok32 = (opt["ropt"] == 5 and set(cid.unique()) == {1, 2, 3, 4, 5}
+                and bool(np.isfinite(f.measure["lml"]).all())
+                and min(vb_counts.values()) > 0)
+        for seed in (1, 2):
+            g = ct.vb_factorize(s, seed=seed, **kw)
+            print(f"  seed {seed}: ropt={ct.optimal_rank(g)['ropt']} "
+                  "(reported, not gated)")
+
+        # the ML scan: float64 sparse against dense_fused
+        kwm = dict(ranks=[4, 5, 6], nrun=4, Itmax=400, Tol=1e-4,
+                   device="cuda", verbose=0, seed=0, dtype=torch.float64)
+        reset()
+        am = ct.factorize(s, backend="sparse", **kwm)
+        torch.cuda.synchronize()
+        ml_counts = launches()
+        bm = ct.factorize(s, backend="dense_fused", **kwm)
+        nit_am, nit_bm = batch_record(am)["n_iter"], batch_record(bm)["n_iter"]
+        lk_a = am.measure["likelihood"].to_numpy()
+        lk_b = bm.measure["likelihood"].to_numpy()
+        lk_err = float(np.max(np.abs(lk_a - lk_b) / np.abs(lk_b)))
+        cols = ["dispersion", "cophenetic"]
+        dc_err = float(np.abs(am.measure[cols].values
+                              - bm.measure[cols].values).max())
+        okml = (nit_am == nit_bm and lk_err <= 1e-9 and dc_err <= 1e-12
+                and min(ml_counts.values()) > 0)
+        print(f"  factorize float64 sparse vs dense_fused: n_iter equal "
+              f"{nit_am == nit_bm} ({nit_am}), likelihood rel {lk_err:.3g}, "
+              f"dispersion/cophenetic abs {dc_err:.3g}, launches "
+              f"{ml_counts}")
+        print(am.measure.to_string())
+        return ok64 and ok32 and okml
+
+    # -- 10 -----------------------------------------------------------
+    def sparse_scale(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import tile
+        from ccfindr_tpu_torch.ops.kernels import ml as mlk
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        if self.x10m is None:
+            self.x10m = masked_10x(self.x10 if self.x10 is not None
+                                   else planted_10x())
+        dense, csr = self.x10m
+        n, m = csr.shape
+        print(f"  X {n} x {m}, nnz {csr.nnz} "
+              f"({csr.nnz / (n * m):.4f} of the entries)")
+        kw = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, device="cuda",
+                  verbose=0, seed=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def timed(fn, *args, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            return (out, start.elapsed_time(end) / 1e3,
+                    torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        ok = True
+        loop_rate = {}
+        for name, fn, xin, backend, rec_name in (
+                ("vb_factorize", ct.vb_factorize, csr, "sparse",
+                 "vb_rank_batch"),
+                ("vb_factorize", ct.vb_factorize, dense, "pallas",
+                 "vb_rank_batch"),
+                ("factorize", ct.factorize, csr, "sparse", "ml_rank_batch"),
+                ("factorize", ct.factorize, dense, "pallas",
+                 "ml_rank_batch")):
+            f, secs, peak = timed(fn, xin, backend=backend, **kw)
+            rec = next(r for r in f.metadata["timings"]
+                       if r["name"] == rec_name)
+            ls = rec["lane_sweeps_executed"]
+            loop_rate[name, backend] = ls / rec["seconds"]
+            print(f"  {name} {backend}: {secs:.3f} s, {ls} lane-sweeps -> "
+                  f"{ls / secs:.1f} lane-sweeps/s, loop record "
+                  f"{rec['seconds']:.3f} s ({loop_rate[name, backend]:.1f} "
+                  f"lane-sweeps/s), peak device memory {peak:.3f} GiB",
+                  flush=True)
+            ok = ok and bool(np.isfinite(
+                f.measure.drop(columns="rank").values).all())
+        for name in ("vb_factorize", "factorize"):
+            print(f"  {name} loop on this matrix: sparse/pallas = "
+                  f"{loop_rate[name, 'sparse'] / loop_rate[name, 'pallas']:.3f}"
+                  " (lane-sweeps/s of the loop records)", flush=True)
+
+        # per-kernel times at this shape (6 lanes, r 16, float32, int16
+        # values), the VB sweep's row pass with every output
+        tc, lw, lh = sparse_inputs(csr, [8, 8, 12, 12, 16, 16], 16,
+                                   torch.float32, torch.int16, 9, dev)
+        lht = lh.transpose(-1, -2).contiguous()
+        _, a, part = spk.sp_rowpass(tc, lw, lht)
+        timed_k = {
+            "sp_rowpass": (lambda: spk.sp_rowpass(tc, lw, lht),
+                           lambda: spk.rowpass_plain(tc, lw, lht)),
+            "sp_colpass": (lambda: spk.sp_colpass(tc, a, lw),
+                           lambda: spk.colpass_plain(tc, a, lw)),
+        }
+        for k, (kern, plain) in timed_k.items():
+            self.kernels[k]["ms"] = cuda_ms(kern, 20)
+            self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
+            print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
+                  f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
+        m3 = cuda_ms(lambda: mlk.ml_xlog_sum(part), 20)
+        m3p = cuda_ms(lambda: mlk.xlog_sum_plain(part), 20)
+        print(f"  ml_xlog_sum on S1's {part.shape[1]} partials a lane: "
+              f"kernel {m3:.4f} ms, plain {m3p:.4f} ms")
+        del tc, lw, lh, lht, a, part
+        torch.cuda.empty_cache()
+
+        # the atlas leg: capacity, not speed
+        an, am_, ar, dens = ATLAS
+        t0 = time.perf_counter()
+        big = atlas_csr(an, am_, ar, dens)
+        print(f"  atlas X {big.shape[0]} x {big.shape[1]} (from {an} x "
+              f"{am_}, planted rank {ar}, mask {dens}), nnz {big.nnz}, "
+              f"built on the host in {time.perf_counter() - t0:.1f} s; "
+              f"its dense int8 image would be {an * am_ / 1e9:.2f} GB")
+        spk.reset_launches()
+        mlk.reset_launches()
+        f, secs, peak = timed(ct.vb_factorize, big, ranks=[16], nrun=2,
+                              Itmax=20, backend="sparse", device="cuda",
+                              verbose=0, seed=0)
+        rec = f.metadata["timings"][0]
+        counts = dict(spk.LAUNCHES, ml_xlog_sum=mlk.LAUNCHES["ml_xlog_sum"])
+        ls = rec["total_sweeps"]
+        print(f"  atlas vb_factorize sparse (ranks [16], nrun 2, Itmax 20): "
+              f"{secs:.3f} s, loop record {rec['seconds']:.3f} s for {ls} "
+              f"lane-sweeps -> {ls / rec['seconds']:.2f} lane-sweeps/s, "
+              f"peak device memory {peak:.3f} GiB, launches {counts}, "
+              f"lml {f.measure['lml'].tolist()}", flush=True)
+        return (ok and bool(np.isfinite(f.measure["lml"]).all())
+                and min(counts.values()) > 0)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -799,7 +1191,10 @@ def main(argv=None):
               "4": ("10x-scale", smoke.scale),
               "5": ("ml-kernel-vs-plain", smoke.ml_kernel_vs_plain),
               "6": ("ml-workflow", smoke.ml_workflow),
-              "7": ("ml-10x-scale", smoke.ml_scale)}
+              "7": ("ml-10x-scale", smoke.ml_scale),
+              "8": ("sparse-kernel-vs-plain", smoke.sparse_kernel_vs_plain),
+              "9": ("sparse-workflow", smoke.sparse_workflow),
+              "10": ("sparse-scale", smoke.sparse_scale)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

@@ -182,9 +182,14 @@ def test_port_never_imports_jax():
             "                    backend='pallas', device='cpu')\n"
             "f = ct.factorize(x, ranks=[2, 3], nrun=2, Itmax=20, verbose=0,\n"
             "                 backend='pallas', device='cpu')\n"
+            "t = ct.vb_factorize(x, ranks=[2], Itmax=20, verbose=0,\n"
+            "                    backend='sparse', device='cpu')\n"
+            "g = ct.factorize(x, ranks=[2], nrun=2, Itmax=20, verbose=0,\n"
+            "                 backend='sparse', device='cpu')\n"
             "ct.meta_gene_cv(f, rank=2)\n"
             "ct.read_10x(pbmc_sim_dir())\n"
             "assert len(s.measure) >= 1 and len(f.measure) == 2\n"
+            "assert len(t.measure) == 1 and len(g.measure) == 1\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -213,7 +218,7 @@ def test_dtype_follows_device(small):
     (dict(checkpoint_dir="ck"), "A3"),
     (dict(checkpoint_every=5), "A3"),
     (dict(compact_every=5), "A3"),
-    (dict(backend="sparse"), "A6"),
+    (dict(backend="sparse", sparse_layout="ell"), "A6"),
     (dict(backend="pallas2pass"), "B5"),
     (dict(precision="bf16", backend="pallas"), "B1"),
     (dict(initializer="svd2", svd_method="randomized"), "A8"),

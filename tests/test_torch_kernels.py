@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K4 (csrc/sol.cu) and M1-M3 (csrc/ml.cu) against
-their plain PyTorch versions, on the card.  The kernels have no CPU mode, so every test here is
+"""CUDA kernels K1-K4 (csrc/sol.cu), M1-M3 (csrc/ml.cu) and S1/S2
+(csrc/sparse.cu) against their plain PyTorch versions, on the card.  The kernels have no CPU mode, so every test here is
 marked ``cuda`` and skips without a CUDA device.  The module imports
 no JAX, so on a machine with a card (and without JAX) it runs as
 
@@ -14,10 +14,14 @@ padded rank, 128.
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+from ccfindr_tpu_torch.ops import tile
 from ccfindr_tpu_torch.ops.kernels import ml, sol
+from ccfindr_tpu_torch.ops.kernels import sparse as spk
 from ccfindr_tpu_torch.ops.ml import likelihood_const
+from ccfindr_tpu_torch.ops.sparse import fold_dterm
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +168,103 @@ def test_ml_xlog_sum_matches_plain():
     part = torch.rand(5, 333, dtype=torch.float64, device=dev)
     got = ml.ml_xlog_sum(part)
     assert torch.allclose(got, ml.xlog_sum_plain(part), rtol=1e-14)
+
+
+def _sparse_inputs(n, m, r, nb, dt, vdt, dev, seed=0):
+    """A 10%-density Poisson X with an empty row and an empty column, as
+    the layout S1/S2 take; lane 0 pins its last two rank rows at eps."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((n, m)) < 0.1) * rng.poisson(3.0, (n, m))
+    x = x.astype(np.float64)
+    x[min(5, n - 1)] = 0
+    x[:, min(7, m - 1)] = 0
+    if vdt != torch.int16:
+        x[x > 0] += 0.25             # not integers: values in dt
+    tc = tile.from_scipy_tile(sp.csr_matrix(x), dtype=dt, device=dev)
+    assert tc.val.dtype == vdt
+    w = rng.gamma(1.0, 1.0, (nb, n, r))
+    h = rng.gamma(1.0, 1.0, (nb, r, m))
+    if r > 2:
+        w[0, :, r - 2:] = float(torch.finfo(dt).eps)
+        h[0, r - 2:] = float(torch.finfo(dt).eps)
+    t = lambda a: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return tc, t(w), t(h).transpose(-1, -2).contiguous()
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,nb,vdt", [
+    (300, 700, 6, 4, torch.int16),
+    (1030, 517, 16, 2, torch.float64),
+    (257, 1100, 40, 2, torch.int16),
+    (140, 600, 128, 2, torch.float64),
+    (65, 63, 1, 3, torch.int16),
+])
+def test_sparse_kernels_match_plain(n, m, r, nb, vdt, dt):
+    dev = _card()
+    vdt = dt if vdt == torch.float64 else vdt
+    tc, lw, lht = _sparse_inputs(n, m, r, nb, dt, vdt, dev)
+    flags = torch.tensor([1.0, 0.0] * nb, device=dev)[:nb]
+    spk.reset_launches()
+    ml.reset_launches()
+    swn, a, xlog = spk.rowpass(tc, lw, lht, do_elbo=flags)
+    shn = spk.colpass(tc, a, lw)
+    torch.cuda.synchronize()
+    assert spk.LAUNCHES == {"sp_rowpass": 1, "sp_colpass": 1}
+    assert ml.LAUNCHES["ml_xlog_sum"] == 1
+    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, do_elbo=flags)
+    shn_p = spk.colpass_plain(tc, a_p, lw)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    assert swn.dtype == dt and shn.shape == (nb, r, m)
+    for got, want in ((swn, swn_p), (a, a_p), (shn, shn_p)):
+        assert _rel(got, want) <= tol
+    assert float(xlog[1::2].abs().sum()) == 0.0
+    lh = lht.transpose(-1, -2)
+    d, d_p = (fold_dterm(s_, h_, x_, lw, lh).double() / (n * m)
+              for s_, h_, x_ in ((swn, shn, xlog), (swn_p, shn_p, xlog_p)))
+    # relative to the term; at r = 1 the fold cancels to zero (swn lw
+    # log lw + shn lh log lh = sum x log(lw lh)), and a relative error
+    # of the remainder is noise, so there it is held to its x log wth
+    # summand instead
+    scale = (torch.maximum(d_p.abs(), xlog_p.abs() / (n * m)) if r == 1
+             else d_p.abs())
+    assert float(((d - d_p).abs() / scale).max()) <= (
+        1e-10 if dt == torch.float64 else 1e-5)
+    # the ML phases' subsets of S1's outputs
+    wn, a2, x2 = spk.rowpass(tc, lw, lht, want_a=False, want_xlog=False)
+    assert a2 is None and x2 is None and torch.equal(wn, swn)
+    s3, a3, x3 = spk.rowpass(tc, lw, lht, want_swn=False)
+    assert s3 is None and torch.equal(a3, a)
+    assert torch.equal(x3[0::2], xlog[0::2])
+
+
+def test_sparse_kernels_are_deterministic():
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(2000, 3000, 16, 3, torch.float32,
+                                 torch.int16, dev, seed=3)
+    runs = []
+    for _ in range(2):
+        swn, a, xlog = spk.rowpass(tc, lw, lht)
+        runs.append((swn, a, xlog, spk.colpass(tc, a, lw)))
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+
+
+def test_sparse_wrappers_refuse_bad_input():
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(50, 60, 4, 2, torch.float64, torch.int16,
+                                 dev)
+    with pytest.raises(ValueError, match="several devices"):
+        spk.rowpass(tc, lw.cpu(), lht)
+    with pytest.raises(ValueError, match="contiguous"):
+        spk.rowpass(tc, lw.transpose(0, 1).contiguous().transpose(0, 1),
+                    lht)
+    with pytest.raises(ValueError, match="do not match"):
+        spk.rowpass(tc, lw, lht.float())
+    with pytest.raises(ValueError, match="rank"):
+        spk.rowpass(tc, lw.new_ones(2, 50, 130), lht.new_ones(2, 60, 130))
+    with pytest.raises(ValueError, match="a must be"):
+        spk.colpass(tc, torch.ones(2, tc.nnz + 1, dtype=torch.float64,
+                                   device=dev), lw)
+    tc.val = tc.val.to(torch.int8)
+    with pytest.raises(TypeError, match="values"):
+        spk.rowpass(tc, lw, lht)

@@ -254,7 +254,7 @@ def test_interpret_and_gsea_match_jax(pbmc_ml, tmp_path):
     (dict(checkpoint_dir="ck"), "A3"),
     (dict(checkpoint_every=5), "A3"),
     (dict(compact_every=5), "A3"),
-    (dict(backend="sparse"), "A6"),
+    (dict(backend="sparse", sparse_layout="ell"), "A6"),
 ])
 def test_options_not_ported_raise(small, kw, item):
     with pytest.raises(NotImplementedError, match=item):
