@@ -35,6 +35,8 @@
 
 #include <cstdint>
 
+#include "bf16.cuh"
+#include "post.cuh"
 #include "reduce.cuh"
 #include "specials.cuh"
 
@@ -42,22 +44,14 @@ namespace ccfindr {
 
 constexpr int kSub = 64;       // K1 subtile edge (genes and cells)
 constexpr int kChunk = 512;    // genes and cells one K1 block covers
-constexpr int kThreads = 256;  // K1-K3 block size
+constexpr int kThreads = 256;  // K1 block size
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRp = 128;    // largest padded rank
 
 // scal slots
 enum {
   kXlog = 0, kU2, kU3, kSew, kSlw, kSeh, kSlh, kDtw, kDth,
   kPend, kDterm, kAw, kBw, kAh, kBh, kHfail, kNscal
 };
-
-// NaN / finiteness tests that need no math-library overloads (the
-// build keeps IEEE semantics, so v != v and v - v are not folded)
-template <typename T>
-__device__ __forceinline__ bool is_nan(T v) { return v != v; }
-template <typename T>
-__device__ __forceinline__ bool is_finite(T v) { return v - v == T(0); }
 
 // ---------------------------------------------------------------------
 // K1 sol_xpass
@@ -75,8 +69,11 @@ __device__ __forceinline__ bool is_finite(T v) { return v - v == T(0); }
 //   block's own slice of the per-gene-chunk partial (read-modify-write
 //   by the owning thread only).  Partials cost rp*4*(1/512 + 1/512)
 //   bytes an X element and lane (0.25x int8 X at rp = 16).
+//   kBf16 (precision='bf16', the JAX kernel's mxu_bf16): lwt and lh
+//   are rounded to bf16 as they are staged and u as it is stored
+//   (bf16.cuh); sums and log(wth) stay in the factor type.
 // ---------------------------------------------------------------------
-template <typename T, typename XT>
+template <typename T, typename XT, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
              const T* __restrict__ lh, const T* __restrict__ eh,
@@ -110,7 +107,8 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
     __syncthreads();  // readers of the previous gene subtile are done
     for (int e = tid; e < nsub; e += kThreads) {
       const int k = e / kSub, i = e % kSub;
-      lw_s[e] = i < gn ? lwt_b[(size_t)k * np + g0 + i] : T(0);
+      lw_s[e] = i < gn ? operand<kBf16>(lwt_b[(size_t)k * np + g0 + i])
+                       : T(0);
       sw_s[e] = T(0);
     }
     for (int c0 = c_begin; c0 < c_end; c0 += kSub) {
@@ -118,7 +116,8 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
       __syncthreads();  // readers of the previous lh_s / u_s are done
       for (int e = tid; e < nsub; e += kThreads) {
         const int k = e / kSub, j = e % kSub;
-        lh_s[e] = j < cn ? lh_b[(size_t)k * mp + c0 + j] : T(0);
+        lh_s[e] = j < cn ? operand<kBf16>(lh_b[(size_t)k * mp + c0 + j])
+                         : T(0);
       }
       __syncthreads();
       for (int e = tid; e < kSub * kSub; e += kThreads) {
@@ -129,7 +128,7 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
           for (int k = 0; k < rp; ++k)
             w = fma(lw_s[k * kSub + i], lh_s[k * kSub + j], w);
           const T xv = static_cast<T>(x[(size_t)(g0 + i) * mp + c0 + j]);
-          u = xv / w;
+          u = operand<kBf16>(xv / w);
           if (do_elbo) xl += static_cast<double>(xv * log(w));
         }
         u_s[i * kU + j] = u;
@@ -180,112 +179,9 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
 }
 
 // ---------------------------------------------------------------------
-// K2 sol_w_post / K3 sol_h_post (one kernel, two launches)
-//
-// Replaces: _sol_kernel's W epilogue (sol.py:262-281) and H phase
-//   (sol.py:283-300), i.e. _post_tile (sol.py:139-182): the gamma
-//   posterior of one factor in the (rank rows, long-axis columns)
-//   layout both sides share, with its zones -- live entries; rank rows
-//   in [r_live, r) pinned at fudge with e = d = 0; padding columns 1
-//   (rows < r) or 0; logl = log(fudge) where ln_raw <= fudge.
-// Bound: small -- it reads the sufficient-statistic partials and the
-//   factor once and writes three factors: ~(nparts + 4) * rp * cols
-//   words, plus one digamma/lgamma chain an entry.
-// Design: one thread a column, looping over the rank rows; the block
-//   first reduces the beta denominator (rowSums(eh) for W, colSums(ew')
-//   for H) from the previous kernel's partials.  It writes per-block
-//   partials of its rank sums and of the four scalars (U, sum e,
-//   sum log l, dterm) for the next kernel.
+// K2 sol_w_post / K3 sol_h_post: post_kernel of post.cuh on the factors
+// in the (rank rows, long-axis columns) layout both sides share here.
 // ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-post_kernel(const T* __restrict__ sfx_part, int nsfx,
-            const T* __restrict__ lf, const double* __restrict__ denom_part,
-            int ndenom, const double* __restrict__ sc, int ab, int ext,
-            int rp, int r, int n_true, T* __restrict__ e_out,
-            T* __restrict__ l_out, T* __restrict__ d_out,
-            double* __restrict__ rsum_part, double* __restrict__ scal_part) {
-  __shared__ T be_s[kMaxRp];
-  __shared__ T logbe_s[kMaxRp];
-  __shared__ double wsum[kWarps][kMaxRp];
-  __shared__ double red[kWarps];
-  const int blk = blockIdx.x, b = blockIdx.y, nblk = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int col = blk * kThreads + tid;
-  const double* scb = sc + b * 8;
-  const T a = static_cast<T>(scb[ab]);
-  const T bb = static_cast<T>(scb[ab + 1]);
-  const T fudge = static_cast<T>(scb[4]);
-  const T r_live = static_cast<T>(scb[5]);
-  const T a_over_b = a / bb;
-  const T log_fudge = log(fudge);
-  if (tid < rp) {
-    double s = 0.0;
-    for (int p = 0; p < ndenom; ++p)
-      s += denom_part[((size_t)b * ndenom + p) * rp + tid];
-    const T be = T(1) / (a_over_b + static_cast<T>(s));
-    be_s[tid] = be;
-    logbe_s[tid] = log(be);
-  }
-  __syncthreads();
-
-  const bool in_range = col < ext;
-  const bool col_live = col < n_true;
-  double su = 0.0, se = 0.0, sl = 0.0, sd = 0.0;
-  for (int k = 0; k < rp; ++k) {
-    T e = T(0);
-    if (in_range) {
-      const size_t off = ((size_t)b * rp + k) * ext + col;
-      double acc = 0.0;
-      for (int p = 0; p < nsfx; ++p)
-        acc += static_cast<double>(
-            sfx_part[(((size_t)b * nsfx + p) * rp + k) * ext + col]);
-      const T sfx = static_cast<T>(acc);
-      const T lfv = lf[off];
-      const bool live = static_cast<T>(k) < r_live && col_live;
-      const T be = be_s[k], log_be = logbe_s[k];
-      const T al = a + lfv * sfx;
-      T psi, lgam;
-      digamma_gammaln_both<T>(al, psi, lgam);
-      const T ln_raw = exp(psi) * be;
-      T ln, d = T(0), u = T(0), logl = T(0), dt = T(0);
-      if (live) {
-        e = al * be;
-        ln = (ln_raw >= fudge || is_nan(ln_raw)) ? ln_raw : fudge;
-        d = al * (be * be);
-        u = -a_over_b * e + al * (T(1) + log_be) + lgam;
-        logl = ln_raw > fudge ? psi + log_be : log_fudge;
-        dt = sfx * lfv * log(lfv);
-      } else {
-        ln = (k < r && col_live) ? fudge : (k < r ? T(1) : T(0));
-      }
-      e_out[off] = e;
-      l_out[off] = ln;
-      d_out[off] = d;
-      su += static_cast<double>(u);
-      se += static_cast<double>(e);
-      sl += static_cast<double>(logl);
-      sd += static_cast<double>(dt);
-    }
-    const double ws = warp_sum(static_cast<double>(e));
-    if (lane == 0) wsum[w][k] = ws;
-  }
-  __syncthreads();
-  if (tid < rp) {
-    double s = 0.0;
-    for (int i = 0; i < kWarps; ++i) s += wsum[i][tid];
-    rsum_part[((size_t)b * nblk + blk) * rp + tid] = s;
-  }
-  double* out = scal_part + ((size_t)b * nblk + blk) * 4;
-  double v = block_sum(su, red);
-  if (tid == 0) out[0] = v;
-  v = block_sum(se, red);
-  if (tid == 0) out[1] = v;
-  v = block_sum(sl, red);
-  if (tid == 0) out[2] = v;
-  v = block_sum(sd, red);
-  if (tid == 0) out[3] = v;
-}
 
 // ---------------------------------------------------------------------
 // K4 sol_finish
@@ -396,7 +292,7 @@ __global__ void finish_kernel(const double* __restrict__ sc,
 // ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
-template <typename T, typename XT>
+template <typename T, typename XT, bool kBf16>
 cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
                          const void* eh, const double* sc, int B, int np,
                          int mp, int rp, void* swn_part, void* shn_part,
@@ -405,49 +301,15 @@ cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
   const dim3 grid(ceil_div(mp, kChunk), ceil_div(np, kChunk), B);
   const size_t smem = (size_t)(3 * rp * kSub + kSub * (kSub + 1)) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      xpass_kernel<T, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xpass_kernel<T, XT, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  xpass_kernel<T, XT><<<grid, kThreads, smem, stream>>>(
+  xpass_kernel<T, XT, kBf16><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const T*>(lwt),
       static_cast<const T*>(lh), static_cast<const T*>(eh), sc, np, mp, rp,
       static_cast<T*>(swn_part), static_cast<T*>(shn_part), xlog_part,
       ehs_part);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_post(const void* sfx_part, int nsfx, const void* lf,
-                        const double* denom_part, int ndenom,
-                        const double* sc, int ab, int B, int ext, int rp,
-                        int r, int n_true, void* e_out, void* l_out,
-                        void* d_out, double* rsum_part, double* scal_part,
-                        cudaStream_t stream) {
-  const dim3 grid(ceil_div(ext, kThreads), B);
-  post_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(sfx_part), nsfx, static_cast<const T*>(lf),
-      denom_part, ndenom, sc, ab, ext, rp, r, n_true,
-      static_cast<T*>(e_out), static_cast<T*>(l_out),
-      static_cast<T*>(d_out), rsum_part, scal_part);
-  return cudaGetLastError();
-}
-
-int post_entry(int tcode, const void* sfx_part, int nsfx, const void* lf,
-               const double* denom_part, int ndenom, const double* sc,
-               int ab, int B, int ext, int rp, int r, int n_true,
-               void* e_out, void* l_out, void* d_out, double* rsum_part,
-               double* scal_part, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rp > kMaxRp) return static_cast<int>(cudaErrorInvalidValue);
-  if (tcode == 0)
-    return launch_post<float>(sfx_part, nsfx, lf, denom_part, ndenom, sc, ab,
-                              B, ext, rp, r, n_true, e_out, l_out, d_out,
-                              rsum_part, scal_part, s);
-  if (tcode == 1)
-    return launch_post<double>(sfx_part, nsfx, lf, denom_part, ndenom, sc, ab,
-                               B, ext, rp, r, n_true, e_out, l_out, d_out,
-                               rsum_part, scal_part, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace ccfindr
@@ -456,19 +318,25 @@ using namespace ccfindr;
 
 // C interface, bound with ctypes by ccfindr_tpu_torch/ops/kernels/sol.py.
 // tcode: factor type 0 float, 1 double.  xcode: X type 0 int8, 1 int16,
-// 2 float, 3 double.  Each returns cudaGetLastError() after its launch.
+// 2 float, 3 double.  bf16: round the X pass's operands to bf16.  Each
+// returns cudaGetLastError() after its launch.
 extern "C" {
 
-int sol_xpass(int tcode, int xcode, const void* x, const void* lwt,
-              const void* lh, const void* eh, const double* sc, int B,
-              int np, int mp, int rp, void* swn_part, void* shn_part,
-              double* xlog_part, double* ehs_part, void* stream) {
+int sol_xpass(int tcode, int xcode, int bf16, const void* x,
+              const void* lwt, const void* lh, const void* eh,
+              const double* sc, int B, int np, int mp, int rp,
+              void* swn_part, void* shn_part, double* xlog_part,
+              double* ehs_part, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rp > kMaxRp) return static_cast<int>(cudaErrorInvalidValue);
-#define XPASS(T, XT)                                                     \
-  return static_cast<int>(launch_xpass<T, XT>(                           \
-      x, lwt, lh, eh, sc, B, np, mp, rp, swn_part, shn_part, xlog_part,  \
-      ehs_part, s))
+#define XPASS(T, XT)                                                        \
+  return static_cast<int>(                                                  \
+      bf16 ? launch_xpass<T, XT, true>(x, lwt, lh, eh, sc, B, np, mp, rp,   \
+                                       swn_part, shn_part, xlog_part,       \
+                                       ehs_part, s)                         \
+           : launch_xpass<T, XT, false>(x, lwt, lh, eh, sc, B, np, mp, rp,  \
+                                        swn_part, shn_part, xlog_part,      \
+                                        ehs_part, s))
   switch (tcode * 4 + xcode) {
     case 0: XPASS(float, int8_t);
     case 1: XPASS(float, int16_t);
@@ -488,16 +356,18 @@ int sol_w_post(int tcode, const void* swn_part, int ncc, const void* lwt,
                int np, int rp, int r, int n, void* ewt, void* lwtn,
                void* dwt, double* csum_part, double* wscal_part,
                void* stream) {
-  return post_entry(tcode, swn_part, ncc, lwt, ehs_part, nehs, sc, 0, B, np,
-                    rp, r, n, ewt, lwtn, dwt, csum_part, wscal_part, stream);
+  return post_entry<false>(tcode, swn_part, ncc, lwt, ehs_part, nehs, sc, 0,
+                           B, np, rp, r, n, n, ewt, lwtn, dwt, csum_part,
+                           wscal_part, stream);
 }
 
 int sol_h_post(int tcode, const void* shn_part, int ngc, const void* lh,
                const double* csum_part, int nbw, const double* sc, int B,
                int mp, int rp, int r, int m, void* ehn, void* lhn, void* dhn,
                double* rsum_part, double* hscal_part, void* stream) {
-  return post_entry(tcode, shn_part, ngc, lh, csum_part, nbw, sc, 2, B, mp,
-                    rp, r, m, ehn, lhn, dhn, rsum_part, hscal_part, stream);
+  return post_entry<false>(tcode, shn_part, ngc, lh, csum_part, nbw, sc, 2,
+                           B, mp, rp, r, m, m, ehn, lhn, dhn, rsum_part,
+                           hscal_part, stream);
 }
 
 int sol_finish(int tcode, const double* sc, const double* xlog_part, int nx,

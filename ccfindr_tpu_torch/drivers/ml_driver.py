@@ -32,9 +32,8 @@ from ..ops import consensus as cons
 from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
-from ..utils import Timings, auto_storage_dtype
-from .vb_driver import (_check_sparse_options, _not_ported, _resolve_device,
-                        _sparse_counts)
+from ..utils import Timings, auto_storage_dtype, resolve_device
+from .vb_driver import _check_sparse_options, _not_ported, _sparse_counts
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -146,7 +145,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     if criterion not in ("likelihood", "connectivity"):
         raise ValueError("Unknown stopping criterion.")
 
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype

@@ -9,8 +9,10 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   ``nrun`` restarts at a time;
 * ``backend='pallas'`` runs the sweep as the CUDA kernels of
   :mod:`ccfindr_tpu_torch.ops.kernels.sol` on the card (their plain
-  PyTorch version on the CPU); ``backend='sparse'`` keeps X as its
-  nonzeros and runs the sweep as the CUDA kernels of
+  PyTorch version on the CPU), or, on the gene panels for which the
+  JAX driver picks its gene-major sweep (above 65,536 genes), those of
+  :mod:`ccfindr_tpu_torch.ops.kernels.epilogue`; ``backend='sparse'``
+  keeps X as its nonzeros and runs the sweep as the CUDA kernels of
   :mod:`ccfindr_tpu_torch.ops.kernels.sparse`; ``'dense'`` and
   ``'dense_fused'`` are the matmul parity paths of
   :mod:`ccfindr_tpu_torch.ops.vb`;
@@ -21,6 +23,8 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pandas as pd
 import torch
@@ -29,23 +33,17 @@ from ..container import SCSet
 from ..ops import consensus as cons
 from ..ops import tile as tile_ops
 from ..ops import vb as vb_ops
+from ..ops.kernels import epilogue as epi_ops
 from ..ops.kernels import sol as sol_ops
+from ..ops.kernels.vb_kernels import (DEFAULT_BM, DEFAULT_BN,
+                                      _fused_layout)
 from ..ops.vb import Hyper, VBState
-from ..utils import Timings, auto_storage_dtype
+from ..utils import Timings, auto_storage_dtype, resolve_device
 
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported to "
                                f"ccfindr_tpu_torch yet (ROADMAP {item})")
-
-
-def _resolve_device(device):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device "
-                           "is available; pass device='cpu' to run the "
-                           "plain PyTorch path")
-    return device
 
 
 def _sparse_counts(obj):
@@ -121,9 +119,12 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     * ``'dense'`` (default) — matmul sweep, two passes over X;
     * ``'dense_fused'`` — matmul sweep, one pass over X (deferred ELBO);
-    * ``'pallas'`` — the hand-written CUDA sweep
-      (ops/kernels/sol.py, ``csrc/sol.cu``) on the card, its plain
-      PyTorch version on the CPU;
+    * ``'pallas'`` — the hand-written CUDA sweep on the card, its plain
+      PyTorch version on the CPU: the cell-major sweep K1-K4
+      (ops/kernels/sol.py, ``csrc/sol.cu``), or, where the JAX driver's
+      ``_fused_layout`` answers ``'gm'`` on its padded extents (more
+      than 65,536 genes), the gene-major sweep E1-E3 + K4
+      (ops/kernels/epilogue.py, ``csrc/epi.cu``);
     * ``'sparse'`` — X as its nonzeros only, never densified (the
       capacity path for atlas-scale matrices): CSR on the device and
       the CUDA kernels S1/S2 (ops/tile.py, ``csrc/sparse.cu``) on the
@@ -133,7 +134,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       with the same result, and the CSR kernels serve both here.
 
     ``elbo_every=k`` evaluates the ELBO and the stopping test only
-    every k-th sweep (``'pallas'`` and ``'sparse'``).
+    every k-th sweep (``'sparse'``, and ``'pallas'`` on cell-major
+    shapes).  ``precision='bf16'`` rounds the X pass's operands to
+    bfloat16, accumulating in float32 (``'pallas'`` on cell-major
+    shapes).  As in the JAX package, the gene-major route refuses both.
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there
     are several ranks.  ``storage_dtype='auto'`` keeps integer counts
@@ -144,7 +148,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     ``NotImplementedError`` naming the ROADMAP item that brings them:
     ``mesh``, ``distributed``, ``checkpoint_*``, ``compact_every``,
     ``backend='pallas2pass'``, ``sparse_layout='ell'``,
-    ``precision='bf16'`` and ``svd_method='randomized'``.
+    ``precision='bf16'`` on ``backend='sparse'`` and
+    ``svd_method='randomized'``.
 
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
@@ -164,10 +169,13 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     if backend == "sparse":
         _check_sparse_options(sparse_layout, storage_dtype,
                               ("auto", "tile", "coo"))
-    if precision == "bf16":
-        raise _not_ported("precision='bf16'", "B1")
-    if precision != "f32":
+    if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}")
+    if precision == "bf16" and backend == "sparse":
+        raise _not_ported("precision='bf16' on backend='sparse'", "B9")
+    if precision == "bf16" and backend != "pallas":
+        raise ValueError("precision='bf16' is supported by "
+                         "backend='pallas' (cell-major shapes)")
     if svd_method == "randomized":
         raise _not_ported("svd_method='randomized'", "A8")
     if int(elbo_every) < 1:
@@ -177,7 +185,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise ValueError("elbo_every is supported by backend='pallas' and "
                          "backend='sparse'")
 
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -251,10 +259,28 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         run_kwargs.update(fused=tile_ops.make_tile_fused(),
                           elbo_every=int(elbo_every))
     else:
-        x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
+        # convert on the host: the compressed X crosses, not float32
+        x = torch.as_tensor(mat).to(dtype=x_dtype).to(device)
     if backend == "pallas":
-        run_fn = sol_ops.vb_run_sol
-        run_kwargs["elbo_every"] = int(elbo_every)
+        # the JAX driver's choice between its two single-device sweeps
+        # (ccfindr_tpu/drivers/vb_driver.py:775-801), on its padded
+        # extents: gene-major above 65,536 genes
+        layout = _fused_layout(sol_ops.round_up(n, DEFAULT_BN),
+                               sol_ops.round_up(m, DEFAULT_BM),
+                               sol_ops.round_up(max(max(ranks), 8), 8))
+        if layout == "cm":
+            run_fn = sol_ops.vb_run_sol
+            run_kwargs.update(elbo_every=int(elbo_every),
+                              mxu_bf16=precision == "bf16")
+        else:
+            if elbo_every != 1:
+                raise ValueError("elbo_every is supported by "
+                                 "backend='pallas' on cell-major shapes "
+                                 "and by backend='sparse'")
+            if precision == "bf16":
+                raise ValueError("precision='bf16' is supported by "
+                                 "backend='pallas' on cell-major shapes")
+            run_fn = functools.partial(epi_ops.vb_run_epi, layout=layout)
     elif backend == "dense_fused":
         run_kwargs["fused"] = vb_ops.fused_dense
     itmax = int(Itmax)

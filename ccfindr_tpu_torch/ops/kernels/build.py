@@ -94,7 +94,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "sol_xpass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "sol_xpass": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P],
     "sol_w_post": [_I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P],
@@ -108,6 +108,13 @@ _SIGNATURES = {
     "sp_rowpass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
                    _P, _P, _P, _P],
     "sp_colpass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    "fused_xpass": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P],
+    "fused_sum": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "epi_w_post": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P, _P],
+    "epi_h_post": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -9,6 +9,10 @@ Newton).  :func:`sol_sweep_plain` is the same sweep in plain PyTorch
 (``torch.matmul`` for the three products, full-matrix elementwise
 math); :func:`sol_sweep` takes it only for tensors on the CPU and
 launches the kernels for CUDA tensors, with no fallback between them.
+``mxu_bf16`` (``precision='bf16'``) rounds the X pass's operands to
+bf16.  :func:`deferred_loop`, the convergence loop of
+:func:`vb_run_sol`, also runs the gene-major sweep of
+:mod:`.epilogue`, whose posterior kernels feed K4.
 
 Layouts carry a leading lane axis B: X ``(np, mp)`` shared by all
 lanes; W transposed ``lwt (B, rp, np)``; ``lh``/``eh (B, rp, mp)``;
@@ -21,6 +25,8 @@ components, pinned at ``fudge``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -61,8 +67,10 @@ def round_up(v: int, mult: int) -> int:
     return -(-v // mult) * mult
 
 
-def _check(x, lwt, lh, eh, sc, n, m, r):
-    """Validate what the kernels (and the plain version) take."""
+def _check(x, lwt, lh, eh, sc, n, m, r, w_rowmajor=False):
+    """Validate what the kernels (and the plain version) take: W as
+    ``lwt (B, rp, np)``, or as ``lw (B, np, rp)`` when ``w_rowmajor``
+    (the epilogue sweep's layout)."""
     if lwt.dtype not in TCODE:
         raise TypeError(f"factors must be float32 or float64, got "
                         f"{lwt.dtype}")
@@ -77,6 +85,8 @@ def _check(x, lwt, lh, eh, sc, n, m, r):
         raise ValueError("X must be (np, mp) and lwt (B, rp, np)")
     np_, mp_ = x.shape
     nb, rp_, npw = lwt.shape
+    if w_rowmajor:
+        npw, rp_ = rp_, npw
     if npw != np_ or lh.shape != (nb, rp_, mp_) or eh.shape != lh.shape:
         raise ValueError(f"shape mismatch: X {tuple(x.shape)}, lwt "
                          f"{tuple(lwt.shape)}, lh {tuple(lh.shape)}, eh "
@@ -101,13 +111,25 @@ def _check(x, lwt, lh, eh, sc, n, m, r):
 # Plain PyTorch version, phase by phase
 # ---------------------------------------------------------------------
 
-def xpass_plain(x, lwt, lh, eh, sc):
+def bf16_round(t):
+    """``t`` rounded to the nearest bfloat16, kept in its dtype: the
+    ``precision='bf16'`` operands of the X pass (``csrc/bf16.cuh``)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def xpass_plain(x, lwt, lh, eh, sc, mxu_bf16=False):
     """K1's function: (swnt (B,rp,np), shn (B,rp,mp), xlog (B,) f64,
-    ehs (B,rp) f64 = rowSums of the incoming eh)."""
+    ehs (B,rp) f64 = rowSums of the incoming eh).  ``mxu_bf16`` rounds
+    lwt, lh and u to bf16 before the products (the JAX kernel's
+    ``mxu_bf16``); the sums and ``log(wth)`` stay in the factor dtype."""
     dt = lwt.dtype
     xf = x.to(dt)
+    if mxu_bf16:
+        lwt, lh = bf16_round(lwt), bf16_round(lh)
     wth = lwt.transpose(-1, -2) @ lh
     u = xf / wth
+    if mxu_bf16:
+        u = bf16_round(u)
     swnt = lh @ u.transpose(-1, -2)
     shn = lwt @ u
     xlog = torch.where(sc[:, 7] > 0,
@@ -117,11 +139,14 @@ def xpass_plain(x, lwt, lh, eh, sc):
     return swnt, shn, xlog, eh.sum(-1, dtype=torch.float64)
 
 
-def post_plain(sfx, lf, denom, a, b, fudge, r_live, r, ncol):
-    """K2/K3's function (``_post_tile``): the gamma posterior of one
-    factor in (rank rows, long-axis columns) layout.  ``denom`` (B, rp)
-    float64 enters the beta; a, b, fudge, r_live are (B,) in the
-    factor dtype; ``ncol`` is the true long-axis extent.
+def post_plain(sfx, lf, denom, a, b, fudge, r_live, r, ncol, npin=None):
+    """K2/K3's function (``_post_tile``, post_kernel of
+    ``csrc/post.cuh``): the gamma posterior of one factor in (rank rows,
+    long-axis columns) layout.  ``denom`` (B, rp) float64 enters the
+    beta; a, b, fudge, r_live are (B,) in the factor dtype; ``ncol`` is
+    the live long-axis extent and ``npin`` (default ``ncol``) the extent
+    whose non-live rank rows are pinned at ``fudge`` (the JAX H
+    epilogue's ``m_live`` and ``m``).
 
     Returns (e, ln, d, rank_sums (B,rp) f64, scalars (B,4) f64 =
     [U, sum e, sum logl, dterm])."""
@@ -130,7 +155,7 @@ def post_plain(sfx, lf, denom, a, b, fudge, r_live, r, ncol):
     row = torch.arange(rows, device=lf.device)[:, None]
     col = torch.arange(cols, device=lf.device)[None, :]
     live = (row.to(dt) < r_live[:, None, None]) & (col < ncol)
-    pin = (row < r) & (col < ncol)
+    pin = (row < r) & (col < (ncol if npin is None else npin))
     a3, b3, f3 = a[:, None, None], b[:, None, None], fudge[:, None, None]
 
     be = (1.0 / (a[:, None] / b[:, None] + denom.to(dt)))[..., None]
@@ -231,7 +256,7 @@ def finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt, mask,
 
 def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
                     hyper_mask=(True,) * 4, newton_niter=100,
-                    newton_tol=1e-4):
+                    newton_tol=1e-4, mxu_bf16=False):
     """One VB sweep in plain PyTorch; the function K1-K4 compute.
 
     Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
@@ -239,7 +264,7 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
     dt = lwt.dtype
     a = [sc[:, q].to(dt) for q in range(6)]
     aw, bw, ah, bh, fudge, r_live = a
-    swnt, shn, xlog, ehs = xpass_plain(x, lwt, lh, eh, sc)
+    swnt, shn, xlog, ehs = xpass_plain(x, lwt, lh, eh, sc, mxu_bf16)
     ewt, lwtn, dwt, csum, wscal = post_plain(swnt, lwt, ehs, aw, bw,
                                              fudge, r_live, r, n)
     ehn, lhn, dhn, rsum, hscal = post_plain(shn, lh, csum, ah, bh,
@@ -254,7 +279,7 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
 # CUDA wrappers (one per kernel)
 # ---------------------------------------------------------------------
 
-def xpass(x, lwt, lh, eh, sc):
+def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
     """Launch K1.  Returns the partials (swn_part (B, ncc, rp, np),
     shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64, ehs_part
     (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X."""
@@ -271,7 +296,8 @@ def xpass(x, lwt, lh, eh, sc):
     ehs_part = torch.empty(nb, ncc, rp_, dtype=torch.float64,
                            device=x.device)
     rc = library().sol_xpass(
-        TCODE[lwt.dtype], XCODE[x.dtype], x.data_ptr(), lwt.data_ptr(),
+        TCODE[lwt.dtype], XCODE[x.dtype], int(bool(mxu_bf16)),
+        x.data_ptr(), lwt.data_ptr(),
         lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_, rp_,
         swn_part.data_ptr(), shn_part.data_ptr(), xlog_part.data_ptr(),
         ehs_part.data_ptr(), stream())
@@ -333,7 +359,7 @@ def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
 
 
 def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
-              newton_niter=100, newton_tol=1e-4):
+              newton_niter=100, newton_tol=1e-4, mxu_bf16=False):
     """One VB sweep: K1-K4 on CUDA tensors, :func:`sol_sweep_plain` on
     CPU tensors.  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
     _check(x, lwt, lh, eh, sc, n, m, r)
@@ -341,8 +367,9 @@ def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
         return sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m=m, r=r,
                                hyper_mask=hyper_mask,
                                newton_niter=newton_niter,
-                               newton_tol=newton_tol)
-    swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc)
+                               newton_tol=newton_tol, mxu_bf16=mxu_bf16)
+    swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc,
+                                                    mxu_bf16)
     ewt, lwtn, dwt, csum_part, wscal_part = w_post(swn_part, lwt,
                                                    ehs_part, sc, r, n)
     ehn, lhn, dhn, rsum_part, hscal_part = h_post(shn_part, lh,
@@ -358,11 +385,19 @@ def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
 # Convergence loop over a lane batch
 # ---------------------------------------------------------------------
 
+def lgamma_sum(x):
+    """``sum lgamma(x + 1)`` in float64, a block of rows at a time, so
+    that no float64 copy of a large X is formed."""
+    rows = max(1, (1 << 24) // max(1, x.shape[1]))
+    return sum(torch.lgamma(x[i:i + rows].to(torch.float64) + 1.0).sum()
+               for i in range(0, x.shape[0], rows))
+
+
 def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
                tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
                n0: int = 10, dn: int = 1, rank_mask=None, r_true=None,
                it0: int = 1, lk0_init=None, elbo_every: int = 1,
-               sweep_fn=None) -> VBRunResult:
+               mxu_bf16: bool = False, sweep_fn=None) -> VBRunResult:
     """The deferred-ELBO convergence loop of ``ccfindr_tpu``'s
     ``vb_run_sol`` over a lane batch, one :func:`sol_sweep` a sweep.
 
@@ -373,13 +408,37 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
     and is frozen once its stopping rule fired or its sweep bound ran
     out, so the host may test for running lanes only every
     ``HOST_CHECK_EVERY`` sweeps: extra sweeps leave frozen lanes
-    unchanged.
+    unchanged.  ``mxu_bf16`` (``precision='bf16'``) rounds the X pass's
+    operands to bf16.
     ``sweep_fn`` swaps the sweep (``sol_sweep_plain`` to time the
     plain version on the card).
     """
-    sweep = sweep_fn if sweep_fn is not None else sol_sweep
+    sweep = functools.partial(sweep_fn if sweep_fn is not None
+                              else sol_sweep, mxu_bf16=mxu_bf16)
+    return deferred_loop(x, state0, hyper0, sweep, w_rowmajor=False,
+                         itmax=itmax, tol=tol, fudge=fudge,
+                         hyper_mask=hyper_mask, n0=n0, dn=dn,
+                         rank_mask=rank_mask, r_true=r_true, it0=it0,
+                         lk0_init=lk0_init, elbo_every=elbo_every)
+
+
+def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
+                  m_true=None, itmax, tol, fudge, hyper_mask, n0, dn,
+                  rank_mask, r_true, it0, lk0_init,
+                  elbo_every) -> VBRunResult:
+    """The deferred-ELBO loop shared by :func:`vb_run_sol` and
+    ``ops/kernels/epilogue.py::vb_run_epi``.
+
+    ``sweep(x, lw, lh, eh, sc, n=, m=, r=, hyper_mask=)`` returns
+    ``(ew, lw, dw, eh, lh, dh, scal)`` with ``scal`` in K4's slot
+    layout; W is carried padded as ``(B, rp, np)`` (``w_rowmajor``
+    False, the sol sweep) or ``(B, np, rp)`` (True, the JAX layout of
+    the epilogue sweep).  ``m_true`` (default the state's cell count)
+    is the live cell count that normalizes the ELBO.
+    """
     nb, n, r = state0.lw.shape
     m = state0.lh.shape[-1]
+    m_live = m if m_true is None else int(m_true)
     ref_t = state0.lw.dtype
     dev = state0.lw.device
     np_, mp_ = x.shape
@@ -388,13 +447,18 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
         fudge = torch.finfo(ref_t).eps
     fudge = torch.as_tensor(fudge, dtype=ref_t, device=dev)
     tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
-    lgx = torch.lgamma(x.to(torch.float64) + 1.0).sum()
+    lgx = lgamma_sum(x)
     state0 = mask_initial_state(state0, rank_mask, fudge)
     r_live = (r_true.to(torch.float64) if rank_mask is not None
               else torch.full((nb,), float(r), dtype=torch.float64,
                               device=dev))
 
-    def pad_wt(a, fill):        # (B, n, r) -> (B, rp, np)
+    def pad_w(a, fill):         # (B, n, r) -> (B, rp, np) or (B, np, rp)
+        if w_rowmajor:
+            out = torch.zeros(nb, np_, rp_, dtype=ref_t, device=dev)
+            out[:, n:, :r] = fill
+            out[:, :n, :r] = a
+            return out
         out = torch.zeros(nb, rp_, np_, dtype=ref_t, device=dev)
         out[:, :r, n:] = fill
         out[:, :r, :n] = a.transpose(-1, -2)
@@ -406,9 +470,9 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
         out[:, :r, :m] = a
         return out
 
-    lwt = pad_wt(state0.lw, 1.0)
-    ewt = pad_wt(state0.ew, 0.0)
-    dwt = pad_wt(state0.dw, 0.0)
+    lw = pad_w(state0.lw, 1.0)
+    ew = pad_w(state0.ew, 0.0)
+    dw = pad_w(state0.dw, 0.0)
     lh = pad_h(state0.lh, 1.0)
     eh = pad_h(state0.eh, 0.0)
     dh = pad_h(state0.dh, 0.0)
@@ -422,7 +486,7 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
     hfail = torch.zeros_like(done)
     fud64 = fudge.to(torch.float64).expand(nb)
     lgx_b = lgx.expand(nb)
-    nm = float(n) * float(m)
+    nm = float(n) * float(m_live)
 
     def lane(flag, t):
         return flag.view((nb,) + (1,) * (t.dim() - 1))
@@ -439,8 +503,8 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
         sc = torch.stack([aw.double(), bw.double(), ah.double(),
                           bh.double(), fud64, r_live, lgx_b,
                           elbo_now.double()], dim=1).contiguous()
-        (ewt_n, lwt_n, dwt_n, eh_n, lh_n, dh_n, scal) = sweep(
-            x, lwt, lh, eh, sc, n=n, m=m, r=r, hyper_mask=hyper_mask)
+        (ew_n, lw_n, dw_n, eh_n, lh_n, dh_n, scal) = sweep(
+            x, lw, lh, eh, sc, n=n, m=m, r=r, hyper_mask=hyper_mask)
 
         # complete sweep it-1's ELBO (deferred data term)
         lkh_prev = ((pending + scal[:, DTERM]) / nm).to(ref_t)
@@ -458,21 +522,23 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
         ah = torch.where(do_hyper, scal[:, AH].to(ref_t), ah)
         bh = torch.where(do_hyper, scal[:, BH].to(ref_t), bh)
         hfail = hfail | (do_hyper & (scal[:, HFAIL] > 0))
-        lwt = torch.where(lane(do_sweep, lwt), lwt_n, lwt)
+        lw = torch.where(lane(do_sweep, lw), lw_n, lw)
         lh = torch.where(lane(do_sweep, lh), lh_n, lh)
-        ewt = torch.where(lane(do_sweep, ewt), ewt_n, ewt)
+        ew = torch.where(lane(do_sweep, ew), ew_n, ew)
         eh = torch.where(lane(do_sweep, eh), eh_n, eh)
-        dwt = torch.where(lane(do_sweep, dwt), dwt_n, dwt)
+        dw = torch.where(lane(do_sweep, dw), dw_n, dw)
         dh = torch.where(lane(do_sweep, dh), dh_n, dh)
         pending = torch.where(do_sweep, scal[:, PEND], pending)
         done = torch.where(active, stop, done)
         it = it + active.to(it.dtype)
 
     def unpad_w(a):
+        if w_rowmajor:
+            return a[:, :n, :r]
         return a[:, :r, :n].transpose(-1, -2)
 
-    state = VBState(ew=unpad_w(ewt), eh=eh[:, :r, :m], lw=unpad_w(lwt),
-                    lh=lh[:, :r, :m], dw=unpad_w(dwt), dh=dh[:, :r, :m],
+    state = VBState(ew=unpad_w(ew), eh=eh[:, :r, :m], lw=unpad_w(lw),
+                    lh=lh[:, :r, :m], dw=unpad_w(dw), dh=dh[:, :r, :m],
                     lkh=lkh)
     hyper = type(hyper0)(aw=aw, bw=bw, ah=ah, bh=bh)
     return VBRunResult(state=state, hyper=hyper, lml=lk0, n_iter=it - 2,

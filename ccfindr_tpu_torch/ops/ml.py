@@ -27,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 
 def _mT(a):
     return a.transpose(-1, -2)
@@ -313,11 +315,12 @@ def _ml_run_fused(x, w0, h0, *, itmax, tol, criterion, ncnn_step,
                        cid=cid, zstep=zstep, done=done)
 
 
-def ml_init(generator, n, m, rank, dtype=torch.float32, device="cpu"):
+def ml_init(generator, n, m, rank, dtype=torch.float32, device="cuda"):
     """Uniform-random init (reference R/factorize.R:30-38) from the
     explicit ``torch.Generator``: drawn on the generator's device in
     float64, then cast and moved, so a seed gives the same factors on
     any ``device``."""
+    device = resolve_device(device)
     gdev = generator.device
     w = torch.rand((n, rank), generator=generator, dtype=torch.float64,
                    device=gdev)
@@ -331,11 +334,12 @@ def ml_init(generator, n, m, rank, dtype=torch.float32, device="cpu"):
 # Lane batches carried between the two packages
 # ---------------------------------------------------------------------
 
-def ml_state_from_numpy(obj, device="cpu", dtype=None):
+def ml_state_from_numpy(obj, device="cuda", dtype=None):
     """Carry a JAX package ``MLRunResult`` (passed through ``np.asarray``
     field by field), a ``(w, h)`` pair of lane batches, or one array
     into the port's tensors on ``device``; floating fields take
     ``dtype`` when given."""
+    device = resolve_device(device)
     if isinstance(obj, tuple):
         fields = [ml_state_from_numpy(f, device, dtype) for f in obj]
         if type(obj).__name__ == "MLRunResult":

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import resolve_device
 from .kernels import sparse as spk
 from .sparse import fold_dterm
 
@@ -75,8 +76,9 @@ class TileCounts:
                              shape=(self.n, self.m))
 
 
-def from_scipy_tile(mat, dtype=torch.float32, device="cpu") -> TileCounts:
-    """The layout of a scipy sparse (or dense) matrix, on ``device``.
+def from_scipy_tile(mat, dtype=torch.float32, device="cuda") -> TileCounts:
+    """The layout of a scipy sparse (or dense) matrix, on ``device``
+    (the card unless the caller asks for the CPU).
     Built once a factorization on the host, in O(nnz).
 
     Integer counts in [0, 32767] are stored as int16 (the kernels
@@ -84,6 +86,7 @@ def from_scipy_tile(mat, dtype=torch.float32, device="cpu") -> TileCounts:
     """
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     csr = sp.csr_matrix(mat, copy=True)
     csr.sum_duplicates()
     csr.eliminate_zeros()
@@ -113,7 +116,7 @@ def from_scipy_tile(mat, dtype=torch.float32, device="cpu") -> TileCounts:
                       perm=t(pos.data, np.int32), n=n, m=m)
 
 
-def from_dense_tile(x, dtype=torch.float32, device="cpu") -> TileCounts:
+def from_dense_tile(x, dtype=torch.float32, device="cuda") -> TileCounts:
     import scipy.sparse as sp
 
     return from_scipy_tile(sp.csr_matrix(np.asarray(x)), dtype=dtype,

@@ -28,6 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 
 class Hyper(NamedTuple):
     """Gamma-prior hyperparameters: shapes (aw, ah), means (bw, bh)."""
@@ -67,12 +69,13 @@ class VBRunResult(NamedTuple):
 # State carried between the two packages
 # ---------------------------------------------------------------------
 
-def state_from_numpy(obj, device="cpu", dtype=None):
+def state_from_numpy(obj, device="cuda", dtype=None):
     """Carry a (possibly nested) NamedTuple of arrays — a JAX package
     ``VBState``/``Hyper``/``VBRunResult`` passed through ``np.asarray``
     field by field, or the arrays themselves — into the port's tensors
     on ``device``.  Floating fields take ``dtype`` when given; the
     NamedTuple types map onto this module's classes by name."""
+    device = resolve_device(device)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         cls = {"VBState": VBState, "Hyper": Hyper,
                "VBRunResult": VBRunResult}.get(type(obj).__name__,
@@ -414,11 +417,12 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
 # ---------------------------------------------------------------------
 
 def vb_init_random(generator, n, m, rank, hyper: Hyper,
-                   dtype=torch.float32, device="cpu") -> VBState:
+                   dtype=torch.float32, device="cuda") -> VBState:
     """Random init: W, H drawn from the gamma priors with the explicit
     ``torch.Generator`` (drawn on the generator's device in float64,
     then cast and moved, so a seed gives the same state on any
     ``device``)."""
+    device = resolve_device(device)
     aw, bw, ah, bh = (float(v) for v in hyper)
     gdev = generator.device
     w = torch._standard_gamma(
@@ -436,7 +440,7 @@ def vb_init_random(generator, n, m, rank, hyper: Hyper,
 
 def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
                 dtype=torch.float32, method: str = "exact",
-                seed: int = 0, device="cpu") -> VBState:
+                seed: int = 0, device="cuda") -> VBState:
     """Deterministic SVD-based inits on the host (numpy/scipy).
 
     ``'svd'``  — NNDSVD (Boutsidis & Gallopoulos 2008) with the correct
@@ -448,6 +452,7 @@ def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
     """
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     if method != "exact":
         raise NotImplementedError(
             "svd_method='randomized' is not ported yet (ROADMAP A8)")

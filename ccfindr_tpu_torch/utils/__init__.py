@@ -1,4 +1,5 @@
-"""Host utilities: phase timings and the compressed X storage type."""
+"""Host utilities: the device check, phase timings and the compressed X
+storage type."""
 
 from __future__ import annotations
 
@@ -6,6 +7,19 @@ import contextlib
 import time
 
 import numpy as _np
+import torch
+
+
+def resolve_device(device):
+    """``torch.device(device)``; raises when a CUDA device is asked for
+    and none is present.  The drivers and the public constructors (which
+    default to ``device="cuda"``) share it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device "
+                           "is available; pass device='cpu' to run the "
+                           "plain PyTorch path")
+    return device
 
 
 def auto_storage_dtype(mat):

@@ -2,10 +2,10 @@
 """Smoke run of ccfindr_tpu_torch on one NVIDIA GPU.
 
 Drives the port's paths through their public entry points, the
-batched VB rank scan (``vb_factorize``) and the ML rank scan
-(``factorize``), on ``backend='pallas'`` and on ``backend='sparse'``,
-after checking each CUDA kernel of those paths against its plain
-PyTorch version on the card.  Phases (each prints its result and
+batched VB rank scan (``vb_factorize``, on both of its ``'pallas'``
+routes) and the ML rank scan (``factorize``), on ``backend='pallas'``
+and on ``backend='sparse'``, after checking each CUDA kernel of those
+paths against its plain PyTorch version on the card.  Phases (each prints its result and
 seconds):
 
 1. device and build: requires a CUDA device, prints the card's name
@@ -23,12 +23,13 @@ seconds):
    device='cuda') in float32 -> optimal_rank (must be 5) -> cluster_id
    (5 clusters) -> build_tree/newick (tips 5.1..5.5); every kernel's
    launch count must be > 0 and the four counts equal.  ropt for seeds
-   1 and 2 is printed, not gated;
+   1 and 2 is printed, not gated; with ``precision='bf16'`` ropt must
+   be 5 for seed 0 (seeds 1 and 2 printed);
 4. VB at 10x scale: vb_factorize on the 4096 x 8192 planted matrix
    (int8), ranks [8, 12, 16], nrun 2, Itmax 300: wall time and
    lane-sweeps per second (CUDA events, synchronised), the same loop on
    the plain version beside it, per-kernel times, and the peak device
-   memory;
+   memory; the same scan with ``precision='bf16'`` beside it;
 5. ML kernel vs plain: M1 ml_hpass (+ M3 ml_xlog_sum) and M2 ml_wpass
    on a ragged case (737 x 450, 12 lanes of ranks 4..6 x 4 padded to
    6, masked rows at eps) and the 10x case (4096 x 8192, 3 lanes of
@@ -77,12 +78,36 @@ seconds):
    vb_factorize(backend='sparse', ranks [16], nrun 2, Itmax 20): its
    lane-sweeps per second and peak device memory beside the dense int8
    image it does not allocate; gated on a finite lml and the launch
-   counts.
+   counts;
+11. gene-major kernels vs plain: E1 fused_xpass in both layouts with
+   bf16 off and on (+ E1s fused_sum), E2 epi_w_post and E3 epi_h_post
+   (with m_live < m on the ragged case), on a ragged case (737 x 450,
+   21 lanes of ranks 2..8 padded to 8) and at full width (phase 12's X,
+   3 lanes of r = 16), factors float64 and float32: phase 2's
+   tolerances, two launches bit-identical; the whole gene-major sweep
+   (E1, E1s, E2, E3, K4) against its plain version on the ragged case;
+   then vb_run_epi on the bundled lanes: layout 'cm' in float32 (the
+   run E1 'cm' is counted and timed on), and both layouts in float64,
+   which must equal vb_run_sol (n_iter of every lane, lml to 1e-9);
+12. the gene-major slice: planted 100,000 x 4,096 int8 (0.41 GB), for
+   which the driver's layout must be 'gm'; vb_factorize(ranks [8, 12,
+   16], nrun 2, Itmax 100, backend='pallas') in float32: wall, loop,
+   lane-sweeps per second, peak device memory, E1's partial bytes;
+   gated on a finite lml, E1 'gm', E1s, E2, E3 and K4 launched with
+   equal counts and K1-K3 not at all; vb_run_sol on the same lanes
+   beside it; E1/E1s/E2/E3 against their plain versions (3 lanes).
+
+Every kernel's entry in the kernels line has its launches on its path,
+its error against plain, its time, its plain version's time, its bound
+(the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s, from this
+run's inputs) and the time of one PyTorch call computing the same
+function where there is one.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.  Run from the root of the repository:
-``python3 chip_smoke.py`` (``--phases 1,5`` runs a subset).
+``python3 chip_smoke.py`` (``--phases 1,5`` runs a subset); it prints
+its total time.
 """
 
 from __future__ import annotations
@@ -110,6 +135,23 @@ ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
 SP_REPLACES = "ccfindr_tpu/ops/tile.py:348"
+EPI_KERNELS = {"fused_xpass_gm": "ccfindr_tpu/ops/pallas/vb_kernels.py:326",
+               "fused_xpass_cm": "ccfindr_tpu/ops/pallas/vb_kernels.py:280",
+               "fused_sum": "ccfindr_tpu/ops/pallas/vb_kernels.py:326",
+               "epi_w_post": "ccfindr_tpu/ops/pallas/epilogue.py:71",
+               "epi_h_post": "ccfindr_tpu/ops/pallas/epilogue.py:134"}
+EPI_SOURCE = "ccfindr_tpu_torch/csrc/epi.cu"
+GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
+# the least time of a kernel (H100 SXM data sheet: float32 outside the
+# tensor cores, HBM3)
+FP32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+# operations an entry of the posterior kernels (K2/K3, E2/E3), counted
+# from csrc/post.cuh in float32: the shift chain and series of
+# digamma/lgamma, two logs, one exp and the entry's sums
+POST_OPS = 90
+KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 ATLAS = (20480, 100352, 20, 0.02)   # bench.py:696 shape, bench.py:330 density
 MARKERS = {                      # tests/test_integration_workflow.py:81-87
     "B cell": ["CD74", "IG", "HLA", "MS4A1", "CD79A"],
@@ -143,6 +185,22 @@ def planted_10x():
     print(f"  planted X int8 (empty rows/cols dropped: "
           f"{int((~keep_r).sum())}/{int((~keep_c).sum())})")
     return np.ascontiguousarray(x_np[keep_r][:, keep_c])
+
+
+def planted_gm():
+    """Phase 11's and phase 12's X: planted 100,000 x 4,096 rank 16 int8
+    (0.41 GB), empty rows and columns dropped; prints its host build
+    time."""
+    t0 = time.perf_counter()
+    x_np = planted(*GM_SHAPE, seed=0)
+    keep_r = x_np.sum(axis=1) > 0
+    keep_c = x_np.sum(axis=0) > 0
+    x_np = np.ascontiguousarray(x_np[keep_r][:, keep_c])
+    print(f"  gene-major X {x_np.shape[0]} x {x_np.shape[1]} int8 (empty "
+          f"rows/cols dropped: {int((~keep_r).sum())}/"
+          f"{int((~keep_c).sum())}), {x_np.nbytes / 1e9:.3f} GB, built on "
+          f"the host in {time.perf_counter() - t0:.1f} s", flush=True)
+    return x_np
 
 
 def masked_10x(x10, density=0.10, seed=4):
@@ -341,6 +399,121 @@ def compare_sweep(args, dt):
                 hfail_equal=hfail_ok, finite=finite)
 
 
+def epi_inputs(x_np, ranks, r, dt, xdt, seed, dev):
+    """:func:`sweep_inputs` with W row-major, lw (B, n, rp): the
+    gene-major sweep's layout."""
+    x, lwt, lh, eh, sc, kw = sweep_inputs(x_np, ranks, r, dt, xdt, 1.0,
+                                          seed, dev)
+    return x, lwt.transpose(-1, -2).contiguous(), lh, eh, sc, kw
+
+
+def fused_plain(x, lw, lh, bf16):
+    """The plain X pass one lane at a time (bounds its n x m temporaries
+    at full width); the same function as one call."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+    outs = [vbk.fused_xpass_plain(x, lw[b:b + 1], lh[b:b + 1], bf16)
+            for b in range(lw.shape[0])]
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def compare_fused(x, lw, lh, layout, bf16, dt):
+    """E1 + E1s vs the plain X pass on the same inputs, a second launch
+    for bit-identity, and E1s alone against a torch sum of E1's
+    partials."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+    got = vbk.fused_pallas_raw(x, lw, lh, layout=layout, mxu_bf16=bf16)
+    again = vbk.fused_pallas_raw(x, lw, lh, layout=layout, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    want = fused_plain(x, lw, lh, bf16)
+    nm = x.shape[0] * x.shape[1]
+    err = dict(swn=rel_err(got[0], want[0]), shn=rel_err(got[1], want[1]),
+               xlog=rel_err(got[2] / nm, want[2] / nm))
+    _, part, xpart = vbk.fused_xpass(x, lw, lh, layout=layout,
+                                     mxu_bf16=bf16)
+    summed, _ = vbk.fused_sum(part, xpart)
+    plain_sum = part.sum(1, dtype=torch.float64).to(dt)
+    err["fused_sum"] = rel_err(summed, plain_sum)
+    if dt == torch.float64:
+        ok = all(v <= F64_TOL for v in err.values())
+    else:
+        ok = (max(err["swn"], err["shn"], err["fused_sum"]) <= F32_FACTOR_TOL
+              and err["xlog"] <= F32_ELBO_TOL)
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    abs_err = {f"fused_xpass_{layout}": max(
+                   float((got[0] - want[0]).abs().max()),
+                   float((got[1] - want[1]).abs().max())),
+               "fused_sum": float((summed - plain_sum).abs().max())}
+    return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
+                deterministic=det)
+
+
+def compare_epi_post(x, lw, lh, eh, sc, kw, dt, m_live):
+    """E2 + E3 vs their plain version on the plain X pass's outputs,
+    and a second launch for bit-identity."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+
+    n, m, r = kw["n"], kw["m"], kw["r"]
+    swn, shn, _ = fused_plain(x, lw, lh, False)
+    ehs = eh.sum(-1, dtype=torch.float64)
+
+    def launch():
+        w = epi.epi_w_post(swn, lw, ehs[:, None], sc, r, n)
+        return w, epi.epi_h_post(shn, lh, w[3], sc, r, m_live, m)
+
+    (w, h), (w2, h2) = launch(), launch()
+    torch.cuda.synchronize()
+    want = epi._post_plain(swn, shn, lw, lh, ehs, sc, r, n, m_live, m)
+    got = (w[0], w[1], w[2], w[3].sum(1), h[0], h[1], h[2], h[3].sum(1))
+    names = ("ew", "lwn", "dw", "csum", "eh", "lhn", "dh", "rsum")
+    err = {k: rel_err(g, v) for k, g, v in
+           zip(names, got, want[:4] + want[5:9])}
+    tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
+    det = all(torch.equal(a, b) for a, b in zip(w + h, w2 + h2))
+    abs_err = {"epi_w_post": max(float((g - v).abs().max())
+                                 for g, v in zip(got[:3], want[:3])),
+               "epi_h_post": max(float((g - v).abs().max())
+                                 for g, v in zip(got[4:7], want[5:8]))}
+    return dict(ok=all(v <= tol for v in err.values()) and det, err=err,
+                abs_err=abs_err, deterministic=det)
+
+
+def compare_epi_sweep(x, lw, lh, eh, sc, kw, dt):
+    """The whole gene-major sweep (E1 'gm', E1s, E2, E3, K4) vs
+    epi_sweep_plain, with phase 2's tolerances."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    got = epi.epi_sweep(x, lw, lh, eh, sc, layout="gm", **kw)
+    torch.cuda.synchronize()
+    want = epi.epi_sweep_plain(x, lw, lh, eh, sc, **kw)
+    err = {k: rel_err(g, w) for k, g, w in
+           zip(("ew", "lwn", "dw", "eh", "lhn", "dh"), got, want)}
+    gs, ws = got[6], want[6]
+    nm = kw["n"] * kw["m"]
+    elbo = rel_err((gs[:, sol.PEND] + gs[:, sol.DTERM]) / nm,
+                   (ws[:, sol.PEND] + ws[:, sol.DTERM]) / nm)
+    hyp = [sol.AW, sol.BW, sol.AH, sol.BH]
+    err["hypers"] = rel_err(gs[:, hyp], ws[:, hyp])
+    if dt == torch.float64:
+        ok = max(err.values()) <= F64_TOL and elbo <= F64_TOL
+    else:
+        ok = max(err.values()) <= F32_FACTOR_TOL and elbo <= F32_ELBO_TOL
+    err["elbo"] = elbo
+    ok = ok and bool((gs[:, sol.HFAIL] == ws[:, sol.HFAIL]).all())
+    return dict(ok=ok, err=err)
+
+
 def ml_inputs(x_np, ranks, r, dt, xdt, seed, dev):
     """Lane-batched ML factors (B, n, r)/(B, r, m): lane b has live
     rank ranks[b], its rows [ranks[b], r) pinned at eps as a batched
@@ -469,6 +642,19 @@ def compare_sparse(tc, lw, lh, do_elbo, dt):
                 deterministic=det, finite=finite)
 
 
+def nbytes(*ts):
+    """Bytes of the tensors (nested tuples and lists allowed)."""
+    import torch
+
+    tot = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            tot += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            tot += t.numel() * t.element_size()
+    return tot
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
     import torch
@@ -497,11 +683,25 @@ class Smoke:
         self.kernels.update({k: dict(name=k, route="cuda", source=SP_SOURCE,
                                      replaces=SP_REPLACES)
                              for k in SP_KERNELS})
+        self.kernels.update({k: dict(name=k, route="cuda", source=EPI_SOURCE,
+                                     replaces=rep)
+                             for k, rep in EPI_KERNELS.items()})
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
         self.x10 = None          # the planted 10x matrix (phase 4)
         self.x10m = None         # it masked to 10% density (phase 8)
+        self.xgm = None          # phase 12's gene-major X (phase 11)
+
+    def set_bound(self, k, moved, flops, library_ms=None):
+        """The kernel's least time on the card, the larger of ``moved``
+        bytes over the HBM rate and ``flops`` over the FP32 rate, and
+        the time of one PyTorch call computing the same function."""
+        tb = moved / HBM_BYTES * 1e3
+        tf = flops / FP32_FLOPS * 1e3
+        self.kernels[k].update(bound_ms=max(tb, tf),
+                               bound_by="bytes" if tb >= tf else "operations",
+                               library_ms=library_ms)
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -614,6 +814,15 @@ class Smoke:
             g = ct.vb_factorize(s, seed=seed, **kw)
             print(f"  seed {seed}: ropt={ct.optimal_rank(g)['ropt']} "
                   "(reported, not gated)")
+        # precision='bf16': the X pass's operands rounded to bf16 (K1)
+        for seed in (0, 1, 2):
+            g = ct.vb_factorize(s, seed=seed, precision="bf16", **kw)
+            ropt = ct.optimal_rank(g)["ropt"]
+            print(f"  bf16 seed {seed}: ropt={ropt}"
+                  + (" (gated: 5)" if seed == 0 else " (reported)"))
+            if seed == 0:
+                ok = ok and ropt == 5 and bool(
+                    np.isfinite(g.measure["lml"]).all())
         return ok
 
     # -- 4 ------------------------------------------------------------
@@ -647,6 +856,21 @@ class Smoke:
               f"{rec['lane_sweeps_executed'] / secs:.1f} lane-sweeps/s, "
               f"peak device memory {peak:.2f} GiB")
         print(f.measure.to_string())
+        torch.cuda.synchronize()
+        start.record()
+        g = ct.vb_factorize(x_np, precision="bf16", **kw)
+        end.record()
+        end.synchronize()
+        secs16 = start.elapsed_time(end) / 1e3
+        rec16 = g.metadata["timings"][0]
+        ls16, ls32 = rec16["lane_sweeps_executed"], rec["lane_sweeps_executed"]
+        print(f"  vb_factorize precision='bf16': {secs16:.3f} s, {ls16} "
+              f"lane-sweeps -> {ls16 / secs16:.1f} lane-sweeps/s of wall "
+              f"(float32 above: {ls32 / secs:.1f}); loop records bf16 "
+              f"{rec16['seconds']:.3f} s, {ls16 / rec16['seconds']:.1f} "
+              f"lane-sweeps/s, float32 {rec['seconds']:.3f} s, "
+              f"{ls32 / rec['seconds']:.1f} lane-sweeps/s; lml "
+              f"{g.measure['lml'].tolist()}")
 
         # the batched loop itself, kernels vs plain, on the same start
         dev = torch.device("cuda")
@@ -727,6 +951,21 @@ class Smoke:
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
+        # bounds at this shape: K1's products are needed at the nonzeros
+        # of X only (u = 0 elsewhere), 6 rp flops a nonzero and lane
+        nnz = int((x != 0).sum())
+        fin_out = sol.finish(sc, k1[2], k2[3], k2[4], k3[3], k3[4], **fin)
+        self.set_bound("xpass", nbytes(x, lwt, lh, eh, sc, k1),
+                       6 * 16 * nnz * nb)
+        self.set_bound("w_post", nbytes(k1[0], lwt, k1[3], sc, k2),
+                       POST_OPS * nb * 16 * n)
+        self.set_bound("h_post", nbytes(k1[1], lh, k2[3], sc, k3),
+                       POST_OPS * nb * 16 * m)
+        self.set_bound("finish", nbytes(sc, k1[2], k2[3], k2[4], k3[3],
+                                        k3[4], fin_out), 0)
+        for k in KERNELS:
+            print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
+                  f"({self.kernels[k]['bound_by']})")
         print(f"  lane-sweeps/s kernel {runs['kernel']} plain "
               f"{runs['plain']}")
         return True
@@ -928,6 +1167,21 @@ class Smoke:
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
+        # bounds: wh and the product are needed at the nonzeros of X
+        # only (x / wh = 0 elsewhere), 2 r flops each a nonzero and lane
+        nnz = int((x != 0).sum())
+        nb = len(pairs)
+        self.set_bound("ml_hpass", nbytes(x, w0, h0, mlk.ml_hpass(x, w0, h0)),
+                       4 * 16 * nnz * nb)
+        self.set_bound("ml_wpass", nbytes(x, w0, h0, mlk.ml_wpass(x, w0, h0)),
+                       4 * 16 * nnz * nb)
+        self.set_bound("ml_xlog_sum", nbytes(part, mlk.ml_xlog_sum(part)),
+                       part.numel(),
+                       library_ms=cuda_ms(lambda: part.sum(1), 20))
+        for k in ML_KERNELS:
+            print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
+                  f"({self.kernels[k]['bound_by']}), library "
+                  f"{self.kernels[k]['library_ms']}")
         print(f"  lane-sweeps/s kernel {runs['kernel']} plain "
               f"{runs['plain']}")
         return bool(np.isfinite(f.measure.drop(columns="rank").values).all())
@@ -1137,7 +1391,35 @@ class Smoke:
         m3p = cuda_ms(lambda: mlk.xlog_sum_plain(part), 20)
         print(f"  ml_xlog_sum on S1's {part.shape[1]} partials a lane: "
               f"kernel {m3:.4f} ms, plain {m3p:.4f} ms")
-        del tc, lw, lh, lht, a, part
+        # bounds: S1 forms wth and swn at each nonzero (4 r flops a
+        # nonzero and lane), S2 shn (2 r); S2's function is one SpMM
+        # for all lanes, shn^T = blockdiag_b(A_b^T) lw with A_b the
+        # pattern of X holding lane b's a: torch.sparse.mm times it
+        nbl, nnz = a.shape
+        s1 = spk.sp_rowpass(tc, lw, lht)
+        s2 = spk.sp_colpass(tc, a, lw)
+        self.set_bound("sp_rowpass", nbytes(tc.indptr, tc.col, tc.val, lw,
+                                            lht, s1), 4 * 16 * nnz * nbl)
+        rows = tc.csr_rows()
+        off = torch.arange(nbl, device=dev)[:, None]
+        blk = torch.sparse_coo_tensor(
+            torch.stack([(tc.col.long()[None] + off * m).reshape(-1),
+                         (rows[None] + off * n).reshape(-1)]),
+            a.reshape(-1), (nbl * m, nbl * n)).coalesce().to_sparse_csr()
+        lw_flat = lw.reshape(nbl * n, 16)
+        lib = torch.sparse.mm(blk, lw_flat).view(nbl, m, 16)
+        lib_err = float((lib.transpose(-1, -2) - s2).abs().max())
+        self.set_bound("sp_colpass", nbytes(tc.colptr, tc.row, tc.perm, a,
+                                            lw, s2), 2 * 16 * nnz * nbl,
+                       library_ms=cuda_ms(
+                           lambda: torch.sparse.mm(blk, lw_flat), 20))
+        for k in SP_KERNELS:
+            print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
+                  f"({self.kernels[k]['bound_by']}), library "
+                  f"{self.kernels[k]['library_ms']}")
+        print(f"  torch.sparse.mm (one call, {nbl} lanes block-diagonal) "
+              f"agrees with S2 to {lib_err:.3g} absolute")
+        del tc, lw, lh, lht, a, part, s1, s2, blk, lib
         torch.cuda.empty_cache()
 
         # the atlas leg: capacity, not speed
@@ -1164,10 +1446,280 @@ class Smoke:
         return (ok and bool(np.isfinite(f.measure["lml"]).all())
                 and min(counts.values()) > 0)
 
+    # -- 11 -----------------------------------------------------------
+    def epi_kernel_vs_plain(self):
+        import torch
+
+        from ccfindr_tpu_torch.ops import vb
+        from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        if self.xgm is None:
+            self.xgm = planted_gm()
+        cases = [("ragged", planted(737, 450, 5, seed=1),
+                  [rk for rk in range(2, 9) for _ in range(3)], 8,
+                  (torch.int8, torch.float32)),
+                 ("full-width", self.xgm, [16] * 3, 16, (torch.int8,))]
+        ok_all = True
+        for cname, x_np, ranks, r, xdts in cases:
+            for dt in (torch.float64, torch.float32):
+                for xdt in xdts:
+                    x, lw, lh, eh, sc, kw = epi_inputs(x_np, ranks, r, dt,
+                                                       xdt, 3, dev)
+                    tag = f"{cname} {str(dt)[6:]} X={str(xdt)[6:]}"
+                    for layout in ("gm", "cm"):
+                        for bf16 in (False, True):
+                            res = compare_fused(x, lw, lh, layout, bf16, dt)
+                            print(f"  {tag} E1 {layout} bf16={int(bf16)}: "
+                                  f"{'ok' if res['ok'] else 'MISMATCH'} "
+                                  + " ".join(f"{k}={v:.3g}" for k, v in
+                                             res["err"].items())
+                                  + f" deterministic={res['deterministic']}",
+                                  flush=True)
+                            ok_all = ok_all and res["ok"]
+                            if (cname == "full-width" and not bf16
+                                    and dt == torch.float32):
+                                for k, v in res["abs_err"].items():
+                                    self.kernels[k]["max_abs_err"] = v
+                    m_live = kw["m"] - 7 if cname == "ragged" else kw["m"]
+                    for ml in sorted({kw["m"], m_live}):
+                        res = compare_epi_post(x, lw, lh, eh, sc, kw, dt, ml)
+                        print(f"  {tag} E2/E3 m_live={ml}: "
+                              f"{'ok' if res['ok'] else 'MISMATCH'} "
+                              + " ".join(f"{k}={v:.3g}" for k, v in
+                                         res["err"].items())
+                              + f" deterministic={res['deterministic']}",
+                              flush=True)
+                        ok_all = ok_all and res["ok"]
+                        if cname == "full-width" and dt == torch.float32:
+                            for k, v in res["abs_err"].items():
+                                self.kernels[k]["max_abs_err"] = v
+                    if cname == "ragged":
+                        res = compare_epi_sweep(x, lw, lh, eh, sc, kw, dt)
+                        print(f"  {tag} sweep E1-E3+K4: "
+                              f"{'ok' if res['ok'] else 'MISMATCH'} "
+                              + " ".join(f"{k}={v:.3g}" for k, v in
+                                         res["err"].items()), flush=True)
+                        ok_all = ok_all and res["ok"]
+                    del x, lw, lh, eh, sc
+                    torch.cuda.empty_cache()
+        print(f"  tolerances: f64 {F64_TOL:g}; f32 swn/shn/factors/hypers "
+              f"{F32_FACTOR_TOL:g}, xlog and elbo per element "
+              f"{F32_ELBO_TOL:g}")
+
+        # the loop: vb_run_epi on the bundled lanes (phase 3's QC, ranks
+        # 2..8 x 3, rmax 8, the driver's seed-0 draws) equals vb_run_sol
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        xb = torch.as_tensor(s.counts_dense(dtype=np.float32)
+                             .astype(np.int16), device=dev)
+        n, m = xb.shape
+        ranks = np.repeat(np.arange(2, 9), 3)
+
+        def lanes(dt):
+            gen = torch.Generator().manual_seed(0)
+            h1 = vb.Hyper(1.0, 1.0, 1.0, 1.0)
+            sts = [vb.vb_init_random(gen, n, m, 8, h1, dt, dev)
+                   for _ in ranks]
+            st = vb.VBState(*(torch.stack(f) for f in zip(*sts)))
+            hy = vb.Hyper(*(torch.ones(len(ranks), dtype=dt, device=dev),)
+                          * 4)
+            rm = torch.as_tensor((np.arange(8)[None] < ranks[:, None])
+                                 .astype(float), dtype=dt, device=dev)
+            rt = torch.as_tensor(ranks.astype(float), dtype=dt, device=dev)
+            return st, hy, dict(itmax=3000, rank_mask=rm, r_true=rt)
+
+        # E1 'cm' is reached by vb_run_epi(layout='cm'): its run, float32
+        st, hy, kw = lanes(torch.float32)
+        vbk.reset_launches()
+        epi.reset_launches()
+        sol.reset_launches()
+        out = epi.vb_run_epi(xb, st, hy, layout="cm", **kw)
+        torch.cuda.synchronize()
+        counts = dict(vbk.LAUNCHES, **epi.LAUNCHES)
+        self.kernels["fused_xpass_cm"]["launches"] = counts["fused_xpass_cm"]
+        ok_cm = (counts["fused_xpass_cm"] > 0 and counts["fused_xpass_gm"] == 0
+                 and counts["fused_xpass_cm"] == sol.LAUNCHES["finish"]
+                 and bool(torch.isfinite(out.lml).all()))
+        print(f"  vb_run_epi(layout='cm') float32, 21 bundled lanes: "
+              f"n_iter {out.n_iter.tolist()}, launches {counts}, K4 "
+              f"{sol.LAUNCHES['finish']}")
+        lw = st.lw.contiguous()
+        lh = st.lh.contiguous()
+        e1 = vbk.fused_xpass(xb, lw, lh, layout="cm")
+        k = "fused_xpass_cm"
+        self.kernels[k]["ms"] = cuda_ms(
+            lambda: vbk.fused_xpass(xb, lw, lh, layout="cm"), 20)
+        self.kernels[k]["plain_ms"] = cuda_ms(
+            lambda: vbk.fused_xpass_plain(xb, lw, lh), 20)
+        self.set_bound(k, nbytes(xb, lw, lh, e1),
+                       6 * 8 * int((xb != 0).sum()) * len(ranks))
+        print(f"  {k} at this shape: kernel {self.kernels[k]['ms']:.4f} ms, "
+              f"plain {self.kernels[k]['plain_ms']:.4f} ms, bound "
+              f"{self.kernels[k]['bound_ms']:.4f} ms "
+              f"({self.kernels[k]['bound_by']})", flush=True)
+
+        # float64: both layouts of vb_run_epi equal vb_run_sol
+        st, hy, kw = lanes(torch.float64)
+        a = sol.vb_run_sol(xb, st, hy, **kw)
+        ok64 = True
+        for layout in ("gm", "cm"):
+            b = epi.vb_run_epi(xb, st, hy, layout=layout, **kw)
+            same = bool(torch.equal(a.n_iter, b.n_iter))
+            lml_err = rel_err(b.lml, a.lml)
+            print(f"  float64 vb_run_epi({layout!r}) vs vb_run_sol: n_iter "
+                  f"equal {same} ({b.n_iter.tolist()}), lml rel "
+                  f"{lml_err:.3g}", flush=True)
+            ok64 = ok64 and same and lml_err <= 1e-9
+        return ok_all and ok_cm and ok64
+
+    # -- 12 -----------------------------------------------------------
+    def gene_major(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import vb
+        from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        if self.xgm is None:
+            self.xgm = planted_gm()
+        x_np = self.xgm
+        n, m = x_np.shape
+        ranks, nrun, itmax = [8, 12, 16], 2, 100
+        layout = vbk._fused_layout(sol.round_up(n, vbk.DEFAULT_BN),
+                                   sol.round_up(m, vbk.DEFAULT_BM), 16)
+        print(f"  X {n} x {m}: the driver's layout is {layout!r}")
+        kw = dict(ranks=ranks, nrun=nrun, Itmax=itmax, backend="pallas",
+                  device="cuda", verbose=0, seed=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for mod in (sol, vbk, epi):
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        start.record()
+        f = ct.vb_factorize(x_np, **kw)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end) / 1e3
+        counts = dict(sol.LAUNCHES, **vbk.LAUNCHES, **epi.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec = f.metadata["timings"][0]
+        ls = rec["lane_sweeps_executed"]
+        print(f"  vb_factorize gene-major (ranks {ranks}, nrun {nrun}, "
+              f"Itmax {itmax}): wall {wall:.3f} s, loop {rec['seconds']:.3f}"
+              f" s, {ls} lane-sweeps -> {ls / rec['seconds']:.1f} "
+              f"lane-sweeps/s of loop ({ls / wall:.1f} of wall), peak "
+              f"device memory {peak:.3f} GiB, n_iter {rec['n_iter']}")
+        print(f"  launches {counts}")
+        print(f.measure.to_string())
+        path = ("fused_xpass_gm", "fused_sum", "epi_w_post", "epi_h_post")
+        for k in path:
+            self.kernels[k]["launches"] = counts[k]
+        ok = (layout == "gm"
+              and bool(np.isfinite(f.measure["lml"]).all())
+              and counts["fused_xpass_gm"] > 0
+              and len({counts[k] for k in path + ("finish",)}) == 1
+              and counts["xpass"] == counts["w_post"] == counts["h_post"]
+              == counts["fused_xpass_cm"] == 0)
+        nb = len(ranks) * nrun
+        xt = torch.as_tensor(x_np, device=dev)
+        lw6 = torch.empty(nb, n, 16, device=dev)
+        chunk = vbk.fused_chunk(xt, lw6, "gm")
+        pbytes = nb * -(-n // chunk) * 16 * m * 4
+        print(f"  E1 'gm' chunk {chunk} genes: shn partials {pbytes / 1e9:.3f}"
+              f" GB a sweep for {nb} lanes, X {xt.numel() / 1e9:.3f} GB")
+        del lw6
+
+        # beside it, for comparison only: the same lanes (the driver's
+        # seed-0 draws) through the cell-major loop vb_run_sol
+        gen = torch.Generator().manual_seed(0)
+        h1 = vb.Hyper(1.0, 1.0, 1.0, 1.0)
+        sts = [vb.vb_init_random(gen, n, m, 16, h1, torch.float32, dev)
+               for _ in range(nb)]
+        st = vb.VBState(*(torch.stack(t) for t in zip(*sts)))
+        del sts
+        hy = vb.Hyper(*(torch.ones(nb, device=dev),) * 4)
+        ra = np.repeat(ranks, nrun)
+        rm = torch.as_tensor((np.arange(16)[None] < ra[:, None])
+                             .astype(np.float32), device=dev)
+        rt = torch.as_tensor(ra.astype(np.float32), device=dev)
+        torch.cuda.synchronize()
+        start.record()
+        out = sol.vb_run_sol(xt, st, hy, itmax=itmax, rank_mask=rm,
+                             r_true=rt)
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+        ls_sol = nb * (int(out.n_iter.max()) + 1)
+        best = out.lml.view(len(ranks), nrun).max(1).values.tolist()
+        print(f"  vb_run_sol on the same lanes: {secs:.3f} s, {ls_sol} "
+              f"lane-sweeps -> {ls_sol / secs:.1f} lane-sweeps/s, n_iter "
+              f"{out.n_iter.tolist()}, best lml a rank {best} (gene-major "
+              f"{f.measure['lml'].tolist()})", flush=True)
+        del out, st
+        torch.cuda.empty_cache()
+
+        # per-kernel times at 3 lanes of r = 16 (float32, int8 X): the
+        # plain versions are held to one sweep at that batch
+        x, lw, lh, eh, sc, kwi = epi_inputs(x_np, [16] * 3, 16,
+                                            torch.float32, torch.int8, 3,
+                                            dev)
+        e1 = vbk.fused_xpass(x, lw, lh, layout="gm")
+        swn, shn, xlog = vbk.fused_pallas_raw(x, lw, lh, layout="gm")
+        ehs = eh.sum(-1, dtype=torch.float64)
+        e2 = epi.epi_w_post(swn, lw, ehs[:, None], sc, 16, n)
+        e3 = epi.epi_h_post(shn, lh, e2[3], sc, 16, m, m)
+        a = [sc[:, q].float() for q in range(6)]  # aw bw ah bh fudge r_live
+        timed = {
+            "fused_xpass_gm": (
+                lambda: vbk.fused_xpass(x, lw, lh, layout="gm"),
+                lambda: fused_plain(x, lw, lh, False), 5),
+            "fused_sum": (lambda: vbk.fused_sum(e1[1], e1[2]),
+                          lambda: e1[1].sum(1, dtype=torch.float64)
+                          .float(), 20),
+            "epi_w_post": (
+                lambda: epi.epi_w_post(swn, lw, ehs[:, None], sc, 16, n),
+                lambda: sol.post_plain(swn.transpose(-1, -2),
+                                       lw.transpose(-1, -2), ehs, *a[:2],
+                                       *a[4:], 16, n), 20),
+            "epi_h_post": (
+                lambda: epi.epi_h_post(shn, lh, e2[3], sc, 16, m, m),
+                lambda: sol.post_plain(shn, lh, e2[3].sum(1), *a[2:], 16, m),
+                20),
+        }
+        for k, (kern, plain, reps) in timed.items():
+            self.kernels[k]["ms"] = cuda_ms(kern, reps)
+            self.kernels[k]["plain_ms"] = cuda_ms(plain, 3)
+        nnz = int((x != 0).sum())
+        self.set_bound("fused_xpass_gm", nbytes(x, lw, lh, e1),
+                       6 * 16 * nnz * 3)
+        self.set_bound("fused_sum", nbytes(e1[1], e1[2], swn, xlog), 0,
+                       library_ms=cuda_ms(lambda: e1[1].sum(1), 20))
+        self.set_bound("epi_w_post", nbytes(swn, lw, ehs, sc, e2),
+                       POST_OPS * 3 * 16 * n)
+        self.set_bound("epi_h_post", nbytes(shn, lh, e2[3], sc, e3),
+                       POST_OPS * 3 * 16 * m)
+        for k in timed:
+            kk = self.kernels[k]
+            print(f"  {k}: kernel {kk['ms']:.4f} ms, plain "
+                  f"{kk['plain_ms']:.4f} ms, bound {kk['bound_ms']:.4f} ms "
+                  f"({kk['bound_by']}), library {kk['library_ms']}",
+                  flush=True)
+        return ok
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -1194,15 +1746,26 @@ def main(argv=None):
               "7": ("ml-10x-scale", smoke.ml_scale),
               "8": ("sparse-kernel-vs-plain", smoke.sparse_kernel_vs_plain),
               "9": ("sparse-workflow", smoke.sparse_workflow),
-              "10": ("sparse-scale", smoke.sparse_scale)}
+              "10": ("sparse-scale", smoke.sparse_scale),
+              "11": ("gene-major-kernels-vs-plain",
+                     smoke.epi_kernel_vs_plain),
+              "12": ("gene-major-slice", smoke.gene_major)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted
+    t0 = time.perf_counter()
     for p in wanted:
         smoke.phase(*phases[p])
+    print(f"chip_smoke: phases {','.join(wanted)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if "jax" in sys.modules:
         print("chip_smoke: JAX was imported", file=sys.stderr)
         smoke.failed.append("no-jax")
+    missing = sorted({k for kd in smoke.kernels.values() for k in KEYS
+                      if k not in kd})
+    if len(wanted) == len(phases) and missing:
+        print(f"chip_smoke: kernels line lacks {missing}", file=sys.stderr)
+        smoke.failed.append("kernels-line")
     if smoke.failed:
         print(f"chip_smoke: FAILED phases {smoke.failed}", file=sys.stderr)
         return 1

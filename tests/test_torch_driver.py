@@ -187,6 +187,16 @@ def test_port_never_imports_jax():
             "g = ct.factorize(x, ranks=[2], nrun=2, Itmax=20, verbose=0,\n"
             "                 backend='sparse', device='cpu')\n"
             "ct.meta_gene_cv(f, rank=2)\n"
+            "from ccfindr_tpu_torch.ops.kernels import epilogue, vb_kernels\n"
+            "import torch\n"
+            "st = epilogue.vb_run_epi(torch.tensor(x, dtype=torch.int16),\n"
+            "    ct.ops.vb.VBState(\n"
+            "    *(torch.stack([f]) for f in ct.ops.vb.vb_init_random(\n"
+            "        torch.Generator(), 12, 15, 2,\n"
+            "        ct.ops.vb.Hyper(1.0, 1.0, 1.0, 1.0), torch.float64,\n"
+            "        device='cpu'))),\n"
+            "    ct.ops.vb.Hyper(*(torch.ones(1).double(),) * 4),\n"
+            "    itmax=5, layout='gm')\n"
             "ct.read_10x(pbmc_sim_dir())\n"
             "assert len(s.measure) >= 1 and len(f.measure) == 2\n"
             "assert len(t.measure) == 1 and len(g.measure) == 1\n"
@@ -220,7 +230,7 @@ def test_dtype_follows_device(small):
     (dict(compact_every=5), "A3"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
     (dict(backend="pallas2pass"), "B5"),
-    (dict(precision="bf16", backend="pallas"), "B1"),
+    (dict(precision="bf16", backend="sparse"), "B9"),
     (dict(initializer="svd2", svd_method="randomized"), "A8"),
 ])
 def test_options_not_ported_raise(small, kw, item):

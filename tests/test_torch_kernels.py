@@ -1,6 +1,7 @@
-"""CUDA kernels K1-K4 (csrc/sol.cu), M1-M3 (csrc/ml.cu) and S1/S2
-(csrc/sparse.cu) against their plain PyTorch versions, on the card.  The kernels have no CPU mode, so every test here is
-marked ``cuda`` and skips without a CUDA device.  The module imports
+"""CUDA kernels K1-K4 (csrc/sol.cu), M1-M3 (csrc/ml.cu), S1/S2
+(csrc/sparse.cu) and E1, E1s, E2, E3 (csrc/epi.cu) against their plain
+PyTorch versions, on the card.  The kernels have no CPU mode, so every
+test here is marked ``cuda`` and skips without a CUDA device.  The module imports
 no JAX, so on a machine with a card (and without JAX) it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -18,7 +19,9 @@ import scipy.sparse as sp
 import torch
 
 from ccfindr_tpu_torch.ops import tile
+from ccfindr_tpu_torch.ops.kernels import epilogue as epi
 from ccfindr_tpu_torch.ops.kernels import ml, sol
+from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 from ccfindr_tpu_torch.ops.kernels import sparse as spk
 from ccfindr_tpu_torch.ops.ml import likelihood_const
 from ccfindr_tpu_torch.ops.sparse import fold_dterm
@@ -268,3 +271,138 @@ def test_sparse_wrappers_refuse_bad_input():
     tc.val = tc.val.to(torch.int8)
     with pytest.raises(TypeError, match="values"):
         spk.rowpass(tc, lw, lht)
+
+
+def _epi_inputs(n, m, r, lanes, dt, xdt, dev, seed=0):
+    """The gene-major sweep's inputs: lw (B, n, rp) row-major, lh and
+    eh (B, rp, m), sc; lane b's rank rows [lanes[b], r) at fudge."""
+    x, lwt, lh, eh, sc = _inputs(n, m, r, lanes, dt, xdt, dev, seed)
+    return x, lwt.transpose(-1, -2).contiguous(), lh, eh, sc
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("layout", ["gm", "cm"])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,lanes,xdt", [
+    (300, 700, 6, [3, 4, 5, 6], torch.int8),
+    (1030, 517, 16, [16, 9], torch.int16),
+    (257, 1100, 40, [40, 33], torch.float32),
+    (140, 600, 128, [128, 100], torch.float64),
+])
+def test_fused_xpass_matches_plain(n, m, r, lanes, xdt, dt, layout, bf16):
+    """E1 + E1s against the plain X pass (swn, shn, xlog)."""
+    dev = _card()
+    x, lw, lh, _, _ = _epi_inputs(n, m, r, lanes, dt, xdt, dev)
+    vbk.reset_launches()
+    got = vbk.fused_pallas_raw(x, lw, lh, layout=layout, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    assert vbk.LAUNCHES == {"fused_xpass_cm": int(layout == "cm"),
+                            "fused_xpass_gm": int(layout == "gm"),
+                            "fused_sum": 1}
+    want = vbk.fused_xpass_plain(x, lw, lh, mxu_bf16=bf16)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _rel(g, w) <= tol
+    # xlog per element, as the ELBO reads it
+    assert _rel(got[2] / (n * m), want[2] / (n * m)) <= (
+        1e-10 if dt == torch.float64 else 1e-5)
+
+
+def test_fused_sum_matches_plain():
+    dev = _card()
+    part = torch.rand(3, 7, 5, 333, dtype=torch.float64, device=dev)
+    xpart = torch.rand(3, 7, dtype=torch.float64, device=dev)
+    out, xlog = vbk.fused_sum(part, xpart)
+    assert torch.allclose(out, part.sum(1), rtol=1e-14)
+    assert torch.allclose(xlog, xpart.sum(1), rtol=1e-14)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,lanes,xdt,m_live", [
+    (300, 700, 6, [3, 4, 5, 6], torch.int8, 700),
+    (1030, 517, 16, [16, 9], torch.int16, 500),
+    (140, 600, 128, [128, 100], torch.float64, 600),
+])
+def test_epilogue_kernels_match_plain(n, m, r, lanes, xdt, m_live, dt):
+    """E2 + E3 against their plain version on the same X-pass outputs,
+    and the whole gene-major sweep (E1, E1s, E2, E3, K4)."""
+    dev = _card()
+    x, lw, lh, eh, sc = _epi_inputs(n, m, r, lanes, dt, xdt, dev)
+    swn, shn, _ = vbk.fused_xpass_plain(x, lw, lh)
+    ehs = eh.sum(-1, dtype=torch.float64)
+    epi.reset_launches()
+    ew, lwn, dw, csum_p, wscal_p = epi.epi_w_post(swn, lw, ehs[:, None],
+                                                  sc, r, n)
+    ehn, lhn, dh, rsum_p, hscal_p = epi.epi_h_post(shn, lh, csum_p, sc, r,
+                                                   m_live, m)
+    torch.cuda.synchronize()
+    assert epi.LAUNCHES == {"epi_w_post": 1, "epi_h_post": 1}
+    want = epi._post_plain(swn, shn, lw, lh, ehs, sc, r, n, m_live, m)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    # the factors and the rank sums; the four scalar sums (U, sum e,
+    # sum log l, dterm) reach the hypers and the ELBO, checked below
+    for g, w in zip((ew, lwn, dw, csum_p.sum(1), ehn, lhn, dh,
+                     rsum_p.sum(1)), want[:4] + want[5:9]):
+        assert g.shape == w.shape and _rel(g, w) <= tol
+
+    got = epi.epi_sweep(x, lw, lh, eh, sc, n=n, m=m, r=r, layout="gm",
+                        m_live=m_live)
+    want = epi.epi_sweep_plain(x, lw, lh, eh, sc, n=n, m=m, r=r,
+                               m_live=m_live)
+    for g, w in zip(got[:6], want[:6]):
+        assert g.dtype == dt and _rel(g, w) <= tol
+    gs, ws = got[6], want[6]
+    for slot in (sol.AW, sol.BW, sol.AH, sol.BH):
+        assert _rel(gs[:, slot], ws[:, slot]) <= tol
+    assert _rel(gs[:, sol.PEND] + gs[:, sol.DTERM],
+                ws[:, sol.PEND] + ws[:, sol.DTERM]) <= (
+        1e-10 if dt == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["gm", "cm"])
+def test_gene_major_sweep_is_deterministic(layout):
+    dev = _card()
+    x, lw, lh, eh, sc = _epi_inputs(2000, 3000, 16, [16, 12, 8],
+                                    torch.float32, torch.int8, dev, seed=3)
+    a = epi.epi_sweep(x, lw, lh, eh, sc, n=2000, m=3000, r=16,
+                      layout=layout)
+    b = epi.epi_sweep(x, lw, lh, eh, sc, n=2000, m=3000, r=16,
+                      layout=layout)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_sweep_kernels_bf16_match_plain():
+    """K1 with mxu_bf16 (precision='bf16' on the cell-major sweep)."""
+    dev = _card()
+    x, lwt, lh, eh, sc = _inputs(1030, 517, 16, [16, 9], torch.float32,
+                                 torch.int8, dev)
+    got = sol.xpass(x, lwt, lh, eh, sc, mxu_bf16=True)
+    want = sol.xpass_plain(x, lwt, lh, eh, sc, mxu_bf16=True)
+    assert _rel(got[0].sum(1), want[0]) <= 2e-4
+    assert _rel(got[1].sum(1), want[1]) <= 2e-4
+    assert not torch.equal(got[0], sol.xpass(x, lwt, lh, eh, sc)[0])
+
+
+def test_gene_major_wrappers_refuse_bad_input():
+    dev = _card()
+    x, lw, lh, eh, sc = _epi_inputs(50, 60, 4, [4, 3], torch.float64,
+                                    torch.int8, dev)
+    with pytest.raises(ValueError, match="several devices"):
+        vbk.fused_pallas_raw(x.cpu(), lw, lh)
+    with pytest.raises(ValueError, match="contiguous"):
+        vbk.fused_pallas_raw(x, lw.transpose(0, 1).contiguous()
+                             .transpose(0, 1), lh)
+    with pytest.raises(ValueError, match="layout"):
+        vbk.fused_pallas_raw(x, lw, lh, layout="rows")
+    with pytest.raises(TypeError):
+        vbk.fused_pallas_raw(x, lw, lh.float())
+    with pytest.raises(ValueError, match="rank"):
+        vbk.fused_pallas_raw(x, lw.new_ones(2, 50, 136),
+                             lh.new_ones(2, 136, 60))
+    with pytest.raises(ValueError, match="CUDA"):
+        vbk.fused_xpass(x.cpu(), lw.cpu(), lh.cpu(), layout="gm")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        epi.epi_sweep(x, lw, lh[..., :59].contiguous(), eh, sc, n=50, m=60,
+                      r=4)

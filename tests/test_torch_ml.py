@@ -247,8 +247,8 @@ def test_hard_assign_takes_the_first_maximal_index():
 def test_ml_init_and_state_carry():
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    w, h = tml.ml_init(g1, 5, 7, 3, torch.float32)
-    w2, h2 = tml.ml_init(g2, 5, 7, 3, torch.float64)
+    w, h = tml.ml_init(g1, 5, 7, 3, torch.float32, device="cpu")
+    w2, h2 = tml.ml_init(g2, 5, 7, 3, torch.float64, device="cpu")
     assert w.shape == (5, 3) and h.shape == (3, 7) and w.dtype == torch.float32
     assert torch.equal(w, w2.float()) and ((h2 >= 0) & (h2 < 1)).all()
     key = jax.random.PRNGKey(0)
@@ -256,11 +256,11 @@ def test_ml_init_and_state_carry():
         jnp.ones((5, 7)), *jml.ml_init(k, 5, 7, 2, jnp.float64),
         itmax=3))(jax.random.split(key, 2))
     carried = tml.ml_state_from_numpy(
-        type(res)(*(np.asarray(f) for f in res)))
+        type(res)(*(np.asarray(f) for f in res)), device="cpu")
     assert isinstance(carried, tml.MLRunResult)
     assert carried.w.shape == (2, 5, 2) and carried.w.dtype == torch.float64
     back = tml.ml_state_to_numpy(carried)
     np.testing.assert_array_equal(back.h, np.asarray(res.h))
     pair = tml.ml_state_from_numpy((np.ones((2, 5, 2)), np.ones((2, 2, 7))),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, device="cpu")
     assert isinstance(pair, tuple) and pair[1].dtype == torch.float32

@@ -140,7 +140,7 @@ def _batched_pair(ranks, itmax, elbo_every=1, seed=0):
             JHyper(*(jnp.ones(nb),) * 4), jnp.asarray(rmask),
             jnp.asarray(rtrue))
     tout = tsol.vb_run_sol(
-        _t(x, torch.int16), tvb.state_from_numpy(st),
+        _t(x, torch.int16), tvb.state_from_numpy(st, device="cpu"),
         tvb.Hyper(*(torch.ones(nb, dtype=torch.float64),) * 4),
         rank_mask=_t(rmask), r_true=_t(rtrue), **kw)
     return jax.tree.map(np.asarray, jout), tvb.state_to_numpy(tout)
@@ -181,7 +181,7 @@ def test_vb_run_sol_sparse_host_checks_are_exact(monkeypatch):
     x = torch.tensor(_planted(n, m, r, seed=8), dtype=torch.int8)
     gen = torch.Generator().manual_seed(1)
     hy1 = tvb.Hyper(1.0, 1.0, 1.0, 1.0)
-    sts = [tvb.vb_init_random(gen, n, m, r, hy1, torch.float64)
+    sts = [tvb.vb_init_random(gen, n, m, r, hy1, torch.float64, device="cpu")
            for _ in range(nb)]
     st = tvb.VBState(*(torch.stack(f) for f in zip(*sts)))
     hy = tvb.Hyper(*(torch.ones(nb, dtype=torch.float64),) * 4)

@@ -69,7 +69,7 @@ def _close(got, want, rtol=RTOL, what=""):
 def test_tile_layout_round_trips_to_scipy(integer):
     csr = _values(_problem(seed=3)[0], integer)
     csr.data[5] = 0.0                      # an explicit zero is dropped
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     assert tc.val.dtype == (torch.int16 if integer else torch.float64)
     ref = sp.csr_matrix(csr)
     ref.eliminate_zeros()
@@ -94,11 +94,12 @@ def test_tile_layout_round_trips_to_scipy(integer):
 def test_tile_layout_keeps_empty_rows_and_wide_values():
     x = np.zeros((6, 5))
     x[0, 1], x[3, 4], x[5, 0] = 2.0, 40000.0, 1.5
-    tc = ttk.from_dense_tile(x, dtype=torch.float64)
+    tc = ttk.from_dense_tile(x, dtype=torch.float64, device="cpu")
     assert tc.val.dtype == torch.float64   # not integers below 2**15
     np.testing.assert_array_equal(tc.indptr.numpy(), [0, 1, 1, 1, 2, 2, 3])
     assert (tc.to_scipy() != sp.csr_matrix(x)).nnz == 0
-    tc16 = ttk.from_dense_tile(np.minimum(x, 7).round(), dtype=torch.float32)
+    tc16 = ttk.from_dense_tile(np.minimum(x, 7).round(), dtype=torch.float32,
+                               device="cpu")
     assert tc16.val.dtype == torch.int16
 
 
@@ -107,7 +108,7 @@ def test_tile_layout_keeps_empty_rows_and_wide_values():
 def test_fused_tile_matches_jax(nb, integer):
     csr, lw, lh = _problem(nb=nb, seed=nb)
     csr = _values(csr, integer)
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     swn, shn, dterm = ttk.fused_tile(tc, torch.as_tensor(lw),
                                      torch.as_tensor(lh))
     jt = jtk.from_scipy_tile(csr, dtype=jnp.float64, quantile=0.5)
@@ -129,7 +130,7 @@ def test_plain_passes_match_jax_over_chunks(monkeypatch):
     pass over the row pass's ``a`` gives the row pass's own ``shn``."""
     monkeypatch.setattr(tsk, "CHUNK", 97)
     csr, lw, lh = _problem(nb=2, seed=5)
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     assert tc.nnz > 3 * tsk.CHUNK
     lw_t, lh_t = torch.as_tensor(lw), torch.as_tensor(lh)
     lht = lh_t.transpose(-1, -2).contiguous()
@@ -151,7 +152,7 @@ def test_plain_passes_match_jax_over_chunks(monkeypatch):
 @pytest.mark.parametrize("nb", [1, 3])
 def test_tile_ml_phases_match_jax(nb):
     csr, w, h = _problem(nb=nb, seed=7 + nb)
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     jt = jtk.from_scipy_tile(csr, dtype=jnp.float64, quantile=0.5)
     fh, fw = ttk.make_tile_ml_backend()
     hn, xlog = fh(tc, torch.as_tensor(w), torch.as_tensor(h))
@@ -172,7 +173,7 @@ def test_row_pass_skips_xlog_only_where_asked():
     as they were; the ML subsets of the row pass agree with the full
     pass."""
     csr, lw, lh = _problem(nb=3, seed=11)
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     lw_t = torch.as_tensor(lw)
     lht = torch.as_tensor(lh).transpose(-1, -2).contiguous()
     swn, a, xlog = spk.rowpass(tc, lw_t, lht)
@@ -193,7 +194,7 @@ def test_row_pass_skips_xlog_only_where_asked():
 
 def test_sparse_wrappers_refuse_what_the_kernels_do_not_take():
     csr, lw, lh = _problem(nb=2, seed=12)
-    tc = ttk.from_scipy_tile(csr, dtype=torch.float64)
+    tc = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
     lw_t = torch.as_tensor(lw)
     lht = torch.as_tensor(lh).transpose(-1, -2).contiguous()
     with pytest.raises(ValueError, match="do not match"):
@@ -231,13 +232,13 @@ def _state0(n, m, r, nb, seed):
 def test_loop_scalars_take_lgamma_over_val():
     """The hoisted sum lgamma(x+1) from a sparse layout's .val equals the
     dense sum (the repair of ops.vb._loop_scalars)."""
-    st = tvb.state_from_numpy(_state0(40, 60, 3, 2, 1))
+    st = tvb.state_from_numpy(_state0(40, 60, 3, 2, 1), device="cpu")
     for integer in (True, False):       # int16 and float64 values
         csr = _values(_problem(seed=13)[0], integer)
         dense = tvb._loop_scalars(torch.as_tensor(csr.toarray()), st, None,
                                   1e-5, None, 1)[2]
         want = gammaln(csr.toarray() + 1.0).sum()
-        layout = ttk.from_scipy_tile(csr, dtype=torch.float64)
+        layout = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
         lgx = tvb._loop_scalars(layout, st, None, 1e-5, None, 1)[2]
         assert lgx.dtype == torch.float64
         _close(float(lgx), float(dense))
@@ -252,7 +253,7 @@ def test_likelihood_const_takes_val():
         dense = tml.likelihood_const(torch.as_tensor(csr.toarray()))
         jt = jtk.from_scipy_tile(csr, dtype=jnp.float64, quantile=0.5)
         want = float(jml.likelihood_const(jt.val))
-        layout = ttk.from_scipy_tile(csr, dtype=torch.float64)
+        layout = ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu")
         got = tml.likelihood_const(layout, torch.float64)
         _close(float(got), float(dense))
         _close(float(got), want)
@@ -275,8 +276,8 @@ def test_vb_run_over_tile_matches_jax(elbo_every):
     rmask = np.stack([(np.arange(r) < k).astype(np.float64) for k in ranks])
     kw = dict(itmax=120, tol=1e-6, elbo_every=elbo_every)
     out_t = tvb.vb_run(
-        ttk.from_scipy_tile(csr, dtype=torch.float64),
-        tvb.state_from_numpy(st),
+        ttk.from_scipy_tile(csr, dtype=torch.float64, device="cpu"),
+        tvb.state_from_numpy(st, device="cpu"),
         tvb.Hyper(*(torch.ones(len(ranks), dtype=torch.float64),) * 4),
         fused=ttk.make_tile_fused(), rank_mask=torch.as_tensor(rmask),
         r_true=torch.tensor(ranks, dtype=torch.float64), **kw)
@@ -309,9 +310,9 @@ def test_vb_run_over_tile_matches_dense():
     x[x.sum(axis=1) == 0, 0] += 1
     x[0, x.sum(axis=0) == 0] += 1
     x[x > 0] += 0.5
-    st = tvb.state_from_numpy(_state0(n, m, 2, 2, 32))
+    st = tvb.state_from_numpy(_state0(n, m, 2, 2, 32), device="cpu")
     hy = tvb.Hyper(*(torch.ones(2, dtype=torch.float64),) * 4)
-    tc = ttk.from_dense_tile(x, dtype=torch.float64)
+    tc = ttk.from_dense_tile(x, dtype=torch.float64, device="cpu")
     assert tc.val.dtype == torch.float64
     kw = dict(itmax=80, tol=1e-6)
     dense = tvb.vb_run(torch.as_tensor(x), st, hy, **kw)

@@ -56,8 +56,8 @@ def _close(got, want, rtol, what=""):
 def test_state_round_trip():
     st = _state_np(7, 9, 3)
     hy = _hyper_np()
-    t_st = tvb.state_from_numpy(st)
-    t_hy = tvb.state_from_numpy(hy, dtype=torch.float32)
+    t_st = tvb.state_from_numpy(st, device="cpu")
+    t_hy = tvb.state_from_numpy(hy, dtype=torch.float32, device="cpu")
     assert isinstance(t_st, tvb.VBState) and isinstance(t_hy, tvb.Hyper)
     assert t_st.ew.dtype == torch.float64 and t_hy.aw.dtype == torch.float32
     back = tvb.state_to_numpy(t_st)
@@ -65,7 +65,7 @@ def test_state_round_trip():
         np.testing.assert_array_equal(getattr(back, f), getattr(st, f))
     # a JAX state passes through np.asarray field by field as well
     jback = tvb.state_to_numpy(tvb.state_from_numpy(
-        jax.tree.map(np.asarray, _jstate(st))))
+        jax.tree.map(np.asarray, _jstate(st)), device="cpu"))
     np.testing.assert_array_equal(jback.lh, st.lh)
 
 
@@ -88,8 +88,10 @@ def test_posterior_update(r_true):
         jnp.asarray(sw), jnp.asarray(sh), _jstate(st),
         jax.tree.map(jnp.asarray, hy), fudge, lgx, **kw_j)
     new_t, pend_t = tvb.posterior_update(
-        torch.as_tensor(sw), torch.as_tensor(sh), tvb.state_from_numpy(st),
-        tvb.state_from_numpy(hy), torch.tensor(fudge, dtype=torch.float64),
+        torch.as_tensor(sw), torch.as_tensor(sh),
+        tvb.state_from_numpy(st, device="cpu"),
+        tvb.state_from_numpy(hy, device="cpu"),
+        torch.tensor(fudge, dtype=torch.float64),
         lgx, **kw_t)
     for f in ("ew", "eh", "lw", "lh", "dw", "dh"):
         _close(getattr(new_t, f), getattr(new_j, f), 1e-12, f)
@@ -107,8 +109,8 @@ def test_hyper_update(mask):
     hy = _hyper_np()
     hj, fj = jvb.hyper_update(mask, _jstate(st),
                               jax.tree.map(jnp.asarray, hy))
-    ht, ft = tvb.hyper_update(mask, tvb.state_from_numpy(st),
-                              tvb.state_from_numpy(hy))
+    ht, ft = tvb.hyper_update(mask, tvb.state_from_numpy(st, device="cpu"),
+                              tvb.state_from_numpy(hy, device="cpu"))
     for f in tvb.Hyper._fields:
         _close(getattr(ht, f), getattr(hj, f), 1e-12, f)
     assert bool(ft) == bool(fj)
@@ -120,7 +122,8 @@ def test_hyper_update_rank_mask_and_lanes():
     n, m, r = 10, 14, 4
     sts = [_state_np(n, m, r, seed=s) for s in (5, 6)]
     rts = [2, 4]
-    t_st = tvb.state_from_numpy(jax.tree.map(lambda *a: np.stack(a), *sts))
+    t_st = tvb.state_from_numpy(jax.tree.map(lambda *a: np.stack(a), *sts),
+                                device="cpu")
     hy = _hyper_np()
     t_hy = tvb.Hyper(*(torch.full((2,), float(v), dtype=torch.float64)
                        for v in hy))
@@ -154,8 +157,9 @@ def test_fused_dense_and_vb_sweep():
     lgx = float(gammaln(x + 1.0).sum())
     new_j = jvb.vb_sweep(jnp.asarray(x), _jstate(st),
                          jax.tree.map(jnp.asarray, hy), fudge, lgx)
-    new_t = tvb.vb_sweep(torch.as_tensor(x), tvb.state_from_numpy(st),
-                         tvb.state_from_numpy(hy),
+    new_t = tvb.vb_sweep(torch.as_tensor(x),
+                         tvb.state_from_numpy(st, device="cpu"),
+                         tvb.state_from_numpy(hy, device="cpu"),
                          torch.tensor(fudge, dtype=torch.float64), lgx)
     for f in jvb.VBState._fields:
         _close(getattr(new_t, f), getattr(new_j, f), 1e-10, f)
@@ -170,7 +174,8 @@ def _run_both(fused, itmax, ranks, r_pad, seed=0, **kw):
     nb = len(ranks)
     rmask = np.stack([(np.arange(r_pad) < k).astype(np.float64)
                       for k in ranks])
-    t_st = tvb.state_from_numpy(jax.tree.map(lambda *a: np.stack(a), *sts))
+    t_st = tvb.state_from_numpy(jax.tree.map(lambda *a: np.stack(a), *sts),
+                                device="cpu")
     t_hy = tvb.Hyper(*(torch.ones(nb, dtype=torch.float64),) * 4)
     out_t = tvb.vb_run(
         torch.as_tensor(x), t_st, t_hy, itmax=itmax, tol=1e-6,
@@ -214,7 +219,8 @@ def test_vb_run_resume_exact():
     n, m, r = 14, 20, 3
     x = torch.as_tensor(_planted(n, m, r, seed=9))
     st = tvb.state_from_numpy(jax.tree.map(lambda a: np.asarray(a)[None],
-                                           _state_np(n, m, r, seed=5)))
+                                           _state_np(n, m, r, seed=5)),
+                                device="cpu")
     hy = tvb.Hyper(*(torch.ones(1, dtype=torch.float64),) * 4)
     full = tvb.vb_run(x, st, hy, itmax=30, tol=0.0, fused=tvb.fused_dense)
     part = tvb.vb_run(x, st, hy, itmax=12, tol=0.0, fused=tvb.fused_dense)
@@ -233,19 +239,19 @@ def test_vb_init_svd_matches_jax(variant):
     sj = jvb.vb_init_svd(x, 3, hy, variant=variant, dtype=jnp.float64,
                          method="exact", seed=0)
     st = tvb.vb_init_svd(x, 3, hy, variant=variant, dtype=torch.float64,
-                         method="exact", seed=0)
+                         method="exact", seed=0, device="cpu")
     for f in ("ew", "eh", "lw", "lh"):
         _close(getattr(st, f), getattr(sj, f), 1e-12, f)
     with pytest.raises(NotImplementedError, match="A8"):
-        tvb.vb_init_svd(x, 3, hy, method="randomized")
+        tvb.vb_init_svd(x, 3, hy, method="randomized", device="cpu")
 
 
 def test_vb_init_random_generator():
     hy = tvb.Hyper(0.5, 2.0, 0.7, 1.5)
     a = tvb.vb_init_random(torch.Generator().manual_seed(3), 50, 60, 4, hy,
-                           torch.float64)
+                           torch.float64, device="cpu")
     b = tvb.vb_init_random(torch.Generator().manual_seed(3), 50, 60, 4, hy,
-                           torch.float32)
+                           torch.float32, device="cpu")
     assert a.ew.shape == (50, 4) and a.eh.shape == (4, 60)
     torch.testing.assert_close(a.ew.float(), b.ew)
     assert (a.ew > 0).all() and torch.equal(a.ew, a.lw)
