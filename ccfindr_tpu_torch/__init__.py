@@ -22,6 +22,7 @@ from .interpret import (meta_genes, meta_gene_cv, write_meta,  # noqa: F401
 from .tree import (build_tree, newick, rename_tips,  # noqa: F401
                    plot_tree)
 from .gsea import assign_celltype, assignCelltype  # noqa: F401
+from .checkpoint import save_checkpoint, load_checkpoint  # noqa: F401
 
 # reference-compatible dotted-name alias (R: meta_gene.cv)
 meta_gene = meta_gene_cv
@@ -40,4 +41,5 @@ __all__ = [
     "feature_map", "cell_map", "visualize_clusters", "gene_select",
     "build_tree", "newick", "rename_tips", "plot_tree",
     "assign_celltype", "assignCelltype",
+    "save_checkpoint", "load_checkpoint",
 ]

@@ -44,11 +44,18 @@
 // Arithmetic is FP32 (or FP64) FMAs in the factor type, exact IEEE
 // division and the exact libdevice log (no fast-math build).  As in the
 // JAX package's COO and tile paths, a non-positive wth is replaced by 1.
+// kBf16 is the tile kernel's mxu_bf16 (precision='bf16', ccfindr_tpu/
+// ops/tile.py:398-452): S1 rounds the gathered lw row and lh column to
+// bf16 before forming wth and rounds a = x/wth after the division (the
+// rounded a is what it sums and stores); S2 sums the rounded a against
+// the rounded lw row.  Sums and log(wth) stay in the factor type
+// (bf16.cuh).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "reduce.cuh"
 
 namespace ccfindr {
@@ -66,7 +73,7 @@ inline int group_of(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : r <= 16 ? 16 : 32;
 // ---------------------------------------------------------------------
 // S1 sp_rowpass
 // ---------------------------------------------------------------------
-template <typename T, typename XT, int G>
+template <typename T, typename XT, int G, bool kBf16>
 __global__ void __launch_bounds__(kSpThreads)
 sp_rowpass_kernel(const int64_t* __restrict__ indptr,
                   const int* __restrict__ col, const XT* __restrict__ val,
@@ -91,7 +98,7 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
 #pragma unroll
     for (int j = 0; j < KP; ++j) {
       const int k = sub + j * G;
-      w[j] = k < r ? lw_g[k] : T(0);
+      w[j] = k < r ? operand<kBf16>(lw_g[k]) : T(0);
       acc[j] = T(0);
     }
     const int64_t p_end = indptr[g + 1];
@@ -114,7 +121,8 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
           const int k = sub + j * G;
-          lh[j] = (live && k < r) ? lh_b[(size_t)c * r + k] : T(0);
+          lh[j] = (live && k < r) ? operand<kBf16>(lh_b[(size_t)c * r + k])
+                                  : T(0);
           s = fma(w[j], lh[j], s);
         }
         // the group's dot product: a butterfly inside G lanes leaves
@@ -122,7 +130,7 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
 #pragma unroll
         for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
         const T wth = s > T(0) ? s : T(1);
-        const T a = live ? xv / wth : T(0);
+        const T a = live ? operand<kBf16>(xv / wth) : T(0);
 #pragma unroll
         for (int j = 0; j < KP; ++j) acc[j] = fma(a, lh[j], acc[j]);
         if (xlog && live && sub == 0) xl += static_cast<double>(xv * log(wth));
@@ -154,7 +162,7 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
 // ---------------------------------------------------------------------
 // S2 sp_colpass
 // ---------------------------------------------------------------------
-template <typename T, int G>
+template <typename T, int G, bool kBf16>
 __global__ void __launch_bounds__(kSpThreads)
 sp_colpass_kernel(const int64_t* __restrict__ colptr,
                   const int* __restrict__ rowc, const int* __restrict__ perm,
@@ -190,7 +198,8 @@ sp_colpass_kernel(const int64_t* __restrict__ colptr,
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
           const int k = sub + j * G;
-          if (live && k < r) acc[j] = fma(a, lw_b[(size_t)g * r + k], acc[j]);
+          if (live && k < r)
+            acc[j] = fma(a, operand<kBf16>(lw_b[(size_t)g * r + k]), acc[j]);
         }
       }
     }
@@ -219,67 +228,66 @@ sp_colpass_kernel(const int64_t* __restrict__ colptr,
 // ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
-template <typename T, typename XT, int G>
+template <typename T, typename XT, int G, bool kBf16>
 cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
                            const void* val, const void* lw, const void* lht,
                            const double* do_elbo, int B, int n, int m, int r,
                            int64_t nnz, void* swn, void* abuf, double* part,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(n, kSpWarps), B);
-  sp_rowpass_kernel<T, XT, G><<<grid, kSpThreads, 0, stream>>>(
+  sp_rowpass_kernel<T, XT, G, kBf16><<<grid, kSpThreads, 0, stream>>>(
       indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
       static_cast<const T*>(lht), do_elbo, n, m, r, nnz,
       static_cast<T*>(swn), static_cast<T*>(abuf), part);
   return cudaGetLastError();
 }
 
-template <typename T, typename XT>
+template <typename T, typename XT, bool kBf16>
 cudaError_t rowpass_any_g(const int64_t* indptr, const int* col,
                           const void* val, const void* lw, const void* lht,
                           const double* do_elbo, int B, int n, int m, int r,
                           int64_t nnz, void* swn, void* abuf, double* part,
                           cudaStream_t s) {
+#define S1G(G)                                                            \
+  return launch_rowpass<T, XT, G, kBf16>(indptr, col, val, lw, lht,       \
+                                         do_elbo, B, n, m, r, nnz, swn,   \
+                                         abuf, part, s)
   switch (group_of(r)) {
-    case 4: return launch_rowpass<T, XT, 4>(indptr, col, val, lw, lht, do_elbo,
-                                            B, n, m, r, nnz, swn, abuf, part, s);
-    case 8: return launch_rowpass<T, XT, 8>(indptr, col, val, lw, lht, do_elbo,
-                                            B, n, m, r, nnz, swn, abuf, part, s);
-    case 16: return launch_rowpass<T, XT, 16>(indptr, col, val, lw, lht,
-                                              do_elbo, B, n, m, r, nnz, swn,
-                                              abuf, part, s);
-    default: return launch_rowpass<T, XT, 32>(indptr, col, val, lw, lht,
-                                              do_elbo, B, n, m, r, nnz, swn,
-                                              abuf, part, s);
+    case 4: S1G(4);
+    case 8: S1G(8);
+    case 16: S1G(16);
+    default: S1G(32);
   }
+#undef S1G
 }
 
-template <typename T, int G>
+template <typename T, int G, bool kBf16>
 cudaError_t launch_colpass(const int64_t* colptr, const int* rowc,
                            const int* perm, const void* abuf, const void* lw,
                            int B, int n, int m, int r, int64_t nnz, void* shn,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(m, kSpWarps), B);
-  sp_colpass_kernel<T, G><<<grid, kSpThreads, 0, stream>>>(
+  sp_colpass_kernel<T, G, kBf16><<<grid, kSpThreads, 0, stream>>>(
       colptr, rowc, perm, static_cast<const T*>(abuf),
       static_cast<const T*>(lw), n, m, r, nnz, static_cast<T*>(shn));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBf16>
 cudaError_t colpass_any_g(const int64_t* colptr, const int* rowc,
                           const int* perm, const void* abuf, const void* lw,
                           int B, int n, int m, int r, int64_t nnz, void* shn,
                           cudaStream_t s) {
+#define S2G(G)                                                             \
+  return launch_colpass<T, G, kBf16>(colptr, rowc, perm, abuf, lw, B, n, m, \
+                                     r, nnz, shn, s)
   switch (group_of(r)) {
-    case 4: return launch_colpass<T, 4>(colptr, rowc, perm, abuf, lw, B, n, m,
-                                        r, nnz, shn, s);
-    case 8: return launch_colpass<T, 8>(colptr, rowc, perm, abuf, lw, B, n, m,
-                                        r, nnz, shn, s);
-    case 16: return launch_colpass<T, 16>(colptr, rowc, perm, abuf, lw, B, n,
-                                          m, r, nnz, shn, s);
-    default: return launch_colpass<T, 32>(colptr, rowc, perm, abuf, lw, B, n,
-                                          m, r, nnz, shn, s);
+    case 4: S2G(4);
+    case 8: S2G(8);
+    case 16: S2G(16);
+    default: S2G(32);
   }
+#undef S2G
 }
 
 }  // namespace ccfindr
@@ -288,21 +296,25 @@ using namespace ccfindr;
 
 // C interface, bound with ctypes by ccfindr_tpu_torch/ops/kernels/sparse.py.
 // tcode: factor type 0 float, 1 double.  xcode: value type 1 int16,
-// 2 float, 3 double (the codes of ml.cu; int8 is not taken).  swn, abuf
-// and part may each be null, which skips that output.  Each returns
-// cudaGetLastError() after its launch.
+// 2 float, 3 double (the codes of ml.cu; int8 is not taken).  bf16: 1
+// for the mxu_bf16 rounding.  swn, abuf and part may each be null, which
+// skips that output.  Each returns cudaGetLastError() after its launch.
 extern "C" {
 
-int sp_rowpass(int tcode, int xcode, const int64_t* indptr, const int* col,
-               const void* val, const void* lw, const void* lht,
-               const double* do_elbo, int B, int n, int m, int r, int64_t nnz,
-               void* swn, void* abuf, double* part, void* stream) {
+int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
+               const int* col, const void* val, const void* lw,
+               const void* lht, const double* do_elbo, int B, int n, int m,
+               int r, int64_t nnz, void* swn, void* abuf, double* part,
+               void* stream) {
   if (r < 1 || r > kSpMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SP_ROW(T, XT)                                                      \
-  return static_cast<int>(rowpass_any_g<T, XT>(indptr, col, val, lw, lht, \
-                                               do_elbo, B, n, m, r, nnz,  \
-                                               swn, abuf, part, s))
+#define SP_ROW(T, XT)                                                       \
+  return static_cast<int>(                                                 \
+      bf16 ? rowpass_any_g<T, XT, true>(indptr, col, val, lw, lht, do_elbo, \
+                                        B, n, m, r, nnz, swn, abuf, part, s) \
+           : rowpass_any_g<T, XT, false>(indptr, col, val, lw, lht,         \
+                                         do_elbo, B, n, m, r, nnz, swn,     \
+                                         abuf, part, s))
   switch (tcode * 4 + xcode) {
     case 1: SP_ROW(float, int16_t);
     case 2: SP_ROW(float, float);
@@ -315,18 +327,23 @@ int sp_rowpass(int tcode, int xcode, const int64_t* indptr, const int* col,
 #undef SP_ROW
 }
 
-int sp_colpass(int tcode, const int64_t* colptr, const int* rowc,
+int sp_colpass(int tcode, int bf16, const int64_t* colptr, const int* rowc,
                const int* perm, const void* abuf, const void* lw, int B,
                int n, int m, int r, int64_t nnz, void* shn, void* stream) {
   if (r < 1 || r > kSpMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SP_COL(T)                                                          \
+  return static_cast<int>(                                                \
+      bf16 ? colpass_any_g<T, true>(colptr, rowc, perm, abuf, lw, B, n, m, \
+                                    r, nnz, shn, s)                        \
+           : colpass_any_g<T, false>(colptr, rowc, perm, abuf, lw, B, n, m, \
+                                     r, nnz, shn, s))
   switch (tcode) {
-    case 0: return static_cast<int>(colpass_any_g<float>(
-        colptr, rowc, perm, abuf, lw, B, n, m, r, nnz, shn, s));
-    case 1: return static_cast<int>(colpass_any_g<double>(
-        colptr, rowc, perm, abuf, lw, B, n, m, r, nnz, shn, s));
+    case 0: SP_COL(float);
+    case 1: SP_COL(double);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SP_COL
 }
 
 }  // extern "C"

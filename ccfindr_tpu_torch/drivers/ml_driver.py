@@ -18,10 +18,15 @@ replicates x ``nrun`` restarts.
 * consensus statistics stream through
   :class:`~ccfindr_tpu_torch.ops.consensus.ConsensusAccumulator`: exact
   dispersion without the m(m-1)/2 connectivity vector, and a
-  subsampled cophenetic above ``cophenetic_max_cells``.
+  subsampled cophenetic above ``cophenetic_max_cells``;
+* ``checkpoint_every``/``compact_every`` run the loop in chunks of
+  sweeps (:func:`_chunked_ml`, the twin of the VB driver's), and
+  ``checkpoint_dir`` keeps each finished sample of a randomized scan.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pandas as pd
@@ -33,7 +38,8 @@ from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, auto_storage_dtype, resolve_device
-from .vb_driver import _check_sparse_options, _not_ported, _sparse_counts
+from .vb_driver import (_check_sparse_options, _not_ported, _sparse_counts,
+                        chunk_lanes)
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -55,6 +61,79 @@ def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
         ws.append(w)
         hs.append(h)
     return torch.stack(ws), torch.stack(hs)
+
+
+def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
+    """Run a lane batch of ``ml_run`` in chunks of ``every`` sweeps,
+    with the carry checkpointed between chunks and converged lanes
+    compacted out: the ML twin of ``vb_driver._chunked_vb``.
+
+    ``call(w, h, cid, zstep, lk0, itmax, it0, lanes) -> MLRunResult``
+    runs the global lanes ``lanes`` through ``ml_run``'s exact
+    ``it0``/``lk0_init``/``cid0``/``zstep0`` continuation.  The carry
+    (factors, likelihoods, the connectivity streaks and assignments,
+    the absolute sweep index) stays on the device and is saved to
+    ``ckpt_file`` when given; a later call resumes it.  The result is
+    the uninterrupted run's, bit for bit.
+    """
+    dev, ref_t = w0.device, w0.dtype
+    it0 = 1
+    n_rec = np.full(nb, -1, np.int64)
+    g = None
+    if ckpt_file is not None and os.path.exists(ckpt_file):
+        z = np.load(ckpt_file)
+        it0 = int(z["it0"])
+        n_rec = z["n_rec"]
+
+        def dev_t(a):
+            return torch.as_tensor(a, device=dev)
+
+        g = ml_ops.MLRunResult(
+            w=dev_t(z["w"]), h=dev_t(z["h"]), lkh=dev_t(z["lk0"]),
+            n_iter=dev_t(np.where(n_rec >= 0, n_rec, 0)),
+            cid=dev_t(z["cid"]), zstep=dev_t(z["zstep"]),
+            done=dev_t(n_rec >= 0))
+        if verbose >= 1:
+            print(f"Resumed ML sweep checkpoint at iteration {it0}")
+
+    while True:
+        end = min(it0 - 1 + every, itmax)
+        if g is None:
+            lanes, nreal = np.arange(nb), nb
+            out = call(w0, h0,
+                       torch.zeros(nb, m, dtype=torch.int32, device=dev),
+                       torch.zeros(nb, dtype=torch.int32, device=dev),
+                       torch.full((nb,), -np.inf, dtype=ref_t, device=dev),
+                       end, it0, lanes)
+            g = ml_ops.MLRunResult(*(f.clone() for f in out))
+        else:
+            lanes, nreal = chunk_lanes(n_rec, nb)
+            if nreal == 0:
+                break
+            sel = torch.as_tensor(lanes, device=dev)
+            out = call(g.w[sel], g.h[sel], g.cid[sel], g.zstep[sel],
+                       g.lkh[sel], end, it0, lanes)
+            real = sel[:nreal]
+            for gf, of in zip(g, out):
+                gf[real] = of[:nreal]
+        o_niter = out.n_iter[:nreal].cpu().numpy()
+        loc = out.done[:nreal].cpu().numpy() | (o_niter < end)
+        sel_n = loc & (n_rec[lanes[:nreal]] < 0)
+        n_rec[lanes[:nreal][sel_n]] = o_niter[sel_n]
+        if end >= itmax or (n_rec >= 0).all():
+            break
+        it0 = end + 1
+        if ckpt_file is not None:
+            np.savez(ckpt_file, it0=it0, lk0=g.lkh.cpu().numpy(),
+                     cid=g.cid.cpu().numpy(), zstep=g.zstep.cpu().numpy(),
+                     n_rec=n_rec, w=g.w.cpu().numpy(), h=g.h.cpu().numpy())
+        if verbose >= 2:
+            print(f"ML checkpointed at sweep {end}: "
+                  f"{int((n_rec >= 0).sum())}/{nb} converged")
+
+    if ckpt_file is not None and os.path.exists(ckpt_file):
+        os.remove(ckpt_file)
+    return g
 
 
 def _shuffle_sparse_columns(csr, rng):
@@ -118,11 +197,19 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     the mean of ``cophenetic_nsub`` exact subsampled draws (standard
     errors in ``metadata['cophenetic_se']``).
 
+    ``checkpoint_every=K`` runs the loop in chunks of K sweeps and
+    saves the carry after each into ``checkpoint_dir`` (a rerun resumes
+    it); ``compact_every=K`` chunks without files; either runs only the
+    lanes still running in each chunk, and the result is the
+    uninterrupted run's, bit for bit.  ``checkpoint_dir`` also keeps
+    each finished sample's statistics and winning factors (not under
+    ``store_connectivity``), so a rerun of a crashed multi-sample scan
+    skips them.
+
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``mesh`` and ``distributed`` (A7), ``checkpoint_dir``/
-    ``checkpoint_every``/``compact_every`` (A3),
-    ``sparse_layout='ell'`` (A6).
+    ``mesh`` and ``distributed`` (A7) and ``sparse_layout='ell'``
+    (A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
@@ -133,10 +220,6 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     if distributed not in ("auto", False, None) or (
             _process_count not in (None, 1)):
         raise _not_ported("distributed", "A7")
-    if checkpoint_dir is not None or checkpoint_every is not None:
-        raise _not_ported("checkpoint_dir/checkpoint_every", "A3")
-    if compact_every is not None:
-        raise _not_ported("compact_every", "A3")
     if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":
@@ -188,8 +271,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     pn = float(gamma_a) - 1.0 if prior else 0.0
     pd_ = float(gamma_a) / float(gamma_b) if prior else 0.0
     run_kwargs = dict(tol=float(Tol), criterion=criterion,
-                      ncnn_step=int(ncnn_step), itmax=int(Itmax), pn=pn,
-                      pd=pd_)
+                      ncnn_step=int(ncnn_step), pn=pn, pd=pd_)
     if backend == "dense_fused":
         run_kwargs.update(fused_h=ml_ops.ml_h_dense,
                           fused_w=ml_ops.ml_w_dense)
@@ -237,19 +319,42 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             coph_ses.append(coph_se)
         return imax, rmax, disp, coph, conav
 
-    def run(x, ismpl, pairs, r, name, **record):
-        """One lane batch of rank ``r`` to convergence; the batched scan
-        masks each lane's rank rows past its own rank."""
+    itmax = int(Itmax)
+    every = checkpoint_every or compact_every
+
+    def run(x, ismpl, pairs, r, name, ckname, **record):
+        """One lane batch of rank ``r`` to convergence (in chunks under
+        ``checkpoint_every``/``compact_every``); the batched scan masks
+        each lane's rank rows past its own rank."""
         w0, h0 = initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, r,
                                  dtype, device)
         kw = dict(run_kwargs)
+        rmask = None
         if batch_ranks:
             rank_arr = np.asarray([ranks[k] for k, _ in pairs])
-            kw["rank_mask"] = torch.as_tensor(
+            rmask = torch.as_tensor(
                 (np.arange(r)[None, :] < rank_arr[:, None]
                  ).astype(np_dtype), device=device)
+
+        def call(w, h, c0, z0, l0, im, i0, lanes):
+            if rmask is not None:
+                kw["rank_mask"] = rmask[torch.as_tensor(lanes,
+                                                        device=device)]
+            return ml_ops.ml_run(x, w, h, itmax=im, it0=i0, lk0_init=l0,
+                                 cid0=c0, zstep0=z0, **kw)
+
         with timings.phase(name, sample=ismpl, **record):
-            out = ml_ops.ml_state_to_numpy(ml_ops.ml_run(x, w0, h0, **kw))
+            if every:
+                ckf = None
+                if checkpoint_every and checkpoint_dir is not None:
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    ckf = os.path.join(checkpoint_dir, ckname)
+                res = _chunked_ml(call, w0, h0, len(pairs), m, itmax,
+                                  int(every), ckf, verbose)
+            else:
+                res = call(w0, h0, None, None, None, itmax, 1,
+                           np.arange(len(pairs)))
+            out = ml_ops.ml_state_to_numpy(res)
         rec = timings.records[-1]
         rec["total_sweeps"] = int(out.n_iter.sum())
         rec["lane_sweeps_executed"] = len(pairs) * (
@@ -257,7 +362,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         rec["n_iter"] = out.n_iter.tolist()
         return out
 
-    for ismpl in range(nsmpl):
+    def sample(ismpl):
+        """One replicate: shuffle (``randomize``), run the lane batches,
+        and the consensus of each rank: ``{k: dict(rmax, disp, coph,
+        wmax, hmax)}``."""
+        nonlocal conav_last
         if randomize:
             # per-sample deterministic stream (the JAX package's own)
             rng_i = np.random.default_rng(
@@ -279,7 +388,8 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         if batch_ranks:
             pairs = [(k, i) for k in range(nrank) for i in range(nrun)]
             out = run(x, ismpl, pairs, max(ranks), "ml_rank_batch",
-                      ranks=list(ranks), nrun=nrun)
+                      f"ml_sweeps_s{ismpl}_p0.npz", ranks=list(ranks),
+                      nrun=nrun)
             groups = [(k, ranks[k], list(range(k * nrun, (k + 1) * nrun)),
                        out) for k in range(nrank)]
         else:
@@ -288,9 +398,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                 if verbose > 0:
                     print(f"Rank {rank} [{k + 1}/{nrank}]")
                 out = run(x, ismpl, [(k, i) for i in range(nrun)], rank,
-                          "ml_rank", rank=rank, nrun=nrun)
+                          "ml_rank", f"ml_sweeps_s{ismpl}_r{rank}_p0.npz",
+                          rank=rank, nrun=nrun)
                 groups.append((k, rank, list(range(nrun)), out))
 
+        local = {}
         for k, rank, idxs, o in groups:
             # padded-rank lanes: slice the factors to the true rank
             # (padded rows are eps, never an argmax)
@@ -299,21 +411,66 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                 imax, rmax, disp, coph, conav = consensus_stats(
                     [o.cid[b] for b in idxs], [o.lkh[b] for b in idxs],
                     [o.n_iter[b] for b in idxs], label)
-            wmax = np.asarray(o.w[idxs[imax]][:, :rank])
-            hmax = np.asarray(o.h[idxs[imax]][:rank, :])
+            local[k] = dict(rmax=rmax, disp=disp, coph=coph,
+                            wmax=np.asarray(o.w[idxs[imax]][:, :rank]),
+                            hmax=np.asarray(o.h[idxs[imax]][:rank, :]))
             conav_last = conav
             if verbose >= 1:
                 print(f"Sample# {ismpl + 1}: rank {rank}: "
                       f"Max(likelihood) = {rmax:.6g}, dispersion = "
                       f"{disp:.6g}, cophenetic = {coph:.6g}")
+        return local
+
+    # sample-level progress: each finished sample's statistics and
+    # winning factors, so a crashed multi-sample scan skips them on a
+    # rerun (not under store_connectivity: the last sample's consensus
+    # cannot be rebuilt from them)
+    progress_file = None
+    progress = {}
+    if checkpoint_dir is not None and not store_connectivity:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        progress_file = os.path.join(checkpoint_dir, "ml_progress_p0.npz")
+        if os.path.exists(progress_file):
+            z = np.load(progress_file)
+            progress = {key: z[key] for key in z.files}
+
+    for ismpl in range(nsmpl):
+        if progress_file is not None and all(
+                f"r_s{ismpl}_k{k}" in progress for k in range(nrank)):
+            local = {}
+            for k in range(nrank):
+                key = f"s{ismpl}_k{k}"
+                stats = progress[f"r_{key}"]
+                local[k] = dict(rmax=float(stats[0]), disp=float(stats[1]),
+                                coph=float(stats[2]),
+                                wmax=progress[f"w_{key}"],
+                                hmax=progress[f"h_{key}"])
+            if verbose >= 1:
+                print(f"Sample# {ismpl + 1}: restored from checkpoint")
+        else:
+            local = sample(ismpl)
+            if progress_file is not None:
+                for k in range(nrank):
+                    key = f"s{ismpl}_k{k}"
+                    progress[f"r_{key}"] = np.asarray(
+                        [local[k]["rmax"], local[k]["disp"],
+                         local[k]["coph"]], np.float64)
+                    progress[f"w_{key}"] = local[k]["wmax"]
+                    progress[f"h_{key}"] = local[k]["hmax"]
+                np.savez(progress_file, **progress)
+        for k in range(nrank):
+            res = local[k]
             if ismpl == 0:
-                wdat[k], hdat[k] = wmax.copy(), hmax.copy()
+                wdat[k], hdat[k] = res["wmax"].copy(), res["hmax"].copy()
             else:
-                wdat[k] += wmax
-                hdat[k] += hmax
-            rdat[k].append(float(rmax))
-            ddat[k].append(float(disp))
-            cdat[k].append(float(coph))
+                wdat[k] += res["wmax"]
+                hdat[k] += res["hmax"]
+            rdat[k].append(float(res["rmax"]))
+            ddat[k].append(float(res["disp"]))
+            cdat[k].append(float(res["coph"]))
+
+    if progress_file is not None and os.path.exists(progress_file):
+        os.remove(progress_file)
 
     for k in range(nrank):
         wdat[k] /= nsmpl

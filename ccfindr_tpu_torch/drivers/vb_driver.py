@@ -11,11 +11,17 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   :mod:`ccfindr_tpu_torch.ops.kernels.sol` on the card (their plain
   PyTorch version on the CPU), or, on the gene panels for which the
   JAX driver picks its gene-major sweep (above 65,536 genes), those of
-  :mod:`ccfindr_tpu_torch.ops.kernels.epilogue`; ``backend='sparse'``
-  keeps X as its nonzeros and runs the sweep as the CUDA kernels of
+  :mod:`ccfindr_tpu_torch.ops.kernels.epilogue`; ``'pallas2pass'`` runs
+  the two passes of :mod:`ccfindr_tpu_torch.ops.kernels.vb_kernels`
+  (P1/P2) in ``ops.vb.vb_run``; ``backend='sparse'`` keeps X as its
+  nonzeros and runs the sweep as the CUDA kernels of
   :mod:`ccfindr_tpu_torch.ops.kernels.sparse`; ``'dense'`` and
   ``'dense_fused'`` are the matmul parity paths of
   :mod:`ccfindr_tpu_torch.ops.vb`;
+* ``checkpoint_every``/``compact_every`` run the loop in chunks of
+  sweeps (:func:`_chunked_vb`), with the carry saved between chunks and
+  only the running lanes in the next chunk; ``checkpoint_dir`` alone
+  saves each finished rank of the sequential scan;
 * degeneracy (a uniform basis column) aborts the rank scan for that
   run, and best-of-nrun selection fills the measure table, as in the
   reference (R/bayesian.R:268-291, 368-378).
@@ -24,6 +30,8 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
 from __future__ import annotations
 
 import functools
+import os
+import time
 
 import numpy as np
 import pandas as pd
@@ -35,9 +43,10 @@ from ..ops import tile as tile_ops
 from ..ops import vb as vb_ops
 from ..ops.kernels import epilogue as epi_ops
 from ..ops.kernels import sol as sol_ops
+from ..ops.kernels import vb_kernels as vbk
 from ..ops.kernels.vb_kernels import (DEFAULT_BM, DEFAULT_BN,
                                       _fused_layout)
-from ..ops.vb import Hyper, VBState
+from ..ops.vb import Hyper, VBRunResult, VBState
 from ..utils import Timings, auto_storage_dtype, resolve_device
 
 
@@ -98,6 +107,155 @@ def _stack(states):
     return type(states[0])(*(torch.stack(fs) for fs in zip(*states)))
 
 
+def _rank_ckpt_path(ckpt_dir, rank):
+    return os.path.join(ckpt_dir, f"vb_rank{rank}.npz")
+
+
+def _save_rank_ckpt(ckpt_dir, rank, rdat_col, imax, res):
+    """Persist one completed rank: all runs' log evidences and the best
+    run's factors and hypers (the JAX package's file and keys)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez_compressed(
+        _rank_ckpt_path(ckpt_dir, rank), rdat=rdat_col, imax=imax,
+        ew=res["ew"], eh=res["eh"], dw=res["dw"], dh=res["dh"],
+        hyper=np.asarray([res["hyper"][k] for k in
+                          ("aw", "bw", "ah", "bh")]),
+        n_iter=res["n_iter"], nunif=res["nunif"])
+
+
+def _load_rank_ckpt(ckpt_dir, rank):
+    if ckpt_dir is None:
+        return None
+    path = _rank_ckpt_path(ckpt_dir, rank)
+    if not os.path.exists(path):
+        return None
+    d = np.load(path)
+    hy = d["hyper"]
+    res = dict(ew=d["ew"], eh=d["eh"], dw=d["dw"], dh=d["dh"],
+               hyper=dict(aw=float(hy[0]), bw=float(hy[1]),
+                          ah=float(hy[2]), bh=float(hy[3])),
+               n_iter=int(d["n_iter"]), nunif=int(d["nunif"]))
+    return d["rdat"], int(d["imax"]), res
+
+
+def chunk_lanes(n_rec, nb):
+    """The global lanes of the next chunk and how many are real: the
+    running ones (``n_rec < 0``), in order.  A single running lane of a
+    batch of several is run twice: torch takes other matmul and
+    reduction paths for one lane than for several, so a lone lane would
+    round otherwise than it did in the full batch; the copy's results
+    are dropped."""
+    live = np.nonzero(n_rec < 0)[0]
+    if len(live) == 1 and nb > 1:
+        return np.concatenate([live, live]), 1
+    return live, len(live)
+
+
+def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
+                stats=None):
+    """Run a lane batch in chunks of ``every`` sweeps, with the carry
+    checkpointed between chunks and converged lanes compacted out.
+
+    ``call(states, hypers, itmax, it0, lk0, lanes) -> VBRunResult`` runs
+    the lanes ``lanes`` (global indices into the batch, so that the
+    caller can take their rank masks) from sweep ``it0`` to ``itmax``
+    with the per-lane ELBO ``lk0``, through the loops' exact ``it0`` /
+    ``lk0_init`` continuation.  Between chunks the full carry (states,
+    hypers, per-lane ELBO, the absolute sweep index) stays on the device
+    and is saved to ``ckpt_file`` when given, which a later call resumes
+    from.  A lane whose stopping rule fired is frozen and leaves the
+    batch: the next chunk runs the running lanes only (see
+    :func:`chunk_lanes`).  The loops freeze lanes, the kernels add each
+    lane's partials in an order that does not depend on the batch (the
+    drivers pin the blockings that would), and the torch reductions of
+    the loops are ``utils.lane_sum``, so the result is the uninterrupted
+    run's, bit for bit.  ``stats['lane_sweeps']`` counts the lane-sweeps
+    the chunks executed.
+    """
+    dev = states.lw.device
+    ref_t = states.lw.dtype
+    it0 = 1
+    n_rec = np.full(nb, -1, np.int64)
+    hf = np.zeros(nb, bool)
+    last_niter = np.zeros(nb, np.int64)
+    gs = VBState(*(f.clone() for f in states))
+    gh = Hyper(*(f.clone() for f in hypers))
+    glml = torch.zeros(nb, dtype=ref_t, device=dev)
+    if ckpt_file is not None and os.path.exists(ckpt_file):
+        z = np.load(ckpt_file)
+        it0 = int(z["it0"])
+        n_rec = z["n_rec"]
+        hf = z["hf"].astype(bool)
+        last_niter = np.where(n_rec >= 0, n_rec, it0 - 1)
+
+        def dev_t(a):
+            return torch.as_tensor(a, device=dev)
+
+        gs = VBState(*(dev_t(z[f"st_{f}"]) for f in VBState._fields))
+        gh = Hyper(*(dev_t(z[f"hy_{f}"]) for f in Hyper._fields))
+        glml = dev_t(z["lk0"]).to(ref_t)
+        if verbose >= 1:
+            print(f"Resumed sweep checkpoint at iteration {it0}")
+
+    first = it0 == 1
+    t_last = time.perf_counter()
+    while True:
+        end = min(it0 - 1 + every, itmax)
+        if first:
+            lanes, nreal = np.arange(nb), nb
+            first = False
+        else:
+            lanes, nreal = chunk_lanes(n_rec, nb)
+            if nreal == 0:
+                break
+        sel_t = torch.as_tensor(lanes, device=dev)
+        out = call(VBState(*(f[sel_t] for f in gs)),
+                   Hyper(*(f[sel_t] for f in gh)), end, it0, glml[sel_t],
+                   lanes)
+        real = sel_t[:nreal]
+        for g, o in zip(gs + gh, out.state + out.hyper):
+            g[real] = o[:nreal]
+        glml[real] = out.lml[:nreal]
+        o_niter = out.n_iter[:nreal].cpu().numpy()
+        o_done = out.done[:nreal].cpu().numpy()
+        if stats is not None:
+            # executed rounds: the loop stops when every lane of this
+            # chunk is done, which can be before the chunk's bound
+            rounds = max(0, int(o_niter.max()) - it0 + 1)
+            stats["lane_sweeps"] = (stats.get("lane_sweeps", 0)
+                                    + len(lanes) * rounds)
+        hf[lanes[:nreal]] |= out.hyper_failed[:nreal].cpu().numpy()
+        last_niter[lanes[:nreal]] = o_niter
+        # the done flag tells a lane that converged exactly at the
+        # chunk's bound from one that ran out of chunk
+        sel = (o_done | (o_niter < end)) & (n_rec[lanes[:nreal]] < 0)
+        n_rec[lanes[:nreal][sel]] = o_niter[sel]
+        if end >= itmax or (n_rec >= 0).all():
+            break
+        it0 = end + 1
+        if ckpt_file is not None:
+            save = dict(it0=it0, lk0=glml.cpu().numpy(), n_rec=n_rec, hf=hf)
+            for f in VBState._fields:
+                save[f"st_{f}"] = getattr(gs, f).cpu().numpy()
+            for f in Hyper._fields:
+                save[f"hy_{f}"] = getattr(gh, f).cpu().numpy()
+            np.savez(ckpt_file, **save)
+        if verbose >= 2:
+            now = time.perf_counter()
+            print(f"checkpointed at sweep {end}: "
+                  f"{int((n_rec >= 0).sum())}/{nb} converged"
+                  + (f", batch compacted to {len(lanes)}"
+                     if len(lanes) < nb else "")
+                  + f" [{now - t_last:.2f}s]")
+            t_last = now
+
+    if ckpt_file is not None and os.path.exists(ckpt_file):
+        os.remove(ckpt_file)
+    return VBRunResult(state=gs, hyper=gh, lml=glml,
+                       n_iter=np.where(n_rec >= 0, n_rec, last_niter),
+                       hyper_failed=hf, done=n_rec >= 0)
+
+
 def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                  initializer="random", Itmax=10000,
                  hyper_update=(True, True, True, True),
@@ -107,6 +265,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                  dtype=None, seed=0, mesh=None, backend="dense",
                  batch_ranks="auto", checkpoint_dir=None,
                  checkpoint_every=None, compact_every=None,
+                 suffstats=None, data_term=None,
                  distributed="auto", svd_method="auto",
                  storage_dtype="auto", sparse_layout="auto", elbo_every=1,
                  precision="f32", device="cuda"):
@@ -125,6 +284,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       ``_fused_layout`` answers ``'gm'`` on its padded extents (more
       than 65,536 genes), the gene-major sweep E1-E3 + K4
       (ops/kernels/epilogue.py, ``csrc/epi.cu``);
+    * ``'pallas2pass'`` — the suffstats and the ELBO data term as two
+      passes over X, P1 and P2 of ``csrc/pass2.cu``
+      (ops/kernels/vb_kernels.py), in the two-pass loop of
+      ``ops.vb.vb_run``; X crosses zero-padded in the factor dtype;
     * ``'sparse'`` — X as its nonzeros only, never densified (the
       capacity path for atlas-scale matrices): CSR on the device and
       the CUDA kernels S1/S2 (ops/tile.py, ``csrc/sparse.cu``) on the
@@ -133,23 +296,35 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       JAX package's COO scan was a TPU alternative to its tile kernel,
       with the same result, and the CSR kernels serve both here.
 
+    ``suffstats``/``data_term`` (``(x, lw, lh)`` of a lane batch ->
+    ``(sw, sh)`` and ``(B,)``) override the backend's passes; on
+    ``'pallas'`` they replace its kernel loops by ``ops.vb.vb_run`` over
+    the zero-padded X, as in the JAX driver.
+
     ``elbo_every=k`` evaluates the ELBO and the stopping test only
     every k-th sweep (``'sparse'``, and ``'pallas'`` on cell-major
     shapes).  ``precision='bf16'`` rounds the X pass's operands to
     bfloat16, accumulating in float32 (``'pallas'`` on cell-major
-    shapes).  As in the JAX package, the gene-major route refuses both.
+    shapes, and ``'sparse'``).  As in the JAX package, the gene-major
+    route and ``'pallas2pass'`` refuse both.
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there
-    are several ranks.  ``storage_dtype='auto'`` keeps integer counts
-    that fit in int8/int16 compressed on the device (exact: the sweep
-    converts them to the factor type in registers).
+    are several ranks, unless ``checkpoint_dir`` is given without
+    ``checkpoint_every`` (per-rank checkpoints need the sequential
+    scan).  ``checkpoint_every=K`` runs the loop in chunks of K sweeps
+    and saves the carry after each (into ``checkpoint_dir``, where a
+    rerun resumes it); ``compact_every=K`` chunks without files.  Either
+    runs only the lanes still running in each chunk, and the result is
+    the uninterrupted run's, bit for bit.  ``checkpoint_dir`` alone
+    saves each finished rank of the sequential scan, and a rerun
+    restores it.  ``storage_dtype='auto'`` keeps integer counts that fit
+    in int8/int16 compressed on the device (exact: the sweep converts
+    them to the factor type in registers).
 
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``mesh``, ``distributed``, ``checkpoint_*``, ``compact_every``,
-    ``backend='pallas2pass'``, ``sparse_layout='ell'``,
-    ``precision='bf16'`` on ``backend='sparse'`` and
-    ``svd_method='randomized'``.
+    ``mesh`` and ``distributed`` (A7), ``sparse_layout='ell'`` (A6)
+    and ``svd_method='randomized'`` (A8).
 
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
@@ -158,24 +333,18 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise _not_ported("mesh", "A7")
     if distributed not in ("auto", False, None):
         raise _not_ported("distributed", "A7")
-    if checkpoint_dir is not None or checkpoint_every is not None:
-        raise _not_ported("checkpoint_dir/checkpoint_every", "A3")
-    if compact_every is not None:
-        raise _not_ported("compact_every", "A3")
-    if backend == "pallas2pass":
-        raise _not_ported("backend='pallas2pass'", "B5")
-    if backend not in ("dense", "dense_fused", "pallas", "sparse"):
+    if backend not in ("dense", "dense_fused", "pallas", "pallas2pass",
+                       "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":
         _check_sparse_options(sparse_layout, storage_dtype,
                               ("auto", "tile", "coo"))
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}")
-    if precision == "bf16" and backend == "sparse":
-        raise _not_ported("precision='bf16' on backend='sparse'", "B9")
-    if precision == "bf16" and backend != "pallas":
+    if precision == "bf16" and backend not in ("pallas", "sparse"):
         raise ValueError("precision='bf16' is supported by "
-                         "backend='pallas' (cell-major shapes)")
+                         "backend='pallas' (cell-major shapes) and "
+                         "backend='sparse'")
     if svd_method == "randomized":
         raise _not_ported("svd_method='randomized'", "A8")
     if int(elbo_every) < 1:
@@ -184,6 +353,14 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     if elbo_every != 1 and backend not in ("pallas", "sparse"):
         raise ValueError("elbo_every is supported by backend='pallas' and "
                          "backend='sparse'")
+    overrides = {k: v for k, v in (("suffstats", suffstats),
+                                   ("data_term", data_term))
+                 if v is not None}
+    if overrides and backend == "pallas" and (elbo_every != 1
+                                              or precision == "bf16"):
+        raise ValueError("elbo_every and precision='bf16' need the kernel "
+                         "loops of backend='pallas', which suffstats/"
+                         "data_term replace")
 
     device = resolve_device(device)
     if dtype is None:
@@ -231,7 +408,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     hyper_mask = tuple(bool(b) for b in hyper_update)
     gen = torch.Generator().manual_seed(int(seed))
 
-    # compressed integer X storage (exact; see utils.auto_storage_dtype)
+    # compressed integer X storage (exact; see utils.auto_storage_dtype);
+    # validated on 'pallas2pass' too, whose X stays in the factor dtype
     x_dtype = dtype
     if backend == "sparse":
         storage_dtype = None
@@ -249,19 +427,30 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             raise ValueError(
                 f"counts up to {mat.max():.0f} overflow "
                 f"storage_dtype {sd.name}; use a wider type")
-        x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
+        if backend != "pallas2pass":
+            x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
 
     run_kwargs = dict(tol=float(Tol), fudge=fudge, hyper_mask=hyper_mask,
                       n0=int(hyper_update_n0), dn=int(hyper_update_dn))
     run_fn = vb_ops.vb_run
+    # the blocking a route's kernels would choose from the lane count,
+    # pinned for the full batch (see pinned() below)
+    pin = None
     if backend == "sparse":
         x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
-        run_kwargs.update(fused=tile_ops.make_tile_fused(),
-                          elbo_every=int(elbo_every))
+        run_kwargs.update(fused=tile_ops.make_tile_fused(
+            mxu_bf16=precision == "bf16"), elbo_every=int(elbo_every))
+    elif backend == "pallas2pass" or (backend == "pallas" and overrides):
+        # the JAX driver's two-pass layout: X zero-padded to its tiles
+        # (ccfindr_tpu/drivers/vb_driver.py:700-708), read in place
+        x = vbk.pad_matrix(torch.as_tensor(mat).to(dtype=x_dtype)
+                           .to(device))
+        if backend == "pallas2pass":
+            pin = "pass2"
     else:
         # convert on the host: the compressed X crosses, not float32
         x = torch.as_tensor(mat).to(dtype=x_dtype).to(device)
-    if backend == "pallas":
+    if backend == "pallas" and not overrides:
         # the JAX driver's choice between its two single-device sweeps
         # (ccfindr_tpu/drivers/vb_driver.py:775-801), on its padded
         # extents: gene-major above 65,536 genes
@@ -281,9 +470,52 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                 raise ValueError("precision='bf16' is supported by "
                                  "backend='pallas' on cell-major shapes")
             run_fn = functools.partial(epi_ops.vb_run_epi, layout=layout)
+            pin = "gm"
     elif backend == "dense_fused":
         run_kwargs["fused"] = vb_ops.fused_dense
     itmax = int(Itmax)
+    every = checkpoint_every or compact_every
+
+    def pinned(nb, r):
+        """The run's keywords for ``nb`` lanes of rank ``r``: E1's and
+        P1's gene chunk depend on the lane count, so a batch pins the
+        chunk its full width gives, and its compacted chunks keep it."""
+        kw = dict(run_kwargs)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if pin == "gm":
+            kw["chunk"] = vbk.fused_chunk(
+                x, "gm", nb, sol_ops.round_up(max(r, 8), 8), itemsize)
+        elif pin == "pass2":
+            ss, dt = vbk.make_pallas_backend(
+                chunk=vbk.pass2_chunk(x, n, m, nb, r, itemsize))
+            kw.update(suffstats=ss, data_term=dt)
+        kw.update(overrides)
+        return kw
+
+    def run_lanes(states, hypers, name, rmask=None, rtrue=None):
+        """Run a lane batch (whole, or in chunks with checkpoints and
+        compaction); returns the result on the host and the chunks'
+        lane-sweeps (None unchunked)."""
+        nb = states.lw.shape[0]
+        kw = pinned(nb, states.lw.shape[-1])
+
+        def call(st, hy, im, i0, l0, lanes):
+            if rmask is not None:
+                sel = torch.as_tensor(lanes, device=device)
+                kw.update(rank_mask=rmask[sel], r_true=rtrue[sel])
+            return run_fn(x, st, hy, itmax=im, it0=i0, lk0_init=l0, **kw)
+
+        if not every:
+            return vb_ops.state_to_numpy(call(
+                states, hypers, itmax, 1, None, np.arange(nb))), None
+        ckf = None
+        if checkpoint_every and checkpoint_dir is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            ckf = os.path.join(checkpoint_dir, name)
+        stats = {}
+        out = _chunked_vb(call, states, hypers, nb, itmax, int(every), ckf,
+                          verbose, stats=stats)
+        return vb_ops.state_to_numpy(out), stats.get("lane_sweeps", 0)
 
     def init_state(rank):
         if initializer == "random":
@@ -347,7 +579,9 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         return True
 
     if batch_ranks == "auto":
-        batch_ranks = len(ranks) > 1
+        # per-rank checkpoints need the sequential scan
+        batch_ranks = len(ranks) > 1 and (checkpoint_dir is None
+                                          or checkpoint_every is not None)
     if batch_ranks:
         rmax_ = max(ranks)
         nb = nrank * nrun
@@ -363,12 +597,14 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
              ).astype(np_dtype), device=device)
         rtrue = torch.as_tensor(rank_arr.astype(np_dtype), device=device)
         with timings.phase("vb_rank_batch", ranks=list(ranks), nrun=nrun):
-            out = run_fn(x, _stack(states), hyper_batch(nb), itmax=itmax,
-                         rank_mask=rmask, r_true=rtrue, **run_kwargs)
-            out = vb_ops.state_to_numpy(out)
+            out, chunked = run_lanes(_stack(states), hyper_batch(nb),
+                                     "vb_sweeps_batch.npz", rmask, rtrue)
         timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
+        # a lane batch runs every lane until all stop, nb x the most
+        # sweeps; a chunked run counts what its chunks executed
         timings.records[-1]["lane_sweeps_executed"] = (
-            nb * (int(np.max(out.n_iter)) + 1))
+            chunked if chunked is not None
+            else nb * (int(np.max(out.n_iter)) + 1))
         timings.records[-1]["n_iter"] = out.n_iter.tolist()
         if out.hyper_failed.any():
             print("Warning: hyperparameter update did not converge "
@@ -386,12 +622,21 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             break
         if verbose == 1:
             print(f"[{k + 1}/{nrank}] rank {rank} ...", flush=True)
+        # drawn whether or not the rank restores: the random stream of
+        # the later ranks stays the same
         states = [init_state(rank)
                   for _ in range(nrun if initializer == "random" else 1)]
+        ckpt = _load_rank_ckpt(checkpoint_dir, rank)
+        if ckpt is not None and len(ckpt[0]) == nrun:
+            rdat_col, imax, res = ckpt
+            rdat[:, k] = rdat_col
+            results[imax][k] = res
+            if verbose >= 1:
+                print(f"Rank = {rank}: restored from checkpoint")
+            continue
         with timings.phase("vb_rank", rank=rank, nrun=nrun):
-            out = run_fn(x, _stack(states), hyper_batch(len(states)),
-                         itmax=itmax, **run_kwargs)
-            out = vb_ops.state_to_numpy(out)
+            out, _ = run_lanes(_stack(states), hyper_batch(len(states)),
+                               f"vb_sweeps_rank{rank}.npz")
         timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
         timings.records[-1]["n_iter"] = out.n_iter.tolist()
         if out.hyper_failed.any():
@@ -400,6 +645,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         for i in range(nrun):
             if run_alive[i]:
                 _record(out, i, i, k, rank)
+        if checkpoint_dir is not None and np.isfinite(rdat[:, k]).any():
+            imax = int(np.argmax(rdat[:, k]))
+            _save_rank_ckpt(checkpoint_dir, rank, rdat[:, k], imax,
+                            results[imax][k])
 
     # best-of-nrun selection per rank (reference R/bayesian.R:268-291)
     ranks2, lmls, basis, dbasis, coeff, dcoeff = [], [], [], [], [], []

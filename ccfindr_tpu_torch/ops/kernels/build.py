@@ -105,9 +105,9 @@ _SIGNATURES = {
     "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ml_wpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ml_xlog_sum": [_P, _I, _I, _P, _P],
-    "sp_rowpass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
-                   _P, _P, _P, _P],
-    "sp_colpass": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    "sp_rowpass": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _L, _P, _P, _P, _P],
+    "sp_colpass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
     "fused_xpass": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P],
     "fused_sum": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
@@ -115,6 +115,9 @@ _SIGNATURES = {
                    _P, _P, _P, _P, _P, _P],
     "epi_h_post": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P],
+    "ss_xpass": [_I, _I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "elbo_xpass": [_I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                   _P],
 }
 
 

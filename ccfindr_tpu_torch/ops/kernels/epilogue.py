@@ -30,8 +30,10 @@ import torch
 
 from . import sol
 from .build import TCODE, check_launch, library, require_cuda, stream
-from .vb_kernels import fused_pallas_raw, fused_xpass_plain
+from .vb_kernels import (fused_chunk, fused_pallas_raw,
+                         fused_xpass_plain)
 from ..vb import VBRunResult, VBState
+from ...utils import lane_sum
 
 # launches per kernel since the last reset (bumped only where a kernel
 # is launched)
@@ -167,10 +169,11 @@ def epi_sweep_plain(x, lw, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
 
 def epi_sweep(x, lw, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
               layout="cm", m_live=None, newton_niter=100,
-              newton_tol=1e-4):
+              newton_tol=1e-4, chunk=None):
     """One gene-major VB sweep: E1 + E1s (``layout``), E2, E3 and K4 on
     CUDA tensors, :func:`epi_sweep_plain` on CPU tensors.  ``m`` is the
-    cell extent of the state, ``m_live`` (default ``m``) its live cells.
+    cell extent of the state, ``m_live`` (default ``m``) its live cells;
+    ``chunk`` pins E1's chunk (:func:`.vb_kernels.fused_chunk`).
     Returns (ew, lwn, dw, eh, lhn, dh, scal)."""
     sol._check(x, lw, lh, eh, sc, n, m, r, w_rowmajor=True)
     m_live = m if m_live is None else m_live
@@ -179,8 +182,8 @@ def epi_sweep(x, lw, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
                                hyper_mask=hyper_mask, m_live=m_live,
                                newton_niter=newton_niter,
                                newton_tol=newton_tol)
-    swn, shn, xlog = fused_pallas_raw(x, lw, lh, layout=layout)
-    ehs_part = eh.sum(-1, dtype=torch.float64)[:, None, :]
+    swn, shn, xlog = fused_pallas_raw(x, lw, lh, layout=layout, chunk=chunk)
+    ehs_part = lane_sum(eh, 1, torch.float64)[:, None, :]
     ew, lwn, dw, csum_part, wscal_part = epi_w_post(swn, lw, ehs_part, sc,
                                                     r, n)
     ehn, lhn, dh, rsum_part, hscal_part = epi_h_post(shn, lh, csum_part, sc,
@@ -200,7 +203,7 @@ def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
                tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
                n0: int = 10, dn: int = 1, layout: str = "cm",
                cell_mask=None, m_true=None, rank_mask=None, r_true=None,
-               it0: int = 1, lk0_init=None) -> VBRunResult:
+               it0: int = 1, lk0_init=None, chunk=None) -> VBRunResult:
     """``ccfindr_tpu``'s ``vb_run_epi`` over a lane batch: the
     deferred-ELBO loop of :func:`.sol.vb_run_sol` with one
     :func:`epi_sweep` a sweep, W carried in the JAX layout.
@@ -211,15 +214,24 @@ def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
     most the state's cell count) is the live cell count, the cells past
     it pinned at ``fudge`` as the JAX loop pins mesh cell padding;
     ``it0``/``lk0_init`` resume a bounded run exactly.  ``layout``
-    picks E1's loop order.  The JAX tile sizes ``bn``/``bm`` are not
-    carried; ``cell_mask`` (the mesh's) raises, naming ROADMAP A7.
+    picks E1's loop order; ``chunk`` pins E1's chunk (default: the one
+    :func:`.vb_kernels.fused_chunk` gives this batch).  A chunked or
+    lane-compacted driver pins the full batch's chunk, so that a lane's
+    partials are added in one order whatever the batch.  The JAX tile
+    sizes ``bn``/``bm`` are not carried; ``cell_mask`` (the mesh's)
+    raises, naming ROADMAP A7.
     """
     if cell_mask is not None:
         raise NotImplementedError("cell_mask (the mesh path) is not ported "
                                   "to ccfindr_tpu_torch yet (ROADMAP A7)")
+    nb, _, r = state0.lw.shape
     m = state0.lh.shape[-1]
     m_live = m if m_true is None else int(m_true)
-    sweep = functools.partial(epi_sweep, layout=layout, m_live=m_live)
+    if chunk is None:
+        chunk = fused_chunk(x, layout, nb, sol.round_up(max(r, 8), 8),
+                            state0.lw.element_size())
+    sweep = functools.partial(epi_sweep, layout=layout, m_live=m_live,
+                              chunk=chunk)
     return sol.deferred_loop(x, state0, hyper0, sweep, w_rowmajor=True,
                              m_true=m_live, itmax=itmax, tol=tol,
                              fudge=fudge, hyper_mask=hyper_mask, n0=n0,

@@ -15,7 +15,10 @@ kernels for CUDA tensors, with no fallback between them.
 
 Factors carry a leading lane axis B: ``lw (B, n, r)``, ``lht (B, m, r)``
 (lh transposed, contiguous), float32 or float64, ``r <= 128``; ``a``
-is ``(B, nnz)`` in the factor dtype.
+is ``(B, nnz)`` in the factor dtype.  ``mxu_bf16`` (``precision=
+'bf16'``, the tile kernel's mode) rounds the factor rows each pass
+gathers and ``a`` to bf16 (``csrc/bf16.cuh``), the sums staying in the
+factor dtype.
 """
 
 from __future__ import annotations
@@ -105,19 +108,20 @@ def _flags(do_elbo, nb, dev):
 # ---------------------------------------------------------------------
 
 def rowpass_plain(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
-                  want_xlog=True):
+                  want_xlog=True, mxu_bf16=False):
     """S1 + M3's function: ``(swn (B, n, r), a (B, nnz), xlog (B,)
     float64)``, None where not wanted."""
     swn, _, a, xlog = sparse.coo_pass(
         tc.csr_rows(), tc.col, tc.val, lw, lht, m=tc.m, want_swn=want_swn,
-        want_shn=False, want_a=want_a, want_xlog=want_xlog, do_elbo=do_elbo)
+        want_shn=False, want_a=want_a, want_xlog=want_xlog, do_elbo=do_elbo,
+        mxu_bf16=mxu_bf16)
     return swn, a, xlog
 
 
-def colpass_plain(tc, a, lw):
+def colpass_plain(tc, a, lw, mxu_bf16=False):
     """S2's function: ``shn (B, r, m)``."""
-    return sparse.coo_colpass(tc.csr_rows(), tc.col, a, lw,
-                              tc.m).transpose(-1, -2)
+    return sparse.coo_colpass(tc.csr_rows(), tc.col, a, lw, tc.m,
+                              mxu_bf16).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------
@@ -125,7 +129,7 @@ def colpass_plain(tc, a, lw):
 # ---------------------------------------------------------------------
 
 def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
-               want_xlog=True):
+               want_xlog=True, mxu_bf16=False):
     """Launch S1.  Returns ``(swn (B, n, r), a (B, nnz), xlog_part (B,
     ceil(n/8)) float64)``, None where not wanted."""
     require_cuda(tc.val, lw, lht)
@@ -142,7 +146,8 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
         return None if t is None else t.data_ptr()
 
     rc = library().sp_rowpass(
-        TCODE[lw.dtype], XCODE[tc.val.dtype], tc.indptr.data_ptr(),
+        TCODE[lw.dtype], XCODE[tc.val.dtype], int(bool(mxu_bf16)),
+        tc.indptr.data_ptr(),
         tc.col.data_ptr(), tc.val.data_ptr(), lw.data_ptr(), lht.data_ptr(),
         flags.data_ptr(), nb, n, tc.m, r, tc.nnz, ptr(swn), ptr(a),
         ptr(part), stream())
@@ -151,13 +156,14 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
     return swn, a, part
 
 
-def sp_colpass(tc, a, lw):
+def sp_colpass(tc, a, lw, mxu_bf16=False):
     """Launch S2: ``shn (B, r, m)``."""
     require_cuda(tc.val, a, lw)
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
     rc = library().sp_colpass(
-        TCODE[lw.dtype], tc.colptr.data_ptr(), tc.row.data_ptr(),
+        TCODE[lw.dtype], int(bool(mxu_bf16)), tc.colptr.data_ptr(),
+        tc.row.data_ptr(),
         tc.perm.data_ptr(), a.data_ptr(), lw.data_ptr(), nb, n, tc.m, r,
         tc.nnz, shn.data_ptr(), stream())
     check_launch("sp_colpass", rc)
@@ -166,22 +172,22 @@ def sp_colpass(tc, a, lw):
 
 
 def rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
-            want_xlog=True):
+            want_xlog=True, mxu_bf16=False):
     """The row pass: ``(swn, a, xlog (B,) float64)`` — S1 and M3 on
     CUDA tensors, :func:`rowpass_plain` on CPU tensors."""
     _check_rowpass(tc, lw, lht)
     if tc.device.type == "cpu":
         return rowpass_plain(tc, lw, lht, do_elbo, want_swn, want_a,
-                             want_xlog)
+                             want_xlog, mxu_bf16)
     swn, a, part = sp_rowpass(tc, lw, lht, do_elbo, want_swn, want_a,
-                              want_xlog)
+                              want_xlog, mxu_bf16)
     return swn, a, (ml.ml_xlog_sum(part) if want_xlog else None)
 
 
-def colpass(tc, a, lw):
+def colpass(tc, a, lw, mxu_bf16=False):
     """The column pass: ``shn (B, r, m)`` — S2 on CUDA tensors,
     :func:`colpass_plain` on CPU tensors."""
     _check_colpass(tc, a, lw)
     if tc.device.type == "cpu":
-        return colpass_plain(tc, a, lw)
-    return sp_colpass(tc, a, lw)
+        return colpass_plain(tc, a, lw, mxu_bf16)
+    return sp_colpass(tc, a, lw, mxu_bf16)

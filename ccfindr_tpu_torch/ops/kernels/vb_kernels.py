@@ -1,23 +1,38 @@
-"""The fused X pass of the VB sweep as hand-written CUDA, with its plain
-PyTorch version.
+"""The X passes of the VB sweep as hand-written CUDA, with their plain
+PyTorch versions.
 
 Counterpart of ``ccfindr_tpu/ops/pallas/vb_kernels.py``, under its
-names: :func:`fused_pallas_raw` returns ``swn = (x/wth) lh^T``, ``shn =
-lw^T (x/wth)`` and ``xlog = sum x log wth`` with ``wth = lw lh``, for a
-lane batch, in the JAX package's layouts (``x (np, mp)``, ``lw (B, np,
-rp)``, ``lh (B, rp, mp)``; ``swn`` like ``lw``, ``shn`` like ``lh``,
-``xlog (B,)`` float64).  On CUDA tensors it launches E1 ``fused_xpass``
-(``layout='gm'`` replaces ``_fused_gm_kernel``, ``'cm'``
-``_fused_cm_kernel``) and E1s ``fused_sum`` of ``csrc/epi.cu``; on CPU
-tensors it takes :func:`fused_xpass_plain`; there is no fallback
-between them.  No padding contract: rows of ``lw`` past the true gene
-count and columns of ``lh`` past the true cell count meet zero rows
-and columns of ``x``, and rank rows past ``r`` are zero.
+names, for a lane batch in the JAX package's layouts (``x (np, mp)``,
+``lw (B, np, rp)``, ``lh (B, rp, mp)``):
 
-``DEFAULT_BN``/``DEFAULT_BM`` and :func:`_fused_layout` are the JAX
-package's, kept for the driver's routing between the cell-major sweep
-(``ops/kernels/sol.py``) and the gene-major one
-(``ops/kernels/epilogue.py``); the kernels here have no TPU tiles.
+* the fused X pass :func:`fused_pallas_raw` returns ``swn = (x/wth)
+  lh^T``, ``shn = lw^T (x/wth)`` and ``xlog = sum x log wth`` with ``wth
+  = lw lh`` (``swn`` like ``lw``, ``shn`` like ``lh``, ``xlog (B,)``
+  float64).  On CUDA tensors it launches E1 ``fused_xpass``
+  (``layout='gm'`` replaces ``_fused_gm_kernel``, ``'cm'``
+  ``_fused_cm_kernel``) and E1s ``fused_sum`` of ``csrc/epi.cu``; on
+  CPU tensors it takes :func:`fused_xpass_plain`.  No padding contract:
+  rows of ``lw`` past the true gene count and columns of ``lh`` past the
+  true cell count meet zero rows and columns of ``x``, and rank rows
+  past ``r`` are zero.
+* the two-pass backend (``backend='pallas2pass'``):
+  :func:`suffstats_pallas` (``(sw, sh)``; P1 ``ss_xpass`` of
+  ``csrc/pass2.cu``, E1's gene-major walk without the ``x log wth``
+  sum, replaces ``_suffstats_kernel``, + E1s) and
+  :func:`elbo_data_pallas` (the ELBO data term; P2 ``elbo_xpass``
+  replaces ``_elbo_kernel``, + M3 ``ml_xlog_sum``), paired by
+  :func:`make_pallas_backend` for ``ops.vb.vb_run``.  They take X
+  zero-padded by :func:`pad_matrix` or not (the kernels read it in
+  place); the true ``(n, m, r)`` come from the factors ``lw (B, n, r)``,
+  ``lh (B, r, m)``.  Their plain versions are :func:`suffstats_plain`
+  and :func:`elbo_data_plain`.
+
+There is no fallback between a kernel and its plain version: the plain
+version is taken only for CPU tensors.  ``DEFAULT_BN``/``DEFAULT_BM``
+and :func:`_fused_layout` are the JAX package's, kept for the driver's
+routing between the cell-major sweep (``ops/kernels/sol.py``) and the
+gene-major one (``ops/kernels/epilogue.py``) and for
+:func:`pad_matrix`; the kernels have no TPU tiles.
 """
 
 from __future__ import annotations
@@ -25,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..sparse import fold_dterm  # noqa: F401  (the JAX module's name)
+from . import ml
 from .build import TCODE, XCODE, check_launch, library, require_cuda, stream
 from .sol import MAX_RP, bf16_round
 
@@ -34,10 +50,17 @@ DEFAULT_BM = 512
 # E1's chunk of its outer axis starts here and doubles until the
 # per-chunk partials take no more bytes than X (csrc/epi.cu)
 CHUNK = 512
+# P1 walks E1's gene-major order at any gene count: its chunk starts at
+# one subtile (64 genes) and doubles while the grid (chunks x lanes)
+# would pass this many blocks, a few an SM of the H100's 132, or the
+# partials would take more bytes than X
+PASS2_CHUNK = 64
+PASS2_BLOCKS = 4 * 132
 
 # launches per kernel since the last reset (bumped only where a kernel
 # is launched)
-LAUNCHES = {"fused_xpass_cm": 0, "fused_xpass_gm": 0, "fused_sum": 0}
+LAUNCHES = {"fused_xpass_cm": 0, "fused_xpass_gm": 0, "fused_sum": 0,
+            "ss_xpass": 0, "elbo_xpass": 0}
 
 
 def reset_launches():
@@ -107,30 +130,37 @@ def fused_xpass_plain(x, lw, lh, mxu_bf16=False):
     return swn, shn, xlog
 
 
-def fused_chunk(x, lw, layout):
-    """E1's chunk of its outer axis (genes for 'gm', cells for 'cm'):
-    :data:`CHUNK`, doubled while the per-chunk partials would take
-    more bytes than X."""
+def fused_chunk(x, layout, nb, rp, itemsize):
+    """E1's (and P1's) chunk of its outer axis (genes for 'gm', cells
+    for 'cm') for ``nb`` lanes of rank ``rp`` in factors of ``itemsize``
+    bytes: :data:`CHUNK`, doubled while the per-chunk partials would
+    take more bytes than X.
+
+    The chunk fixes the order in which a lane's partials are added, so
+    a run that re-batches its lanes (the drivers' ``checkpoint_every``
+    and ``compact_every``) computes it once, for the full batch, and
+    pins it."""
     np_, mp_ = x.shape
-    nb, _, rp_ = lw.shape
     outer, inner = (np_, mp_) if layout == "gm" else (mp_, np_)
     xbytes = x.numel() * x.element_size()
     chunk = CHUNK
-    while (chunk < outer and nb * -(-outer // chunk) * rp_ * inner
-           * lw.element_size() > xbytes):
+    while (chunk < outer and nb * -(-outer // chunk) * rp * inner
+           * itemsize > xbytes):
         chunk *= 2
     return chunk
 
 
-def fused_xpass(x, lw, lh, *, layout, mxu_bf16=False):
+def fused_xpass(x, lw, lh, *, layout, mxu_bf16=False, chunk=None):
     """Launch E1.  Returns ``(full, part, xlog_part)``: for 'gm' ``swn
     (B, np, rp)``, the shn partials ``(B, ngc, rp, mp)``; for 'cm'
     ``shn (B, rp, mp)``, the swn partials ``(B, ncc, np, rp)``; and the
-    per-chunk ``sum x log wth`` ``(B, nchunk)`` float64."""
+    per-chunk ``sum x log wth`` ``(B, nchunk)`` float64.  ``chunk``
+    (default :func:`fused_chunk` of this batch) pins the chunk."""
     require_cuda(x, lw, lh)
     np_, mp_ = x.shape
     nb, _, rp_ = lw.shape
-    chunk = fused_chunk(x, lw, layout)
+    if chunk is None:
+        chunk = fused_chunk(x, layout, nb, rp_, lw.element_size())
     gm = layout == "gm"
     nchunk = -(-(np_ if gm else mp_) // chunk)
     full = torch.empty(*((nb, np_, rp_) if gm else (nb, rp_, mp_)),
@@ -167,19 +197,212 @@ def fused_sum(part, xlog_part):
     return out, xlog
 
 
-def fused_pallas_raw(x, lw, lh, *, layout="cm", mxu_bf16=False):
+def fused_pallas_raw(x, lw, lh, *, layout="cm", mxu_bf16=False,
+                     chunk=None):
     """The fused X pass: ``(swn (B, np, rp), shn (B, rp, mp), xlog (B,)
     float64)``.  E1 + E1s on CUDA tensors, :func:`fused_xpass_plain` on
     CPU tensors.  ``layout`` picks E1's loop order ('gm' keeps a gene
     chunk's swn on chip and is the JAX driver's choice for large gene
     panels, 'cm' the dual); both give the same values.  ``mxu_bf16``
-    (``precision='bf16'``) rounds the products' operands to bf16."""
+    (``precision='bf16'``) rounds the products' operands to bf16;
+    ``chunk`` pins E1's chunk (:func:`fused_chunk`)."""
     _check(x, lw, lh, layout)
     if x.device.type == "cpu":
         return fused_xpass_plain(x, lw, lh, mxu_bf16)
     full, part, xlog_part = fused_xpass(x, lw, lh, layout=layout,
-                                        mxu_bf16=mxu_bf16)
+                                        mxu_bf16=mxu_bf16, chunk=chunk)
     other, xlog = fused_sum(part, xlog_part)
     if layout == "gm":
         return full, other, xlog
     return other, full, xlog
+
+
+# ---------------------------------------------------------------------
+# The two-pass backend (backend='pallas2pass')
+# ---------------------------------------------------------------------
+
+def pad_matrix(x, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
+    """Zero-pad a count matrix to multiples of (bn, bm), once a
+    factorization (the JAX function's padding; zeros add nothing to any
+    output, and the kernels read X in place whatever its padding)."""
+    n, m = x.shape
+    np_, mp_ = -(-n // bn) * bn, -(-m // bm) * bm
+    if (np_, mp_) == (n, m):
+        return x
+    return torch.nn.functional.pad(x, (0, mp_ - m, 0, np_ - n))
+
+
+def _check_pass2(x, lw, lh):
+    if lw.dtype not in TCODE or lh.dtype != lw.dtype:
+        raise TypeError(f"lw and lh must share float32 or float64, got "
+                        f"{lw.dtype} and {lh.dtype}")
+    if x.dtype not in XCODE:
+        raise TypeError(f"X must be int8, int16, float32 or float64, "
+                        f"got {x.dtype}")
+    if x.dim() != 2 or lw.dim() != 3 or lh.dim() != 3:
+        raise ValueError("X must be (np, mp), lw (B, n, r), lh (B, r, m)")
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    if lh.shape != (nb, r, m) or x.shape[0] < n or x.shape[1] < m:
+        raise ValueError(f"shape mismatch: X {tuple(x.shape)}, lw "
+                         f"{tuple(lw.shape)}, lh {tuple(lh.shape)}")
+    if not 0 < r <= MAX_RP:
+        raise ValueError(f"rank {r} must be in [1, {MAX_RP}]")
+    if len({x.device, lw.device, lh.device}) != 1:
+        raise ValueError(f"tensors on several devices: "
+                         f"{ {x.device, lw.device, lh.device} }")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def suffstats_plain(x, lw, lh):
+    """P1 + E1s's function: ``(swn (B, n, r), shn (B, r, m))`` =
+    ``((x/wth) lh^T, lw^T (x/wth))``, ``wth = lw lh``, over ``x[:n,
+    :m]``."""
+    n, m = lw.shape[-2], lh.shape[-1]
+    xf = x[:n, :m].to(lw.dtype)
+    u = xf / (lw @ lh)
+    return u @ lh.transpose(-1, -2), lw.transpose(-1, -2) @ u
+
+
+def xlogx(t):
+    """``t log t``, 0 where ``t`` is 0 (the JAX wrapper's guard)."""
+    pos = t > 0
+    return torch.where(pos, t * torch.log(torch.where(pos, t, 1.0)), 0.0)
+
+
+def elbo_data_plain(x, lw, lh):
+    """P2 + M3's function, in ``_elbo_kernel``'s unfolded form: ``-sum
+    x (S/wth - log wth)`` over ``x[:n, :m]`` with ``S = (lw log lw) lh +
+    lw (lh log lh)``, each term in the factor dtype, summed in float64:
+    (B,) float64."""
+    n, m = lw.shape[-2], lh.shape[-1]
+    xf = x[:n, :m].to(lw.dtype)
+    wth = lw @ lh
+    s = xlogx(lw) @ lh + lw @ xlogx(lh)
+    t = xf * (s / wth - torch.log(wth))
+    return -t.sum((-2, -1), dtype=torch.float64)
+
+
+def pass2_chunk(x, n, m, nb, r, itemsize):
+    """P1's gene chunk for ``nb`` lanes of rank ``r`` over the true
+    ``(n, m)`` of ``x``: :data:`PASS2_CHUNK`, doubled while the grid
+    would pass :data:`PASS2_BLOCKS` blocks or the shn partials would take
+    more bytes than X.  It fixes the order in which a lane's partials
+    are added, so the driver pins the full batch's (as
+    :func:`fused_chunk`'s)."""
+    xbytes = x.numel() * x.element_size()
+    chunk = PASS2_CHUNK
+    while chunk < n and (nb * -(-n // chunk) > PASS2_BLOCKS
+                         or nb * -(-n // chunk) * r * m * itemsize > xbytes):
+        chunk *= 2
+    return chunk
+
+
+def ss_xpass(x, lw, lh, *, chunk=None):
+    """Launch P1 on ``x`` read in place (row stride ``x.shape[1]``).
+    Returns ``(swn (B, n, r), shn_part (B, ngc, r, m))``, the shn
+    partials of ``ngc`` gene chunks; ``chunk`` (default
+    :func:`pass2_chunk` of this batch) pins the chunk."""
+    require_cuda(x, lw, lh)
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    if chunk is None:
+        chunk = pass2_chunk(x, n, m, nb, r, lw.element_size())
+    swn = torch.empty_like(lw)
+    part = torch.empty(nb, -(-n // chunk), r, m, dtype=lw.dtype,
+                       device=x.device)
+    rc = library().ss_xpass(
+        TCODE[lw.dtype], XCODE[x.dtype], x.data_ptr(), x.shape[1],
+        lw.data_ptr(), lh.data_ptr(), nb, n, m, r, chunk, swn.data_ptr(),
+        part.data_ptr(), stream())
+    check_launch("ss_xpass", rc)
+    LAUNCHES["ss_xpass"] += 1
+    return swn, part
+
+
+def elbo_xpass(x, lw, lwl, lh, lhl):
+    """Launch P2 on ``x`` read in place: the per-tile partials ``(B,
+    ntiles)`` float64 of ``-sum x (S/wth - log wth)``, in tile order;
+    ``lwl``/``lhl`` are :func:`xlogx` of ``lw``/``lh``."""
+    require_cuda(x, lw, lwl, lh, lhl)
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    part = torch.empty(nb, -(-m // 64) * -(-n // 64), dtype=torch.float64,
+                       device=x.device)
+    rc = library().elbo_xpass(
+        TCODE[lw.dtype], XCODE[x.dtype], x.data_ptr(), x.shape[1],
+        lw.data_ptr(), lwl.data_ptr(), lh.data_ptr(), lhl.data_ptr(), nb,
+        n, m, r, part.data_ptr(), stream())
+    check_launch("elbo_xpass", rc)
+    LAUNCHES["elbo_xpass"] += 1
+    return part
+
+
+def suffstats_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
+                            bm=DEFAULT_BM, chunk=None):
+    """The numerators ``(swn (B, n, r), shn (B, r, m))``: P1 + E1s on
+    CUDA tensors, :func:`suffstats_plain` on CPU tensors.  ``(n, m, r)``
+    must be the factors' extents; ``bn``/``bm`` (the JAX tiles) are
+    accepted and not used."""
+    lw, lh = lw.contiguous(), lh.contiguous()
+    _check_pass2(x_pad, lw, lh)
+    if (lw.shape[-2], lh.shape[-1], lw.shape[-1]) != (n, m, r):
+        raise ValueError(f"(n, m, r) = {(n, m, r)} are not the factors' "
+                         f"extents")
+    if x_pad.device.type == "cpu":
+        return suffstats_plain(x_pad, lw, lh)
+    swn, part = ss_xpass(x_pad, lw, lh, chunk=chunk)
+    empty = torch.zeros(lw.shape[0], 0, dtype=torch.float64,
+                        device=x_pad.device)
+    return swn, fused_sum(part, empty)[0]
+
+
+def suffstats_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
+                     chunk=None):
+    """Drop-in for ``ops.vb.suffstats_dense``: ``(sw, sh) = (lw * swn,
+    lh * shn)``.  ``x`` may be pre-padded (:func:`pad_matrix`); the true
+    shapes come from ``lw (B, n, r)``/``lh (B, r, m)``."""
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    swn, shn = suffstats_pallas_padded(pad_matrix(x, bn, bm), lw, lh, n=n,
+                                       m=m, r=r, bn=bn, bm=bm, chunk=chunk)
+    return lw * swn, lh * shn
+
+
+def elbo_data_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
+                            bm=DEFAULT_BM):
+    """The ELBO data term (B,) in the factor dtype: P2 + M3 on CUDA
+    tensors, :func:`elbo_data_plain` on CPU tensors.  ``bn``/``bm`` are
+    accepted and not used."""
+    lw, lh = lw.contiguous(), lh.contiguous()
+    _check_pass2(x_pad, lw, lh)
+    if (lw.shape[-2], lh.shape[-1], lw.shape[-1]) != (n, m, r):
+        raise ValueError(f"(n, m, r) = {(n, m, r)} are not the factors' "
+                         f"extents")
+    if x_pad.device.type == "cpu":
+        return elbo_data_plain(x_pad, lw, lh).to(lw.dtype)
+    part = elbo_xpass(x_pad, lw, xlogx(lw), lh, xlogx(lh))
+    return ml.ml_xlog_sum(part).to(lw.dtype)
+
+
+def elbo_data_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
+    """Drop-in for ``ops.vb.elbo_data_term``."""
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    return elbo_data_pallas_padded(pad_matrix(x, bn, bm), lw, lh, n=n, m=m,
+                                   r=r, bn=bn, bm=bm)
+
+
+def make_pallas_backend(bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
+                        chunk=None):
+    """``(suffstats, data_term)`` for ``ops.vb.vb_run`` over a
+    :func:`pad_matrix`-padded X: ``vb_factorize(backend='pallas2pass')``.
+    ``chunk`` pins P1's gene chunk (:func:`pass2_chunk`)."""
+    def suffstats(x, lw, lh):
+        return suffstats_pallas(x, lw, lh, bn, bm, chunk=chunk)
+
+    def data_term(x, lw, lh):
+        return elbo_data_pallas(x, lw, lh, bn, bm)
+
+    return suffstats, data_term

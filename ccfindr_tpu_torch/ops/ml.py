@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import resolve_device
+from ..utils import lane_colsum, lane_sum, resolve_device
 
 
 def _mT(a):
@@ -44,12 +44,12 @@ def ml_sweep(x, w, h, eps, pn=0.0, pd=0.0, rank_mask=None):
     """
     xf = x.to(w.dtype)
     h = (h * (_mT(w) @ (xf / (w @ h))) + pn) \
-        / (w.sum(-2)[..., :, None] + pd)
+        / (lane_colsum(w)[..., :, None] + pd)
     h = torch.maximum(h, eps)
     if rank_mask is not None:
         h = torch.where(rank_mask[..., :, None] > 0, h, eps)
     w = (w * ((xf / (w @ h)) @ _mT(h)) + pn) \
-        / (h.sum(-1)[..., None, :] + pd)
+        / (lane_sum(h)[..., None, :] + pd)
     w = torch.maximum(w, eps)
     if rank_mask is not None:
         w = torch.where(rank_mask[..., None, :] > 0, w, eps)
@@ -62,7 +62,7 @@ def likelihood(x, w, h, lgx_zero_term):
     One value per lane."""
     xf = x.to(w.dtype)
     wh = w @ h
-    val = (xf * torch.log(wh) - wh).sum((-2, -1)) + lgx_zero_term
+    val = lane_sum(xf * torch.log(wh) - wh, 2) + lgx_zero_term
     return val / (x.shape[-2] * x.shape[-1])
 
 
@@ -120,7 +120,7 @@ def ml_h_dense(x, w, h):
     likelihood data term sum x*log(wh) for the same (w, h)."""
     xf = x.to(w.dtype)
     wh = w @ h
-    return _mT(w) @ (xf / wh), (xf * torch.log(wh)).sum((-2, -1))
+    return _mT(w) @ (xf / wh), lane_sum(xf * torch.log(wh), 2)
 
 
 def ml_w_dense(x, w, h):
@@ -259,17 +259,18 @@ def _ml_run_fused(x, w0, h0, *, itmax, tol, criterion, ncnn_step,
 
     def lk_of(xlw, w, h):
         # -sum(wh) reduces in rank space: colSums(w) . rowSums(h)
-        return ((xlw.to(ref_t) - (w.sum(-2) * h.sum(-1)).sum(-1) + lgconst)
+        return ((xlw.to(ref_t) - lane_sum(lane_colsum(w) * lane_sum(h))
+                 + lgconst)
                 / (n * m))
 
     def do_sweep(w, h, hn):
-        h1 = torch.maximum((h * hn + pn) / (w.sum(-2)[..., :, None] + pd),
-                           eps)
+        h1 = torch.maximum((h * hn + pn) / (lane_colsum(w)[..., :, None]
+                                            + pd), eps)
         if rank_mask is not None:
             h1 = torch.where(rank_mask[..., :, None] > 0, h1, eps)
         wn = fused_w(x, w, h1)
-        w1 = torch.maximum((w * wn + pn) / (h1.sum(-1)[..., None, :] + pd),
-                           eps)
+        w1 = torch.maximum((w * wn + pn) / (lane_sum(h1)[..., None, :]
+                                            + pd), eps)
         if rank_mask is not None:
             w1 = torch.where(rank_mask[..., None, :] > 0, w1, eps)
         return w1, h1

@@ -21,12 +21,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import lane_sum
+from .kernels.sol import bf16_round
+
 # nonzeros a chunk gathers at once (bounds the (B, chunk, r) temporaries)
 CHUNK = 1 << 16
 
 
 def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
-             want_a=False, want_xlog=True, do_elbo=None):
+             want_a=False, want_xlog=True, do_elbo=None, mxu_bf16=False):
     """One pass over the nonzeros ``(row[p], col[p], val[p])`` for a
     lane batch ``lw (B, n, r)``, ``lht (B, m, r)`` (lh transposed).
 
@@ -37,6 +40,10 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
     sums ``a lw[row]`` into ``col``, ``a`` in the order of the
     nonzeros, ``xlog`` the sum of ``val log wth`` (0 for a lane whose
     ``do_elbo`` is 0).  An output whose ``want_*`` is False is None.
+    ``mxu_bf16`` (``precision='bf16'``) rounds the gathered factor rows
+    to bf16 before ``wth`` and ``a`` after the division; ``a`` is
+    returned rounded, and the sums and ``log(wth)`` stay in the factor
+    dtype.
     """
     nb, n, r = lw.shape
     dt, dev = lw.dtype, lw.device
@@ -52,9 +59,15 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
         vv = val[p0:p0 + CHUNK].to(dt)
         lw_g = lw[:, rr]                          # (B, chunk, r)
         lh_g = lht[:, cc]
-        wth = (lw_g * lh_g).sum(-1)
+        if mxu_bf16:
+            lw_g, lh_g = bf16_round(lw_g), bf16_round(lh_g)
+            wth = _s1_dot(lw_g, lh_g)
+        else:
+            wth = (lw_g * lh_g).sum(-1)
         safe = torch.where(wth > 0, wth, 1.0)
         a = vv / safe                             # (B, chunk)
+        if mxu_bf16:
+            a = bf16_round(a)
         if want_swn:
             swn.index_add_(1, rr, a[..., None] * lh_g)
         if want_shn:
@@ -70,10 +83,35 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
     return swn, shn_t, a_all, xlog
 
 
-def coo_colpass(row, col, a, lw, m):
+def _s1_dot(u, v):
+    """``sum u v`` over the last axis in S1's order (``csrc/sparse.cu``):
+    the components spread over a group of G = 4, 8, 16 or 32 lanes (four
+    a lane at G = 32), each lane's products added in turn, then a
+    butterfly across the group.  Under ``mxu_bf16`` every product of two
+    rounded operands is exact, so this gives S1's ``wth`` bit for bit,
+    and with it S1's rounding of ``a = x/wth`` to bf16 (a ``wth`` one
+    ulp away could round ``a`` to its neighbour, 2^-8 of it)."""
+    r = u.shape[-1]
+    g = 4 if r <= 4 else 8 if r <= 8 else 16 if r <= 16 else 32
+    kp = 4 if g == 32 else 1
+    p = torch.nn.functional.pad(u * v, (0, g * kp - r)).unflatten(-1,
+                                                                 (kp, g))
+    s = p[..., 0, :]
+    for j in range(1, kp):
+        s = s + p[..., j, :]
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s[..., 0]
+
+
+def coo_colpass(row, col, a, lw, m, mxu_bf16=False):
     """``shn_t (B, m, r)``: ``a[:, p] lw[:, row[p]]`` summed into
-    ``col[p]`` over the nonzeros."""
+    ``col[p]`` over the nonzeros (``mxu_bf16``: the rows of ``lw``
+    rounded to bf16)."""
     nb, _, r = lw.shape
+    if mxu_bf16:
+        lw = bf16_round(lw)
     shn_t = torch.zeros(nb, m, r, dtype=lw.dtype, device=lw.device)
     for p0 in range(0, col.shape[0], CHUNK):
         rr = row[p0:p0 + CHUNK].long()
@@ -88,6 +126,5 @@ def fold_dterm(swn, shn, xlog, lw, lh):
     fold of ``ccfindr_tpu.ops.pallas.vb_kernels.fold_dterm``; the sums
     are taken in float64)."""
     f64 = torch.float64
-    return (xlog - (swn * (lw * torch.log(lw))).sum((-2, -1), dtype=f64)
-            - (shn * (lh * torch.log(lh))).sum((-2, -1), dtype=f64)
-            ).to(lw.dtype)
+    return (xlog - lane_sum(swn * (lw * torch.log(lw)), 2, f64)
+            - lane_sum(shn * (lh * torch.log(lh)), 2, f64)).to(lw.dtype)

@@ -123,7 +123,7 @@ def from_dense_tile(x, dtype=torch.float32, device="cuda") -> TileCounts:
                            device=device)
 
 
-def fused_tile(tc: TileCounts, lw, lh, do_elbo=None):
+def fused_tile(tc: TileCounts, lw, lh, do_elbo=None, mxu_bf16=False):
     """Single-pass fused backend over the layout: ``(swn (B, n, r), shn
     (B, r, m), dterm (B,))`` as ``ops.vb.fused_dense`` returns them,
     with sw = lw*swn, sh = lh*shn.
@@ -131,18 +131,21 @@ def fused_tile(tc: TileCounts, lw, lh, do_elbo=None):
     ``do_elbo`` (B,) skips the O(nnz) ``x log wth`` for the lanes where
     it is 0 (the ``elbo_every`` cadence); their ``dterm`` is then
     meaningless and must not be read (``ops.vb._vb_run_fused`` guards
-    this)."""
+    this).  ``mxu_bf16`` (``precision='bf16'``) rounds S1/S2's gathered
+    factor rows and ``a = x/wth`` to bf16.  The JAX tile kernel rounds
+    the same operands, but not those of its COO overflow tail
+    (``ccfindr_tpu/ops/tile.py:611-621``); this layout has no tail."""
     swn, a, xlog = spk.rowpass(tc, lw, lh.transpose(-1, -2).contiguous(),
-                               do_elbo=do_elbo)
-    shn = spk.colpass(tc, a, lw)
+                               do_elbo=do_elbo, mxu_bf16=mxu_bf16)
+    shn = spk.colpass(tc, a, lw, mxu_bf16=mxu_bf16)
     return swn, shn, fold_dterm(swn, shn, xlog, lw, lh)
 
 
-def make_tile_fused():
+def make_tile_fused(mxu_bf16=False):
     """Fused function for ``vb_run(fused=...)``/``vb_factorize(backend=
     'sparse')``; it takes ``vb_run``'s ``do_elbo`` flag."""
     def fused(x, lw, lh, do_elbo=None):
-        return fused_tile(x, lw, lh, do_elbo=do_elbo)
+        return fused_tile(x, lw, lh, do_elbo=do_elbo, mxu_bf16=mxu_bf16)
 
     return fused
 

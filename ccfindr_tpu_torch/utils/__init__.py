@@ -22,6 +22,41 @@ def resolve_device(device):
     return device
 
 
+_LANE_SUM_WIDTH = 32
+
+
+def lane_sum(t, ndim=1, dtype=None):
+    """Sum over the trailing ``ndim`` axes of ``t``, in an order fixed by
+    their extent alone: 32 consecutive entries at a time (zero-padded),
+    then 32 of those sums, and so on to one.
+
+    ``torch.sum`` picks its blocking on the CPU and on the card from
+    the whole shape, leading lanes included, so a lane's sum can change
+    in its last bits when the lane batch shrinks.  Here every level
+    reduces 32-wide rows, whose order does not depend on how many rows
+    there are: a lane's result is the same bits in a batch of any size,
+    which the chunked and lane-compacted drivers rely on.  ``dtype``
+    casts first (float64 sums of float32 entries)."""
+    lead = t.shape[:t.dim() - ndim]
+    v = t.reshape(*lead, -1)
+    if dtype is not None:
+        v = v.to(dtype)
+    w = _LANE_SUM_WIDTH
+    while True:
+        k = v.shape[-1]
+        if k % w:
+            v = torch.nn.functional.pad(v, (0, w - k % w))
+        v = v.view(*lead, -1, w).sum(-1)
+        if k <= w:
+            return v[..., 0]
+
+
+def lane_colsum(t, dtype=None):
+    """:func:`lane_sum` over axis -2 of ``t`` (..., rows, cols): the
+    column sums, (..., cols)."""
+    return lane_sum(t.transpose(-1, -2), 1, dtype)
+
+
 def auto_storage_dtype(mat):
     """Pick the compressed on-device X dtype for ``storage_dtype='auto'``.
 

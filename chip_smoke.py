@@ -3,10 +3,11 @@
 
 Drives the port's paths through their public entry points, the
 batched VB rank scan (``vb_factorize``, on both of its ``'pallas'``
-routes) and the ML rank scan (``factorize``), on ``backend='pallas'``
-and on ``backend='sparse'``, after checking each CUDA kernel of those
-paths against its plain PyTorch version on the card.  Phases (each prints its result and
-seconds):
+routes and on ``'pallas2pass'``) and the ML rank scan (``factorize``),
+on ``backend='pallas'`` and on ``backend='sparse'`` (also in bf16), and
+their checkpoint, resume and lane compaction, after checking each CUDA
+kernel of those paths against its plain PyTorch version on the card.
+Phases (each prints its result and seconds):
 
 1. device and build: requires a CUDA device, prints the card's name
    and power limit (nvidia-smi), builds the kernels with nvcc (one
@@ -95,7 +96,36 @@ seconds):
    lane-sweeps per second, peak device memory, E1's partial bytes;
    gated on a finite lml, E1 'gm', E1s, E2, E3 and K4 launched with
    equal counts and K1-K3 not at all; vb_run_sol on the same lanes
-   beside it; E1/E1s/E2/E3 against their plain versions (3 lanes).
+   beside it; E1/E1s/E2/E3 against their plain versions (3 lanes);
+13. two-pass kernels vs plain, one pass: P1 ss_xpass (+ E1s) and P2
+   elbo_xpass (+ M3) on a ragged case (737 x 450, 21 lanes of ranks 2..8
+   padded to 8, the masked components at fudge) and on phase 4's 10x
+   matrix (3 lanes of r = 16), X in the factor dtype, factors float64
+   and float32: float64 1e-10 on sw, sh and the data term; float32 2e-4
+   on sw/sh and 1e-5 on the data term; two launches bit-identical, and
+   a zero-padded X read in place gives the same bits;
+14. the pallas2pass slice: the bundled vb_factorize(ranks 2..8, nrun 3,
+   backend='pallas2pass') in float64 must equal backend='dense' (n_iter
+   of every lane, lml to 1e-9); in float32 ropt must be 5 for seed 0
+   (seeds 1 and 2 printed), with P1 and P2 launched equally often and
+   K1-K4, E1-E3 not at all; the 10x scan (ranks [8, 12, 16], nrun 2,
+   Itmax 300) beside backend='pallas': wall, loop, lane-sweeps per
+   second, device launches a sweep, peak device memory;
+15. bf16 on the sparse backend: S1/S2 with mxu_bf16 against their bf16
+   plain versions on phase 8's two cases at the float32 tolerances; the
+   bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
+   1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
+   the 10x sparse VB scan in bf16 beside float32;
+16. checkpoint and compaction: the bundled VB scan on backend='pallas'
+   and on backend='sparse', and the bundled factorize(ranks [4, 5, 6],
+   nrun 4, Itmax 400, Tol 1e-4, backend='pallas'), each interrupted
+   after its second chunk of checkpoint_every=30, resumed, and run with
+   compact_every=50: the resumed and the compacted runs must equal the
+   uninterrupted one bit for bit (lml or likelihood, dispersion and
+   cophenetic, basis, coeff, n_iter); the same for compact_every=50 on
+   'pallas2pass' and on 'dense' (printed, not gated); the 10x VB scan
+   with compact_every=50 beside the unchunked one (lane-sweeps executed
+   and wall, printed).
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time, its plain version's time, its bound
@@ -141,6 +171,9 @@ EPI_KERNELS = {"fused_xpass_gm": "ccfindr_tpu/ops/pallas/vb_kernels.py:326",
                "epi_w_post": "ccfindr_tpu/ops/pallas/epilogue.py:71",
                "epi_h_post": "ccfindr_tpu/ops/pallas/epilogue.py:134"}
 EPI_SOURCE = "ccfindr_tpu_torch/csrc/epi.cu"
+P2_KERNELS = {"ss_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:108",
+              "elbo_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:185"}
+P2_SOURCE = "ccfindr_tpu_torch/csrc/pass2.cu"
 GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
 # the least time of a kernel (H100 SXM data sheet: float32 outside the
 # tensor cores, HBM3)
@@ -600,10 +633,11 @@ def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
     return tc, t(lw), t(lh)
 
 
-def compare_sparse(tc, lw, lh, do_elbo, dt):
+def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
     """S1 + M3 and S2 vs their plain versions on the same inputs (the VB
     sweep's outputs: swn, a, shn and the per-element data term), and a
-    second launch of each for bit-identity."""
+    second launch of each for bit-identity; ``bf16`` both in their
+    mxu_bf16 mode."""
     import torch
 
     from ccfindr_tpu_torch.ops.kernels import sparse as spk
@@ -614,19 +648,21 @@ def compare_sparse(tc, lw, lh, do_elbo, dt):
     lht = lh.transpose(-1, -2).contiguous()
 
     def launch():
-        swn, a, xlog = spk.rowpass(tc, lw, lht, do_elbo=flags)
-        return swn, a, xlog, spk.colpass(tc, a, lw)
+        swn, a, xlog = spk.rowpass(tc, lw, lht, do_elbo=flags,
+                                   mxu_bf16=bf16)
+        return swn, a, xlog, spk.colpass(tc, a, lw, mxu_bf16=bf16)
 
     swn, a, xlog, shn = launch()
     torch.cuda.synchronize()
-    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, do_elbo=flags)
-    shn_p = spk.colpass_plain(tc, a_p, lw)
+    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, do_elbo=flags,
+                                           mxu_bf16=bf16)
+    shn_p = spk.colpass_plain(tc, a_p, lw, mxu_bf16=bf16)
     nm = tc.n * tc.m
     d = fold_dterm(swn, shn, xlog, lw, lh) / nm
     d_p = fold_dterm(swn_p, shn_p, xlog_p, lw, lh) / nm
     err = dict(swn=rel_err(swn, swn_p), a=rel_err(a, a_p),
                shn=rel_err(shn, shn_p), dterm=rel_err(d, d_p))
-    if dt == torch.float64:
+    if dt == torch.float64 and not bf16:
         err["xlog"] = rel_err(xlog, xlog_p)
         ok = all(v <= F64_TOL for v in err.values())
     else:
@@ -671,6 +707,122 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def pass2_inputs(x_np, ranks, r, dt, seed, dev):
+    """X in the factor dtype and lane-batched factors lw (B, n, r), lh
+    (B, r, m): lane b has live rank ranks[b], its components [ranks[b],
+    r) at fudge as a batched rank scan pins them."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, m = x_np.shape
+    fudge = float(torch.finfo(dt).eps)
+    lw = rng.gamma(1.0, 1.0, (len(ranks), n, r))
+    lh = rng.gamma(1.0, 1.0, (len(ranks), r, m))
+    for b, rk in enumerate(ranks):
+        lw[b, :, rk:] = fudge
+        lh[b, rk:] = fudge
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    return t(x_np), t(lw), t(lh)
+
+
+def compare_pass2(x, lw, lh, dt):
+    """P1 (+ E1s) and P2 (+ M3) vs their plain versions on the same
+    inputs: (sw, sh) = (lw swn, lh shn) and the data term; a second
+    launch bit-identical; X zero-padded by pad_matrix and read in place
+    gives the same bits (the chunk pinned)."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+    nb, n, r = lw.shape
+    m = lh.shape[-1]
+    chunk = vbk.pass2_chunk(x, n, m, nb, r, lw.element_size())
+
+    def launch(xx):
+        swn, shn = vbk.suffstats_pallas_padded(xx, lw, lh, n=n, m=m, r=r,
+                                               chunk=chunk)
+        return swn, shn, vbk.elbo_data_pallas_padded(xx, lw, lh, n=n, m=m,
+                                                     r=r)
+
+    got, again, padded = launch(x), launch(x), launch(vbk.pad_matrix(x))
+    torch.cuda.synchronize()
+    swn_p, shn_p = vbk.suffstats_plain(x, lw, lh)
+    d_p = vbk.elbo_data_plain(x, lw, lh)
+    err = dict(sw=rel_err(lw * got[0], lw * swn_p),
+               sh=rel_err(lh * got[1], lh * shn_p),
+               dterm=rel_err(got[2], d_p))
+    if dt == torch.float64:
+        ok = all(v <= F64_TOL for v in err.values())
+    else:
+        ok = (max(err["sw"], err["sh"]) <= F32_FACTOR_TOL
+              and err["dterm"] <= F32_ELBO_TOL)
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    pad_same = all(torch.equal(a, b) for a, b in zip(got, padded))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    abs_err = {"ss_xpass": max(float((got[0] - swn_p).abs().max()),
+                               float((got[1] - shn_p).abs().max())),
+               "elbo_xpass": float((got[2].double() - d_p).abs().max())
+               / (n * m)}
+    return dict(ok=ok and det and pad_same and finite, err=err,
+                abs_err=abs_err, deterministic=det, padded_same=pad_same)
+
+
+def device_launches(fn):
+    """Device kernel launches during ``fn()``, counted by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+class Interrupted(Exception):
+    """Raised into a chunked driver to stand for a crash."""
+
+
+def interrupting(module, name, after):
+    """Patch ``module.name`` (``_chunked_vb`` or ``_chunked_ml``) so that
+    the lane batch's chunk number ``after + 1`` raises
+    :class:`Interrupted`, as a crash after ``after`` chunks would stop
+    it; returns the original, which the caller puts back."""
+    orig = getattr(module, name)
+    calls = [0]
+
+    def patched(call, *args, **kwargs):
+        def wrapped(*a, **k):
+            calls[0] += 1
+            if calls[0] > after:
+                raise Interrupted
+            return call(*a, **k)
+        return orig(wrapped, *args, **kwargs)
+
+    setattr(module, name, patched)
+    return orig
+
+
+def same_vb(a, b):
+    """Two vb_factorize results equal bit for bit: lml, basis, coeff and
+    the batch's n_iter."""
+    ok = (np.array_equal(a.measure["lml"], b.measure["lml"])
+          and a.metadata["timings"][0]["n_iter"]
+          == b.metadata["timings"][0]["n_iter"])
+    return ok and all(np.array_equal(u, v) for f in ("basis", "coeff")
+                      for u, v in zip(getattr(a, f), getattr(b, f)))
+
+
+def same_ml(a, b):
+    """Two factorize results equal bit for bit: the measure table
+    (likelihood, dispersion, cophenetic), basis, coeff, n_iter."""
+    ok = (np.array_equal(a.measure.values, b.measure.values)
+          and batch_record(a)["n_iter"] == batch_record(b)["n_iter"])
+    return ok and all(np.array_equal(u, v) for f in ("basis", "coeff")
+                      for u, v in zip(getattr(a, f), getattr(b, f)))
+
+
 class Smoke:
     def __init__(self, verbose):
         self.verbose = verbose
@@ -686,6 +838,9 @@ class Smoke:
         self.kernels.update({k: dict(name=k, route="cuda", source=EPI_SOURCE,
                                      replaces=rep)
                              for k, rep in EPI_KERNELS.items()})
+        self.kernels.update({k: dict(name=k, route="cuda", source=P2_SOURCE,
+                                     replaces=rep)
+                             for k, rep in P2_KERNELS.items()})
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
@@ -1632,12 +1787,10 @@ class Smoke:
               == counts["fused_xpass_cm"] == 0)
         nb = len(ranks) * nrun
         xt = torch.as_tensor(x_np, device=dev)
-        lw6 = torch.empty(nb, n, 16, device=dev)
-        chunk = vbk.fused_chunk(xt, lw6, "gm")
+        chunk = vbk.fused_chunk(xt, "gm", nb, 16, 4)
         pbytes = nb * -(-n // chunk) * 16 * m * 4
         print(f"  E1 'gm' chunk {chunk} genes: shn partials {pbytes / 1e9:.3f}"
               f" GB a sweep for {nb} lanes, X {xt.numel() / 1e9:.3f} GB")
-        del lw6
 
         # beside it, for comparison only: the same lanes (the driver's
         # seed-0 draws) through the cell-major loop vb_run_sol
@@ -1716,10 +1869,396 @@ class Smoke:
                   flush=True)
         return ok
 
+    # -- 13 -----------------------------------------------------------
+    def pass2_kernel_vs_plain(self):
+        import torch
+
+        from ccfindr_tpu_torch.ops.kernels import ml as mlk
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        if self.x10 is None:
+            self.x10 = planted_10x()
+        cases = [("ragged", planted(737, 450, 5, seed=1),
+                  [rk for rk in range(2, 9) for _ in range(3)], 8),
+                 ("10x", self.x10, [16] * 3, 16)]
+        ok_all = True
+        for cname, x_np, ranks, r in cases:
+            for dt in (torch.float64, torch.float32):
+                x, lw, lh = pass2_inputs(x_np, ranks, r, dt, 11, dev)
+                res = compare_pass2(x, lw, lh, dt)
+                print(f"  {cname} {str(dt)[6:]}: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} "
+                      + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
+                      + f" deterministic={res['deterministic']} "
+                      f"padded_same={res['padded_same']}", flush=True)
+                ok_all = ok_all and res["ok"]
+                if cname == "10x" and dt == torch.float32:
+                    for k, v in res["abs_err"].items():
+                        self.kernels[k]["max_abs_err"] = v
+                    self.pass2_times(x, lw, lh)
+                del x, lw, lh
+                torch.cuda.empty_cache()
+        print(f"  tolerances: f64 {F64_TOL:g}; f32 sw/sh {F32_FACTOR_TOL:g}, "
+              f"data term {F32_ELBO_TOL:g}")
+        return ok_all
+
+    def pass2_times(self, x, lw, lh):
+        """P1's and P2's times at the 10x shape (3 lanes of r = 16,
+        float32), their plain versions' and their bounds: the products
+        are needed at the nonzeros of X only, 6 r flops a nonzero and
+        lane each (P1: wth, swn, shn; P2: wth and the two halves of S)."""
+        import torch
+
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+        nb, n, r = lw.shape
+        chunk = vbk.pass2_chunk(x, n, lh.shape[-1], nb, r, lw.element_size())
+        lwl, lhl = vbk.xlogx(lw), vbk.xlogx(lh)
+        p1 = vbk.ss_xpass(x, lw, lh, chunk=chunk)
+        p2 = vbk.elbo_xpass(x, lw, lwl, lh, lhl)
+        timed = {
+            "ss_xpass": (lambda: vbk.ss_xpass(x, lw, lh, chunk=chunk),
+                         lambda: vbk.suffstats_plain(x, lw, lh)),
+            "elbo_xpass": (lambda: vbk.elbo_xpass(x, lw, lwl, lh, lhl),
+                           lambda: vbk.elbo_data_plain(x, lw, lh)),
+        }
+        for k, (kern, plain) in timed.items():
+            self.kernels[k]["ms"] = cuda_ms(kern, 10)
+            self.kernels[k]["plain_ms"] = cuda_ms(plain, 3)
+        nnz = int((x != 0).sum())
+        self.set_bound("ss_xpass", nbytes(x, lw, lh, p1), 6 * r * nnz * nb)
+        self.set_bound("elbo_xpass", nbytes(x, lw, lwl, lh, lhl, p2),
+                       6 * r * nnz * nb)
+        for k in timed:
+            kk = self.kernels[k]
+            print(f"  {k} at {x.shape[0]} x {x.shape[1]}, {nb} lanes of r "
+                  f"{r}: kernel {kk['ms']:.4f} ms, plain {kk['plain_ms']:.4f}"
+                  f" ms, bound {kk['bound_ms']:.4f} ms ({kk['bound_by']})",
+                  flush=True)
+        print(f"  P1 chunk {chunk} genes: {nb * -(-n // chunk)} blocks")
+
+    # -- 14 -----------------------------------------------------------
+    def pallas2pass_slice(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import vb
+        from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+        from ccfindr_tpu_torch.ops.kernels import ml as mlk
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                  device="cuda", verbose=0)
+
+        # float64: the two-pass kernels against the matmul sweep
+        a = ct.vb_factorize(s, seed=0, dtype=torch.float64,
+                            backend="pallas2pass", **kw)
+        b = ct.vb_factorize(s, seed=0, dtype=torch.float64, backend="dense",
+                            **kw)
+        nit_a = a.metadata["timings"][0]["n_iter"]
+        nit_b = b.metadata["timings"][0]["n_iter"]
+        lml_err = float(np.max(np.abs(a.measure["lml"] - b.measure["lml"])
+                               / np.abs(b.measure["lml"])))
+        ok64 = nit_a == nit_b and lml_err <= 1e-9
+        print(f"  float64 pallas2pass vs dense: n_iter equal "
+              f"{nit_a == nit_b} ({nit_a}), lml rel {lml_err:.3g}")
+
+        # float32 seed 0: the path's run, its launches counted
+        for mod in (sol, vbk, epi, mlk):
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = ct.vb_factorize(s, seed=0, backend="pallas2pass", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sol.LAUNCHES, **vbk.LAUNCHES, **epi.LAUNCHES)
+        for k in P2_KERNELS:
+            self.kernels[k]["launches"] = counts[k]
+        opt = ct.optimal_rank(f)
+        print(f"  vb_factorize pallas2pass float32 seed 0: {wall:.2f} s, "
+              f"ropt={opt['ropt']}, launches {counts}, M3 "
+              f"{mlk.LAUNCHES['ml_xlog_sum']}")
+        print(f.measure.to_string())
+        off = ("xpass", "w_post", "h_post", "finish", "fused_xpass_cm",
+               "fused_xpass_gm", "epi_w_post", "epi_h_post")
+        ok32 = (opt["ropt"] == 5 and counts["ss_xpass"] > 0
+                and counts["ss_xpass"] == counts["elbo_xpass"]
+                == counts["fused_sum"] == mlk.LAUNCHES["ml_xlog_sum"]
+                and all(counts[k] == 0 for k in off)
+                and bool(np.isfinite(f.measure["lml"]).all()))
+        for seed in (1, 2):
+            g = ct.vb_factorize(s, seed=seed, backend="pallas2pass", **kw)
+            print(f"  seed {seed}: ropt={ct.optimal_rank(g)['ropt']} "
+                  "(reported, not gated)")
+
+        # the 10x scan beside backend='pallas' on the same matrix
+        x_np = self.x10 if self.x10 is not None else planted_10x()
+        n, m = x_np.shape
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, device="cuda",
+                    verbose=0, seed=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        rate = {}
+        for backend in ("pallas2pass", "pallas"):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            start.record()
+            g = ct.vb_factorize(x_np, backend=backend, **kw10)
+            end.record()
+            end.synchronize()
+            secs = start.elapsed_time(end) / 1e3
+            rec = g.metadata["timings"][0]
+            ls = rec["lane_sweeps_executed"]
+            rate[backend] = ls / rec["seconds"]
+            print(f"  10x vb_factorize {backend}: wall {secs:.3f} s, loop "
+                  f"{rec['seconds']:.3f} s, {ls} lane-sweeps -> "
+                  f"{rate[backend]:.1f} lane-sweeps/s of loop "
+                  f"({ls / secs:.1f} of wall), peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+                  f"lml {g.measure['lml'].tolist()}", flush=True)
+            ok32 = ok32 and bool(np.isfinite(g.measure["lml"]).all())
+        print(f"  10x loop pallas2pass/pallas = "
+              f"{rate['pallas2pass'] / rate['pallas']:.3f}")
+
+        # device launches a sweep of the two loops on the 10x lanes
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(0)
+        h1 = vb.Hyper(1.0, 1.0, 1.0, 1.0)
+        ra = np.repeat([8, 12, 16], 2)
+        st = vb.VBState(*(torch.stack(t) for t in zip(
+            *[vb.vb_init_random(gen, n, m, 16, h1, torch.float32, dev)
+              for _ in ra])))
+        hy = vb.Hyper(*(torch.ones(len(ra), device=dev),) * 4)
+        rm = torch.as_tensor((np.arange(16)[None] < ra[:, None])
+                             .astype(np.float32), device=dev)
+        rt = torch.as_tensor(ra.astype(np.float32), device=dev)
+        x32 = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+        x8 = torch.as_tensor(x_np, device=dev)
+        ss, dt = vbk.make_pallas_backend()
+        sweeps = 10
+        loops = {
+            "pallas2pass": lambda: vb.vb_run(
+                vbk.pad_matrix(x32), st, hy, itmax=sweeps, tol=0.0,
+                rank_mask=rm, r_true=rt, suffstats=ss, data_term=dt),
+            "pallas": lambda: sol.vb_run_sol(x8, st, hy, itmax=sweeps,
+                                             tol=0.0, rank_mask=rm,
+                                             r_true=rt),
+        }
+        for name, fn in loops.items():
+            fn()
+            nl = device_launches(fn)
+            print(f"  {name} loop: {nl / sweeps:.1f} device launches a sweep "
+                  f"({sweeps} sweeps at tol 0)", flush=True)
+        return ok64 and ok32
+
+    # -- 15 -----------------------------------------------------------
+    def sparse_bf16(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        if self.x10m is None:
+            self.x10m = masked_10x(self.x10 if self.x10 is not None
+                                   else planted_10x())
+        cases = [("ragged", s.counts,
+                  [rk for rk in range(2, 9) for _ in range(3)], 8),
+                 ("10x", self.x10m[1], [16] * 3, 16)]
+        ok_all = True
+        for cname, csr, ranks, r in cases:
+            for dt in (torch.float64, torch.float32):
+                tc, lw, lh = sparse_inputs(csr, ranks, r, dt, torch.int16, 7,
+                                           dev)
+                res = compare_sparse(tc, lw, lh, 1, dt, bf16=True)
+                print(f"  {cname} {str(dt)[6:]} bf16: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} "
+                      + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
+                      + f" deterministic={res['deterministic']}", flush=True)
+                ok_all = ok_all and res["ok"]
+                if cname == "10x" and dt == torch.float32:
+                    for k in SP_KERNELS:
+                        self.kernels[k]["bf16_max_abs_err"] = \
+                            res["abs_err"][k]
+                del tc, lw, lh
+                torch.cuda.empty_cache()
+        # both modes at phase 10's timing inputs (6 lanes, r 16, float32)
+        tc, lw, lh = sparse_inputs(self.x10m[1], [8, 8, 12, 12, 16, 16], 16,
+                                   torch.float32, torch.int16, 9, dev)
+        lht = lh.transpose(-1, -2).contiguous()
+        for bf16 in (False, True, True, False):
+            _, a, _ = spk.sp_rowpass(tc, lw, lht, mxu_bf16=bf16)
+            ms = (cuda_ms(lambda: spk.sp_rowpass(tc, lw, lht,
+                                                 mxu_bf16=bf16), 20),
+                  cuda_ms(lambda: spk.sp_colpass(tc, a, lw,
+                                                 mxu_bf16=bf16), 20))
+            print(f"  10x, 6 lanes, {'bf16' if bf16 else 'float32'}: "
+                  f"sp_rowpass {ms[0]:.4f} ms, sp_colpass {ms[1]:.4f} ms")
+            if bf16:
+                for k, v in zip(SP_KERNELS, ms):
+                    self.kernels[k]["bf16_ms"] = v
+        del tc, lw, lh, lht, a
+        print(f"  tolerances (float32's, both factor types): swn/a/shn "
+              f"{F32_FACTOR_TOL:g}, data term per element {F32_ELBO_TOL:g}")
+
+        kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                  backend="sparse", device="cuda", verbose=0,
+                  precision="bf16")
+        ok = ok_all
+        for seed in (0, 1, 2):
+            if seed == 0:
+                spk.reset_launches()
+            g = ct.vb_factorize(s, seed=seed, **kw)
+            ropt = ct.optimal_rank(g)["ropt"]
+            print(f"  sparse bf16 seed {seed}: ropt={ropt}"
+                  + (f" (gated: 5), launches {dict(spk.LAUNCHES)}"
+                     if seed == 0 else " (reported)"))
+            if seed == 0:
+                ok = ok and ropt == 5 and bool(
+                    np.isfinite(g.measure["lml"]).all()) and min(
+                    spk.LAUNCHES.values()) > 0
+
+        # the 10x sparse VB scan, bf16 beside float32
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, device="cuda",
+                    verbose=0, seed=0, backend="sparse")
+        for prec in ("bf16", "f32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = ct.vb_factorize(self.x10m[1], precision=prec, **kw10)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = g.metadata["timings"][0]
+            ls = rec["lane_sweeps_executed"]
+            print(f"  10x sparse vb_factorize {prec}: wall {wall:.3f} s, loop "
+                  f"{rec['seconds']:.3f} s, {ls} lane-sweeps -> "
+                  f"{ls / rec['seconds']:.1f} lane-sweeps/s of loop, n_iter "
+                  f"{rec['n_iter']}, lml {g.measure['lml'].tolist()}",
+                  flush=True)
+            ok = ok and bool(np.isfinite(g.measure["lml"]).all())
+        return ok
+
+    # -- 16 -----------------------------------------------------------
+    def checkpointing(self):
+        import os
+        import tempfile
+
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.drivers import ml_driver as md
+        from ccfindr_tpu_torch.drivers import vb_driver as vd
+        from ccfindr_tpu_torch.utils import lane_sum
+
+        dev = torch.device("cuda")
+        # the loops' fixed-order reduction: a lane's sum is the same
+        # bits in a batch of any size
+        gen = torch.Generator(device=dev).manual_seed(0)
+        probe_ok = True
+        for shape in ((21, 684 * 8), (21, 8, 447), (21, 4089 * 16)):
+            t = torch.rand(shape, generator=gen, device=dev)
+            full = lane_sum(t, len(shape) - 1)
+            for nb in (1, 2, 3, 7, 16):
+                probe_ok &= bool(torch.equal(
+                    lane_sum(t[5:5 + nb].clone(), len(shape) - 1),
+                    full[5:5 + nb]))
+        print(f"  lane_sum of 1..16 lanes equals the 21-lane batch's bits: "
+              f"{probe_ok}")
+
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        tmp = tempfile.mkdtemp(prefix="ccfindr_ck_")
+        ok = probe_ok
+
+        def three_runs(fn, module, name, kw, ckname):
+            """The run interrupted after two chunks of 30 sweeps, resumed,
+            and compacted every 50 sweeps, against ``base``."""
+            ck = os.path.join(tmp, f"{name}_{kw['backend']}")
+            orig = interrupting(module, name, 2)
+            stopped = False
+            try:
+                fn(s, checkpoint_dir=ck, checkpoint_every=30, **kw)
+            except Interrupted:
+                stopped = True
+            finally:
+                setattr(module, name, orig)
+            left = os.path.exists(os.path.join(ck, ckname))
+            resumed = fn(s, checkpoint_dir=ck, checkpoint_every=30, **kw)
+            compacted = fn(s, compact_every=50, **kw)
+            return stopped and left, resumed, compacted
+
+        for backend in ("pallas", "sparse"):
+            kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                      backend=backend, device="cuda", verbose=0, seed=0)
+            base = (self.vb_result if backend == "pallas"
+                    and self.vb_result is not None
+                    else ct.vb_factorize(s, **kw))
+            t0 = time.perf_counter()
+            stopped, b, c = three_runs(ct.vb_factorize, vd, "_chunked_vb",
+                                       kw, "vb_sweeps_batch.npz")
+            rb, rc = same_vb(base, b), same_vb(base, c)
+            print(f"  VB {backend}: interrupted with its checkpoint left "
+                  f"{stopped}; resumed == uninterrupted {rb}; "
+                  f"compact_every=50 == uninterrupted {rc} "
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+            ok = ok and stopped and rb and rc
+
+        # the routes whose resume the card does not gate: the two-pass
+        # loop (kernels P1/P2 and the lane_sum glue) and the dense
+        # parity route (cuBLAS batched matmuls), compacted
+        for backend in ("pallas2pass", "dense"):
+            kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                      backend=backend, device="cuda", verbose=0, seed=0)
+            same = same_vb(ct.vb_factorize(s, **kw),
+                           ct.vb_factorize(s, compact_every=50, **kw))
+            print(f"  VB {backend}: compact_every=50 == uninterrupted {same} "
+                  "(printed, not gated)", flush=True)
+
+        kwm = dict(ranks=[4, 5, 6], nrun=4, Itmax=400, Tol=1e-4,
+                   backend="pallas", device="cuda", verbose=0, seed=0)
+        base = ct.factorize(s, **kwm)
+        stopped, b, c = three_runs(ct.factorize, md, "_chunked_ml", kwm,
+                                   "ml_sweeps_s0_p0.npz")
+        rb, rc = same_ml(base, b), same_ml(base, c)
+        print(f"  ML pallas: interrupted with its checkpoint left {stopped}; "
+              f"resumed == uninterrupted {rb}; compact_every=50 == "
+              f"uninterrupted {rc}", flush=True)
+        ok = ok and stopped and rb and rc
+
+        # compaction at the 10x shape: printed, not gated
+        x_np = self.x10 if self.x10 is not None else planted_10x()
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, backend="pallas",
+                    device="cuda", verbose=0, seed=0)
+        outs = {}
+        for label, extra in (("unchunked", {}),
+                             ("compact_every=50", dict(compact_every=50))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = outs[label] = ct.vb_factorize(x_np, **kw10, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = g.metadata["timings"][0]
+            print(f"  10x VB {label}: wall {wall:.3f} s, loop "
+                  f"{rec['seconds']:.3f} s, lane-sweeps executed "
+                  f"{rec['lane_sweeps_executed']}, n_iter {rec['n_iter']}",
+                  flush=True)
+        print(f"  10x compacted == unchunked: "
+              f"{same_vb(outs['unchunked'], outs['compact_every=50'])}")
+        return ok
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -1749,7 +2288,12 @@ def main(argv=None):
               "10": ("sparse-scale", smoke.sparse_scale),
               "11": ("gene-major-kernels-vs-plain",
                      smoke.epi_kernel_vs_plain),
-              "12": ("gene-major-slice", smoke.gene_major)}
+              "12": ("gene-major-slice", smoke.gene_major),
+              "13": ("two-pass-kernels-vs-plain",
+                     smoke.pass2_kernel_vs_plain),
+              "14": ("pallas2pass-slice", smoke.pallas2pass_slice),
+              "15": ("sparse-bf16", smoke.sparse_bf16),
+              "16": ("checkpoint-compaction", smoke.checkpointing)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

@@ -225,12 +225,7 @@ def test_dtype_follows_device(small):
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "A7"),
     (dict(distributed=dict(num_processes=2)), "A7"),
-    (dict(checkpoint_dir="ck"), "A3"),
-    (dict(checkpoint_every=5), "A3"),
-    (dict(compact_every=5), "A3"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
-    (dict(backend="pallas2pass"), "B5"),
-    (dict(precision="bf16", backend="sparse"), "B9"),
     (dict(initializer="svd2", svd_method="randomized"), "A8"),
 ])
 def test_options_not_ported_raise(small, kw, item):

@@ -1,6 +1,7 @@
 """CUDA kernels K1-K4 (csrc/sol.cu), M1-M3 (csrc/ml.cu), S1/S2
-(csrc/sparse.cu) and E1, E1s, E2, E3 (csrc/epi.cu) against their plain
-PyTorch versions, on the card.  The kernels have no CPU mode, so every
+(csrc/sparse.cu, also in their bf16 mode), E1, E1s, E2, E3 (csrc/epi.cu)
+and P1/P2 (csrc/pass2.cu) against their plain PyTorch versions, on the
+card; and the lane-count independence the chunked drivers rely on.  The kernels have no CPU mode, so every
 test here is marked ``cuda`` and skips without a CUDA device.  The module imports
 no JAX, so on a machine with a card (and without JAX) it runs as
 
@@ -25,6 +26,7 @@ from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 from ccfindr_tpu_torch.ops.kernels import sparse as spk
 from ccfindr_tpu_torch.ops.ml import likelihood_const
 from ccfindr_tpu_torch.ops.sparse import fold_dterm
+from ccfindr_tpu_torch.utils import lane_sum
 
 pytestmark = pytest.mark.cuda
 
@@ -298,7 +300,7 @@ def test_fused_xpass_matches_plain(n, m, r, lanes, xdt, dt, layout, bf16):
     torch.cuda.synchronize()
     assert vbk.LAUNCHES == {"fused_xpass_cm": int(layout == "cm"),
                             "fused_xpass_gm": int(layout == "gm"),
-                            "fused_sum": 1}
+                            "fused_sum": 1, "ss_xpass": 0, "elbo_xpass": 0}
     want = vbk.fused_xpass_plain(x, lw, lh, mxu_bf16=bf16)
     tol = 1e-10 if dt == torch.float64 else 2e-4
     for g, w in zip(got[:2], want[:2]):
@@ -406,3 +408,129 @@ def test_gene_major_wrappers_refuse_bad_input():
     with pytest.raises(ValueError, match="shape mismatch"):
         epi.epi_sweep(x, lw, lh[..., :59].contiguous(), eh, sc, n=50, m=60,
                       r=4)
+
+
+def _pass2_inputs(n, m, r, lanes, dt, xdt, dev, seed=0):
+    """X and the two-pass layouts lw (B, n, r), lh (B, r, m); lane b's
+    components [lanes[b], r) at fudge."""
+    x, lwt, lh, _, _ = _inputs(n, m, r, lanes, dt, xdt, dev, seed)
+    return x, lwt[:, :r].transpose(-1, -2).contiguous(), \
+        lh[:, :r].contiguous()
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,lanes,xdt", [
+    (300, 700, 6, [3, 4, 5, 6], torch.float32),
+    (1030, 517, 16, [16, 9], torch.int16),
+    (257, 1100, 40, [40, 33], torch.float64),
+    (140, 600, 128, [128, 100], torch.int8),
+])
+def test_pass2_kernels_match_plain(n, m, r, lanes, xdt, dt):
+    """P1 (+ E1s) and P2 (+ M3) against suffstats_plain and
+    elbo_data_plain; a second launch and a zero-padded X read in place
+    give the same bits."""
+    dev = _card()
+    x, lw, lh = _pass2_inputs(n, m, r, lanes, dt, xdt, dev)
+    vbk.reset_launches()
+    ml.reset_launches()
+    kw = dict(n=n, m=m, r=r)
+    swn, shn = vbk.suffstats_pallas_padded(x, lw, lh, **kw)
+    d = vbk.elbo_data_pallas_padded(x, lw, lh, **kw)
+    torch.cuda.synchronize()
+    assert vbk.LAUNCHES["ss_xpass"] == vbk.LAUNCHES["elbo_xpass"] == 1
+    assert vbk.LAUNCHES["fused_sum"] == ml.LAUNCHES["ml_xlog_sum"] == 1
+    swn_p, shn_p = vbk.suffstats_plain(x, lw, lh)
+    d_p = vbk.elbo_data_plain(x, lw, lh)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    assert _rel(lw * swn, lw * swn_p) <= tol
+    assert _rel(lh * shn, lh * shn_p) <= tol
+    assert _rel(d, d_p) <= (1e-10 if dt == torch.float64 else 1e-5)
+    chunk = vbk.pass2_chunk(x, n, m, len(lanes), r, lw.element_size())
+    for xx in (x, vbk.pad_matrix(x, 64, 128)):
+        again = vbk.suffstats_pallas_padded(xx, lw, lh, chunk=chunk, **kw)
+        assert torch.equal(again[0], swn) and torch.equal(again[1], shn)
+        assert torch.equal(vbk.elbo_data_pallas_padded(xx, lw, lh, **kw), d)
+
+
+def test_pass2_wrappers_refuse_bad_input():
+    dev = _card()
+    x, lw, lh = _pass2_inputs(50, 60, 4, [4, 3], torch.float64,
+                              torch.float64, dev)
+    with pytest.raises(ValueError, match="several devices"):
+        vbk.suffstats_pallas(x, lw.cpu(), lh)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        vbk.elbo_data_pallas_padded(x[:40], lw, lh, n=50, m=60, r=4)
+    with pytest.raises(TypeError, match="share"):
+        vbk.suffstats_pallas(x, lw, lh.float())
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,nb", [
+    (300, 700, 6, 4),
+    (1030, 517, 16, 2),
+    (257, 1100, 40, 2),
+])
+def test_sparse_kernels_bf16_match_plain(n, m, r, nb, dt):
+    """S1/S2 with mxu_bf16 against their bf16 plain versions at the
+    float32 tolerances (the plain row pass forms wth in S1's order, so
+    the rounding of a to bf16 agrees)."""
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(n, m, r, nb, dt, torch.int16, dev)
+    swn, a, xlog = spk.rowpass(tc, lw, lht, mxu_bf16=True)
+    shn = spk.colpass(tc, a, lw, mxu_bf16=True)
+    again = spk.rowpass(tc, lw, lht, mxu_bf16=True)
+    torch.cuda.synchronize()
+    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, mxu_bf16=True)
+    shn_p = spk.colpass_plain(tc, a_p, lw, mxu_bf16=True)
+    for got, want in ((swn, swn_p), (a, a_p), (shn, shn_p)):
+        assert _rel(got, want) <= 2e-4
+    assert _rel(xlog / (n * m), xlog_p / (n * m)) <= 1e-5
+    assert all(torch.equal(u, v) for u, v in zip(again, (swn, a, xlog)))
+    plain = spk.rowpass(tc, lw, lht)[0]
+    assert not torch.equal(plain, swn)     # the mode took effect
+
+
+@pytest.mark.parametrize("which", ["gm", "cm", "p1"])
+def test_lane_subset_with_pinned_chunk_is_bit_identical(which):
+    """E1 (both layouts) and P1 on three of twelve lanes, with the
+    chunk the twelve-lane batch gets, give those lanes' bits of the full
+    launch: what the chunked drivers' compaction relies on."""
+    dev = _card()
+    lanes = [16, 16, 12, 12, 8, 8] * 2
+    sub = torch.tensor([1, 4, 9], device=dev)
+    if which == "p1":
+        x, lw, lh = _pass2_inputs(3000, 700, 16, lanes, torch.float32,
+                                  torch.int8, dev, seed=2)
+
+        def run(w, h, chunk):
+            return vbk.suffstats_pallas_padded(x, w, h, n=3000, m=700,
+                                               r=16, chunk=chunk)
+        chunk = vbk.pass2_chunk(x, 3000, 700, 12, 16, 4)
+        own = vbk.pass2_chunk(x, 3000, 700, 3, 16, 4)
+    else:
+        x, lw, lh, _, _ = _epi_inputs(3000, 700, 16, lanes, torch.float32,
+                                      torch.int8, dev, seed=2)
+
+        def run(w, h, chunk):
+            return vbk.fused_pallas_raw(x, w, h, layout=which, chunk=chunk)
+        chunk = vbk.fused_chunk(x, which, 12, 16, 4)
+        own = vbk.fused_chunk(x, which, 3, 16, 4)
+    # the pinned chunk is one the subset would not choose itself
+    assert chunk != own
+    full = run(lw, lh, chunk)
+    part = run(lw[sub].contiguous(), lh[sub].contiguous(), chunk)
+    for f, p in zip(full, part):
+        assert torch.equal(f[sub], p)
+
+
+def test_lane_sum_does_not_depend_on_the_lane_count():
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in ((21, 5472), (21, 8, 447), (21, 65424), (21, 3)):
+        for dt in (torch.float32, torch.float64):
+            t = torch.rand(shape, generator=gen, device=dev, dtype=dt)
+            full = lane_sum(t, len(shape) - 1)
+            for nb in (1, 2, 3, 7, 16):
+                assert torch.equal(
+                    lane_sum(t[5:5 + nb].clone(), len(shape) - 1),
+                    full[5:5 + nb])

@@ -251,9 +251,6 @@ def test_interpret_and_gsea_match_jax(pbmc_ml, tmp_path):
     (dict(mesh=object()), "A7"),
     (dict(distributed=dict(num_processes=2)), "A7"),
     (dict(_process_count=2), "A7"),
-    (dict(checkpoint_dir="ck"), "A3"),
-    (dict(checkpoint_every=5), "A3"),
-    (dict(compact_every=5), "A3"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
 ])
 def test_options_not_ported_raise(small, kw, item):

@@ -1,0 +1,136 @@
+"""``precision='bf16'`` on the sparse backend: the plain versions of
+S1/S2 in their mxu_bf16 mode (ccfindr_tpu_torch.ops.tile.fused_tile)
+and vb_factorize against the JAX package's tile kernel, which runs here
+in Pallas interpret mode, at float32 (bf16 rounds a float32 operand).
+
+Tolerances, relative: one pass 2e-3 on swn/shn and 1e-5 on the data
+term where the JAX layout has no overflow tail (measured: equal); where
+it has one, 1e-2 on swn/shn and 1e-3 on the data term, because the JAX
+kernel does not round the tail's operands (``ccfindr_tpu/ops/tile.py:
+611-621``) and the port rounds at every nonzero (measured at most
+4.3e-3 and 1.8e-4 on the matrix here, a tail of 110 nonzeros);
+vb_factorize lml 1e-4 after five sweeps (the bf16 loop tolerance of
+tests/test_torch_epilogue.py).
+The CUDA kernels are held against these plain versions on the card at
+the float32 tolerances (tests/test_torch_kernels.py, chip_smoke.py
+phase 15).
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+import ccfindr_tpu as cf
+import ccfindr_tpu_torch as ct
+from ccfindr_tpu.ops import tile as jtk
+from ccfindr_tpu_torch.ops import sparse as tsk
+from ccfindr_tpu_torch.ops import tile as ttk
+from ccfindr_tpu_torch.ops.kernels import sol as tsol
+from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+torch.set_num_threads(2)
+F32 = torch.float32
+
+
+def _problem(n=40, m=60, nb=3, r=5, seed=0):
+    """A ragged sparse X with three dense rows (at quantile 0.5 the JAX
+    layout's overflow tail fills) and ``nb`` lanes of gamma factors."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((n, m)) < 0.15) * rng.poisson(3.0, (n, m))
+    x = x.astype(np.float64)
+    x[:3] = rng.poisson(2.0, (3, m))
+    x[x.sum(axis=1) == 0, 0] += 1
+    x[0, x.sum(axis=0) == 0] += 1
+    lw = rng.gamma(1.0, 1.0, (nb, n, r))
+    lh = rng.gamma(1.0, 1.0, (nb, r, m))
+    return sp.csr_matrix(x), lw, lh
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+@pytest.mark.parametrize("quantile,tol,dtol", [(1.0, 2e-3, 1e-5),
+                                               (0.5, 1e-2, 1e-3)])
+def test_bf16_pass_matches_jax(quantile, tol, dtol):
+    csr, lw, lh = _problem()
+    tc = ttk.from_scipy_tile(csr, dtype=F32, device="cpu")
+    swn, shn, dterm = ttk.fused_tile(tc, torch.tensor(lw, dtype=F32),
+                                     torch.tensor(lh, dtype=F32),
+                                     mxu_bf16=True)
+    jt = jtk.from_scipy_tile(csr, dtype=jnp.float32, quantile=quantile)
+    assert (jt.trow.shape[0] > 0) == (quantile < 1.0)
+    for b in range(lw.shape[0]):
+        js, jh, jd = jtk.fused_tile(jt, jnp.asarray(lw[b], jnp.float32),
+                                    jnp.asarray(lh[b], jnp.float32),
+                                    mxu_bf16=True)
+        assert _rel(swn[b], js) <= tol
+        assert _rel(shn[b], jh) <= tol
+        assert _rel(float(dterm[b]), float(jd)) <= dtol
+
+
+def test_bf16_mode_rounds_a_and_the_gathered_rows():
+    csr, lw, lh = _problem(nb=2, r=4, seed=3)
+    tc = ttk.from_scipy_tile(csr, dtype=F32, device="cpu")
+    lw_t = torch.tensor(lw, dtype=F32)
+    lht = torch.tensor(lh, dtype=F32).transpose(-1, -2).contiguous()
+    swn, a, xlog = spk.rowpass(tc, lw_t, lht, mxu_bf16=True)
+    assert torch.equal(a, tsol.bf16_round(a))           # a is rounded
+    swn32, a32, _ = spk.rowpass(tc, lw_t, lht)
+    assert not torch.equal(a, a32)
+    # the same pass on operands rounded beforehand: S1 rounds the rows
+    # it gathers, and in bf16 mode it forms wth in its own order
+    r_swn, r_a, r_xlog = spk.rowpass(tc, tsol.bf16_round(lw_t),
+                                     tsol.bf16_round(lht), mxu_bf16=True)
+    assert torch.equal(r_a, a) and torch.equal(r_xlog, xlog)
+    # S2 sums the rounded a against the rounded lw rows
+    shn = spk.colpass(tc, a, lw_t, mxu_bf16=True)
+    torch.testing.assert_close(
+        shn, spk.colpass(tc, a, tsol.bf16_round(lw_t)), rtol=0, atol=0)
+
+
+def test_s1_dot_is_the_kernels_order():
+    """_s1_dot gives sum(u v) as a butterfly over the group: exact
+    integer sums agree with torch.sum, and for r above 32 each lane's
+    four products are added first."""
+    for r in (1, 3, 8, 13, 32, 40, 128):
+        u = torch.arange(1, r + 1, dtype=torch.float64)[None].expand(2, r)
+        v = torch.ones(2, r, dtype=torch.float64)
+        assert torch.equal(tsk._s1_dot(u, v), u.sum(-1))
+
+
+def test_vb_factorize_sparse_bf16_matches_jax():
+    """Five sweeps from the same svd2 start: further on, a bf16 a on a
+    rounding boundary that the two packages round apart grows into
+    percent-level differences (and neither reaches Tol in bf16 on this
+    small matrix), as on the cell-major route."""
+    x = cf.simulate_whx(nrow=40, ncol=60, rank=3, seed=11)["x"]
+    kw = dict(ranks=[2, 3, 4], initializer="svd2", backend="sparse",
+              precision="bf16", Itmax=5, verbose=0)
+    a = cf.vb_factorize(cf.SCSet(count=sp.csr_matrix(x)),
+                        dtype=jnp.float32, **kw)
+    b = ct.vb_factorize(ct.SCSet(count=sp.csr_matrix(x)), dtype=F32,
+                        device="cpu", **kw)
+    np.testing.assert_allclose(b.measure["lml"], a.measure["lml"],
+                               rtol=1e-4)
+    # the mode took effect: float32 gives other numbers
+    c = ct.vb_factorize(ct.SCSet(count=sp.csr_matrix(x)), dtype=F32,
+                        device="cpu", **dict(kw, precision="f32"))
+    assert not np.array_equal(b.measure["lml"], c.measure["lml"])
+
+
+def test_bf16_keeps_the_optimal_rank():
+    """The planted rank-5 problem: bf16 on the sparse backend selects
+    the rank float32 selects (the bundled scan's ropt 5 is gated on the
+    card, chip_smoke.py phase 15: its plain sparse run takes minutes
+    here)."""
+    x = ct.simulate_whx(nrow=120, ncol=90, rank=5, seed=3)["x"]
+    kw = dict(ranks=list(range(2, 9)), nrun=2, Itmax=1500, seed=0,
+              backend="sparse", verbose=0, device="cpu", dtype=F32)
+    a = ct.vb_factorize(sp.csr_matrix(x), precision="bf16", **kw)
+    b = ct.vb_factorize(sp.csr_matrix(x), **kw)
+    assert ct.optimal_rank(a)["ropt"] == ct.optimal_rank(b)["ropt"] == 5

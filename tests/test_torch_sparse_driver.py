@@ -196,7 +196,7 @@ def test_sparse_option_errors(small, driver, kw, exc, match):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(precision="bf16"), NotImplementedError, "B9"),
+    (dict(precision="fp16"), ValueError, "precision"),
     (dict(elbo_every=0), ValueError, "elbo_every"),
 ])
 def test_vb_sparse_option_errors(small, kw, exc, match):

@@ -5,13 +5,15 @@ QC, 21 lanes, rank <= 8, int16 X), the 10x-scale planted matrix (4096 x
 8192, 6 lanes, rank <= 16, int8 X), both on the cell-major loop
 ``vb_run_sol``, and the gene-major cell (planted 100,000 x 4,096, 6
 lanes, rank <= 16, int8 X) on ``vb_run_epi(layout='gm')``, the loop
-``vb_factorize(backend='pallas')`` takes there -- prints each kernel's
-time per launch (CUDA events), then runs the loop with ``tol=0`` (a
-fixed number of sweeps) untraced and under ``torch.profiler``: wall
-time, device-busy time (union of kernel intervals), the idle share,
-device launches a sweep, and device time by kernel.  Run from the
-repository root: ``python3 tools/trace_vb_loop.py`` (``--cells gm``
-runs one cell).
+``vb_factorize(backend='pallas')`` takes there, and the two-pass cell
+(the 10x matrix in float32, zero-padded, on ``ops.vb.vb_run`` with
+``make_pallas_backend()``: ``backend='pallas2pass'``) -- prints each
+kernel's time per launch (CUDA events), then runs the loop with
+``tol=0`` (a fixed number of sweeps) untraced and under
+``torch.profiler``: wall time, device-busy time (union of kernel
+intervals), the idle share, device launches a sweep, and device time
+by kernel.  Run from the repository root: ``python3
+tools/trace_vb_loop.py`` (``--cells gm`` runs one cell).
 """
 import argparse
 import functools
@@ -189,7 +191,7 @@ def epi_kernel_times(name, args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cells", default="bundled,10x,gm")
+    ap.add_argument("--cells", default="bundled,10x,gm,p2")
     cells = ap.parse_args().cells.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi())
@@ -218,6 +220,13 @@ def main():
         epi_kernel_times(name, gm)
         traced(name, gm, 20,
                run=functools.partial(epi.vb_run_epi, layout="gm"))
+    if "p2" in cells:
+        x, st, hy, rm, rt = setup(planted(4096, 8192, 16, seed=0),
+                                  [8, 12, 16], 2, 16)
+        ss, dt = vbk.make_pallas_backend()
+        traced("two-pass 10x 4096x8192 B=6 r=16 float32 X",
+               (vbk.pad_matrix(x.float()), st, hy, rm, rt), 50,
+               run=functools.partial(vb.vb_run, suffstats=ss, data_term=dt))
     print(smi())
 
 
