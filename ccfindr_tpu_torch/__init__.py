@@ -23,6 +23,7 @@ from .tree import (build_tree, newick, rename_tips,  # noqa: F401
                    plot_tree)
 from .gsea import assign_celltype, assignCelltype  # noqa: F401
 from .checkpoint import save_checkpoint, load_checkpoint  # noqa: F401
+from .parallel import make_mesh, init_distributed  # noqa: F401
 
 # reference-compatible dotted-name alias (R: meta_gene.cv)
 meta_gene = meta_gene_cv
@@ -42,4 +43,5 @@ __all__ = [
     "build_tree", "newick", "rename_tips", "plot_tree",
     "assign_celltype", "assignCelltype",
     "save_checkpoint", "load_checkpoint",
+    "make_mesh", "init_distributed",
 ]

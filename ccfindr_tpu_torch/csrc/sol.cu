@@ -72,13 +72,21 @@ enum {
 //   kBf16 (precision='bf16', the JAX kernel's mxu_bf16): lwt and lh
 //   are rounded to bf16 as they are staged and u as it is stored
 //   (bf16.cuh); sums and log(wth) stay in the factor type.
+//
+// K1s, the per-shard X pass of the cell-sharded mesh (replaces
+//   ccfindr_tpu/ops/pallas/sol_sharded.py::_xpass_kernel, :80), is this
+//   kernel launched on one cell shard: X's row stride ldx lets it read
+//   the shard's column window of a larger X in place, and lh/eh are the
+//   shard's own.  With shard extents that are multiples of kChunk its
+//   chunks are the single-device launch's, so its swn/ehs/xlog
+//   partials, gathered in shard order, are that launch's bit for bit.
 // ---------------------------------------------------------------------
 template <typename T, typename XT, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
              const T* __restrict__ lh, const T* __restrict__ eh,
-             const double* __restrict__ sc, int np, int mp, int rp,
-             T* __restrict__ swn_part, T* __restrict__ shn_part,
+             const double* __restrict__ sc, int np, int mp, int ldx,
+             int rp, T* __restrict__ swn_part, T* __restrict__ shn_part,
              double* __restrict__ xlog_part,
              double* __restrict__ ehs_part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -127,7 +135,7 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
           T w = T(0);
           for (int k = 0; k < rp; ++k)
             w = fma(lw_s[k * kSub + i], lh_s[k * kSub + j], w);
-          const T xv = static_cast<T>(x[(size_t)(g0 + i) * mp + c0 + j]);
+          const T xv = static_cast<T>(x[(size_t)(g0 + i) * ldx + c0 + j]);
           u = operand<kBf16>(xv / w);
           if (do_elbo) xl += static_cast<double>(xv * log(w));
         }
@@ -190,7 +198,9 @@ xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
 //   _newton_scalar (sol.py:90-136): pend = -csum(ew').rsum(eh') - lgx
 //   + U2 + U3 + the prior constants; dterm = -(DTW + DTH) + xlog; the
 //   damped Newton of the gamma shapes with iterated halving, non-finite
-//   steps zeroed, and a per-lane hyper mask.
+//   steps zeroed, and a per-lane hyper mask.  Fed the partials of the
+//   cell shards gathered in shard order, it is also the port of
+//   ccfindr_tpu/ops/pallas/sol_sharded.py::_fin_kernel (:220).
 // Bound: latency -- a few hundred dependent scalar operations a lane.
 // Design: one warp a lane reduces every partial in a fixed order in
 //   double (lane-strided sums, then a butterfly); lane 0 assembles the
@@ -295,7 +305,8 @@ __global__ void finish_kernel(const double* __restrict__ sc,
 template <typename T, typename XT, bool kBf16>
 cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
                          const void* eh, const double* sc, int B, int np,
-                         int mp, int rp, void* swn_part, void* shn_part,
+                         int mp, int ldx, int rp, void* swn_part,
+                         void* shn_part,
                          double* xlog_part, double* ehs_part,
                          cudaStream_t stream) {
   const dim3 grid(ceil_div(mp, kChunk), ceil_div(np, kChunk), B);
@@ -306,8 +317,8 @@ cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
   if (err != cudaSuccess) return err;
   xpass_kernel<T, XT, kBf16><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const T*>(lwt),
-      static_cast<const T*>(lh), static_cast<const T*>(eh), sc, np, mp, rp,
-      static_cast<T*>(swn_part), static_cast<T*>(shn_part), xlog_part,
+      static_cast<const T*>(lh), static_cast<const T*>(eh), sc, np, mp, ldx,
+      rp, static_cast<T*>(swn_part), static_cast<T*>(shn_part), xlog_part,
       ehs_part);
   return cudaGetLastError();
 }
@@ -318,24 +329,25 @@ using namespace ccfindr;
 
 // C interface, bound with ctypes by ccfindr_tpu_torch/ops/kernels/sol.py.
 // tcode: factor type 0 float, 1 double.  xcode: X type 0 int8, 1 int16,
-// 2 float, 3 double.  bf16: round the X pass's operands to bf16.  Each
-// returns cudaGetLastError() after its launch.
+// 2 float, 3 double.  bf16: round the X pass's operands to bf16.  ldx:
+// X's row stride (mp for a whole X).  Each returns cudaGetLastError()
+// after its launch.
 extern "C" {
 
 int sol_xpass(int tcode, int xcode, int bf16, const void* x,
               const void* lwt, const void* lh, const void* eh,
-              const double* sc, int B, int np, int mp, int rp,
+              const double* sc, int B, int np, int mp, int ldx, int rp,
               void* swn_part, void* shn_part, double* xlog_part,
               double* ehs_part, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rp > kMaxRp) return static_cast<int>(cudaErrorInvalidValue);
+  if (rp > kMaxRp || ldx < mp) return static_cast<int>(cudaErrorInvalidValue);
 #define XPASS(T, XT)                                                        \
   return static_cast<int>(                                                  \
-      bf16 ? launch_xpass<T, XT, true>(x, lwt, lh, eh, sc, B, np, mp, rp,   \
-                                       swn_part, shn_part, xlog_part,       \
+      bf16 ? launch_xpass<T, XT, true>(x, lwt, lh, eh, sc, B, np, mp, ldx,  \
+                                       rp, swn_part, shn_part, xlog_part,   \
                                        ehs_part, s)                         \
-           : launch_xpass<T, XT, false>(x, lwt, lh, eh, sc, B, np, mp, rp,  \
-                                        swn_part, shn_part, xlog_part,      \
+           : launch_xpass<T, XT, false>(x, lwt, lh, eh, sc, B, np, mp, ldx, \
+                                        rp, swn_part, shn_part, xlog_part,  \
                                         ehs_part, s))
   switch (tcode * 4 + xcode) {
     case 0: XPASS(float, int8_t);
@@ -361,13 +373,19 @@ int sol_w_post(int tcode, const void* swn_part, int ncc, const void* lwt,
                            wscal_part, stream);
 }
 
+// m_live: the live cells, m_pin (>= m_live): the extent whose rank rows
+// below r are pinned at fudge past m_live (mesh cell padding).  K3s, the
+// H posterior of a cell shard (with K2 on the gathered swn partials,
+// the port of sol_sharded.py::_epi_kernel, :149), is this entry on the
+// shard's shn partials and lh with the shard-relative extents.
 int sol_h_post(int tcode, const void* shn_part, int ngc, const void* lh,
                const double* csum_part, int nbw, const double* sc, int B,
-               int mp, int rp, int r, int m, void* ehn, void* lhn, void* dhn,
-               double* rsum_part, double* hscal_part, void* stream) {
+               int mp, int rp, int r, int m_live, int m_pin, void* ehn,
+               void* lhn, void* dhn, double* rsum_part, double* hscal_part,
+               void* stream) {
   return post_entry<false>(tcode, shn_part, ngc, lh, csum_part, nbw, sc, 2,
-                           B, mp, rp, r, m, m, ehn, lhn, dhn, rsum_part,
-                           hscal_part, stream);
+                           B, mp, rp, r, m_live, m_pin, ehn, lhn, dhn,
+                           rsum_part, hscal_part, stream);
 }
 
 int sol_finish(int tcode, const double* sc, const double* xlog_part, int nx,

@@ -39,7 +39,7 @@ from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, auto_storage_dtype, resolve_device
 from .vb_driver import (_check_sparse_options, _not_ported, _sparse_counts,
-                        chunk_lanes)
+                        check_processes, chunk_lanes)
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -208,18 +208,16 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
 
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``mesh`` and ``distributed`` (A7) and ``sparse_layout='ell'``
-    (A6).
+    ``mesh`` (A7b), ``distributed`` or ``_process_count`` over several
+    processes (A7c) and ``sparse_layout='ell'`` (A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
     errors r_se, d_se, c_se for randomized replicates) filled.
     """
     if mesh is not None:
-        raise _not_ported("mesh", "A7")
-    if distributed not in ("auto", False, None) or (
-            _process_count not in (None, 1)):
-        raise _not_ported("distributed", "A7")
+        raise _not_ported("the ML mesh", "A7b")
+    check_processes(distributed, _process_count)
     if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":

@@ -18,6 +18,12 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   :mod:`ccfindr_tpu_torch.ops.kernels.sparse`; ``'dense'`` and
   ``'dense_fused'`` are the matmul parity paths of
   :mod:`ccfindr_tpu_torch.ops.vb`;
+* ``mesh`` (``parallel.mesh.make_mesh``) pads the cell and gene axes
+  to the mesh as the JAX driver does, lays X out on each runs row of
+  the mesh (``parallel.sharded``) and runs contiguous groups of lanes,
+  one a runs row: ``'pallas'`` with the cell-sharded kernel sweep of
+  :mod:`ccfindr_tpu_torch.ops.kernels.sol_sharded`, ``'dense'`` and
+  ``'dense_fused'`` with the block passes of ``parallel.sharded``;
 * ``checkpoint_every``/``compact_every`` run the loop in chunks of
   sweeps (:func:`_chunked_vb`), with the carry saved between chunks and
   only the running lanes in the next chunk; ``checkpoint_dir`` alone
@@ -43,10 +49,13 @@ from ..ops import tile as tile_ops
 from ..ops import vb as vb_ops
 from ..ops.kernels import epilogue as epi_ops
 from ..ops.kernels import sol as sol_ops
+from ..ops.kernels import sol_sharded
 from ..ops.kernels import vb_kernels as vbk
 from ..ops.kernels.vb_kernels import (DEFAULT_BM, DEFAULT_BN,
                                       _fused_layout)
 from ..ops.vb import Hyper, VBRunResult, VBState
+from ..parallel import sharded
+from ..parallel.mesh import init_distributed
 from ..utils import Timings, auto_storage_dtype, resolve_device
 
 
@@ -105,6 +114,64 @@ def _pad_state_rank(st: VBState, rmax_):
 
 def _stack(states):
     return type(states[0])(*(torch.stack(fs) for fs in zip(*states)))
+
+
+def check_processes(distributed, count):
+    """The JAX driver's process detection: a run over more than one
+    process (``distributed``, ``_process_count`` or an initialized
+    ``torch.distributed``) raises."""
+    if isinstance(distributed, dict):
+        init_distributed(**distributed)
+        distributed = "auto"
+    if distributed in (False, None):
+        return
+    if count is None:
+        dist = torch.distributed
+        count = (dist.get_world_size() if dist.is_available()
+                 and dist.is_initialized() else 1)
+    if count > 1:
+        raise _not_ported("distributed runs over several processes",
+                          "A7c")
+
+
+# the run keywords that carry one entry a lane
+_LANE_KW = ("rank_mask", "r_true", "lk0_init")
+
+
+def _run_rows(run_fn, rows, st, hy, kw, dev):
+    """The mesh's ``runs`` axis: the lane batch split into contiguous
+    groups, one a runs row (``rows``, X laid out on each), each group run
+    on its row's first device; the results joined in lane order on
+    ``dev``.  Every lane runs alone in its kernels' blocks and is frozen
+    on its own, so its numbers do not depend on the grouping.  The rows
+    run one after the other: on distinct devices the runs axis divides
+    the lanes, not the time (ROADMAP A7c)."""
+    nb = st.lw.shape[0]
+    outs = []
+    for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
+                                                 len(rows))):
+        if len(lanes) == 0:
+            continue
+        sel = slice(int(lanes[0]), int(lanes[-1]) + 1)
+        d = x_row.device
+
+        def part(t):
+            return t[sel].to(d)
+
+        kw_g = {k: ((v[sel] if k in _LANE_KW else v).to(d)
+                    if isinstance(v, torch.Tensor) else v)
+                for k, v in kw.items()}
+        outs.append(run_fn(x_row, type(st)(*map(part, st)),
+                           type(hy)(*map(part, hy)), **kw_g))
+    return _cat_field(outs, dev)
+
+
+def _cat_field(parts, dev):
+    """Results of the lane groups joined field by field on ``dev``."""
+    if isinstance(parts[0], tuple):
+        return type(parts[0])(*(_cat_field(list(fs), dev)
+                                for fs in zip(*parts)))
+    return torch.cat([p.to(dev) for p in parts])
 
 
 def _rank_ckpt_path(ckpt_dir, rank):
@@ -268,7 +335,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                  suffstats=None, data_term=None,
                  distributed="auto", svd_method="auto",
                  storage_dtype="auto", sparse_layout="auto", elbo_every=1,
-                 precision="f32", device="cuda"):
+                 precision="f32", _process_count=None, _process_id=None,
+                 device="cuda"):
     """Bayesian NMF inference of a count matrix.
 
     The keywords mirror the reference (R/bayesian.R:229-236) and the
@@ -301,12 +369,23 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     ``'pallas'`` they replace its kernel loops by ``ops.vb.vb_run`` over
     the zero-padded X, as in the JAX driver.
 
+    ``mesh`` (``make_mesh(runs, cells, genes, devices)``, where a
+    device may repeat) runs the scan over a device grid in this
+    process, as the JAX driver runs it over a ``jax`` mesh: the cell
+    axis (and with ``genes > 1`` the gene axis) is zero-padded to the
+    mesh and masked, X is laid out on each runs row, the lane batch is
+    split into contiguous groups, one a runs row, and the shards'
+    partials are added in shard order.  ``'pallas'`` runs the
+    cell-sharded kernel sweep K1s, K2, K3s, K4
+    (ops/kernels/sol_sharded.py); ``'dense'`` and ``'dense_fused'`` the
+    block passes of ``parallel/sharded.py``, also gene-sharded.
+
     ``elbo_every=k`` evaluates the ELBO and the stopping test only
     every k-th sweep (``'sparse'``, and ``'pallas'`` on cell-major
-    shapes).  ``precision='bf16'`` rounds the X pass's operands to
-    bfloat16, accumulating in float32 (``'pallas'`` on cell-major
-    shapes, and ``'sparse'``).  As in the JAX package, the gene-major
-    route and ``'pallas2pass'`` refuse both.
+    shapes, on one device or a mesh).  ``precision='bf16'`` rounds the
+    X pass's operands to bfloat16, accumulating in float32 (``'pallas'``
+    on cell-major shapes, and ``'sparse'``).  As in the JAX package,
+    the gene-major route and ``'pallas2pass'`` refuse both.
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there
     are several ranks, unless ``checkpoint_dir`` is given without
@@ -323,16 +402,16 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``mesh`` and ``distributed`` (A7), ``sparse_layout='ell'`` (A6)
-    and ``svd_method='randomized'`` (A8).
+    on a mesh, ``'sparse'``, ``'pallas2pass'``, ``suffstats``/
+    ``data_term`` and the gene-sharded or gene-major ``'pallas'``
+    sweeps (A7b); ``distributed`` or ``_process_count`` over several
+    processes (A7c); ``sparse_layout='ell'`` (A6) and
+    ``svd_method='randomized'`` (A8).
 
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
     """
-    if mesh is not None:
-        raise _not_ported("mesh", "A7")
-    if distributed not in ("auto", False, None):
-        raise _not_ported("distributed", "A7")
+    check_processes(distributed, _process_count)
     if backend not in ("dense", "dense_fused", "pallas", "pallas2pass",
                        "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -361,6 +440,11 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise ValueError("elbo_every and precision='bf16' need the kernel "
                          "loops of backend='pallas', which suffstats/"
                          "data_term replace")
+    if mesh is not None and (backend in ("sparse", "pallas2pass")
+                             or overrides):
+        what = (f"backend={backend!r}" if not overrides
+                else "suffstats/data_term")
+        raise _not_ported(f"{what} on a mesh", "A7b")
 
     device = resolve_device(device)
     if dtype is None:
@@ -400,6 +484,29 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                               "'auto' above 4096)", "A8")
         svd_method = "exact"
 
+    # mesh mode: the cell axis (and the gene axis of a gene-sharded mesh)
+    # zero-padded to the mesh and masked, as the JAX driver pads it
+    # (ccfindr_tpu/drivers/vb_driver.py:584-615)
+    n_pad, m_pad = n, m
+    mesh_kwargs = {}
+    if mesh is not None:
+        ng, ncells = mesh.shape["genes"], mesh.shape["cells"]
+        m_pad = sol_ops.round_up(m, ncells)
+        n_pad = sol_ops.round_up(n, ng)
+        if backend == "pallas" and (ng > 1 or _fused_layout(
+                n_pad, m_pad, sol_ops.round_up(max(max(ranks), 8), 8))
+                != "cm"):
+            raise _not_ported("the gene-sharded or gene-major 'pallas' "
+                              "sweep on a mesh", "A7b")
+        if m_pad != m:
+            mesh_kwargs.update(cell_mask=torch.as_tensor(
+                (np.arange(m_pad) < m).astype(np_dtype), device=device),
+                m_true=m)
+        if n_pad != n:
+            mesh_kwargs.update(gene_mask=torch.as_tensor(
+                (np.arange(n_pad) < n).astype(np_dtype), device=device),
+                n_true=n)
+
     gamma_a = np.atleast_1d(np.asarray(gamma_a, dtype=float))
     gamma_b = np.atleast_1d(np.asarray(gamma_b, dtype=float))
     aw0, ah0 = float(gamma_a[0]), float(gamma_a[-1])
@@ -431,7 +538,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
 
     run_kwargs = dict(tol=float(Tol), fudge=fudge, hyper_mask=hyper_mask,
-                      n0=int(hyper_update_n0), dn=int(hyper_update_dn))
+                      n0=int(hyper_update_n0), dn=int(hyper_update_dn),
+                      **mesh_kwargs)
     run_fn = vb_ops.vb_run
     # the blocking a route's kernels would choose from the lane count,
     # pinned for the full batch (see pinned() below)
@@ -449,8 +557,28 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             pin = "pass2"
     else:
         # convert on the host: the compressed X crosses, not float32
-        x = torch.as_tensor(mat).to(dtype=x_dtype).to(device)
-    if backend == "pallas" and not overrides:
+        x = torch.as_tensor(mat).to(dtype=x_dtype)
+        if mesh is None:
+            x = x.to(device)
+    rows = None
+    if mesh is not None:
+        # X zero-padded to the mesh on the host and laid out once on each
+        # runs row (the JAX driver's _place_sharded): each device gets its
+        # blocks only; the lanes move to a row's first device
+        if (n_pad, m_pad) != (n, m):
+            x = torch.nn.functional.pad(x, (0, m_pad - m, 0, n_pad - n))
+        rows = sharded.place_counts(x, mesh)
+        if backend == "pallas":
+            run_fn = sol_ops.vb_run_sol
+            run_kwargs.update(
+                sweep_fn=sol_sharded.make_sol_sweep_sharded(mesh),
+                elbo_every=int(elbo_every), mxu_bf16=precision == "bf16")
+        elif backend == "dense_fused":
+            run_kwargs["fused"] = sharded.fused_sharded
+        else:
+            run_kwargs.update(suffstats=sharded.suffstats_sharded,
+                              data_term=sharded.data_term_sharded)
+    elif backend == "pallas" and not overrides:
         # the JAX driver's choice between its two single-device sweeps
         # (ccfindr_tpu/drivers/vb_driver.py:775-801), on its padded
         # extents: gene-major above 65,536 genes
@@ -503,6 +631,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             if rmask is not None:
                 sel = torch.as_tensor(lanes, device=device)
                 kw.update(rank_mask=rmask[sel], r_true=rtrue[sel])
+            if rows is not None:
+                return _run_rows(run_fn, rows, st, hy,
+                                 dict(kw, itmax=im, it0=i0, lk0_init=l0),
+                                 device)
             return run_fn(x, st, hy, itmax=im, it0=i0, lk0_init=l0, **kw)
 
         if not every:
@@ -518,12 +650,23 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         return vb_ops.state_to_numpy(out), stats.get("lane_sweeps", 0)
 
     def init_state(rank):
+        """A lane's initial state, drawn at the true shape and then
+        padded to the mesh, so that a padded mesh run consumes the
+        random stream of a run on one device."""
         if initializer == "random":
-            return vb_ops.vb_init_random(gen, n, m, rank, h1, dtype,
-                                         device)
-        return vb_ops.vb_init_svd(mat, rank, h1, variant=initializer,
-                                  dtype=dtype, method=svd_method,
-                                  seed=seed, device=device)
+            st = vb_ops.vb_init_random(gen, n, m, rank, h1, dtype, device)
+        else:
+            st = vb_ops.vb_init_svd(mat, rank, h1, variant=initializer,
+                                    dtype=dtype, method=svd_method,
+                                    seed=seed, device=device)
+        if (n_pad, m_pad) == (n, m):
+            return st
+        pad = torch.nn.functional.pad
+        ph, pw = (0, m_pad - m), (0, 0, 0, n_pad - n)
+        return st._replace(
+            eh=pad(st.eh, ph), dh=pad(st.dh, ph),
+            lh=pad(st.lh, ph, value=1.0), ew=pad(st.ew, pw),
+            dw=pad(st.dw, pw), lw=pad(st.lw, pw, value=1.0))
 
     def hyper_batch(nb):
         return Hyper(*(torch.full((nb,), v, dtype=dtype, device=device)

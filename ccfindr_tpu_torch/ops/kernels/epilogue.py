@@ -210,30 +210,25 @@ def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
 
     ``x`` is the (n, m) count matrix or a zero-padded copy;
     ``state0``/``hyper0`` are lane-batched; ``rank_mask (B, r)`` and
-    ``r_true (B,)`` give each lane's live rank prefix; ``m_true`` (at
-    most the state's cell count) is the live cell count, the cells past
-    it pinned at ``fudge`` as the JAX loop pins mesh cell padding;
-    ``it0``/``lk0_init`` resume a bounded run exactly.  ``layout``
-    picks E1's loop order; ``chunk`` pins E1's chunk (default: the one
-    :func:`.vb_kernels.fused_chunk` gives this batch).  A chunked or
-    lane-compacted driver pins the full batch's chunk, so that a lane's
-    partials are added in one order whatever the batch.  The JAX tile
-    sizes ``bn``/``bm`` are not carried; ``cell_mask`` (the mesh's)
-    raises, naming ROADMAP A7.
+    ``r_true (B,)`` give each lane's live rank prefix; ``cell_mask``
+    (m,) and ``m_true`` (at most the state's cell count) the live cells
+    of a mesh-padded cell axis (a prefix), the cells past it pinned at
+    ``fudge`` as the JAX loop pins them; ``it0``/``lk0_init`` resume a
+    bounded run exactly.  ``layout`` picks E1's loop order; ``chunk``
+    pins E1's chunk (default: the one :func:`.vb_kernels.fused_chunk`
+    gives this batch).  A chunked or lane-compacted driver pins the full
+    batch's chunk, so that a lane's partials are added in one order
+    whatever the batch.  The JAX tile sizes ``bn``/``bm`` are not
+    carried.
     """
-    if cell_mask is not None:
-        raise NotImplementedError("cell_mask (the mesh path) is not ported "
-                                  "to ccfindr_tpu_torch yet (ROADMAP A7)")
     nb, _, r = state0.lw.shape
-    m = state0.lh.shape[-1]
-    m_live = m if m_true is None else int(m_true)
     if chunk is None:
         chunk = fused_chunk(x, layout, nb, sol.round_up(max(r, 8), 8),
                             state0.lw.element_size())
-    sweep = functools.partial(epi_sweep, layout=layout, m_live=m_live,
-                              chunk=chunk)
+    sweep = functools.partial(epi_sweep, layout=layout, chunk=chunk)
     return sol.deferred_loop(x, state0, hyper0, sweep, w_rowmajor=True,
-                             m_true=m_live, itmax=itmax, tol=tol,
+                             cell_mask=cell_mask, m_true=m_true,
+                             itmax=itmax, tol=tol,
                              fudge=fudge, hyper_mask=hyper_mask, n0=n0,
                              dn=dn, rank_mask=rank_mask, r_true=r_true,
                              it0=it0, lk0_init=lk0_init, elbo_every=1)

@@ -18,10 +18,12 @@ Layouts carry a leading lane axis B: X ``(np, mp)`` shared by all
 lanes; W transposed ``lwt (B, rp, np)``; ``lh``/``eh (B, rp, mp)``;
 ``sc (B, 8)`` float64 ``[aw, bw, ah, bh, fudge, r_live, lgx,
 do_elbo]``; the result ``scal (B, 16)`` float64 in the slot layout
-below.  ``n``/``m`` are the true gene/cell counts (columns past them
-are padding: X 0, lwt/lh 1, eh 0), ``r`` the state's rank (rows in
-``[r, rp)`` pad 0; rows in ``[r_live, r)`` are a lane's masked
-components, pinned at ``fudge``).
+below.  ``n``/``m`` are the gene/cell counts of the state (columns past
+them are padding: X 0, lwt/lh 1, eh 0), ``m_live`` (default ``m``) the
+live cells of a mesh-padded cell axis (cells in ``[m_live, m)`` pinned
+at ``fudge``), ``r`` the state's rank (rows in ``[r, rp)`` pad 0; rows
+in ``[r_live, r)`` are a lane's masked components, pinned at
+``fudge``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from .build import (TCODE, XCODE, check_launch, library, require_cuda,
                     stream)
+from ...parallel.sharded import ShardedCounts
+from ...utils import lgamma_sum
 from ..vb import (VBRunResult, VBState, digamma_approx,
                   digamma_gammaln_both, gammaln_approx,
                   mask_initial_state, trigamma)
@@ -254,13 +258,14 @@ def finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt, mask,
     return scal
 
 
-def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
+def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
                     hyper_mask=(True,) * 4, newton_niter=100,
                     newton_tol=1e-4, mxu_bf16=False):
     """One VB sweep in plain PyTorch; the function K1-K4 compute.
 
     Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
     _check(x, lwt, lh, eh, sc, n, m, r)
+    m_live = m if m_live is None else m_live
     dt = lwt.dtype
     a = [sc[:, q].to(dt) for q in range(6)]
     aw, bw, ah, bh, fudge, r_live = a
@@ -268,8 +273,9 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
     ewt, lwtn, dwt, csum, wscal = post_plain(swnt, lwt, ehs, aw, bw,
                                              fudge, r_live, r, n)
     ehn, lhn, dhn, rsum, hscal = post_plain(shn, lh, csum, ah, bh,
-                                            fudge, r_live, r, m)
-    scal = finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt,
+                                            fudge, r_live, r, m_live,
+                                            npin=m)
+    scal = finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m_live, dt,
                         tuple(bool(v) for v in hyper_mask),
                         newton_niter, newton_tol)
     return ewt, lwtn, dwt, ehn, lhn, dhn, scal
@@ -279,11 +285,16 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r,
 # CUDA wrappers (one per kernel)
 # ---------------------------------------------------------------------
 
-def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
-    """Launch K1.  Returns the partials (swn_part (B, ncc, rp, np),
-    shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64, ehs_part
-    (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X."""
+def launch_xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
+    """K1 on ``x``, which may be a column window of a larger X (read in
+    place through its row stride).  Returns the partials (swn_part (B,
+    ncc, rp, np), shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64,
+    ehs_part (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X.
+    The wrappers :func:`xpass` and ``sol_sharded.xpass_shard`` count
+    the launch."""
     require_cuda(x, lwt, lh, eh, sc)
+    if x.stride(1) != 1:
+        raise ValueError("X's columns must be contiguous")
     nb, rp_, np_ = lwt.shape
     mp_ = x.shape[1]
     ncc, ngc = -(-mp_ // CHUNK), -(-np_ // CHUNK)
@@ -298,15 +309,21 @@ def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
     rc = library().sol_xpass(
         TCODE[lwt.dtype], XCODE[x.dtype], int(bool(mxu_bf16)),
         x.data_ptr(), lwt.data_ptr(),
-        lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_, rp_,
-        swn_part.data_ptr(), shn_part.data_ptr(), xlog_part.data_ptr(),
-        ehs_part.data_ptr(), stream())
+        lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_,
+        x.stride(0), rp_, swn_part.data_ptr(), shn_part.data_ptr(),
+        xlog_part.data_ptr(), ehs_part.data_ptr(), stream())
     check_launch("sol_xpass", rc)
-    LAUNCHES["xpass"] += 1
     return swn_part, shn_part, xlog_part, ehs_part
 
 
-def _post(name, side, sfx_part, lf, denom_part, sc, r, ncol):
+def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
+    """Launch K1: the partials of :func:`launch_xpass`."""
+    out = launch_xpass(x, lwt, lh, eh, sc, mxu_bf16)
+    LAUNCHES["xpass"] += 1
+    return out
+
+
+def _post(name, sfx_part, lf, denom_part, sc, r, *extents):
     require_cuda(sfx_part, lf, denom_part, sc)
     nb, rp_, ext = lf.shape
     nblk = -(-ext // POST_COLS)
@@ -320,24 +337,36 @@ def _post(name, side, sfx_part, lf, denom_part, sc, r, ncol):
     fn = getattr(library(), name)
     rc = fn(TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
             lf.data_ptr(), denom_part.data_ptr(), denom_part.shape[1],
-            sc.data_ptr(), nb, ext, rp_, r, ncol, e.data_ptr(),
+            sc.data_ptr(), nb, ext, rp_, r, *extents, e.data_ptr(),
             ln.data_ptr(), d.data_ptr(), rsum_part.data_ptr(),
             scal_part.data_ptr(), stream())
     check_launch(name, rc)
-    LAUNCHES[side] += 1
     return e, ln, d, rsum_part, scal_part
 
 
 def w_post(swn_part, lwt, ehs_part, sc, r, n):
     """Launch K2: (ewt, lwtn, dwt, csum_part, wscal_part)."""
-    return _post("sol_w_post", "w_post", swn_part, lwt, ehs_part, sc, r,
-                 n)
+    out = _post("sol_w_post", swn_part, lwt, ehs_part, sc, r, n)
+    LAUNCHES["w_post"] += 1
+    return out
 
 
-def h_post(shn_part, lh, csum_part, sc, r, m):
-    """Launch K3: (ehn, lhn, dhn, rsum_part, hscal_part)."""
-    return _post("sol_h_post", "h_post", shn_part, lh, csum_part, sc, r,
-                 m)
+def launch_h_post(shn_part, lh, csum_part, sc, r, m_live, m_pin):
+    """K3 with the live cells ``m_live`` and the pinned extent
+    ``m_pin``: (ehn, lhn, dhn, rsum_part, hscal_part).  The wrappers
+    :func:`h_post` and ``sol_sharded.h_post_shard`` count the
+    launch."""
+    return _post("sol_h_post", shn_part, lh, csum_part, sc, r, m_live,
+                 m_pin)
+
+
+def h_post(shn_part, lh, csum_part, sc, r, m_live, m=None):
+    """Launch K3 (``m``, default ``m_live``, the pinned extent):
+    (ehn, lhn, dhn, rsum_part, hscal_part)."""
+    out = launch_h_post(shn_part, lh, csum_part, sc, r, m_live,
+                        m_live if m is None else m)
+    LAUNCHES["h_post"] += 1
+    return out
 
 
 def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
@@ -358,14 +387,16 @@ def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
     return scal
 
 
-def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
-              newton_niter=100, newton_tol=1e-4, mxu_bf16=False):
+def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
+              hyper_mask=(True,) * 4, newton_niter=100, newton_tol=1e-4,
+              mxu_bf16=False):
     """One VB sweep: K1-K4 on CUDA tensors, :func:`sol_sweep_plain` on
     CPU tensors.  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
     _check(x, lwt, lh, eh, sc, n, m, r)
+    m_live = m if m_live is None else m_live
     if x.device.type == "cpu":
         return sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m=m, r=r,
-                               hyper_mask=hyper_mask,
+                               m_live=m_live, hyper_mask=hyper_mask,
                                newton_niter=newton_niter,
                                newton_tol=newton_tol, mxu_bf16=mxu_bf16)
     swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc,
@@ -373,9 +404,10 @@ def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
     ewt, lwtn, dwt, csum_part, wscal_part = w_post(swn_part, lwt,
                                                    ehs_part, sc, r, n)
     ehn, lhn, dhn, rsum_part, hscal_part = h_post(shn_part, lh,
-                                                  csum_part, sc, r, m)
+                                                  csum_part, sc, r, m_live,
+                                                  m)
     scal = finish(sc, xlog_part, csum_part, wscal_part, rsum_part,
-                  hscal_part, n=n, m=m, dt=lwt.dtype,
+                  hscal_part, n=n, m=m_live, dt=lwt.dtype,
                   hyper_mask=hyper_mask, newton_niter=newton_niter,
                   newton_tol=newton_tol)
     return ewt, lwtn, dwt, ehn, lhn, dhn, scal
@@ -385,37 +417,35 @@ def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
 # Convergence loop over a lane batch
 # ---------------------------------------------------------------------
 
-def lgamma_sum(x):
-    """``sum lgamma(x + 1)`` in float64, a block of rows at a time, so
-    that no float64 copy of a large X is formed."""
-    rows = max(1, (1 << 24) // max(1, x.shape[1]))
-    return sum(torch.lgamma(x[i:i + rows].to(torch.float64) + 1.0).sum()
-               for i in range(0, x.shape[0], rows))
-
-
 def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
                tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
-               n0: int = 10, dn: int = 1, rank_mask=None, r_true=None,
-               it0: int = 1, lk0_init=None, elbo_every: int = 1,
-               mxu_bf16: bool = False, sweep_fn=None) -> VBRunResult:
+               n0: int = 10, dn: int = 1, cell_mask=None, m_true=None,
+               rank_mask=None, r_true=None, it0: int = 1, lk0_init=None,
+               elbo_every: int = 1, mxu_bf16: bool = False,
+               sweep_fn=None) -> VBRunResult:
     """The deferred-ELBO convergence loop of ``ccfindr_tpu``'s
     ``vb_run_sol`` over a lane batch, one :func:`sol_sweep` a sweep.
 
     ``x`` is the (n, m) count matrix (or a zero-padded copy; columns
     past the state's extents are padding); ``state0``/``hyper0`` are
     lane-batched; ``rank_mask`` (B, r) and ``r_true`` (B,) give each
-    lane's live rank prefix.  Each lane keeps its own sweep counter
+    lane's live rank prefix; ``cell_mask`` (m,) and ``m_true`` the live
+    cells of a mesh-padded cell axis (a prefix: the cells past ``m_true``
+    are pinned at ``fudge``).  Each lane keeps its own sweep counter
     and is frozen once its stopping rule fired or its sweep bound ran
     out, so the host may test for running lanes only every
     ``HOST_CHECK_EVERY`` sweeps: extra sweeps leave frozen lanes
     unchanged.  ``mxu_bf16`` (``precision='bf16'``) rounds the X pass's
     operands to bf16.
-    ``sweep_fn`` swaps the sweep (``sol_sweep_plain`` to time the
-    plain version on the card).
+    ``sweep_fn`` swaps the sweep: ``sol_sweep_plain`` to time the plain
+    version on the card, or the cell-sharded sweep of
+    ``sol_sharded.make_sol_sweep_sharded`` with ``x`` laid out on the
+    mesh (``parallel.sharded.ShardedCounts``).
     """
     sweep = functools.partial(sweep_fn if sweep_fn is not None
                               else sol_sweep, mxu_bf16=mxu_bf16)
     return deferred_loop(x, state0, hyper0, sweep, w_rowmajor=False,
+                         cell_mask=cell_mask, m_true=m_true,
                          itmax=itmax, tol=tol, fudge=fudge,
                          hyper_mask=hyper_mask, n0=n0, dn=dn,
                          rank_mask=rank_mask, r_true=r_true, it0=it0,
@@ -423,18 +453,21 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
 
 
 def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
-                  m_true=None, itmax, tol, fudge, hyper_mask, n0, dn,
-                  rank_mask, r_true, it0, lk0_init,
+                  cell_mask=None, m_true=None, itmax, tol, fudge,
+                  hyper_mask, n0, dn, rank_mask, r_true, it0, lk0_init,
                   elbo_every) -> VBRunResult:
     """The deferred-ELBO loop shared by :func:`vb_run_sol` and
     ``ops/kernels/epilogue.py::vb_run_epi``.
 
-    ``sweep(x, lw, lh, eh, sc, n=, m=, r=, hyper_mask=)`` returns
-    ``(ew, lw, dw, eh, lh, dh, scal)`` with ``scal`` in K4's slot
-    layout; W is carried padded as ``(B, rp, np)`` (``w_rowmajor``
+    ``sweep(x, lw, lh, eh, sc, n=, m=, m_live=, r=, hyper_mask=)``
+    returns ``(ew, lw, dw, eh, lh, dh, scal)`` with ``scal`` in K4's
+    slot layout; W is carried padded as ``(B, rp, np)`` (``w_rowmajor``
     False, the sol sweep) or ``(B, np, rp)`` (True, the JAX layout of
-    the epilogue sweep).  ``m_true`` (default the state's cell count)
-    is the live cell count that normalizes the ELBO.
+    the epilogue sweep).  ``m`` is the state's cell extent, ``m_live``
+    (``m_true``, default ``m``) the live cells that normalize the ELBO;
+    ``cell_mask`` pins the others on entry, as the JAX loops do.  With
+    ``x`` laid out on a mesh (``ShardedCounts``), the H family is
+    carried as its cell shards, each on its shard's device.
     """
     nb, n, r = state0.lw.shape
     m = state0.lh.shape[-1]
@@ -447,8 +480,9 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         fudge = torch.finfo(ref_t).eps
     fudge = torch.as_tensor(fudge, dtype=ref_t, device=dev)
     tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
-    lgx = lgamma_sum(x)
-    state0 = mask_initial_state(state0, rank_mask, fudge)
+    sharded = isinstance(x, ShardedCounts)
+    lgx = x.lgx if sharded else lgamma_sum(x)
+    state0 = mask_initial_state(state0, rank_mask, fudge, cell_mask)
     r_live = (r_true.to(torch.float64) if rank_mask is not None
               else torch.full((nb,), float(r), dtype=torch.float64,
                               device=dev))
@@ -464,11 +498,11 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         out[:, :r, :n] = a.transpose(-1, -2)
         return out
 
-    def pad_h(a, fill):         # (B, r, m) -> (B, rp, mp)
+    def pad_h(a, fill):         # (B, r, m) -> (B, rp, mp), or its shards
         out = torch.zeros(nb, rp_, mp_, dtype=ref_t, device=dev)
         out[:, :r, m:] = fill
         out[:, :r, :m] = a
-        return out
+        return x.shard_h(out) if sharded else out
 
     lw = pad_w(state0.lw, 1.0)
     ew = pad_w(state0.ew, 0.0)
@@ -488,8 +522,11 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
     lgx_b = lgx.expand(nb)
     nm = float(n) * float(m_live)
 
-    def lane(flag, t):
-        return flag.view((nb,) + (1,) * (t.dim() - 1))
+    def keep(flag, new, old):   # per lane: new where flag, else old
+        if isinstance(old, tuple):
+            return tuple(keep(flag, a, b) for a, b in zip(new, old))
+        flag = flag.to(old.device).view((nb,) + (1,) * (old.dim() - 1))
+        return torch.where(flag, new, old)
 
     sweeps = 0
     while True:
@@ -504,7 +541,8 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
                           bh.double(), fud64, r_live, lgx_b,
                           elbo_now.double()], dim=1).contiguous()
         (ew_n, lw_n, dw_n, eh_n, lh_n, dh_n, scal) = sweep(
-            x, lw, lh, eh, sc, n=n, m=m, r=r, hyper_mask=hyper_mask)
+            x, lw, lh, eh, sc, n=n, m=m, m_live=m_live, r=r,
+            hyper_mask=hyper_mask)
 
         # complete sweep it-1's ELBO (deferred data term)
         lkh_prev = ((pending + scal[:, DTERM]) / nm).to(ref_t)
@@ -522,12 +560,12 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         ah = torch.where(do_hyper, scal[:, AH].to(ref_t), ah)
         bh = torch.where(do_hyper, scal[:, BH].to(ref_t), bh)
         hfail = hfail | (do_hyper & (scal[:, HFAIL] > 0))
-        lw = torch.where(lane(do_sweep, lw), lw_n, lw)
-        lh = torch.where(lane(do_sweep, lh), lh_n, lh)
-        ew = torch.where(lane(do_sweep, ew), ew_n, ew)
-        eh = torch.where(lane(do_sweep, eh), eh_n, eh)
-        dw = torch.where(lane(do_sweep, dw), dw_n, dw)
-        dh = torch.where(lane(do_sweep, dh), dh_n, dh)
+        lw = keep(do_sweep, lw_n, lw)
+        lh = keep(do_sweep, lh_n, lh)
+        ew = keep(do_sweep, ew_n, ew)
+        eh = keep(do_sweep, eh_n, eh)
+        dw = keep(do_sweep, dw_n, dw)
+        dh = keep(do_sweep, dh_n, dh)
         pending = torch.where(do_sweep, scal[:, PEND], pending)
         done = torch.where(active, stop, done)
         it = it + active.to(it.dtype)
@@ -536,6 +574,9 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         if w_rowmajor:
             return a[:, :n, :r]
         return a[:, :r, :n].transpose(-1, -2)
+
+    if sharded:
+        lh, eh, dh = (x.gather_h(t) for t in (lh, eh, dh))
 
     state = VBState(ew=unpad_w(ew), eh=eh[:, :r, :m], lw=unpad_w(lw),
                     lh=lh[:, :r, :m], dw=unpad_w(dw), dh=dh[:, :r, :m],

@@ -250,20 +250,31 @@ def _mat(h):
 
 
 def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
-                     rank_mask=None, r_true=None):
+                     cell_mask=None, m_true=None, rank_mask=None,
+                     r_true=None, gene_mask=None, n_true=None):
     """Gamma-posterior update from sufficient statistics plus the ELBO
     terms that need no pass over X.
 
     Returns ``(new_state, pending)`` with ``pending`` the unnormalized
     partial ELBO  -sum(ew@eh) - lgx + U2 + U3  (see
-    ``ccfindr_tpu.ops.vb.posterior_update``).  ``rank_mask`` (..., r)
-    marks the live components of a batched rank scan (prefix masks),
-    ``r_true`` (...,) their count: masked components have ew/eh/dw/dh
-    zeroed, lw/lh pinned at ``fudge``, and drop out of U2/U3.
+    ``ccfindr_tpu.ops.vb.posterior_update``).  Padding contributes
+    nothing, as in the JAX package:
+
+    * ``rank_mask`` (..., r) marks the live components of a batched rank
+      scan (prefix masks), ``r_true`` (...,) their count: masked
+      components have ew/eh/dw/dh zeroed, lw/lh pinned at ``fudge``, and
+      drop out of U2/U3;
+    * ``cell_mask`` (m_pad,) marks the real cells of a mesh-padded cell
+      axis, ``m_true`` their count: padded eh/dh are zeroed, lh pinned at
+      ``fudge``, and U3 is mask-summed;
+    * ``gene_mask`` (n_pad,) marks the real genes of a gene-sharded
+      mesh, ``n_true`` their count: padded ew (before it feeds the H
+      beta) and dw rows are zeroed, lw rows pinned at 1, and U2 is
+      mask-summed.
     """
-    n = state.lw.shape[-2]
+    n = n_true if n_true is not None else state.lw.shape[-2]
     r = state.lw.shape[-1]
-    m = state.lh.shape[-1]
+    m = m_true if m_true is not None else state.lh.shape[-1]
     r_eff = r_true if r_true is not None else r
     aw, bw, ah, bh = hyper
     aw_, bw_, ah_, bh_ = _mat(aw), _mat(bw), _mat(ah), _mat(bh)
@@ -271,6 +282,9 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
     alw = aw_ + sw
     bew = 1.0 / (aw_ / bw_ + lane_sum(state.eh)[..., None, :])
     ew = alw * bew                    # must precede the eh update
+    if gene_mask is not None:
+        # padded gene rows must be dead before colSums(ew) feeds beh
+        ew = ew * gene_mask[:, None]
     alh = ah_ + sh
     beh = 1.0 / (ah_ / bh_ + lane_colsum(ew)[..., :, None])
     eh = alh * beh
@@ -288,6 +302,14 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
         dh = dh * mh
         lw = torch.where(mw > 0, lw, fudge)
         lh = torch.where(mh > 0, lh, fudge)
+    if cell_mask is not None:
+        eh = eh * cell_mask
+        dh = dh * cell_mask
+        lh = torch.where(cell_mask > 0, lh, fudge)
+    if gene_mask is not None:
+        mg = gene_mask[:, None]
+        dw = dw * mg
+        lw = torch.where(mg > 0, lw, 1.0)
 
     u1_part = -lane_sum(lane_colsum(ew) * lane_sum(eh)) - lgx
     u2_elem = (-(aw_ / bw_) * ew + alw * (1.0 + torch.log(bew))
@@ -297,6 +319,10 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
     if rank_mask is not None:
         u2_elem = u2_elem * rank_mask[..., None, :]
         u3_elem = u3_elem * rank_mask[..., :, None]
+    if gene_mask is not None:
+        u2_elem = u2_elem * gene_mask[:, None]
+    if cell_mask is not None:
+        u3_elem = u3_elem * cell_mask
     u2 = (lane_sum(u2_elem, 2)
           + n * r_eff * (aw * torch.log(aw / bw) - torch.lgamma(aw)))
     u3 = (lane_sum(u3_elem, 2)
@@ -307,20 +333,25 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
 
 
 def vb_sweep(x, state: VBState, hyper: Hyper, fudge, lgx,
-             rank_mask=None, r_true=None, suffstats=suffstats_dense,
-             data_term=elbo_data_term) -> VBState:
+             suffstats=suffstats_dense, data_term=elbo_data_term,
+             cell_mask=None, m_true=None, rank_mask=None, r_true=None,
+             gene_mask=None, n_true=None) -> VBState:
     """One CAVI sweep (reference src/vbnmf_update.cpp:33-90):
     suffstats, posterior update, and the new state's ELBO in ``lkh``.
 
     ``suffstats(x, lw, lh) -> (sw, sh)`` and ``data_term(x, lw, lh) ->
     (B,)`` are the injection points of the two-pass kernels
-    (``ops.kernels.vb_kernels.make_pallas_backend``); with those ``x``
-    may be zero-padded, so the true (n, m) come from the state."""
-    n = state.lw.shape[-2]
-    m = state.lh.shape[-1]
+    (``ops.kernels.vb_kernels.make_pallas_backend``) and of the mesh
+    passes (``parallel.sharded``); with those ``x`` may be padded, so
+    the true (n, m) come from ``n_true``/``m_true`` or the state.  The
+    masks: see :func:`posterior_update`."""
+    n = n_true if n_true is not None else state.lw.shape[-2]
+    m = m_true if m_true is not None else state.lh.shape[-1]
     sw, sh = suffstats(x, state.lw, state.lh)
-    new, pending = posterior_update(sw, sh, state, hyper, fudge, lgx,
-                                    rank_mask=rank_mask, r_true=r_true)
+    new, pending = posterior_update(
+        sw, sh, state, hyper, fudge, lgx, cell_mask=cell_mask,
+        m_true=m_true, rank_mask=rank_mask, r_true=r_true,
+        gene_mask=gene_mask, n_true=n_true)
     lkh = (pending + data_term(x, new.lw, new.lh)) / (float(n) * float(m))
     return new._replace(lkh=lkh)
 
@@ -329,31 +360,46 @@ def vb_sweep(x, state: VBState, hyper: Hyper, fudge, lgx,
 # Empirical-Bayes hyperparameter update (reference R/bayesian.R:2-53)
 # ---------------------------------------------------------------------
 
-def _factor_means(state: VBState, rank_mask=None, r_true=None):
-    """(mean log lw, mean ew, mean log lh, mean eh) over live entries."""
-    n = state.lw.shape[-2]
-    m = state.lh.shape[-1]
-    if rank_mask is None:
-        r = state.lw.shape[-1]
-        return (lane_sum(torch.log(state.lw), 2) / (n * r),
-                lane_sum(state.ew, 2) / (n * r),
-                lane_sum(torch.log(state.lh), 2) / (r * m),
-                lane_sum(state.eh, 2) / (r * m))
-    r_eff = r_true if r_true is not None else state.lw.shape[-1]
-    mask_w = rank_mask[..., None, :]
-    mask_h = rank_mask[..., :, None]
-    denom_w = n * r_eff
-    denom_h = r_eff * m
+def _factor_means(state: VBState, cell_mask=None, m_true=None,
+                  rank_mask=None, r_true=None, gene_mask=None,
+                  n_true=None):
+    """(mean log lw, mean ew, mean log lh, mean eh) over the real
+    entries, as the JAX package masks them."""
+    n_pad = state.lw.shape[-2]
+    r_pad, m_pad = state.lh.shape[-2:]
+    if cell_mask is None and rank_mask is None and gene_mask is None:
+        return (lane_sum(torch.log(state.lw), 2) / (n_pad * r_pad),
+                lane_sum(state.ew, 2) / (n_pad * r_pad),
+                lane_sum(torch.log(state.lh), 2) / (r_pad * m_pad),
+                lane_sum(state.eh, 2) / (r_pad * m_pad))
+    n_eff = n_true if n_true is not None else n_pad
+    m_eff = m_true if m_true is not None else m_pad
+    r_eff = r_true if r_true is not None else r_pad
+    ones = torch.ones((1, 1), dtype=state.lw.dtype, device=state.lw.device)
+    mask_w = ones
+    mask_h = ones
+    if rank_mask is not None:
+        mask_w = mask_w * rank_mask[..., None, :]
+        mask_h = mask_h * rank_mask[..., :, None]
+    if gene_mask is not None:
+        mask_w = mask_w * gene_mask[:, None]
+    if cell_mask is not None:
+        mask_h = mask_h * cell_mask
+    denom_w = n_eff * r_eff
+    denom_h = r_eff * m_eff
     logw = torch.where(mask_w > 0, torch.log(state.lw), 0.0)
     logh = torch.where(mask_h > 0, torch.log(state.lh), 0.0)
-    return (lane_sum(logw * mask_w, 2) / denom_w,
-            lane_sum(state.ew, 2) / denom_w,
+    lwm = (lane_sum(logw * mask_w, 2) if rank_mask is not None
+           or gene_mask is not None else lane_sum(logw, 2)) / denom_w
+    return (lwm,
+            lane_sum(state.ew, 2) / denom_w,     # ew is 0 in padding
             lane_sum(logh * mask_h, 2) / denom_h,
-            lane_sum(state.eh, 2) / denom_h)
+            lane_sum(state.eh, 2) / denom_h)     # eh is 0 in padding
 
 
 def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
-                 tol: float = 1e-4, rank_mask=None, r_true=None,
+                 tol: float = 1e-4, cell_mask=None, m_true=None,
+                 rank_mask=None, r_true=None, gene_mask=None, n_true=None,
                  means=None):
     """Damped-Newton update of the gamma shapes + closed-form means.
 
@@ -361,8 +407,10 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
     keeps that hyperparameter (including ``bh``: ``bh1 = ehm if
     mask[3] else bh0``, as the JAX package has it).  Returns
     ``(new_hyper, failed)`` with ``failed`` set per lane where the
-    Newton did not reach ``tol`` in ``niter - 1`` steps.  ``means``
-    supplies (lwm, ewm, lhm, ehm) directly; ``state`` may then be None.
+    Newton did not reach ``tol`` in ``niter - 1`` steps.  The masks
+    restrict the factor means to the real entries (see
+    :func:`posterior_update`).  ``means`` supplies (lwm, ewm, lhm, ehm)
+    directly; ``state`` may then be None.
     """
     mask = tuple(bool(b) for b in mask)
     aw0, bw0, ah0, bh0 = hyper
@@ -370,7 +418,8 @@ def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
         return hyper, torch.zeros(aw0.shape, dtype=torch.bool,
                                   device=aw0.device)
     if means is None:
-        means = _factor_means(state, rank_mask, r_true)
+        means = _factor_means(state, cell_mask, m_true, rank_mask, r_true,
+                              gene_mask, n_true)
     lwm, ewm, lhm, ehm = means
 
     if mask[0] or mask[2]:
@@ -538,18 +587,29 @@ def _select(active, new, old):
     return torch.where(_lanes(active, new), new, old)
 
 
-def mask_initial_state(state0: VBState, rank_mask, fudge) -> VBState:
-    """Zero the padded rank components of a lane-batched initial state
-    (lw/lh pinned at ``fudge``), as every JAX loop does on entry."""
-    if rank_mask is None:
-        return state0
-    mw = rank_mask[..., None, :]
-    mh = rank_mask[..., :, None]
-    return state0._replace(
-        ew=state0.ew * mw, dw=state0.dw * mw,
-        lw=torch.where(mw > 0, state0.lw, fudge),
-        eh=state0.eh * mh, dh=state0.dh * mh,
-        lh=torch.where(mh > 0, state0.lh, fudge))
+def mask_initial_state(state0: VBState, rank_mask, fudge, cell_mask=None,
+                       gene_mask=None) -> VBState:
+    """Zero the padded rank components, mesh-padded cells and genes of a
+    lane-batched initial state (lw/lh pinned at ``fudge``, padded lw rows
+    at 1), as every JAX loop does on entry."""
+    if rank_mask is not None:
+        mw = rank_mask[..., None, :]
+        mh = rank_mask[..., :, None]
+        state0 = state0._replace(
+            ew=state0.ew * mw, dw=state0.dw * mw,
+            lw=torch.where(mw > 0, state0.lw, fudge),
+            eh=state0.eh * mh, dh=state0.dh * mh,
+            lh=torch.where(mh > 0, state0.lh, fudge))
+    if cell_mask is not None:
+        state0 = state0._replace(
+            eh=state0.eh * cell_mask, dh=state0.dh * cell_mask,
+            lh=torch.where(cell_mask > 0, state0.lh, fudge))
+    if gene_mask is not None:
+        mg = gene_mask[:, None]
+        state0 = state0._replace(
+            ew=state0.ew * mg, dw=state0.dw * mg,
+            lw=torch.where(mg > 0, state0.lw, 1.0))
+    return state0
 
 
 def _loop_scalars(x, state0, fudge, tol, lk0_init, it0):
@@ -562,9 +622,10 @@ def _loop_scalars(x, state0, fudge, tol, lk0_init, it0):
     tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
     # lgamma(0 + 1) = 0: the sum runs over the nonzeros only (a sparse
     # layout's .val holds each once), in row-major order, so a
-    # zero-padded X gives the same bits as the unpadded one
+    # zero-padded X gives the same bits as the unpadded one (a mesh's
+    # X keeps its nonzeros on the host: they cross here)
     xval = x[x != 0] if isinstance(x, torch.Tensor) else x.val
-    lgx = lane_sum(torch.lgamma(xval.to(ref_t) + 1.0))
+    lgx = lane_sum(torch.lgamma(xval.to(dev, ref_t) + 1.0))
     lk0 = torch.as_tensor(0.0 if lk0_init is None else lk0_init,
                           dtype=ref_t, device=dev).expand(nb).clone()
     it = torch.full((nb,), int(it0), dtype=torch.int64, device=dev)
@@ -576,7 +637,8 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
            tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
            n0: int = 10, dn: int = 1, suffstats=suffstats_dense,
            data_term=elbo_data_term, fused=None,
-           rank_mask=None, r_true=None, it0=1,
+           cell_mask=None, m_true=None, rank_mask=None, r_true=None,
+           gene_mask=None, n_true=None, it0=1,
            lk0_init=None, elbo_every: int = 1) -> VBRunResult:
     """Iterate :func:`vb_sweep` to convergence for a lane batch.
 
@@ -592,34 +654,36 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
     :func:`fused_dense`) selects the deferred-ELBO loop
     :func:`_vb_run_fused`, which ignores ``suffstats``/``data_term``;
     ``elbo_every=k`` then checks the ELBO every k-th sweep only, and
-    ``fused`` must take the ``do_elbo`` flag.  ``it0``/``lk0_init``
-    resume a bounded run exactly.
+    ``fused`` must take the ``do_elbo`` flag.  The masks and true
+    extents of a mesh-padded or rank-padded run are those of
+    :func:`posterior_update`.  ``it0``/``lk0_init`` resume a bounded run
+    exactly.
     """
+    masks = dict(cell_mask=cell_mask, m_true=m_true, rank_mask=rank_mask,
+                 r_true=r_true, gene_mask=gene_mask, n_true=n_true)
     if elbo_every != 1 and fused is None:
         raise ValueError("elbo_every needs a fused backend whose "
                          "kernel takes the do_elbo flag")
     if fused is not None:
         return _vb_run_fused(x, state0, hyper0, itmax=itmax, tol=tol,
                              fudge=fudge, hyper_mask=hyper_mask, n0=n0,
-                             dn=dn, fused=fused, rank_mask=rank_mask,
-                             r_true=r_true, it0=it0, lk0_init=lk0_init,
-                             elbo_every=elbo_every)
+                             dn=dn, fused=fused, it0=it0,
+                             lk0_init=lk0_init, elbo_every=elbo_every,
+                             **masks)
     fudge, tol, lgx, lk0, it, done = _loop_scalars(
         x, state0, fudge, tol, lk0_init, it0)
     hfail = done.clone()
-    state = mask_initial_state(state0, rank_mask, fudge)
+    state = mask_initial_state(state0, rank_mask, fudge, cell_mask,
+                               gene_mask)
     hyper = hyper0
     while True:
         active = (~done) & (it <= itmax)
         if not bool(active.any()):
             break
-        st = vb_sweep(x, state, hyper, fudge, lgx, rank_mask=rank_mask,
-                      r_true=r_true, suffstats=suffstats,
-                      data_term=data_term)
+        st = vb_sweep(x, state, hyper, fudge, lgx, suffstats=suffstats,
+                      data_term=data_term, **masks)
         do_hyper = (it > n0) & (it % dn == 0)
-        new_hyper, failed = hyper_update(hyper_mask, st, hyper,
-                                         rank_mask=rank_mask,
-                                         r_true=r_true)
+        new_hyper, failed = hyper_update(hyper_mask, st, hyper, **masks)
         hyper_n = _select(do_hyper, new_hyper, hyper)
         lkh = st.lkh
         conv = ((it > 1) & (it > n0) & (lkh >= lk0)
@@ -636,8 +700,9 @@ def vb_run(x, state0: VBState, hyper0: Hyper, *, itmax: int = 10000,
 
 
 def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
-                  fudge, hyper_mask, n0, dn, fused, rank_mask=None,
-                  r_true=None, it0=1, lk0_init=None,
+                  fudge, hyper_mask, n0, dn, fused, cell_mask=None,
+                  m_true=None, rank_mask=None, r_true=None, gene_mask=None,
+                  n_true=None, it0=1, lk0_init=None,
                   elbo_every: int = 1) -> VBRunResult:
     """Deferred-ELBO loop over a fused single-pass function: fused
     iteration i completes sweep i-1's ELBO while its suffstats begin
@@ -646,13 +711,16 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
     and ``fused`` gets ``do_elbo`` (B,) so that it can skip the data
     term's ``x log wth`` on the others; stopping is conservative, as
     the ELBO is monotone."""
-    n = state0.lw.shape[-2]
-    m = state0.lh.shape[-1]
+    masks = dict(cell_mask=cell_mask, m_true=m_true, rank_mask=rank_mask,
+                 r_true=r_true, gene_mask=gene_mask, n_true=n_true)
+    n = n_true if n_true is not None else state0.lw.shape[-2]
+    m = m_true if m_true is not None else state0.lh.shape[-1]
     fudge, tol, lgx, lk0, it, done = _loop_scalars(
         x, state0, fudge, tol, lk0_init, it0)
     hfail = done.clone()
     pending = torch.zeros_like(lk0)
-    state = mask_initial_state(state0, rank_mask, fudge)
+    state = mask_initial_state(state0, rank_mask, fudge, cell_mask,
+                               gene_mask)
     hyper = hyper0
     it_start = int(it0)
     while True:
@@ -677,12 +745,10 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
 
         do_sweep = (~stop) & (it <= itmax)
         new_state, new_pending = posterior_update(
-            state.lw * swn, state.lh * shn, st, hyper, fudge, lgx,
-            rank_mask=rank_mask, r_true=r_true)
+            state.lw * swn, state.lh * shn, st, hyper, fudge, lgx, **masks)
         do_hyper = do_sweep & (it > n0) & (it % dn == 0)
         new_hyper, failed = hyper_update(hyper_mask, new_state, hyper,
-                                         rank_mask=rank_mask,
-                                         r_true=r_true)
+                                         **masks)
         st = _select(do_sweep, new_state, st)
         hyper = _select(active & do_hyper, new_hyper, hyper)
         hfail = hfail | (active & do_hyper & failed)

@@ -51,6 +51,17 @@ def lane_sum(t, ndim=1, dtype=None):
             return v[..., 0]
 
 
+def lgamma_sum(x, device=None):
+    """``sum lgamma(x + 1)`` of a dense X in float64 on ``device``
+    (default: X's), a block of rows at a time, so that no float64 copy
+    of a large X is formed.  An X held elsewhere (a mesh's, on the host)
+    crosses a block at a time and gives the same bits."""
+    device = x.device if device is None else torch.device(device)
+    rows = max(1, (1 << 24) // max(1, x.shape[1]))
+    return sum(torch.lgamma(x[i:i + rows].to(device, torch.float64) + 1.0)
+               .sum() for i in range(0, x.shape[0], rows))
+
+
 def lane_colsum(t, dtype=None):
     """:func:`lane_sum` over axis -2 of ``t`` (..., rows, cols): the
     column sums, (..., cols)."""

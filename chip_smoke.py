@@ -125,7 +125,24 @@ Phases (each prints its result and seconds):
    cophenetic, basis, coeff, n_iter); the same for compact_every=50 on
    'pallas2pass' and on 'dense' (printed, not gated); the 10x VB scan
    with compact_every=50 beside the unchunked one (lane-sweeps executed
-   and wall, printed).
+   and wall, printed);
+17. the cell-sharded mesh: the mesh sweep's kernels (K1s per shard, K2
+   on the gathered partials, K3s per shard, K4 on the gathered partials)
+   against the plain sharded sweep on the bundled 684 x 447 split over
+   4 shards (448 cells, the last shard ragged, 21 lanes of ranks 2..8
+   padded to 8, int16) and on phase 4's 10x matrix over 4 shards (3
+   lanes of r = 16, int8), factors float64 and float32, at phase 2's
+   tolerances, two launches bit-identical; one shard, and at 10x two
+   and four shards (2048 cells each, whole K1 chunks), bit-identical to
+   the single-device K1-K4 sweep; the 10x scan of phase 4 over
+   make_mesh(cells=2 and 4) on one card, each bit-identical to the
+   single-device scan (lml, n_iter), with the cells=4 run the path whose
+   launches are counted (K1s and K3s four a sweep, K2 and K4 one, K1
+   and K3 none), wall, loop, lane-sweeps per second and peak memory
+   beside the single-device scan; the bundled mesh scan (cells=4) with
+   ropt 5 in float32 and with precision='bf16', elbo_every=5; 'dense'
+   on the cells=4 mesh in float64 equal to 'dense' on one device (n_iter
+   of every lane, lml to 1e-9).
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time, its plain version's time, its bound
@@ -174,6 +191,13 @@ EPI_SOURCE = "ccfindr_tpu_torch/csrc/epi.cu"
 P2_KERNELS = {"ss_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:108",
               "elbo_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:185"}
 P2_SOURCE = "ccfindr_tpu_torch/csrc/pass2.cu"
+# the cell-sharded sweep (phase 17): key -> (name, the TPU kernel)
+_SSH = "ccfindr_tpu/ops/pallas/sol_sharded.py"
+MESH_KERNELS = {"xpass_shard": ("sol_xpass_shard", f"{_SSH}:80"),
+                "w_post_mesh": ("sol_w_post_gathered", f"{_SSH}:149"),
+                "h_post_shard": ("sol_h_post_shard", f"{_SSH}:149"),
+                "finish_mesh": ("sol_finish_gathered", f"{_SSH}:220")}
+MESH_CELLS = 4                    # phase 17's shards, all on cuda:0
 GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
 # the least time of a kernel (H100 SXM data sheet: float32 outside the
 # tensor cores, HBM3)
@@ -767,6 +791,78 @@ def compare_pass2(x, lw, lh, dt):
                 abs_err=abs_err, deterministic=det, padded_same=pad_same)
 
 
+def mesh_sweep(x, lwt, lh, eh, sc, cells, fn, **kw):
+    """A sharded sweep ``fn`` over ``cells`` shards of X's device, the
+    H family joined: (X laid out, the sweep's outputs)."""
+    from ccfindr_tpu_torch.parallel.sharded import ShardedCounts
+
+    xs = ShardedCounts(x, np.array([[x.device] * cells], dtype=object))
+    out = fn(xs, lwt, xs.shard_h(lh), xs.shard_h(eh), sc, **kw)
+    return xs, out[:3] + tuple(xs.gather_h(p) for p in out[3:6]) + out[6:]
+
+
+def compare_mesh_sweep(args, cells, m_live, dt):
+    """The mesh sweep's kernels vs its plain version on the same card
+    tensors (phase 2's tolerances), two launches bit-identical, and K1s
+    against its plain version shard by shard."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sol
+    from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
+
+    x, lwt, lh, eh, sc, kw = args
+    kw = dict(kw, m_live=m_live)
+    xs, got = mesh_sweep(x, lwt, lh, eh, sc, cells,
+                         ssh.sharded_sweep_kernels, **kw)
+    _, again = mesh_sweep(x, lwt, lh, eh, sc, cells,
+                          ssh.sharded_sweep_kernels, **kw)
+    torch.cuda.synchronize()
+    _, want = mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_plain,
+                         **kw)
+    names = ("ewt", "lwtn", "dwt", "eh", "lhn", "dh")
+    err = {k: rel_err(g, w) for k, g, w in zip(names, got, want)}
+    gs, ws = got[6], want[6]
+    nm = kw["n"] * m_live
+    err["elbo"] = rel_err((gs[:, sol.PEND] + gs[:, sol.DTERM]) / nm,
+                          (ws[:, sol.PEND] + ws[:, sol.DTERM]) / nm)
+    hyp = [sol.AW, sol.BW, sol.AH, sol.BH]
+    for slot, name in zip(hyp, ("aw", "bw", "ah", "bh")):
+        err[name] = rel_err(gs[:, slot], ws[:, slot])
+    abs_err = {
+        "w_post_mesh": max(float((g - w).abs().max())
+                           for g, w in zip(got[:3], want[:3])),
+        "h_post_shard": max(float((g - w).abs().max())
+                            for g, w in zip(got[3:6], want[3:6])),
+        "finish_mesh": max(float((gs[:, hyp] - ws[:, hyp]).abs().max()),
+                           float(((gs[:, sol.PEND] + gs[:, sol.DTERM])
+                                  - (ws[:, sol.PEND] + ws[:, sol.DTERM])
+                                  ).abs().max()) / nm),
+        "xpass_shard": 0.0}
+    tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
+    k1_ok = True
+    for xb, lhs, ehs in zip(xs.blocks[0], xs.shard_h(lh), xs.shard_h(eh)):
+        swn_p, shn_p, _, _ = ssh.xpass_shard(xb, lwt, lhs, ehs, sc)
+        swnt, shn, _, _ = ssh.xpass_shard_plain(xb, lwt, lhs, ehs, sc)
+        abs_err["xpass_shard"] = max(
+            abs_err["xpass_shard"], float((swn_p.sum(1) - swnt).abs().max()),
+            float((shn_p.sum(1) - shn).abs().max()))
+        k1_ok = k1_ok and max(rel_err(swn_p.sum(1), swnt),
+                              rel_err(shn_p.sum(1), shn)) <= tol
+    if dt == torch.float64:
+        for slot, name in ((sol.PEND, "pend"), (sol.DTERM, "dterm"),
+                           (sol.XLOG, "xlog")):
+            err[name] = rel_err(gs[:, slot], ws[:, slot])
+        ok = all(v <= F64_TOL for v in err.values())
+    else:
+        ok = (all(v <= F32_FACTOR_TOL for k, v in err.items()
+                  if k != "elbo") and err["elbo"] <= F32_ELBO_TOL)
+    det = all(torch.equal(a, b) for a, b in zip(got, again))
+    hf = bool(torch.equal(gs[:, sol.HFAIL], ws[:, sol.HFAIL]))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    return dict(ok=ok and k1_ok and det and hf and finite, err=err,
+                abs_err=abs_err, deterministic=det)
+
+
 def device_launches(fn):
     """Device kernel launches during ``fn()``, counted by torch.profiler."""
     import torch
@@ -841,6 +937,9 @@ class Smoke:
         self.kernels.update({k: dict(name=k, route="cuda", source=P2_SOURCE,
                                      replaces=rep)
                              for k, rep in P2_KERNELS.items()})
+        self.kernels.update({k: dict(name=name, route="cuda", source=SOURCE,
+                                     replaces=rep)
+                             for k, (name, rep) in MESH_KERNELS.items()})
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
@@ -1107,17 +1206,20 @@ class Smoke:
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
         # bounds at this shape: K1's products are needed at the nonzeros
-        # of X only (u = 0 elsewhere), 6 rp flops a nonzero and lane
+        # of X only (u = 0 elsewhere), 6 rp flops a nonzero and lane;
+        # the bytes are those of the function (the reduced swnt, shn,
+        # ehs, csum, ... of the plain version), not the kernels'
+        # per-chunk partials
         nnz = int((x != 0).sum())
         fin_out = sol.finish(sc, k1[2], k2[3], k2[4], k3[3], k3[4], **fin)
-        self.set_bound("xpass", nbytes(x, lwt, lh, eh, sc, k1),
+        self.set_bound("xpass", nbytes(x, lwt, lh, eh, sc, p1),
                        6 * 16 * nnz * nb)
-        self.set_bound("w_post", nbytes(k1[0], lwt, k1[3], sc, k2),
+        self.set_bound("w_post", nbytes(p1[0], lwt, p1[3], sc, p2),
                        POST_OPS * nb * 16 * n)
-        self.set_bound("h_post", nbytes(k1[1], lh, k2[3], sc, k3),
+        self.set_bound("h_post", nbytes(p1[1], lh, p2[3], sc, p3),
                        POST_OPS * nb * 16 * m)
-        self.set_bound("finish", nbytes(sc, k1[2], k2[3], k2[4], k3[3],
-                                        k3[4], fin_out), 0)
+        self.set_bound("finish", nbytes(sc, p1[2], p2[3], p2[4], p3[3],
+                                        p3[4], fin_out), 0)
         for k in KERNELS:
             print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
                   f"({self.kernels[k]['bound_by']})")
@@ -2254,11 +2356,290 @@ class Smoke:
               f"{same_vb(outs['unchunked'], outs['compact_every=50'])}")
         return ok
 
+    # -- 17 -----------------------------------------------------------
+    def mesh(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import vb
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
+        from ccfindr_tpu_torch.parallel.sharded import ShardedCounts
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        k = MESH_CELLS
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        xb = np.asarray(s.counts_dense(dtype=np.float64))
+        x10 = self.x10 if self.x10 is not None else planted_10x()
+        ok = True
+
+        # the kernels against the plain sharded sweep
+        xb_pad = np.pad(xb, ((0, 0), (0, -xb.shape[1] % k)))
+        cases = [("bundled", xb_pad, xb.shape[1],
+                  [rk for rk in range(2, 9) for _ in range(3)], 8,
+                  torch.int16),
+                 ("10x", x10, x10.shape[1], [16] * 3, 16, torch.int8)]
+        for cname, x_np, m_live, ranks, r, xdt in cases:
+            for dt in (torch.float64, torch.float32):
+                args = sweep_inputs(x_np, ranks, r, dt, xdt, 1.0, 7, dev)
+                res = compare_mesh_sweep(args, k, m_live, dt)
+                worst = max(res["err"].items(), key=lambda kv: kv[1])
+                print(f"  {cname} {str(dt)[6:]} cells={k} (m_live "
+                      f"{m_live} of {x_np.shape[1]}): "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} worst "
+                      f"{worst[0]}={worst[1]:.3g} elbo="
+                      f"{res['err']['elbo']:.3g} deterministic="
+                      f"{res['deterministic']}", flush=True)
+                if not res["ok"]:
+                    print(f"    errors: {res['err']}", flush=True)
+                ok = ok and res["ok"]
+                if cname == "10x" and dt == torch.float32:
+                    for key in MESH_KERNELS:
+                        self.kernels[key]["max_abs_err"] = \
+                            res["abs_err"][key]
+                del args
+            torch.cuda.empty_cache()
+
+        # one shard, and whole-chunk shards at 10x: the single-device bits
+        for cname, x_np, m_live, ranks, r, xdt in cases:
+            args = sweep_inputs(x_np, ranks, r, torch.float32, xdt, 1.0, 8,
+                                dev)
+            x, lwt, lh, eh, sc, kw = args
+            kw = dict(kw, m_live=m_live)
+            want = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+            for cells in ((1,) if cname == "bundled" else (1, 2, 4)):
+                _, got = mesh_sweep(x, lwt, lh, eh, sc, cells,
+                                    ssh.sharded_sweep_kernels, **kw)
+                same = all(torch.equal(u, v) for u, v in zip(got, want))
+                print(f"  {cname} cells={cells}: bit-identical to K1-K4 "
+                      f"{same}", flush=True)
+                ok = ok and same
+            del args, want, got
+        torch.cuda.empty_cache()
+
+        # the 10x scan over the mesh beside the single-device scan, in
+        # turns (one device, cells=4, cells=2, one device), after a short
+        # warm-up scan of each route so that the first turn pays no
+        # first-call cost; the cells=4 run is the path whose launches
+        # are counted
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, backend="pallas",
+                    device="cuda", verbose=0, seed=0)
+        for cells in (None, k):
+            ct.vb_factorize(x10, **dict(kw10, Itmax=30), **(
+                {} if cells is None else dict(mesh=ct.make_mesh(
+                    cells=cells, devices=[dev] * cells))))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        outs = {}
+        for cells in (None, k, 2, None):
+            extra = ({} if cells is None else dict(mesh=ct.make_mesh(
+                cells=cells, devices=[dev] * cells)))
+            sol.reset_launches()
+            ssh.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            start.record()
+            g = ct.vb_factorize(x10, **kw10, **extra)
+            end.record()
+            end.synchronize()
+            counts = dict(sol.LAUNCHES, **ssh.LAUNCHES)
+            if cells == k:
+                main_counts = counts
+            outs.setdefault(cells, g)
+            wall = start.elapsed_time(end) / 1e3
+            rec = g.metadata["timings"][0]
+            ls = rec["lane_sweeps_executed"]
+            where = "one device" if cells is None else f"cells={cells}"
+            print(f"  10x vb_factorize {where}: "
+                  f"wall {wall:.3f} s, loop {rec['seconds']:.3f} s, {ls} "
+                  f"lane-sweeps -> {ls / rec['seconds']:.1f} lane-sweeps/s "
+                  f"of loop ({ls / wall:.1f} of wall), peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+                  f"n_iter {rec['n_iter']}", flush=True)
+            if cells is not None:
+                same = (np.array_equal(g.measure["lml"],
+                                       outs[None].measure["lml"])
+                        and rec["n_iter"]
+                        == outs[None].metadata["timings"][0]["n_iter"])
+                nsw = counts["finish"]
+                per = {kk: v / max(nsw, 1) for kk, v in counts.items()}
+                print(f"    bit-identical to one device {same}; launches "
+                      f"{counts}; a sweep: K1s {per['xpass_shard']:.2f}, "
+                      f"K2 {per['w_post']:.2f}, K3s "
+                      f"{per['h_post_shard']:.2f}, K4 {per['finish']:.2f}",
+                      flush=True)
+                ok = ok and same and nsw > 0 and (
+                    counts["xpass_shard"] == counts["h_post_shard"]
+                    == cells * nsw and counts["w_post"] == nsw
+                    and counts["xpass"] == counts["h_post"] == 0)
+        for key, name in (("xpass_shard", "xpass_shard"),
+                          ("w_post_mesh", "w_post"),
+                          ("h_post_shard", "h_post_shard"),
+                          ("finish_mesh", "finish")):
+            self.kernels[key]["launches"] = main_counts[name]
+        del outs
+
+        # per-kernel times at the 10x mesh shape (6 lanes, rp 16, int8,
+        # 4 shards of 2048 cells): one shard's K1s and K3s, K2 and K4 on
+        # the gathered partials
+        n, m = x10.shape
+        x = torch.as_tensor(x10, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        h1 = vb.Hyper(1.0, 1.0, 1.0, 1.0)
+        rank_arr = np.repeat([8, 12, 16], 2)
+        nb = len(rank_arr)
+        st = vb.VBState(*(torch.stack(t) for t in zip(
+            *[vb.vb_init_random(gen, n, m, 16, h1, torch.float32, dev)
+              for _ in range(nb)])))
+        lwt = st.lw.transpose(-1, -2).contiguous()
+        sc = torch.stack([torch.ones(nb, dtype=torch.float64, device=dev)] * 4
+                         + [torch.full((nb,), 1.2e-7, dtype=torch.float64,
+                                       device=dev),
+                            torch.as_tensor(rank_arr, dtype=torch.float64,
+                                            device=dev),
+                            torch.zeros(nb, dtype=torch.float64, device=dev),
+                            torch.ones(nb, dtype=torch.float64, device=dev)],
+                         dim=1)
+        xs = ShardedCounts(x, np.array([[dev] * k], dtype=object))
+        lhs, ehs = xs.shard_h(st.lh), xs.shard_h(st.eh)
+        dt = torch.float32
+        a = [sc[:, q].to(dt) for q in range(6)]
+        parts = [ssh.xpass_shard(b, lwt, lh_, eh_, sc)
+                 for b, lh_, eh_ in zip(xs.blocks[0], lhs, ehs)]
+        ngc = parts[0][1].shape[1]
+        swn_part = ssh.gather([p[0] for p in parts], 1, dev)
+        xlog_part = ssh.gather([p[2].view(nb, ngc, -1) for p in parts], 2,
+                               dev).view(nb, -1)
+        ehs_part = ssh.gather([p[3] for p in parts], 1, dev)
+        k2 = sol.w_post(swn_part, lwt, ehs_part, sc, 16, n)
+        mp_loc = m // k
+        k3 = [ssh.h_post_shard(p[1], lh_, k2[3], sc, 16, mp_loc, mp_loc)
+              for p, lh_ in zip(parts, lhs)]
+        rsum_part = ssh.gather([h[3] for h in k3], 1, dev)
+        hscal_part = ssh.gather([h[4] for h in k3], 1, dev)
+        fin = dict(n=n, m=m, dt=dt, hyper_mask=(True,) * 4,
+                   newton_niter=100, newton_tol=1e-4)
+        pall = [ssh.xpass_shard_plain(b, lwt, lh_, eh_, sc)
+                for b, lh_, eh_ in zip(xs.blocks[0], lhs, ehs)]
+        swnt = ssh.shard_sum([p[0] for p in pall])
+        ehs_sum = ssh.shard_sum([p[3] for p in pall])
+        xlog = ssh.shard_sum([p[2] for p in pall])
+        p2 = sol.post_plain(swnt, lwt, ehs_sum, a[0], a[1], a[4], a[5], 16, n)
+        p3 = [ssh.h_post_shard_plain(p[1], lh_, p2[3], sc, 16, mp_loc,
+                                     mp_loc) for p, lh_ in zip(pall, lhs)]
+        rsum = ssh.shard_sum([h[3] for h in p3])
+        hscal = ssh.shard_sum([h[4] for h in p3])
+        timed = {
+            "xpass_shard": (
+                lambda: ssh.xpass_shard(xs.blocks[0][0], lwt, lhs[0], ehs[0],
+                                        sc),
+                lambda: ssh.xpass_shard_plain(xs.blocks[0][0], lwt, lhs[0],
+                                              ehs[0], sc)),
+            "w_post_mesh": (
+                lambda: sol.w_post(swn_part, lwt, ehs_part, sc, 16, n),
+                lambda: sol.post_plain(swnt, lwt, ehs_sum, a[0], a[1], a[4],
+                                       a[5], 16, n)),
+            "h_post_shard": (
+                lambda: ssh.h_post_shard(parts[0][1], lhs[0], k2[3], sc, 16,
+                                         mp_loc, mp_loc),
+                lambda: ssh.h_post_shard_plain(pall[0][1], lhs[0], p2[3], sc,
+                                               16, mp_loc, mp_loc)),
+            "finish_mesh": (
+                lambda: sol.finish(sc, xlog_part, k2[3], k2[4], rsum_part,
+                                   hscal_part, **fin),
+                lambda: sol.finish_plain(sc, xlog, p2[3], p2[4], rsum, hscal,
+                                         n, m, dt, (True,) * 4, 100, 1e-4)),
+        }
+        for key, (kern, plain) in timed.items():
+            self.kernels[key]["ms"] = cuda_ms(kern, 20)
+            self.kernels[key]["plain_ms"] = cuda_ms(plain, 5)
+        # bounds: the bytes of the function, as in phase 4 (a shard's
+        # swnt partial and shn, the reduced swnt, ehs, csum, rsum and
+        # H scalars), not the kernels' per-chunk partials
+        nnz0 = int((xs.blocks[0][0] != 0).sum())
+        fin_out = sol.finish(sc, xlog_part, k2[3], k2[4], rsum_part,
+                             hscal_part, **fin)
+        self.set_bound("xpass_shard", nbytes(xs.blocks[0][0], lwt, lhs[0],
+                                             ehs[0], sc, pall[0]),
+                       6 * 16 * nnz0 * nb)
+        self.set_bound("w_post_mesh", nbytes(swnt, lwt, ehs_sum, sc, p2),
+                       POST_OPS * nb * 16 * n)
+        self.set_bound("h_post_shard", nbytes(pall[0][1], lhs[0], p2[3], sc,
+                                              p3[0]),
+                       POST_OPS * nb * 16 * mp_loc)
+        self.set_bound("finish_mesh", nbytes(sc, xlog, p2[3], p2[4], rsum,
+                                             hscal, fin_out), 0)
+        for key in MESH_KERNELS:
+            kd = self.kernels[key]
+            print(f"  {kd['name']}: kernel {kd['ms']:.4f} ms, plain "
+                  f"{kd['plain_ms']:.4f} ms, bound {kd['bound_ms']:.4f} ms "
+                  f"({kd['bound_by']}), launches {kd['launches']}, max abs "
+                  f"err {kd['max_abs_err']:.3g}", flush=True)
+
+        # device launches a sweep of the loop on these lanes, one device
+        # beside cells=4 (torch.profiler; itmax 10 at tol 0 runs 11
+        # sweeps)
+        rm = torch.as_tensor((np.arange(16)[None] < rank_arr[:, None])
+                             .astype(np.float32), device=dev)
+        rt = torch.as_tensor(rank_arr.astype(np.float32), device=dev)
+        hy = vb.Hyper(*(torch.ones(nb, device=dev),) * 4)
+        loops = {
+            "one device": lambda: sol.vb_run_sol(x, st, hy, itmax=10,
+                                                 tol=0.0, rank_mask=rm,
+                                                 r_true=rt),
+            f"cells={k}": lambda: sol.vb_run_sol(
+                xs, st, hy, itmax=10, tol=0.0, rank_mask=rm, r_true=rt,
+                sweep_fn=ssh.make_sol_sweep_sharded(
+                    ct.make_mesh(cells=k, devices=[dev] * k))),
+        }
+        for name, fn in loops.items():
+            fn()
+            print(f"  vb_run_sol {name}: {device_launches(fn) / 11:.1f} "
+                  "device launches a sweep", flush=True)
+        del x, xs, parts, pall, swn_part
+        torch.cuda.empty_cache()
+
+        # the bundled mesh scan: ropt 5 in float32 and in bf16
+        kwb = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
+                   backend="pallas", device="cuda", verbose=0, seed=0,
+                   mesh=ct.make_mesh(cells=k, devices=[dev] * k))
+        for label, extra in (("float32", {}),
+                             ("bf16, elbo_every=5",
+                              dict(precision="bf16", elbo_every=5))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = ct.vb_factorize(s, **kwb, **extra)
+            torch.cuda.synchronize()
+            ropt = ct.optimal_rank(g)["ropt"]
+            print(f"  bundled mesh scan (cells={k}) {label}: "
+                  f"{time.perf_counter() - t0:.2f} s, ropt={ropt}, lml "
+                  f"{np.round(g.measure['lml'].to_numpy(), 5).tolist()}",
+                  flush=True)
+            ok = ok and ropt == 5 and bool(np.isfinite(g.measure["lml"]).all())
+
+        # 'dense' over the mesh in float64 against 'dense' on one device
+        kwd = dict(ranks=[4, 5, 6], nrun=2, Itmax=3000, backend="dense",
+                   device="cuda", verbose=0, seed=0, dtype=torch.float64)
+        t0 = time.perf_counter()
+        a1 = ct.vb_factorize(s, **kwd)
+        a4 = ct.vb_factorize(s, mesh=ct.make_mesh(cells=k, devices=[dev] * k),
+                             **kwd)
+        nit1 = a1.metadata["timings"][0]["n_iter"]
+        nit4 = a4.metadata["timings"][0]["n_iter"]
+        lml_err = float(np.max(np.abs(a4.measure["lml"] - a1.measure["lml"])
+                               / np.abs(a1.measure["lml"])))
+        print(f"  float64 dense cells={k} vs one device: n_iter equal "
+              f"{nit1 == nit4} ({nit4}), lml rel {lml_err:.3g} "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        return ok and nit1 == nit4 and lml_err <= 1e-9
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -2293,7 +2674,8 @@ def main(argv=None):
                      smoke.pass2_kernel_vs_plain),
               "14": ("pallas2pass-slice", smoke.pallas2pass_slice),
               "15": ("sparse-bf16", smoke.sparse_bf16),
-              "16": ("checkpoint-compaction", smoke.checkpointing)}
+              "16": ("checkpoint-compaction", smoke.checkpointing),
+              "17": ("cell-sharded-mesh", smoke.mesh)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

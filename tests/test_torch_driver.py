@@ -187,6 +187,12 @@ def test_port_never_imports_jax():
             "g = ct.factorize(x, ranks=[2], nrun=2, Itmax=20, verbose=0,\n"
             "                 backend='sparse', device='cpu')\n"
             "ct.meta_gene_cv(f, rank=2)\n"
+            "from ccfindr_tpu_torch.ops.kernels import sol_sharded\n"
+            "from ccfindr_tpu_torch.parallel import mesh, sharded\n"
+            "u = ct.vb_factorize(x, ranks=[2], Itmax=20, verbose=0,\n"
+            "                    backend='pallas', device='cpu',\n"
+            "                    mesh=ct.make_mesh(runs=2, cells=2,\n"
+            "                                      devices=['cpu'] * 4))\n"
             "from ccfindr_tpu_torch.ops.kernels import epilogue, vb_kernels\n"
             "import torch\n"
             "st = epilogue.vb_run_epi(torch.tensor(x, dtype=torch.int16),\n"
@@ -200,6 +206,7 @@ def test_port_never_imports_jax():
             "ct.read_10x(pbmc_sim_dir())\n"
             "assert len(s.measure) >= 1 and len(f.measure) == 2\n"
             "assert len(t.measure) == 1 and len(g.measure) == 1\n"
+            "assert len(u.measure) == 1\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -223,8 +230,10 @@ def test_dtype_follows_device(small):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A7"),
-    (dict(distributed=dict(num_processes=2)), "A7"),
+    (dict(backend="pallas", mesh=ct.make_mesh(genes=2, cells=1,
+                                              devices=["cpu"] * 2)), "A7b"),
+    (dict(distributed=dict(num_processes=2)), "A7c"),
+    (dict(_process_count=2), "A7c"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
     (dict(initializer="svd2", svd_method="randomized"), "A8"),
 ])

@@ -299,13 +299,26 @@ def test_vb_run_epi_equals_vb_run_sol():
 
 
 def test_vb_run_epi_cell_mask_raises():
-    st = tvb.vb_init_random(torch.Generator().manual_seed(0), 5, 6, 2,
+    """``cell_mask`` raised (ROADMAP A7) until the mesh was ported; it
+    now pins the padded cells, so both layouts equal vb_run_sol with the
+    same mask (JAX parity: tests/test_torch_mesh.py)."""
+    x = _t(np.pad(_planted(12, 40, 2, seed=3), ((0, 0), (0, 4))),
+           torch.int16)
+    st = tvb.vb_init_random(torch.Generator().manual_seed(0), 12, 44, 2,
                             tvb.Hyper(1.0, 1.0, 1.0, 1.0), torch.float64,
                             device="cpu")
     st = tvb.VBState(*(f[None] for f in st))
     hy = tvb.Hyper(*(torch.ones(1, dtype=torch.float64),) * 4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tep.vb_run_epi(torch.ones(5, 6), st, hy, cell_mask=torch.ones(6))
+    kw = dict(itmax=100, tol=1e-6, m_true=40,
+              cell_mask=(torch.arange(44) < 40).double())
+    a = tsol.vb_run_sol(x, st, hy, **kw)
+    for layout in ("cm", "gm"):
+        b = tep.vb_run_epi(x, st, hy, layout=layout, **kw)
+        assert torch.equal(a.n_iter, b.n_iter)
+        torch.testing.assert_close(a.lml, b.lml, rtol=1e-10, atol=0)
+        assert bool((b.state.eh[..., 40:] == 0).all())
+        assert bool((b.state.lh[..., 40:] == torch.finfo(
+            torch.float64).eps).all())
 
 
 def test_bf16_sol_loop_matches_jax():

@@ -1,7 +1,8 @@
-"""CUDA kernels K1-K4 (csrc/sol.cu), M1-M3 (csrc/ml.cu), S1/S2
-(csrc/sparse.cu, also in their bf16 mode), E1, E1s, E2, E3 (csrc/epi.cu)
-and P1/P2 (csrc/pass2.cu) against their plain PyTorch versions, on the
-card; and the lane-count independence the chunked drivers rely on.  The kernels have no CPU mode, so every
+"""CUDA kernels K1-K4 (csrc/sol.cu, and K1s/K3s/K4 of the cell-sharded
+sweep), M1-M3 (csrc/ml.cu), S1/S2 (csrc/sparse.cu, also in their bf16
+mode), E1, E1s, E2, E3 (csrc/epi.cu) and P1/P2 (csrc/pass2.cu) against
+their plain PyTorch versions, on the card; and the lane-count
+independence the chunked drivers rely on.  The kernels have no CPU mode, so every
 test here is marked ``cuda`` and skips without a CUDA device.  The module imports
 no JAX, so on a machine with a card (and without JAX) it runs as
 
@@ -22,10 +23,12 @@ import torch
 from ccfindr_tpu_torch.ops import tile
 from ccfindr_tpu_torch.ops.kernels import epilogue as epi
 from ccfindr_tpu_torch.ops.kernels import ml, sol
+from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 from ccfindr_tpu_torch.ops.kernels import sparse as spk
 from ccfindr_tpu_torch.ops.ml import likelihood_const
 from ccfindr_tpu_torch.ops.sparse import fold_dterm
+from ccfindr_tpu_torch.parallel.sharded import ShardedCounts
 from ccfindr_tpu_torch.utils import lane_sum
 
 pytestmark = pytest.mark.cuda
@@ -534,3 +537,66 @@ def test_lane_sum_does_not_depend_on_the_lane_count():
                 assert torch.equal(
                     lane_sum(t[5:5 + nb].clone(), len(shape) - 1),
                     full[5:5 + nb])
+
+
+def _mesh_sweep(x, lwt, lh, eh, sc, cells, fn, **kw):
+    """A sharded sweep (``fn``) over ``cells`` shards of one device; its
+    H outputs joined."""
+    xs = ShardedCounts(x, np.array([[x.device] * cells], dtype=object))
+    out = fn(xs, lwt, xs.shard_h(lh), xs.shard_h(eh), sc, **kw)
+    return out[:3] + tuple(xs.gather_h(p) for p in out[3:6]) + out[6:]
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,m_live,r,lanes,cells,xdt", [
+    (300, 704, 700, 6, [3, 4, 5, 6], 4, torch.int8),
+    (1030, 1536, 1536, 16, [16, 9], 3, torch.int16),
+    (140, 600, 447, 40, [40, 33], 2, torch.float32),
+])
+def test_sharded_sweep_kernels_match_plain(n, m, m_live, r, lanes, cells,
+                                           xdt, dt):
+    """K1s (per shard), K2, K3s (per shard) and K4 on the gathered
+    partials against the plain sharded sweep on the same card tensors:
+    k, 1, k, 1 launches; ragged live cells and shards included."""
+    dev = _card()
+    x, lwt, lh, eh, sc = _inputs(n, m, r, lanes, dt, xdt, dev)
+    x[:, m_live:] = 0
+    sol.reset_launches()
+    ssh.reset_launches()
+    kw = dict(n=n, m=m, m_live=m_live, r=r)
+    got = _mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_kernels,
+                      **kw)
+    torch.cuda.synchronize()
+    assert ssh.LAUNCHES == {"xpass_shard": cells, "h_post_shard": cells}
+    assert sol.LAUNCHES == {"xpass": 0, "w_post": 1, "h_post": 0,
+                            "finish": 1}
+    want = _mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_plain,
+                       **kw)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    for g, w in zip(got[:6], want[:6]):
+        assert g.dtype == dt and g.shape == w.shape
+        assert _rel(g, w) <= tol
+    gs, ws = got[6], want[6]
+    for slot in (sol.AW, sol.BW, sol.AH, sol.BH):
+        assert _rel(gs[:, slot], ws[:, slot]) <= tol
+    assert _rel(gs[:, sol.PEND] + gs[:, sol.DTERM],
+                ws[:, sol.PEND] + ws[:, sol.DTERM]) <= (
+                    1e-10 if dt == torch.float64 else 1e-5)
+    assert torch.equal(gs[:, sol.HFAIL], ws[:, sol.HFAIL])
+
+
+@pytest.mark.parametrize("cells,m", [(1, 700), (2, 2048), (4, 2048)])
+def test_sharded_sweep_is_the_single_device_sweep(cells, m):
+    """One shard, or shards that are whole multiples of K1's 512-cell
+    chunk, give K1-K4's bits; two launches are bit-identical."""
+    dev = _card()
+    x, lwt, lh, eh, sc = _inputs(600, m, 16, [16, 12, 8], torch.float32,
+                                 torch.int8, dev, seed=5)
+    kw = dict(n=600, m=m, r=16)
+    want = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+    got = _mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_kernels,
+                      **kw)
+    again = _mesh_sweep(x, lwt, lh, eh, sc, cells,
+                        ssh.sharded_sweep_kernels, **kw)
+    for u, v, w in zip(got, again, want):
+        assert torch.equal(u, v) and torch.equal(u, w)

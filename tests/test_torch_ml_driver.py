@@ -248,9 +248,9 @@ def test_interpret_and_gsea_match_jax(pbmc_ml, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A7"),
-    (dict(distributed=dict(num_processes=2)), "A7"),
-    (dict(_process_count=2), "A7"),
+    (dict(mesh=ct.make_mesh(cells=2, devices=["cpu"] * 2)), "A7b"),
+    (dict(distributed=dict(num_processes=2)), "A7c"),
+    (dict(_process_count=2), "A7c"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
 ])
 def test_options_not_ported_raise(small, kw, item):

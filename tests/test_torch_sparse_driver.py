@@ -186,7 +186,8 @@ def test_sparse_drivers_never_densify(monkeypatch):
     (dict(sparse_layout="ell"), NotImplementedError, "A6"),
     (dict(sparse_layout="csr5"), ValueError, "unknown sparse_layout"),
     (dict(storage_dtype="int8"), ValueError, "storage_dtype"),
-    (dict(mesh=object()), NotImplementedError, "A7"),
+    (dict(mesh=ct.make_mesh(cells=2, devices=["cpu"] * 2)),
+     NotImplementedError, "A7b"),
 ])
 def test_sparse_option_errors(small, driver, kw, exc, match):
     fn = ct.vb_factorize if driver == "vb" else ct.factorize
