@@ -37,8 +37,7 @@ namespace ccfindr {
 // Adds E1's partials: out[b, e] = sum_p part[b, p, e] for e < L, in
 // double in the order p = 0, 1, ..., rounded once to the factor type;
 // the last block column adds each lane's xlog partials (one warp).
-// What M3 ml_xlog_sum is to M1.  Bound: bytes (the partials, read
-// once).
+// Bound: bytes (the partials, read once).
 // ---------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kXThreads)
@@ -60,6 +59,22 @@ fused_sum_kernel(const T* __restrict__ part, int P, int L,
   for (int p = 0; p < P; ++p)
     acc += static_cast<double>(part[((size_t)b * P + p) * L + e]);
   out[(size_t)b * L + e] = static_cast<T>(acc);
+}
+
+// div_rn (fused.cuh) against the division on n samples: out[i] = 0
+// where its fast path does not apply, 1 where it gives the division's
+// bits, 2 where it does not (a self-test for the card).
+__global__ void div_rn_check_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ w, int64_t n,
+                                    unsigned char* __restrict__ out) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    bool fast;
+    const float f = div_rn(x[i], w[i], fast);
+    out[i] = !fast ? 0
+                   : (__float_as_uint(f) == __float_as_uint(x[i] / w[i]) ? 1
+                                                                         : 2);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -135,6 +150,15 @@ int fused_sum(int tcode, const void* part, int P, int L,
         static_cast<double*>(out), xlog);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// div_rn (fused.cuh) against the division on n float samples; out (n)
+// uint8: 0 outside its fast path, 1 the same bits, 2 other bits.
+int div_rn_check(const float* x, const float* w, int64_t n,
+                 unsigned char* out, void* stream) {
+  div_rn_check_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

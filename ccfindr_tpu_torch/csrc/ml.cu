@@ -1,12 +1,13 @@
 // The maximum-likelihood (Lee-Seung KL) passes on Hopper: the two Pallas
 // kernels of ccfindr_tpu/ops/pallas/ml_kernels.py as CUDA.
 //
-//   M1 ml_hpass     hn = w^T (x / wh) and per-block sums of x*log(wh)
+//   M1 ml_hpass     hn = w^T (x / wh) and each lane's sum of x*log(wh):
+//                   per-block partials, which the lane's last block adds
+//                   in block order (reduce.cuh lane_tail_sum; the TPU
+//                   kernel kept a Kahan-summed SMEM scalar)
 //   M2 ml_wpass     wn = (x / wh) h^T
-//   M3 ml_xlog_sum  each lane's sum of M1's per-block partials, in block
-//                   order (the TPU kernel's Kahan-summed SMEM scalar)
 //
-// A sweep runs M1 (+ M3) on (w, h) and M2 on (w, h') with h' the updated
+// A sweep runs M1 on (w, h) and M2 on (w, h') with h' the updated
 // H, so wh is formed twice: the W pass needs the new H.  The
 // multiplicative updates between the passes (h * hn + pn) / (colSums w +
 // pd), the eps clamp and the rank mask stay torch ops in
@@ -83,14 +84,16 @@ __device__ __forceinline__ double ratio_subtile(
 //   kMlSub entries accumulate in shared memory, each owned by one thread,
 //   and are written once.  The strip's h slice is staged once; w's
 //   subtile rows are contiguous in (B, n, r) and load coalesced.  Only
-//   the x*log(wh) sum crosses blocks: one double partial a block, added
-//   in block order by M3.
+//   the x*log(wh) sum crosses blocks: one double partial a block; the
+//   lane's last block to finish adds them in block order (reduce.cuh
+//   lane_tail_sum: one warp, lane-strided, then the butterfly).
 // ---------------------------------------------------------------------
 template <typename T, typename XT>
 __global__ void __launch_bounds__(kMlThreads)
 ml_hpass_kernel(const XT* __restrict__ x, const T* __restrict__ w,
                 const T* __restrict__ h, int n, int m, int r,
-                T* __restrict__ hn, double* __restrict__ xlog_part) {
+                T* __restrict__ hn, double* __restrict__ xlog_part,
+                unsigned* __restrict__ tickets, double* __restrict__ xlog) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w_s = reinterpret_cast<T*>(smem_raw);  // r x kMlSub
   T* h_s = w_s + r * kMlSub;                // r x kMlSub
@@ -136,6 +139,8 @@ ml_hpass_kernel(const XT* __restrict__ x, const T* __restrict__ w,
   }
   const double xs = block_sum(xl, red);
   if (tid == 0) xlog_part[(size_t)b * gridDim.x + blk] = xs;
+  lane_tail_sum(xlog_part + (size_t)b * gridDim.x, gridDim.x, tickets + b,
+                xlog + b);
 }
 
 // ---------------------------------------------------------------------
@@ -200,23 +205,6 @@ ml_wpass_kernel(const XT* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------
-// M3 ml_xlog_sum
-//
-// Replaces: the Kahan-compensated scalar accumulation of _ml_h_kernel
-//   (ml_kernels.py:61, vb_kernels.py:68 _ksum2), which the TPU's
-//   sequential grid allowed.
-// Bound: latency (one warp a lane, ceil(m / 64) partials).
-// Design: one warp a lane adds the partials in a fixed order in double
-//   (lane-strided, then the butterfly).
-// ---------------------------------------------------------------------
-__global__ void ml_xlog_sum_kernel(const double* __restrict__ part, int nblk,
-                                   double* __restrict__ out) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  const double s = warp_strided_sum(part + (size_t)b * nblk, nblk, 1, lane);
-  if (lane == 0) out[b] = s;
-}
-
-// ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
 template <typename T>
@@ -227,6 +215,7 @@ size_t ml_smem(int r) {
 template <typename T, typename XT>
 cudaError_t launch_hpass(const void* x, const void* w, const void* h, int B,
                          int n, int m, int r, void* hn, double* xlog_part,
+                         unsigned* tickets, double* xlog,
                          cudaStream_t stream) {
   const dim3 grid(ceil_div(m, kMlSub), B);
   const size_t smem = ml_smem<T>(r);
@@ -236,7 +225,8 @@ cudaError_t launch_hpass(const void* x, const void* w, const void* h, int B,
   if (err != cudaSuccess) return err;
   ml_hpass_kernel<T, XT><<<grid, kMlThreads, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(h), n, m, r, static_cast<T*>(hn), xlog_part);
+      static_cast<const T*>(h), n, m, r, static_cast<T*>(hn), xlog_part,
+      tickets, xlog);
   return cudaGetLastError();
 }
 
@@ -277,12 +267,16 @@ extern "C" {
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
 
+// xlog_part (B, ceil(m / 64)) the per-block partials; tickets (B) the
+// lanes' counters, 0 before and after; xlog (B) each lane's sum.
 int ml_hpass(int tcode, int xcode, const void* x, const void* w,
              const void* h, int B, int n, int m, int r, void* hn,
-             double* xlog_part, void* stream) {
+             double* xlog_part, unsigned* tickets, double* xlog,
+             void* stream) {
   if (r < 1 || r > kMlMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ML_DISPATCH(launch_hpass, x, w, h, B, n, m, r, hn, xlog_part, s)
+  ML_DISPATCH(launch_hpass, x, w, h, B, n, m, r, hn, xlog_part, tickets,
+              xlog, s)
 }
 
 int ml_wpass(int tcode, int xcode, const void* x, const void* w,
@@ -294,12 +288,5 @@ int ml_wpass(int tcode, int xcode, const void* x, const void* w,
 }
 
 #undef ML_DISPATCH
-
-int ml_xlog_sum(const double* part, int B, int nblk, double* out,
-                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ml_xlog_sum_kernel<<<B, 32, 0, s>>>(part, nblk, out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // extern "C"

@@ -11,14 +11,15 @@
 //                  with the x*log(wth) sum compiled out; E1s fused_sum
 //                  (epi.cu) adds the partials in chunk order.
 //   P2 elbo_xpass  -sum x (S/wth - log wth), S = (lw log lw) lh +
-//                  lw (lh log lh), as per-tile double partials:
-//                  replaces vb_kernels.py:185 _elbo_kernel.  M3
-//                  ml_xlog_sum (ml.cu) adds the partials in tile order
-//                  (the TPU kernel kept a Kahan scalar in SMEM across its
-//                  sequential grid).
+//                  lw (lh log lh), as per-tile double partials that the
+//                  lane's last block adds in tile order (reduce.cuh
+//                  lane_tail_sum): replaces vb_kernels.py:185
+//                  _elbo_kernel (which kept a Kahan scalar in SMEM across
+//                  its sequential grid).
 //
 // Division is exact IEEE, log the exact libdevice log, products FP32
-// (or FP64) FMAs; no atomics, so two launches are bit-identical.
+// (or FP64) FMAs; no atomic in any sum, so two launches are
+// bit-identical.
 
 #include <cuda_runtime.h>
 
@@ -48,14 +49,16 @@ constexpr int kPMaxR = 128;
 //   wth and S of a 4 x 4 micro-tile (genes ty + 16 p, cells tx + 16 q)
 //   in registers, 12 values read for 48 FMAs a component.  Then it adds
 //   -x (S/wth - log wth) over its nonzeros in double, and the block
-//   writes its sum as one partial in tile order.
+//   writes its sum as one partial in tile order; the lane's last block
+//   adds the lane's partials.
 // ---------------------------------------------------------------------
 template <typename T, typename XT>
 __global__ void __launch_bounds__(kPThreads)
 elbo_xpass_kernel(const XT* __restrict__ x, size_t ldx,
                   const T* __restrict__ lw, const T* __restrict__ lwl,
                   const T* __restrict__ lh, const T* __restrict__ lhl, int n,
-                  int m, int r, double* __restrict__ part) {
+                  int m, int r, double* __restrict__ part,
+                  unsigned* __restrict__ tickets, double* __restrict__ out) {
   __shared__ T lw_s[kPK][kPLd];
   __shared__ T lwl_s[kPK][kPLd];
   __shared__ T lh_s[kPK][kPLd];
@@ -123,9 +126,10 @@ elbo_xpass_kernel(const XT* __restrict__ x, size_t ldx,
     }
   }
   const double bs = block_sum(acc, red);
+  const int ntile = gridDim.x * gridDim.y;
   if (tid == 0)
-    part[(size_t)b * gridDim.x * gridDim.y + (size_t)blockIdx.y * gridDim.x +
-         blockIdx.x] = bs;
+    part[(size_t)b * ntile + (size_t)blockIdx.y * gridDim.x + blockIdx.x] = bs;
+  lane_tail_sum(part + (size_t)b * ntile, ntile, tickets + b, out + b);
 }
 
 // ---------------------------------------------------------------------
@@ -135,12 +139,12 @@ template <typename T, typename XT>
 cudaError_t launch_elbo(const void* x, size_t ldx, const void* lw,
                         const void* lwl, const void* lh, const void* lhl,
                         int B, int n, int m, int r, double* part,
-                        cudaStream_t stream) {
+                        unsigned* tickets, double* out, cudaStream_t stream) {
   const dim3 grid(ceil_div(m, kPTile), ceil_div(n, kPTile), B);
   elbo_xpass_kernel<T, XT><<<grid, kPThreads, 0, stream>>>(
       static_cast<const XT*>(x), ldx, static_cast<const T*>(lw),
       static_cast<const T*>(lwl), static_cast<const T*>(lh),
-      static_cast<const T*>(lhl), n, m, r, part);
+      static_cast<const T*>(lhl), n, m, r, part, tickets, out);
   return cudaGetLastError();
 }
 
@@ -179,17 +183,20 @@ int ss_xpass(int tcode, int xcode, const void* x, int64_t ldx,
 }
 
 // lwl / lhl: lw log lw and lh log lh (0 where the factor is 0), in the
-// layouts of lw / lh; part (B, ceil(m / 64) * ceil(n / 64)), tile order.
+// layouts of lw / lh; part (B, ceil(m / 64) * ceil(n / 64)), tile order;
+// tickets (B) the lanes' counters, 0 before and after; out (B) each
+// lane's sum of its partials.
 int elbo_xpass(int tcode, int xcode, const void* x, int64_t ldx,
                const void* lw, const void* lwl, const void* lh,
                const void* lhl, int B, int n, int m, int r, double* part,
-               void* stream) {
+               unsigned* tickets, double* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r < 1 || r > kPMaxR || ldx < m)
     return static_cast<int>(cudaErrorInvalidValue);
 #define P2(T, XT)                                                             \
   return static_cast<int>(launch_elbo<T, XT>(x, (size_t)ldx, lw, lwl, lh, lhl, \
-                                             B, n, m, r, part, s))
+                                             B, n, m, r, part, tickets, out, \
+                                             s))
   switch (tcode * 4 + xcode) {
     case 0: P2(float, int8_t);
     case 1: P2(float, int16_t);

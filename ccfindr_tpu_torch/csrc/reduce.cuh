@@ -1,9 +1,12 @@
-// Fixed-order reductions shared by the kernels of sol.cu and ml.cu.
+// Fixed-order reductions shared by the kernels of the package.
 //
-// No atomics anywhere: a sum across a warp is a butterfly, a sum across
+// No atomic in any sum: a sum across a warp is a butterfly, a sum across
 // a block goes through one shared slot a warp, and a sum across blocks
-// goes through per-block partials that a later kernel adds in a fixed
-// order.  So every kernel of the package is deterministic run to run.
+// goes through per-block partials added in a fixed order, by a later
+// kernel or by the producer's last block of a lane (lane_tail_sum: one
+// ticket counter a lane decides which block adds the partials, never the
+// order of the addition).  So every kernel of the package is
+// deterministic run to run.
 
 #pragma once
 
@@ -39,6 +42,38 @@ __device__ __forceinline__ double warp_strided_sum(const double* p, int count,
   return warp_sum(s);
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+// The tail of a producer that writes one double partial a block for
+// each lane: call it with every thread of the block after thread 0 has
+// written this block's partial.  Thread 0 takes a ticket from the lane's
+// counter (the one atomic); the block that takes the lane's last ticket
+// adds the lane's nblk partials part[0..nblk) as warp_strided_sum adds
+// them (lane-strided, then the butterfly: the bits of a separate
+// one-warp sum), writes *out and puts the counter back to 0 for the
+// next launch.  The counters start at 0 (the wrappers allocate them
+// zeroed, once a device and stream).
+__device__ __forceinline__ void lane_tail_sum(const double* part, int nblk,
+                                              unsigned* ticket,
+                                              double* out) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's partial is visible before its ticket
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(nblk - 1);
+  }
+  __syncthreads();
+  if (last && threadIdx.x < 32) {
+    __threadfence();
+    double s = 0.0;  // __ldcg: the other blocks' partials, from L2
+    for (int i = threadIdx.x; i < nblk; i += 32) s += __ldcg(part + i);
+    s = warp_sum(s);
+    if (threadIdx.x == 0) {
+      *out = s;
+      *ticket = 0u;
+    }
+  }
+}
+
+__host__ __device__ inline int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 }  // namespace ccfindr

@@ -5,14 +5,15 @@
 //                  of the row: wth = lw[b,g,:] . lh[b,:,c] (an SDDMM),
 //                  a = x / wth; then swn[b,g,:] += a lh[b,:,c] (an
 //                  SpMM), a into a (B, nnz) buffer in CSR order, and
-//                  one double partial of x*log(wth) a block
+//                  one double partial of x*log(wth) a block, which the
+//                  lane's last block adds in block order
+//                  (reduce.cuh lane_tail_sum)
 //   S2 sp_colpass  per cell column c of one lane b, over the CSC view of
 //                  the same nonzeros: shn[b,:,c] = sum a lw[b,g,:], a
 //                  read through the CSC -> CSR permutation
 //
-// M3 ml_xlog_sum (ml.cu) adds S1's partials in block order.  The phases
-// map onto them as: VB sweep S1 (swn, a, xlog) + S2 + M3; ML H phase
-// S1 (a, xlog) + S2 + M3; ML W phase S1 (swn).
+// The phases map onto them as: VB sweep S1 (swn, a, xlog) + S2; ML H
+// phase S1 (a, xlog) + S2; ML W phase S1 (swn).
 //
 // Replaces: ccfindr_tpu/ops/tile.py:348 _tile_kernel (with _tile_pass,
 //   fused_tile, tile_ml_h, tile_ml_w).  The TPU kernel expanded
@@ -30,8 +31,8 @@
 //   warp takes 32 / G nonzeros at once and a row's gather is one
 //   contiguous G-lane load.  swn and shn accumulate in registers and are
 //   written once; a warp owns its row (S1) or cell (S2), so no sum
-//   crosses blocks except x*log(wth).  No atomics: two launches are
-//   bit-identical.
+//   crosses blocks except x*log(wth).  No atomic in any sum (one ticket
+//   a block picks the lane's adder): two launches are bit-identical.
 //
 // Layouts (row-major, leading lane axis B): indptr (n+1) int64 and col
 // (nnz) int32, val (nnz) int16/float/double: the CSR; colptr (m+1)
@@ -80,7 +81,8 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
                   const T* __restrict__ lw, const T* __restrict__ lht,
                   const double* __restrict__ do_elbo, int n, int m, int r,
                   int64_t nnz, T* __restrict__ swn, T* __restrict__ abuf,
-                  double* __restrict__ part) {
+                  double* __restrict__ part, unsigned* __restrict__ tickets,
+                  double* __restrict__ xlog_sum) {
   constexpr int NG = 32 / G;                  // nonzeros a warp takes at once
   constexpr int KP = G == 32 ? kSpMaxR / 32 : 1;  // components a lane holds
   __shared__ double red[kSpWarps];
@@ -156,6 +158,8 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
   if (part != nullptr) {
     const double xs = block_sum(xl, red);
     if (threadIdx.x == 0) part[(size_t)b * gridDim.x + blockIdx.x] = xs;
+    lane_tail_sum(part + (size_t)b * gridDim.x, gridDim.x, tickets + b,
+                  xlog_sum + b);
   }
 }
 
@@ -233,12 +237,13 @@ cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
                            const void* val, const void* lw, const void* lht,
                            const double* do_elbo, int B, int n, int m, int r,
                            int64_t nnz, void* swn, void* abuf, double* part,
+                           unsigned* tickets, double* xlog,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(n, kSpWarps), B);
   sp_rowpass_kernel<T, XT, G, kBf16><<<grid, kSpThreads, 0, stream>>>(
       indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
       static_cast<const T*>(lht), do_elbo, n, m, r, nnz,
-      static_cast<T*>(swn), static_cast<T*>(abuf), part);
+      static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
   return cudaGetLastError();
 }
 
@@ -247,11 +252,11 @@ cudaError_t rowpass_any_g(const int64_t* indptr, const int* col,
                           const void* val, const void* lw, const void* lht,
                           const double* do_elbo, int B, int n, int m, int r,
                           int64_t nnz, void* swn, void* abuf, double* part,
-                          cudaStream_t s) {
+                          unsigned* tickets, double* xlog, cudaStream_t s) {
 #define S1G(G)                                                            \
   return launch_rowpass<T, XT, G, kBf16>(indptr, col, val, lw, lht,       \
                                          do_elbo, B, n, m, r, nnz, swn,   \
-                                         abuf, part, s)
+                                         abuf, part, tickets, xlog, s)
   switch (group_of(r)) {
     case 4: S1G(4);
     case 8: S1G(8);
@@ -298,23 +303,26 @@ using namespace ccfindr;
 // tcode: factor type 0 float, 1 double.  xcode: value type 1 int16,
 // 2 float, 3 double (the codes of ml.cu; int8 is not taken).  bf16: 1
 // for the mxu_bf16 rounding.  swn, abuf and part may each be null, which
-// skips that output.  Each returns cudaGetLastError() after its launch.
+// skips that output; with part, tickets (B, 0 before and after) and xlog
+// (B, each lane's sum of the partials) are taken too.  Each returns
+// cudaGetLastError() after its launch.
 extern "C" {
 
 int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
                const int* col, const void* val, const void* lw,
                const void* lht, const double* do_elbo, int B, int n, int m,
                int r, int64_t nnz, void* swn, void* abuf, double* part,
-               void* stream) {
+               unsigned* tickets, double* xlog, void* stream) {
   if (r < 1 || r > kSpMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SP_ROW(T, XT)                                                       \
   return static_cast<int>(                                                 \
       bf16 ? rowpass_any_g<T, XT, true>(indptr, col, val, lw, lht, do_elbo, \
-                                        B, n, m, r, nnz, swn, abuf, part, s) \
+                                        B, n, m, r, nnz, swn, abuf, part,   \
+                                        tickets, xlog, s)                   \
            : rowpass_any_g<T, XT, false>(indptr, col, val, lw, lht,         \
                                          do_elbo, B, n, m, r, nnz, swn,     \
-                                         abuf, part, s))
+                                         abuf, part, tickets, xlog, s))
   switch (tcode * 4 + xcode) {
     case 1: SP_ROW(float, int16_t);
     case 2: SP_ROW(float, float);

@@ -66,10 +66,16 @@ def _run_all(cmds):
     return "".join(err for _, err in outs)
 
 
+# ptxas's register, shared-memory and spill report of this process's
+# build ("" where the library was already built)
+PTXAS_REPORT = {"text": ""}
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these exact sources
     exists; returns its path.  ``verbose`` prints ptxas's register,
-    shared-memory and spill report of a fresh build."""
+    shared-memory and spill report of a fresh build (kept in
+    :data:`PTXAS_REPORT` either way)."""
     so = library_path()
     if so.exists():
         return so
@@ -83,6 +89,7 @@ def build(verbose: bool = False) -> Path:
              for o, p in zip(objs, sorted(CSRC.glob("*.cu")))])
         lib = os.path.join(tmp, so.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        PTXAS_REPORT["text"] = report
         if verbose:
             print(report, flush=True)
         os.replace(lib, so)   # atomic: no reader sees a half-written library
@@ -102,22 +109,22 @@ _SIGNATURES = {
                    _P, _P, _P, _P, _P, _P],
     "sol_finish": [_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
                    _I, _I, _I, _I, _D, _P, _P],
-    "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ml_wpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "ml_xlog_sum": [_P, _I, _I, _P, _P],
     "sp_rowpass": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _L, _P, _P, _P, _P],
+                   _L, _P, _P, _P, _P, _P, _P],
     "sp_colpass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
     "fused_xpass": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P],
     "fused_sum": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+    "div_rn_check": [_P, _P, _L, _P, _P],
     "epi_w_post": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P],
     "epi_h_post": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P],
     "ss_xpass": [_I, _I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "elbo_xpass": [_I, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                   _P],
+                   _P, _P, _P],
 }
 
 
@@ -150,6 +157,24 @@ def check_launch(name, rc):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+_TICKETS = {}
+
+
+def tickets(nb, device):
+    """The per-lane ticket counters (at least ``nb`` int32, all 0) that
+    a kernel ending in ``reduce.cuh``'s ``lane_tail_sum`` takes: the
+    last block of a lane to finish adds the lane's partials and puts its
+    counter back to 0.  Allocated zeroed once for each device and stream
+    and cached (reallocated only when ``nb`` outgrows it), so a sweep
+    pays no memset."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < nb:
+        t = torch.zeros(max(nb, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def require_cuda(*ts):

@@ -2,13 +2,14 @@
 PyTorch versions.
 
 Counterpart of ``ccfindr_tpu/ops/pallas/ml_kernels.py``.  The H phase
-is M1 ``ml_hpass`` (``hn = w^T (x/wh)`` and per-block sums of
-``x*log(wh)``) followed by M3 ``ml_xlog_sum`` (each lane's sum of
-those partials, in a fixed order); the W phase is M2 ``ml_wpass``
-(``wn = (x/wh) h^T``), all in ``csrc/ml.cu``.  :func:`ml_h_plain` and
-:func:`ml_w_plain` are the same functions in plain PyTorch;
-:func:`ml_h` and :func:`ml_w` take them only for tensors on the CPU and
-launch the kernels for CUDA tensors, with no fallback between them.
+is M1 ``ml_hpass`` (``hn = w^T (x/wh)`` and each lane's sum of
+``x*log(wh)``: per-block partials that the lane's last block adds in a
+fixed order); the W phase is M2 ``ml_wpass`` (``wn = (x/wh) h^T``),
+both in ``csrc/ml.cu``.  :func:`ml_h_plain` and :func:`ml_w_plain` are
+the same functions in plain PyTorch; :func:`ml_h` and :func:`ml_w`
+(and the JAX names :func:`ml_h_pallas`, :func:`ml_w_pallas`) take them
+only for tensors on the CPU and launch the kernels for CUDA tensors,
+with no fallback between them.
 
 Layouts carry a leading lane axis B: X ``(n, m)`` (int8, int16,
 float32 or float64) shared by all lanes, ``w (B, n, r)``, ``h (B, r,
@@ -21,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from .build import (TCODE, XCODE, check_launch, library, require_cuda,
-                    stream)
+                    stream, tickets)
+from .vb_kernels import DEFAULT_BM, DEFAULT_BN, pad_matrix  # noqa: F401
 
 # cells (M1) or genes (M2) one block of csrc/ml.cu owns
 STRIP = 64
@@ -29,7 +31,7 @@ MAX_R = 128
 
 # launches per kernel since the last reset (bumped only where a kernel
 # is launched)
-LAUNCHES = {"ml_hpass": 0, "ml_wpass": 0, "ml_xlog_sum": 0}
+LAUNCHES = {"ml_hpass": 0, "ml_wpass": 0}
 
 
 def reset_launches():
@@ -69,7 +71,7 @@ def _check(x, w, h):
 # ---------------------------------------------------------------------
 
 def ml_h_plain(x, w, h):
-    """M1 + M3's function: (hn (B, r, m), sum x*log(wh) (B,) float64)."""
+    """M1's function: (hn (B, r, m), sum x*log(wh) (B,) float64)."""
     xf = x.to(w.dtype)
     wh = w @ h
     hn = w.transpose(-1, -2) @ (xf / wh)
@@ -81,45 +83,29 @@ def ml_w_plain(x, w, h):
     return (x.to(w.dtype) / (w @ h)) @ h.transpose(-1, -2)
 
 
-def xlog_sum_plain(part):
-    """M3's function: each lane's sum of the per-block partials."""
-    return part.sum(-1)
-
-
 # ---------------------------------------------------------------------
 # CUDA wrappers (one per kernel)
 # ---------------------------------------------------------------------
 
 def ml_hpass(x, w, h):
-    """Launch M1.  Returns (hn (B, r, m), xlog_part (B, ceil(m/64))
-    float64)."""
+    """Launch M1.  Returns (hn (B, r, m), xlog (B,) float64, the
+    per-block partials xlog_part (B, ceil(m/64)) float64 that xlog adds
+    in block order)."""
     require_cuda(x, w, h)
     nb, n, r = w.shape
     m = x.shape[1]
     hn = torch.empty(nb, r, m, dtype=w.dtype, device=w.device)
     part = torch.empty(nb, -(-m // STRIP), dtype=torch.float64,
                        device=w.device)
+    xlog = torch.empty(nb, dtype=torch.float64, device=w.device)
     rc = library().ml_hpass(TCODE[w.dtype], XCODE[x.dtype], x.data_ptr(),
                             w.data_ptr(), h.data_ptr(), nb, n, m, r,
-                            hn.data_ptr(), part.data_ptr(), stream())
+                            hn.data_ptr(), part.data_ptr(),
+                            tickets(nb, w.device).data_ptr(),
+                            xlog.data_ptr(), stream())
     check_launch("ml_hpass", rc)
     LAUNCHES["ml_hpass"] += 1
-    return hn, part
-
-
-def ml_xlog_sum(part):
-    """Launch M3: (B,) float64, the partials added in block order."""
-    require_cuda(part)
-    if part.dtype != torch.float64 or part.dim() != 2 \
-            or not part.is_contiguous():
-        raise ValueError("partials must be contiguous (B, nblk) float64")
-    nb, nblk = part.shape
-    out = torch.empty(nb, dtype=torch.float64, device=part.device)
-    rc = library().ml_xlog_sum(part.data_ptr(), nb, nblk, out.data_ptr(),
-                               stream())
-    check_launch("ml_xlog_sum", rc)
-    LAUNCHES["ml_xlog_sum"] += 1
-    return out
+    return hn, xlog, part
 
 
 def ml_wpass(x, w, h):
@@ -137,13 +123,12 @@ def ml_wpass(x, w, h):
 
 
 def ml_h(x, w, h):
-    """H phase: (hn (B, r, m), sum x*log(wh) (B,) float64) — M1 and M3
-    on CUDA tensors, :func:`ml_h_plain` on CPU tensors."""
+    """H phase: (hn (B, r, m), sum x*log(wh) (B,) float64) — M1 on
+    CUDA tensors, :func:`ml_h_plain` on CPU tensors."""
     _check(x, w, h)
     if x.device.type == "cpu":
         return ml_h_plain(x, w, h)
-    hn, part = ml_hpass(x, w, h)
-    return hn, ml_xlog_sum(part)
+    return ml_hpass(x, w, h)[:2]
 
 
 def ml_w(x, w, h):
@@ -155,8 +140,34 @@ def ml_w(x, w, h):
     return ml_wpass(x, w, h)
 
 
-def make_ml_backend():
+def _true_x(x, w, h):
+    """X cut to the factors' ``(n, m)`` where it was zero-padded past
+    them (:func:`pad_matrix`)."""
+    n, m = w.shape[-2], h.shape[-1]
+    if tuple(x.shape) == (n, m):
+        return x
+    if x.dim() != 2 or x.shape[0] < n or x.shape[1] < m:
+        raise ValueError(f"shape mismatch: X {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, h {tuple(h.shape)}")
+    return x[:n, :m].contiguous()
+
+
+def ml_h_pallas(x, w, h, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
+    """The JAX package's name for :func:`ml_h`: ``(hn, xlogwh)``.  X may
+    be zero-padded past the factors' ``(n, m)``; ``bn``/``bm`` (the JAX
+    tiles) are accepted and not used."""
+    return ml_h(_true_x(x, w, h), w, h)
+
+
+def ml_w_pallas(x, w, h, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
+    """The JAX package's name for :func:`ml_w`: ``wn``; X and
+    ``bn``/``bm`` as :func:`ml_h_pallas` takes them."""
+    return ml_w(_true_x(x, w, h), w, h)
+
+
+def make_ml_backend(bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
     """(fused_h, fused_w) pair for ``ops.ml.ml_run(fused_h=...,
     fused_w=...)``: the CUDA phases on the card, their plain versions
-    on the CPU."""
+    on the CPU.  ``bn``/``bm`` (the JAX tiles) are accepted and not
+    used: X is taken at the factors' shape."""
     return ml_h, ml_w

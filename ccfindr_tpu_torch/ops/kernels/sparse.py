@@ -5,9 +5,9 @@ Counterpart of the Pallas kernel ``ccfindr_tpu/ops/tile.py:348
 _tile_kernel``, in ``csrc/sparse.cu``: S1 ``sp_rowpass`` walks the CSR
 of a :class:`~ccfindr_tpu_torch.ops.tile.TileCounts` one gene row a
 warp (``wth`` and ``a = x/wth`` at each nonzero, ``swn``, ``a`` in CSR
-order, per-block sums of ``x log wth``); S2 ``sp_colpass`` walks its
-CSC one cell a warp (``shn`` from S1's ``a``); M3 ``ml_xlog_sum`` of
-``csrc/ml.cu`` adds S1's partials.  :func:`rowpass_plain` and
+order, per-block sums of ``x log wth`` that each lane's last block adds
+in block order); S2 ``sp_colpass`` walks its CSC one cell a warp
+(``shn`` from S1's ``a``).  :func:`rowpass_plain` and
 :func:`colpass_plain` are the same functions in plain PyTorch (the COO
 pass of :mod:`ccfindr_tpu_torch.ops.sparse`); :func:`rowpass` and
 :func:`colpass` take them only for tensors on the CPU and launch the
@@ -26,9 +26,8 @@ from __future__ import annotations
 import torch
 
 from .. import sparse
-from . import ml
 from .build import TCODE, XCODE, check_launch, library, require_cuda, \
-    stream
+    stream, tickets
 
 # gene rows (S1) or cells (S2) one block of csrc/sparse.cu owns
 ROWS = 8
@@ -109,7 +108,7 @@ def _flags(do_elbo, nb, dev):
 
 def rowpass_plain(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
                   want_xlog=True, mxu_bf16=False):
-    """S1 + M3's function: ``(swn (B, n, r), a (B, nnz), xlog (B,)
+    """S1's function: ``(swn (B, n, r), a (B, nnz), xlog (B,)
     float64)``, None where not wanted."""
     swn, _, a, xlog = sparse.coo_pass(
         tc.csr_rows(), tc.col, tc.val, lw, lht, m=tc.m, want_swn=want_swn,
@@ -130,16 +129,20 @@ def colpass_plain(tc, a, lw, mxu_bf16=False):
 
 def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
                want_xlog=True, mxu_bf16=False):
-    """Launch S1.  Returns ``(swn (B, n, r), a (B, nnz), xlog_part (B,
-    ceil(n/8)) float64)``, None where not wanted."""
+    """Launch S1.  Returns ``(swn (B, n, r), a (B, nnz), xlog (B,)
+    float64, xlog_part (B, ceil(n/8)) float64)``, None where not wanted:
+    ``xlog`` is the sum of the per-block partials ``xlog_part``, added in
+    block order by each lane's last block."""
     require_cuda(tc.val, lw, lht)
     nb, n, r = lw.shape
     dev = lw.device
     swn = torch.empty_like(lw) if want_swn else None
     a = (torch.empty(nb, tc.nnz, dtype=lw.dtype, device=dev) if want_a
          else None)
-    part = (torch.empty(nb, -(-n // ROWS), dtype=torch.float64, device=dev)
-            if want_xlog else None)
+    part, xlog = ((torch.empty(nb, -(-n // ROWS), dtype=torch.float64,
+                               device=dev),
+                   torch.empty(nb, dtype=torch.float64, device=dev))
+                  if want_xlog else (None, None))
     flags = _flags(do_elbo, nb, dev)
 
     def ptr(t):
@@ -150,10 +153,11 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
         tc.indptr.data_ptr(),
         tc.col.data_ptr(), tc.val.data_ptr(), lw.data_ptr(), lht.data_ptr(),
         flags.data_ptr(), nb, n, tc.m, r, tc.nnz, ptr(swn), ptr(a),
-        ptr(part), stream())
+        ptr(part), ptr(tickets(nb, dev) if want_xlog else None), ptr(xlog),
+        stream())
     check_launch("sp_rowpass", rc)
     LAUNCHES["sp_rowpass"] += 1
-    return swn, a, part
+    return swn, a, xlog, part
 
 
 def sp_colpass(tc, a, lw, mxu_bf16=False):
@@ -173,15 +177,14 @@ def sp_colpass(tc, a, lw, mxu_bf16=False):
 
 def rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
             want_xlog=True, mxu_bf16=False):
-    """The row pass: ``(swn, a, xlog (B,) float64)`` — S1 and M3 on
-    CUDA tensors, :func:`rowpass_plain` on CPU tensors."""
+    """The row pass: ``(swn, a, xlog (B,) float64)`` — S1 on CUDA
+    tensors, :func:`rowpass_plain` on CPU tensors."""
     _check_rowpass(tc, lw, lht)
     if tc.device.type == "cpu":
         return rowpass_plain(tc, lw, lht, do_elbo, want_swn, want_a,
                              want_xlog, mxu_bf16)
-    swn, a, part = sp_rowpass(tc, lw, lht, do_elbo, want_swn, want_a,
-                              want_xlog, mxu_bf16)
-    return swn, a, (ml.ml_xlog_sum(part) if want_xlog else None)
+    return sp_rowpass(tc, lw, lht, do_elbo, want_swn, want_a, want_xlog,
+                      mxu_bf16)[:3]
 
 
 def colpass(tc, a, lw, mxu_bf16=False):

@@ -20,7 +20,8 @@ names, for a lane batch in the JAX package's layouts (``x (np, mp)``,
   ``csrc/pass2.cu``, E1's gene-major walk without the ``x log wth``
   sum, replaces ``_suffstats_kernel``, + E1s) and
   :func:`elbo_data_pallas` (the ELBO data term; P2 ``elbo_xpass``
-  replaces ``_elbo_kernel``, + M3 ``ml_xlog_sum``), paired by
+  replaces ``_elbo_kernel``; its per-tile partials are added by each
+  lane's last block), paired by
   :func:`make_pallas_backend` for ``ops.vb.vb_run``.  They take X
   zero-padded by :func:`pad_matrix` or not (the kernels read it in
   place); the true ``(n, m, r)`` come from the factors ``lw (B, n, r)``,
@@ -40,16 +41,19 @@ from __future__ import annotations
 import torch
 
 from ..sparse import fold_dterm  # noqa: F401  (the JAX module's name)
-from . import ml
-from .build import TCODE, XCODE, check_launch, library, require_cuda, stream
+from .build import (TCODE, XCODE, check_launch, library, require_cuda,
+                    stream, tickets)
 from .sol import MAX_RP, bf16_round
 
 DEFAULT_BN = 1024
 DEFAULT_BM = 512
 
 # E1's chunk of its outer axis starts here and doubles until the
-# per-chunk partials take no more bytes than X (csrc/epi.cu)
-CHUNK = 512
+# per-chunk partials take no more bytes than X (csrc/fused.cuh); the
+# smaller the chunk, the more blocks share the card (at 100,000 x 4,096
+# and 3 lanes of rank 16: 1,173 blocks of 256 genes, 4.4 waves of two
+# blocks an SM, against 588 of 512)
+CHUNK = 256
 # P1 walks E1's gene-major order at any gene count: its chunk starts at
 # one subtile (64 genes) and doubles while the grid (chunks x lanes)
 # would pass this many blocks, a few an SM of the H100's 132, or the
@@ -272,7 +276,7 @@ def xlogx(t):
 
 
 def elbo_data_plain(x, lw, lh):
-    """P2 + M3's function, in ``_elbo_kernel``'s unfolded form: ``-sum
+    """P2's function, in ``_elbo_kernel``'s unfolded form: ``-sum
     x (S/wth - log wth)`` over ``x[:n, :m]`` with ``S = (lw log lw) lh +
     lw (lh log lh)``, each term in the factor dtype, summed in float64:
     (B,) float64."""
@@ -322,21 +326,24 @@ def ss_xpass(x, lw, lh, *, chunk=None):
 
 
 def elbo_xpass(x, lw, lwl, lh, lhl):
-    """Launch P2 on ``x`` read in place: the per-tile partials ``(B,
-    ntiles)`` float64 of ``-sum x (S/wth - log wth)``, in tile order;
-    ``lwl``/``lhl`` are :func:`xlogx` of ``lw``/``lh``."""
+    """Launch P2 on ``x`` read in place: ``-sum x (S/wth - log wth)``
+    (B,) float64, and the per-tile partials ``(B, ntiles)`` float64 that
+    it adds in tile order; ``lwl``/``lhl`` are :func:`xlogx` of
+    ``lw``/``lh``."""
     require_cuda(x, lw, lwl, lh, lhl)
     nb, n, r = lw.shape
     m = lh.shape[-1]
     part = torch.empty(nb, -(-m // 64) * -(-n // 64), dtype=torch.float64,
                        device=x.device)
+    out = torch.empty(nb, dtype=torch.float64, device=x.device)
     rc = library().elbo_xpass(
         TCODE[lw.dtype], XCODE[x.dtype], x.data_ptr(), x.shape[1],
         lw.data_ptr(), lwl.data_ptr(), lh.data_ptr(), lhl.data_ptr(), nb,
-        n, m, r, part.data_ptr(), stream())
+        n, m, r, part.data_ptr(), tickets(nb, x.device).data_ptr(),
+        out.data_ptr(), stream())
     check_launch("elbo_xpass", rc)
     LAUNCHES["elbo_xpass"] += 1
-    return part
+    return out, part
 
 
 def suffstats_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
@@ -372,7 +379,7 @@ def suffstats_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
 
 def elbo_data_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
                             bm=DEFAULT_BM):
-    """The ELBO data term (B,) in the factor dtype: P2 + M3 on CUDA
+    """The ELBO data term (B,) in the factor dtype: P2 on CUDA
     tensors, :func:`elbo_data_plain` on CPU tensors.  ``bn``/``bm`` are
     accepted and not used."""
     lw, lh = lw.contiguous(), lh.contiguous()
@@ -382,8 +389,7 @@ def elbo_data_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
                          f"extents")
     if x_pad.device.type == "cpu":
         return elbo_data_plain(x_pad, lw, lh).to(lw.dtype)
-    part = elbo_xpass(x_pad, lw, xlogx(lw), lh, xlogx(lh))
-    return ml.ml_xlog_sum(part).to(lw.dtype)
+    return elbo_xpass(x_pad, lw, xlogx(lw), lh, xlogx(lh))[0].to(lw.dtype)
 
 
 def elbo_data_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):

@@ -76,13 +76,19 @@ class TileCounts:
                              shape=(self.n, self.m))
 
 
-def from_scipy_tile(mat, dtype=torch.float32, device="cuda") -> TileCounts:
+def from_scipy_tile(mat, dtype=torch.float32, bn: int | None = None,
+                    bm: int | None = None, quantile: float = 0.99,
+                    kt_cap: int = 64, pack="auto",
+                    device="cuda") -> TileCounts:
     """The layout of a scipy sparse (or dense) matrix, on ``device``
     (the card unless the caller asks for the CPU).
     Built once a factorization on the host, in O(nnz).
 
     Integer counts in [0, 32767] are stored as int16 (the kernels
     convert them in registers, exactly); any other values in ``dtype``.
+    ``bn``, ``bm``, ``quantile``, ``kt_cap`` and ``pack`` shape the JAX
+    package's TPU slot layout; the CSR layout has no slots, so they are
+    accepted and not used.
     """
     import scipy.sparse as sp
 
@@ -116,11 +122,14 @@ def from_scipy_tile(mat, dtype=torch.float32, device="cuda") -> TileCounts:
                       perm=t(pos.data, np.int32), n=n, m=m)
 
 
-def from_dense_tile(x, dtype=torch.float32, device="cuda") -> TileCounts:
+def from_dense_tile(x, dtype=torch.float32, device="cuda",
+                    **kw) -> TileCounts:
+    """:func:`from_scipy_tile` of a dense matrix; ``kw`` are its layout
+    keywords (accepted and not used)."""
     import scipy.sparse as sp
 
     return from_scipy_tile(sp.csr_matrix(np.asarray(x)), dtype=dtype,
-                           device=device)
+                           device=device, **kw)
 
 
 def fused_tile(tc: TileCounts, lw, lh, do_elbo=None, mxu_bf16=False):

@@ -494,27 +494,36 @@ def vb_init_random(generator, n, m, rank, hyper: Hyper,
 
 
 def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
-                dtype=torch.float32, method: str = "exact",
+                dtype=torch.float32, method: str = "auto",
                 seed: int = 0, device="cuda") -> VBState:
     """Deterministic SVD-based inits on the host (numpy/scipy).
 
     ``'svd'``  — NNDSVD (Boutsidis & Gallopoulos 2008) with the correct
     negative-part norms; ``'svd2'`` — truncated SVD, absolute values,
-    scaled so mean(h) = bh (reference R/bayesian.R:150-159).  Only
-    ``method='exact'`` (host Lanczos with a seeded start vector, or a
-    full SVD for small shapes) is carried; the randomized device SVD
-    waits (ROADMAP A8).
+    scaled so mean(h) = bh (reference R/bayesian.R:150-159).
+    ``method``: ``'exact'`` (host Lanczos with a seeded start vector, or
+    a full SVD for small shapes); ``'auto'``, the JAX package's default,
+    takes ``'exact'`` up to 4096 on the short axis and above it picks
+    ``'randomized'``, which, like ``'randomized'`` itself, raises: the
+    randomized device SVD waits (ROADMAP A8), so no default call silently
+    computes another start than JAX's.
     """
     import scipy.sparse as sp
 
     device = resolve_device(device)
+    sparse_in = sp.issparse(x)
+    n, m = np.shape(x)
+    if method == "auto":
+        if min(n, m) > 4096:
+            raise NotImplementedError(
+                "svd_method='randomized' (chosen by 'auto' above 4096 on "
+                "the short axis) is not ported yet (ROADMAP A8)")
+        method = "exact"
     if method != "exact":
         raise NotImplementedError(
             "svd_method='randomized' is not ported yet (ROADMAP A8)")
-    sparse_in = sp.issparse(x)
     x = (sp.csr_matrix(x).astype(np.float64) if sparse_in
          else np.asarray(x, dtype=np.float64))
-    n, m = x.shape
     if min(n, m) / 2 > rank:
         import scipy.sparse.linalg as spla
 

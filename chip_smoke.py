@@ -31,14 +31,16 @@ Phases (each prints its result and seconds):
    lane-sweeps per second (CUDA events, synchronised), the same loop on
    the plain version beside it, per-kernel times, and the peak device
    memory; the same scan with ``precision='bf16'`` beside it;
-5. ML kernel vs plain: M1 ml_hpass (+ M3 ml_xlog_sum) and M2 ml_wpass
+5. ML kernel vs plain: M1 ml_hpass (its tail adds each lane's x*log(wh)
+   partials, where a separate M3 launch used to) and M2 ml_wpass
    on a ragged case (737 x 450, 12 lanes of ranks 4..6 x 4 padded to
    6, masked rows at eps) and the 10x case (4096 x 8192, 3 lanes of
    r = 16), X int8 and float32, factors float64 and float32.
    Tolerances (elementwise relative): float64 1e-10 on hn, wn and the
    x*log(wh) sum; float32 2e-4 on hn/wn and 1e-5 on the per-element
-   likelihood (sum x log wh - sum wh + lgconst) / (n m).  Two launches
-   must be bit-identical;
+   likelihood (sum x log wh - sum wh + lgconst) / (n m); M1's tail equal
+   to part.sum(-1) to 1e-14 and to the bits of a one-warp sum in M3's
+   order.  Two launches must be bit-identical;
 6. the ML workflow on the bundled data after phase 3's QC:
    factorize(ranks [4, 5, 6], nrun 4, Itmax 400, Tol 1e-4,
    backend='pallas', device='cuda').  In float64 it must equal the same
@@ -48,39 +50,40 @@ Phases (each prints its result and seconds):
    largest of the three for at least two of the seeds (one restart of
    four stuck in another optimum gives ~0.93, for some seeds of either
    package); seed 0's rank-5 clusters are 5 with concordance >= 0.95
-   against the planted labels; M1-M3 launched.  Then the workflow's
+   against the planted labels; M1 and M2 launched.  Then the workflow's
    last steps on phase 3's VB result: meta_genes/meta_gene_cv at rank
    5 and assign_celltype with the PBMC markers: all five types found;
 7. ML at 10x scale: factorize on phase 4's planted matrix, ranks
    [8, 12, 16], nrun 2, Itmax 300: wall time, lane-sweeps per second,
-   the same loop on the plain version, M1-M3 against plain, peak device
+   the same loop on the plain version, M1/M2 against plain, peak device
    memory;
-8. sparse kernels vs plain: S1 sp_rowpass (+ M3) and S2 sp_colpass on
+8. sparse kernels vs plain: S1 sp_rowpass (with its tail) and S2 sp_colpass on
    the bundled 684 x 447 CSR after QC (21 lanes of ranks 2..8 padded to
    8, the masked components at fudge) and on phase 4's matrix masked to
    10% density as bench.py:62-63 masks it (3 lanes of r = 16), values
    int16 (the counts) and in the factor type (the counts + 0.25),
    factors float64 and float32, do_elbo 1 and 0.  Tolerances as phase 2: float64 1e-10 on every output;
    float32 2e-4 on swn, a and shn and 1e-5 on the per-element data
-   term.  Two launches must be bit-identical;
+   term; S1's tail as M1's.  Two launches must be bit-identical;
 9. the bundled workflow on backend='sparse': vb_factorize(ranks 2..8,
    nrun 3) in float64 must equal backend='dense_fused' (n_iter of every
    lane, lml to 1e-9); in float32 optimal_rank must be 5 for seed 0
    (seeds 1 and 2 printed); factorize(ranks [4, 5, 6], nrun 4, Itmax
-   400, Tol 1e-4) in float64 must equal dense_fused as in phase 6; S1,
-   S2 and M3 launched by both scans;
+   400, Tol 1e-4) in float64 must equal dense_fused as in phase 6; S1
+   and S2 launched by both scans;
 10. sparse at scale: the 10%-density matrix of phase 8, ranks [8, 12,
    16], nrun 2, Itmax 300, through vb_factorize and factorize, each on
    sparse and, beside it, on pallas over the same matrix: wall time,
    loop time, lane-sweeps per second, peak device memory, and the loop
-   ratio sparse/pallas of each driver; S1/S2/M3 against plain.
+   ratio sparse/pallas of each driver; S1/S2 against plain.
    Then the atlas leg: the JAX bench's atlas shape 20480 x 100352
    masked to 2% density (built on the host without the dense matrix),
    vb_factorize(backend='sparse', ranks [16], nrun 2, Itmax 20): its
    lane-sweeps per second and peak device memory beside the dense int8
    image it does not allocate; gated on a finite lml and the launch
    counts;
-11. gene-major kernels vs plain: E1 fused_xpass in both layouts with
+11. gene-major kernels vs plain: E1's inlined division against x / w bit
+   for bit on 768 M samples; E1 fused_xpass in both layouts with
    bf16 off and on (+ E1s fused_sum), E2 epi_w_post and E3 epi_h_post
    (with m_live < m on the ragged case), on a ragged case (737 x 450,
    21 lanes of ranks 2..8 padded to 8) and at full width (phase 12's X,
@@ -98,17 +101,18 @@ Phases (each prints its result and seconds):
    equal counts and K1-K3 not at all; vb_run_sol on the same lanes
    beside it; E1/E1s/E2/E3 against their plain versions (3 lanes);
 13. two-pass kernels vs plain, one pass: P1 ss_xpass (+ E1s) and P2
-   elbo_xpass (+ M3) on a ragged case (737 x 450, 21 lanes of ranks 2..8
+   elbo_xpass (with its tail) on a ragged case (737 x 450, 21 lanes of ranks 2..8
    padded to 8, the masked components at fudge) and on phase 4's 10x
    matrix (3 lanes of r = 16), X in the factor dtype, factors float64
    and float32: float64 1e-10 on sw, sh and the data term; float32 2e-4
    on sw/sh and 1e-5 on the data term; two launches bit-identical, and
-   a zero-padded X read in place gives the same bits;
+   a zero-padded X read in place gives the same bits; P2's tail as M1's;
+   P1's time and ptxas registers and spills;
 14. the pallas2pass slice: the bundled vb_factorize(ranks 2..8, nrun 3,
    backend='pallas2pass') in float64 must equal backend='dense' (n_iter
    of every lane, lml to 1e-9); in float32 ropt must be 5 for seed 0
-   (seeds 1 and 2 printed), with P1 and P2 launched equally often and
-   K1-K4, E1-E3 not at all; the 10x scan (ranks [8, 12, 16], nrun 2,
+   (seeds 1 and 2 printed), with P1, P2 and E1s launched equally often
+   and K1-K4, E1-E3 not at all; the 10x scan (ranks [8, 12, 16], nrun 2,
    Itmax 300) beside backend='pallas': wall, loop, lane-sweeps per
    second, device launches a sweep, peak device memory;
 15. bf16 on the sparse backend: S1/S2 with mxu_bf16 against their bf16
@@ -176,8 +180,19 @@ KERNELS = ("xpass", "w_post", "h_post", "finish")
 SOURCE = "ccfindr_tpu_torch/csrc/sol.cu"
 REPLACES = "ccfindr_tpu/ops/pallas/sol.py:185"
 ML_KERNELS = {"ml_hpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:39",
-              "ml_wpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:64",
-              "ml_xlog_sum": "ccfindr_tpu/ops/pallas/ml_kernels.py:39"}
+              "ml_wpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:64"}
+# the kernels whose last block of a lane adds the lane's per-block
+# partials (reduce.cuh lane_tail_sum), where M3 ml_xlog_sum was launched
+TAILS = {"ml_hpass": "x*log(wh) per lane", "sp_rowpass": "x*log(wth) per lane",
+         "elbo_xpass": "the data term per lane"}
+TAIL_TOL = 1e-14
+# ptxas's report of the redesigned X pass: key -> the instantiation's
+# mangled prefix (factor type, X type, gm, bf16, xlog)
+# (the instantiations the phases time: 'gm' on int8 X, 'cm' on the
+# bundled int16 X, P1 on float32 X)
+XPASS_ENTRIES = {"fused_xpass_gm": "fused_xpass_kernelIfaLb1ELb0ELb1E",
+                 "fused_xpass_cm": "fused_xpass_kernelIfsLb0ELb0ELb1E",
+                 "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0E"}
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
@@ -363,6 +378,98 @@ def rel_err(got, want):
     want = want.double()
     tiny = torch.finfo(torch.float32).tiny
     return float(((got - want).abs() / want.abs().clamp_min(tiny)).max())
+
+
+def m3_order_sum(part):
+    """Each lane's sum of ``part (B, nblk)`` in the order of a one-warp
+    sum (M3's ``warp_strided_sum``): lane l adds the partials l, l + 32,
+    ... in turn, then a butterfly over xor 16, 8, 4, 2, 1; lane 0's
+    value.  Elementwise float64 adds, so the bits are the warp's."""
+    import torch
+
+    nb, nblk = part.shape
+    acc = torch.zeros(nb, 32, dtype=torch.float64, device=part.device)
+    for i0 in range(0, nblk, 32):
+        cnt = min(32, nblk - i0)
+        acc[:, :cnt] = acc[:, :cnt] + part[:, i0:i0 + cnt]
+    idx = torch.arange(32, device=part.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, idx ^ o]
+    return acc[:, 0]
+
+
+def tail_check(total, part):
+    """A producer's tail (each lane's sum of its per-block partials)
+    against ``part.sum(-1)`` (relative, ``TAIL_TOL``) and against the
+    bits of M3's order: (ok, relative error, bits equal)."""
+    ref = part.sum(-1)
+    err = float(((total - ref).abs() / ref.abs().clamp_min(1e-300)).max())
+    same = bool((total == m3_order_sum(part)).all())
+    return err <= TAIL_TOL and same, err, same
+
+
+def div_rn_check(dev, n=1 << 26, rounds=12):
+    """E1's inlined division (csrc/fused.cuh div_rn) against x / w on the
+    card, bit for bit: w with random mantissas and exponents from 2^-62
+    to 2^61 (div_rn's range [2^-60, 2^60) and past both ends); x in
+    turns integer counts below 128, below 32768, and signed floats over
+    the same exponents.  Returns (fast-path quotients, of them differing
+    from the division, samples)."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import build
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def floats(lo, hi):
+        mant = torch.randint(0, 1 << 23, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        ex = torch.randint(lo, hi, (n,), device=dev, generator=gen,
+                           dtype=torch.int32)
+        return ((ex << 23) | mant).view(torch.float32)
+
+    fast = differ = 0
+    for it in range(rounds):
+        w = floats(127 - 62, 127 + 62)
+        if it % 3 == 2:
+            x = floats(127 - 62, 127 + 62) * (1 - 2 * torch.randint(
+                0, 2, (n,), device=dev, generator=gen)).float()
+        else:
+            x = torch.randint(0, 128 if it % 3 == 0 else 32768, (n,),
+                              device=dev, generator=gen).float()
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        build.check_launch("div_rn_check", build.library().div_rn_check(
+            x.data_ptr(), w.data_ptr(), n, out.data_ptr(), build.stream()))
+        fast += int((out > 0).sum())
+        differ += int((out == 2).sum())
+    return fast, differ, n * rounds
+
+
+def ptxas_resources(key):
+    """Registers and spill bytes of one X-pass instantiation, from this
+    process's build (``XPASS_ENTRIES``); a dict, or None where the
+    library was not built in this process."""
+    import re
+
+    from ccfindr_tpu_torch.ops.kernels import build
+
+    text = build.PTXAS_REPORT["text"]
+    if not text:
+        return None
+    prefix = XPASS_ENTRIES[key]
+    blocks = text.split("Compiling entry function")
+    for blk in blocks[1:]:
+        name = blk.split("'")[1] if "'" in blk else ""
+        if prefix in name:
+            regs = re.search(r"Used (\d+) registers", blk)
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", blk)
+            smem = re.search(r"(\d+) bytes smem", blk)
+            return dict(registers=int(regs.group(1)) if regs else None,
+                        spill_stores=int(st.group(1)) if st else None,
+                        spill_loads=int(st.group(2)) if st else None,
+                        static_smem=int(smem.group(1)) if smem else None)
+    return None
 
 
 def sweep_inputs(x_np, ranks, r, dt, xdt, do_elbo, seed, dev):
@@ -591,16 +698,17 @@ def ml_inputs(x_np, ranks, r, dt, xdt, seed, dev):
 
 
 def compare_ml(x, w, h, dt):
-    """M1 + M3 and M2 vs their plain versions on the same inputs, and a
-    second launch of each for bit-identity."""
+    """M1 (with its tail) and M2 vs their plain versions on the same
+    inputs, M1's tail against its partials, and a second launch of each
+    for bit-identity."""
     import torch
 
     from ccfindr_tpu_torch.ops.kernels import ml as mlk
     from ccfindr_tpu_torch.ops.ml import likelihood_const
 
     def launch():
-        hn, part = mlk.ml_hpass(x, w, h)
-        return hn, part, mlk.ml_xlog_sum(part), mlk.ml_wpass(x, w, h)
+        hn, xlw, part = mlk.ml_hpass(x, w, h)
+        return hn, part, xlw, mlk.ml_wpass(x, w, h)
 
     hn, part, xlw, wn = launch()
     torch.cuda.synchronize()
@@ -610,23 +718,22 @@ def compare_ml(x, w, h, dt):
     rest = likelihood_const(x, torch.float64) - (
         w.double().sum(-2) * h.double().sum(-1)).sum(-1)
     err = dict(hn=rel_err(hn, hn_p), wn=rel_err(wn, wn_p),
-               lik=rel_err((xlw + rest) / (n * m), (xlw_p + rest) / (n * m)),
-               xlog_sum=rel_err(xlw, mlk.xlog_sum_plain(part)))
+               lik=rel_err((xlw + rest) / (n * m), (xlw_p + rest) / (n * m)))
+    tail_ok, err["tail"], tail_bits = tail_check(xlw, part)
     if dt == torch.float64:
         err["xlog"] = rel_err(xlw, xlw_p)
         ok = all(v <= F64_TOL for v in err.values())
     else:
         ok = (err["hn"] <= F32_FACTOR_TOL and err["wn"] <= F32_FACTOR_TOL
-              and err["lik"] <= F32_LIK_TOL and err["xlog_sum"] <= F64_TOL)
+              and err["lik"] <= F32_LIK_TOL)
+    ok = ok and tail_ok
     again = launch()
     det = all(torch.equal(a, b) for a, b in zip((hn, part, xlw, wn), again))
     finite = all(bool(torch.isfinite(t).all()) for t in (hn, xlw, wn))
     abs_err = {"ml_hpass": float((hn - hn_p).abs().max()),
-               "ml_wpass": float((wn - wn_p).abs().max()),
-               "ml_xlog_sum": float((xlw - mlk.xlog_sum_plain(part))
-                                    .abs().max())}
+               "ml_wpass": float((wn - wn_p).abs().max())}
     return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
-                deterministic=det, finite=finite)
+                deterministic=det, finite=finite, tail_bits=tail_bits)
 
 
 def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
@@ -658,10 +765,10 @@ def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
 
 
 def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
-    """S1 + M3 and S2 vs their plain versions on the same inputs (the VB
-    sweep's outputs: swn, a, shn and the per-element data term), and a
-    second launch of each for bit-identity; ``bf16`` both in their
-    mxu_bf16 mode."""
+    """S1 (with its tail) and S2 vs their plain versions on the same
+    inputs (the VB sweep's outputs: swn, a, shn and the per-element data
+    term), S1's tail against its partials, and a second launch of each
+    for bit-identity; ``bf16`` both in their mxu_bf16 mode."""
     import torch
 
     from ccfindr_tpu_torch.ops.kernels import sparse as spk
@@ -686,12 +793,17 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
     d_p = fold_dterm(swn_p, shn_p, xlog_p, lw, lh) / nm
     err = dict(swn=rel_err(swn, swn_p), a=rel_err(a, a_p),
                shn=rel_err(shn, shn_p), dterm=rel_err(d, d_p))
+    _, _, s1_xlog, s1_part = spk.sp_rowpass(tc, lw, lht, do_elbo=flags,
+                                            mxu_bf16=bf16)
+    tail_ok, tail_err, tail_bits = tail_check(s1_xlog, s1_part)
     if dt == torch.float64 and not bf16:
         err["xlog"] = rel_err(xlog, xlog_p)
         ok = all(v <= F64_TOL for v in err.values())
     else:
         ok = (max(err["swn"], err["a"], err["shn"]) <= F32_FACTOR_TOL
               and err["dterm"] <= F32_ELBO_TOL)
+    err["tail"] = tail_err
+    ok = ok and tail_ok and torch.equal(s1_xlog, xlog)
     again = launch()
     det = all(torch.equal(u, v) for u, v in zip((swn, a, xlog, shn), again))
     finite = all(bool(torch.isfinite(t).all()) for t in (swn, a, shn, d))
@@ -750,10 +862,11 @@ def pass2_inputs(x_np, ranks, r, dt, seed, dev):
 
 
 def compare_pass2(x, lw, lh, dt):
-    """P1 (+ E1s) and P2 (+ M3) vs their plain versions on the same
-    inputs: (sw, sh) = (lw swn, lh shn) and the data term; a second
-    launch bit-identical; X zero-padded by pad_matrix and read in place
-    gives the same bits (the chunk pinned)."""
+    """P1 (+ E1s) and P2 (with its tail) vs their plain versions on the
+    same inputs: (sw, sh) = (lw swn, lh shn) and the data term; P2's tail
+    against its partials; a second launch bit-identical; X zero-padded
+    by pad_matrix and read in place gives the same bits (the chunk
+    pinned)."""
     import torch
 
     from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
@@ -775,11 +888,15 @@ def compare_pass2(x, lw, lh, dt):
     err = dict(sw=rel_err(lw * got[0], lw * swn_p),
                sh=rel_err(lh * got[1], lh * shn_p),
                dterm=rel_err(got[2], d_p))
+    p2_out, p2_part = vbk.elbo_xpass(x, lw, vbk.xlogx(lw), lh, vbk.xlogx(lh))
+    tail_ok, tail_err, _ = tail_check(p2_out, p2_part)
     if dt == torch.float64:
         ok = all(v <= F64_TOL for v in err.values())
     else:
         ok = (max(err["sw"], err["sh"]) <= F32_FACTOR_TOL
               and err["dterm"] <= F32_ELBO_TOL)
+    err["tail"] = tail_err
+    ok = ok and tail_ok and torch.equal(p2_out.to(lw.dtype), got[2])
     det = all(torch.equal(a, b) for a, b in zip(got, again))
     pad_same = all(torch.equal(a, b) for a, b in zip(got, padded))
     finite = all(bool(torch.isfinite(t).all()) for t in got)
@@ -940,6 +1057,9 @@ class Smoke:
         self.kernels.update({k: dict(name=name, route="cuda", source=SOURCE,
                                      replaces=rep)
                              for k, (name, rep) in MESH_KERNELS.items()})
+        for k, what in TAILS.items():
+            self.kernels[k]["tail"] = (f"its last block of a lane adds "
+                                       f"{what} (M3 folded in)")
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
@@ -1410,14 +1530,11 @@ class Smoke:
             torch.cuda.empty_cache()
 
         # per-kernel times at this batch (6 lanes, r 16, int8 X)
-        _, part = mlk.ml_hpass(x, w0, h0)
         timed = {
             "ml_hpass": (lambda: mlk.ml_hpass(x, w0, h0),
                          lambda: mlk.ml_h_plain(x, w0, h0)),
             "ml_wpass": (lambda: mlk.ml_wpass(x, w0, h0),
                          lambda: mlk.ml_w_plain(x, w0, h0)),
-            "ml_xlog_sum": (lambda: mlk.ml_xlog_sum(part),
-                            lambda: mlk.xlog_sum_plain(part)),
         }
         for k, (kern, plain) in timed.items():
             self.kernels[k]["ms"] = cuda_ms(kern, 20)
@@ -1428,13 +1545,11 @@ class Smoke:
         # only (x / wh = 0 elsewhere), 2 r flops each a nonzero and lane
         nnz = int((x != 0).sum())
         nb = len(pairs)
-        self.set_bound("ml_hpass", nbytes(x, w0, h0, mlk.ml_hpass(x, w0, h0)),
+        self.set_bound("ml_hpass",
+                       nbytes(x, w0, h0, mlk.ml_hpass(x, w0, h0)[:2]),
                        4 * 16 * nnz * nb)
         self.set_bound("ml_wpass", nbytes(x, w0, h0, mlk.ml_wpass(x, w0, h0)),
                        4 * 16 * nnz * nb)
-        self.set_bound("ml_xlog_sum", nbytes(part, mlk.ml_xlog_sum(part)),
-                       part.numel(),
-                       library_ms=cuda_ms(lambda: part.sum(1), 20))
         for k in ML_KERNELS:
             print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
                   f"({self.kernels[k]['bound_by']}), library "
@@ -1492,7 +1607,6 @@ class Smoke:
         import torch
 
         import ccfindr_tpu_torch as ct
-        from ccfindr_tpu_torch.ops.kernels import ml as mlk
         from ccfindr_tpu_torch.ops.kernels import sparse as spk
 
         s = self.filtered if self.filtered is not None \
@@ -1501,11 +1615,10 @@ class Smoke:
                   backend="sparse", device="cuda", verbose=0)
 
         def launches():
-            return dict(spk.LAUNCHES, ml_xlog_sum=mlk.LAUNCHES["ml_xlog_sum"])
+            return dict(spk.LAUNCHES)
 
         def reset():
             spk.reset_launches()
-            mlk.reset_launches()
             torch.cuda.synchronize()
 
         # float64: the kernels against the matmul sweep on the card
@@ -1573,7 +1686,6 @@ class Smoke:
 
         import ccfindr_tpu_torch as ct
         from ccfindr_tpu_torch.ops import tile
-        from ccfindr_tpu_torch.ops.kernels import ml as mlk
         from ccfindr_tpu_torch.ops.kernels import sparse as spk
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1632,7 +1744,7 @@ class Smoke:
         tc, lw, lh = sparse_inputs(csr, [8, 8, 12, 12, 16, 16], 16,
                                    torch.float32, torch.int16, 9, dev)
         lht = lh.transpose(-1, -2).contiguous()
-        _, a, part = spk.sp_rowpass(tc, lw, lht)
+        _, a, _, part = spk.sp_rowpass(tc, lw, lht)
         timed_k = {
             "sp_rowpass": (lambda: spk.sp_rowpass(tc, lw, lht),
                            lambda: spk.rowpass_plain(tc, lw, lht)),
@@ -1644,16 +1756,12 @@ class Smoke:
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
-        m3 = cuda_ms(lambda: mlk.ml_xlog_sum(part), 20)
-        m3p = cuda_ms(lambda: mlk.xlog_sum_plain(part), 20)
-        print(f"  ml_xlog_sum on S1's {part.shape[1]} partials a lane: "
-              f"kernel {m3:.4f} ms, plain {m3p:.4f} ms")
         # bounds: S1 forms wth and swn at each nonzero (4 r flops a
         # nonzero and lane), S2 shn (2 r); S2's function is one SpMM
         # for all lanes, shn^T = blockdiag_b(A_b^T) lw with A_b the
         # pattern of X holding lane b's a: torch.sparse.mm times it
         nbl, nnz = a.shape
-        s1 = spk.sp_rowpass(tc, lw, lht)
+        s1 = spk.sp_rowpass(tc, lw, lht)[:3]
         s2 = spk.sp_colpass(tc, a, lw)
         self.set_bound("sp_rowpass", nbytes(tc.indptr, tc.col, tc.val, lw,
                                             lht, s1), 4 * 16 * nnz * nbl)
@@ -1688,12 +1796,11 @@ class Smoke:
               f"built on the host in {time.perf_counter() - t0:.1f} s; "
               f"its dense int8 image would be {an * am_ / 1e9:.2f} GB")
         spk.reset_launches()
-        mlk.reset_launches()
         f, secs, peak = timed(ct.vb_factorize, big, ranks=[16], nrun=2,
                               Itmax=20, backend="sparse", device="cuda",
                               verbose=0, seed=0)
         rec = f.metadata["timings"][0]
-        counts = dict(spk.LAUNCHES, ml_xlog_sum=mlk.LAUNCHES["ml_xlog_sum"])
+        counts = dict(spk.LAUNCHES)
         ls = rec["total_sweeps"]
         print(f"  atlas vb_factorize sparse (ranks [16], nrun 2, Itmax 20): "
               f"{secs:.3f} s, loop record {rec['seconds']:.3f} s for {ls} "
@@ -1715,6 +1822,10 @@ class Smoke:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda")
+        fast, differ, total = div_rn_check(dev)
+        print(f"  E1's inlined division vs x / w: {fast} of {total} samples on "
+              f"its fast path, {differ} of them with other bits", flush=True)
+        div_ok = differ == 0 and fast > total // 2
         if self.xgm is None:
             self.xgm = planted_gm()
         cases = [("ragged", planted(737, 450, 5, seed=1),
@@ -1819,6 +1930,10 @@ class Smoke:
               f"plain {self.kernels[k]['plain_ms']:.4f} ms, bound "
               f"{self.kernels[k]['bound_ms']:.4f} ms "
               f"({self.kernels[k]['bound_by']})", flush=True)
+        for key in ("fused_xpass_gm", "fused_xpass_cm"):
+            res = ptxas_resources(key)
+            print(f"  ptxas {key} (float32): {res}", flush=True)
+            self.kernels[key]["ptxas"] = res
 
         # float64: both layouts of vb_run_epi equal vb_run_sol
         st, hy, kw = lanes(torch.float64)
@@ -1832,7 +1947,7 @@ class Smoke:
                   f"equal {same} ({b.n_iter.tolist()}), lml rel "
                   f"{lml_err:.3g}", flush=True)
             ok64 = ok64 and same and lml_err <= 1e-9
-        return ok_all and ok_cm and ok64
+        return ok_all and ok_cm and ok64 and div_ok
 
     # -- 12 -----------------------------------------------------------
     def gene_major(self):
@@ -1957,8 +2072,33 @@ class Smoke:
         nnz = int((x != 0).sum())
         self.set_bound("fused_xpass_gm", nbytes(x, lw, lh, e1),
                        6 * 16 * nnz * 3)
-        self.set_bound("fused_sum", nbytes(e1[1], e1[2], swn, xlog), 0,
-                       library_ms=cuda_ms(lambda: e1[1].sum(1), 20))
+        self.set_bound("fused_sum", nbytes(e1[1], e1[2], swn, xlog), 0)
+        # E1s against one Tensor.sum of the same partials, in turns (E1s,
+        # sum, sum, E1s; five rounds): the median and spread of each
+        turns = {"fused_sum": [], "Tensor.sum": []}
+        for _ in range(5):
+            for which in ("fused_sum", "Tensor.sum", "Tensor.sum",
+                          "fused_sum"):
+                fn = ((lambda: vbk.fused_sum(e1[1], e1[2]))
+                      if which == "fused_sum" else (lambda: e1[1].sum(1)))
+                turns[which].append(cuda_ms(fn, 20))
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        spread = {k: max(v) - min(v) for k, v in turns.items()}
+        self.kernels["fused_sum"].update(
+            ms=med["fused_sum"], library_ms=med["Tensor.sum"],
+            turns={k: [round(t, 5) for t in v] for k, v in turns.items()})
+        print(f"  E1s vs Tensor.sum in turns (5 rounds of E1s, sum, sum, "
+              f"E1s; 20 calls a reading): median {med['fused_sum']:.4f} vs "
+              f"{med['Tensor.sum']:.4f} ms, spread {spread['fused_sum']:.4f}"
+              f" vs {spread['Tensor.sum']:.4f} ms; E1s/sum = "
+              f"{med['fused_sum'] / med['Tensor.sum']:.3f}", flush=True)
+        kk = self.kernels["fused_xpass_gm"]
+        dense = 6 * 16 * n * m * 3
+        print(f"  E1 'gm' at {n} x {m}, 3 lanes of r 16: {kk['ms']:.3f} ms, "
+              f"{dense / kk['ms'] / 1e9:.2f} TFLOP/s of dense work "
+              f"({dense / 1e9:.1f} GFLOP), chunk "
+              f"{vbk.fused_chunk(x, 'gm', 3, 16, 4)}; ptxas "
+              f"{ptxas_resources('fused_xpass_gm')}", flush=True)
         self.set_bound("epi_w_post", nbytes(swn, lw, ehs, sc, e2),
                        POST_OPS * 3 * 16 * n)
         self.set_bound("epi_h_post", nbytes(shn, lh, e2[3], sc, e3),
@@ -1975,7 +2115,6 @@ class Smoke:
     def pass2_kernel_vs_plain(self):
         import torch
 
-        from ccfindr_tpu_torch.ops.kernels import ml as mlk
         from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2019,7 +2158,7 @@ class Smoke:
         chunk = vbk.pass2_chunk(x, n, lh.shape[-1], nb, r, lw.element_size())
         lwl, lhl = vbk.xlogx(lw), vbk.xlogx(lh)
         p1 = vbk.ss_xpass(x, lw, lh, chunk=chunk)
-        p2 = vbk.elbo_xpass(x, lw, lwl, lh, lhl)
+        p2 = vbk.elbo_xpass(x, lw, lwl, lh, lhl)[0]
         timed = {
             "ss_xpass": (lambda: vbk.ss_xpass(x, lw, lh, chunk=chunk),
                          lambda: vbk.suffstats_plain(x, lw, lh)),
@@ -2039,7 +2178,10 @@ class Smoke:
                   f"{r}: kernel {kk['ms']:.4f} ms, plain {kk['plain_ms']:.4f}"
                   f" ms, bound {kk['bound_ms']:.4f} ms ({kk['bound_by']})",
                   flush=True)
-        print(f"  P1 chunk {chunk} genes: {nb * -(-n // chunk)} blocks")
+        print(f"  P1 chunk {chunk} genes: {nb * -(-n // chunk)} blocks; "
+              f"ptxas (float32 X and factors) "
+              f"{ptxas_resources('ss_xpass')}")
+        self.kernels["ss_xpass"]["ptxas"] = ptxas_resources("ss_xpass")
 
     # -- 14 -----------------------------------------------------------
     def pallas2pass_slice(self):
@@ -2048,7 +2190,6 @@ class Smoke:
         import ccfindr_tpu_torch as ct
         from ccfindr_tpu_torch.ops import vb
         from ccfindr_tpu_torch.ops.kernels import epilogue as epi
-        from ccfindr_tpu_torch.ops.kernels import ml as mlk
         from ccfindr_tpu_torch.ops.kernels import sol
         from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 
@@ -2072,7 +2213,7 @@ class Smoke:
               f"{nit_a == nit_b} ({nit_a}), lml rel {lml_err:.3g}")
 
         # float32 seed 0: the path's run, its launches counted
-        for mod in (sol, vbk, epi, mlk):
+        for mod in (sol, vbk, epi):
             mod.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2084,14 +2225,13 @@ class Smoke:
             self.kernels[k]["launches"] = counts[k]
         opt = ct.optimal_rank(f)
         print(f"  vb_factorize pallas2pass float32 seed 0: {wall:.2f} s, "
-              f"ropt={opt['ropt']}, launches {counts}, M3 "
-              f"{mlk.LAUNCHES['ml_xlog_sum']}")
+              f"ropt={opt['ropt']}, launches {counts}")
         print(f.measure.to_string())
         off = ("xpass", "w_post", "h_post", "finish", "fused_xpass_cm",
                "fused_xpass_gm", "epi_w_post", "epi_h_post")
         ok32 = (opt["ropt"] == 5 and counts["ss_xpass"] > 0
                 and counts["ss_xpass"] == counts["elbo_xpass"]
-                == counts["fused_sum"] == mlk.LAUNCHES["ml_xlog_sum"]
+                == counts["fused_sum"]
                 and all(counts[k] == 0 for k in off)
                 and bool(np.isfinite(f.measure["lml"]).all()))
         for seed in (1, 2):
@@ -2198,7 +2338,7 @@ class Smoke:
                                    torch.float32, torch.int16, 9, dev)
         lht = lh.transpose(-1, -2).contiguous()
         for bf16 in (False, True, True, False):
-            _, a, _ = spk.sp_rowpass(tc, lw, lht, mxu_bf16=bf16)
+            _, a, _, _ = spk.sp_rowpass(tc, lw, lht, mxu_bf16=bf16)
             ms = (cuda_ms(lambda: spk.sp_rowpass(tc, lw, lht,
                                                  mxu_bf16=bf16), 20),
                   cuda_ms(lambda: spk.sp_colpass(tc, a, lw,

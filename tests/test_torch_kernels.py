@@ -1,8 +1,10 @@
 """CUDA kernels K1-K4 (csrc/sol.cu, and K1s/K3s/K4 of the cell-sharded
-sweep), M1-M3 (csrc/ml.cu), S1/S2 (csrc/sparse.cu, also in their bf16
+sweep), M1/M2 (csrc/ml.cu), S1/S2 (csrc/sparse.cu, also in their bf16
 mode), E1, E1s, E2, E3 (csrc/epi.cu) and P1/P2 (csrc/pass2.cu) against
-their plain PyTorch versions, on the card; and the lane-count
-independence the chunked drivers rely on.  The kernels have no CPU mode, so every
+their plain PyTorch versions, on the card; the tails of M1, S1 and P2
+(each lane's last block adds the lane's partials) against their
+partials; and the lane-count independence the chunked drivers rely
+on.  The kernels have no CPU mode, so every
 test here is marked ``cuda`` and skips without a CUDA device.  The module imports
 no JAX, so on a machine with a card (and without JAX) it runs as
 
@@ -22,7 +24,7 @@ import torch
 
 from ccfindr_tpu_torch.ops import tile
 from ccfindr_tpu_torch.ops.kernels import epilogue as epi
-from ccfindr_tpu_torch.ops.kernels import ml, sol
+from ccfindr_tpu_torch.ops.kernels import build, ml, sol
 from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
 from ccfindr_tpu_torch.ops.kernels import sparse as spk
@@ -147,7 +149,7 @@ def test_ml_kernels_match_plain(n, m, r, nb, xdt, dt):
     hn, xlw = ml.ml_h(x, w, h)
     wn = ml.ml_w(x, w, h)
     torch.cuda.synchronize()
-    assert ml.LAUNCHES == {"ml_hpass": 1, "ml_wpass": 1, "ml_xlog_sum": 1}
+    assert ml.LAUNCHES == {"ml_hpass": 1, "ml_wpass": 1}
     hn_p, xlw_p = ml.ml_h_plain(x, w, h)
     wn_p = ml.ml_w_plain(x, w, h)
     tol = 1e-10 if dt == torch.float64 else 2e-4
@@ -171,11 +173,59 @@ def test_ml_kernels_are_deterministic():
         assert torch.equal(u, v)
 
 
-def test_ml_xlog_sum_matches_plain():
+def _m3_order_sum(part):
+    """Each lane's sum of its partials in a one-warp sum's order (lane l
+    adds partials l, l + 32, ... in turn; then the butterfly over xor 16,
+    8, 4, 2, 1): the bits the separate M3 launch gave."""
+    nb, nblk = part.shape
+    acc = torch.zeros(nb, 32, dtype=torch.float64, device=part.device)
+    for i0 in range(0, nblk, 32):
+        cnt = min(32, nblk - i0)
+        acc[:, :cnt] = acc[:, :cnt] + part[:, i0:i0 + cnt]
+    idx = torch.arange(32, device=part.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, idx ^ o]
+    return acc[:, 0]
+
+
+def _tail_launch(which, dt, dev):
+    """One launch of the producer ``which``: (each lane's sum, its
+    per-block partials)."""
+    if which == "m1":
+        x, w, h = _ml_inputs(700, 2500, 16, 5, dt, torch.int8, dev, seed=4)
+        _, total, part = ml.ml_hpass(x, w, h)
+    elif which == "s1":
+        tc, lw, lht = _sparse_inputs(1500, 900, 16, 5, dt, torch.int16, dev,
+                                     seed=4)
+        _, _, total, part = spk.sp_rowpass(tc, lw, lht)
+    else:
+        x, lw, lh = _pass2_inputs(700, 900, 16, [16, 12, 9, 5, 16], dt,
+                                  torch.int8, dev, seed=4)
+        total, part = vbk.elbo_xpass(x, lw, vbk.xlogx(lw), lh, vbk.xlogx(lh))
+    return total, part
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("which", ["m1", "s1", "p2"])
+def test_lane_tails_sum_their_partials(which, dt):
+    """M1's, S1's and P2's tails (the lane's last block adds the lane's
+    partials) equal part.sum(-1) to 1e-14 and the bits of M3's order;
+    two launches, and a launch of another batch size in between (the
+    cached ticket counters reused), give the same bits; the counters
+    are 0 after each launch."""
     dev = _card()
-    part = torch.rand(5, 333, dtype=torch.float64, device=dev)
-    got = ml.ml_xlog_sum(part)
-    assert torch.allclose(got, ml.xlog_sum_plain(part), rtol=1e-14)
+    total, part = _tail_launch(which, dt, dev)
+    torch.cuda.synchronize()
+    ref = part.sum(-1)
+    assert float(((total - ref).abs() / ref.abs()).max()) <= 1e-14
+    assert torch.equal(total, _m3_order_sum(part))
+    again = _tail_launch(which, dt, dev)[0]
+    ml.ml_hpass(*_ml_inputs(100, 200, 4, 70, dt, torch.int8, dev))
+    third = _tail_launch(which, dt, dev)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(again, total) and torch.equal(third, total)
+    counters = build.tickets(70, dev)
+    assert counters.numel() >= 70 and int(counters.abs().sum()) == 0
 
 
 def _sparse_inputs(n, m, r, nb, dt, vdt, dev, seed=0):
@@ -218,7 +268,7 @@ def test_sparse_kernels_match_plain(n, m, r, nb, vdt, dt):
     shn = spk.colpass(tc, a, lw)
     torch.cuda.synchronize()
     assert spk.LAUNCHES == {"sp_rowpass": 1, "sp_colpass": 1}
-    assert ml.LAUNCHES["ml_xlog_sum"] == 1
+    assert ml.LAUNCHES == {"ml_hpass": 0, "ml_wpass": 0}
     swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, do_elbo=flags)
     shn_p = spk.colpass_plain(tc, a_p, lw)
     tol = 1e-10 if dt == torch.float64 else 2e-4
@@ -312,6 +362,71 @@ def test_fused_xpass_matches_plain(n, m, r, lanes, xdt, dt, layout, bf16):
     # xlog per element, as the ELBO reads it
     assert _rel(got[2] / (n * m), want[2] / (n * m)) <= (
         1e-10 if dt == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("layout,bf16", [("gm", False), ("gm", True),
+                                         ("cm", False), ("cm", True),
+                                         ("p1", False)])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,lanes,xdt", [
+    (300, 700, 6, [3, 4, 5, 6], torch.int8),
+    (1030, 517, 16, [16, 9], torch.int16),
+    (257, 1100, 40, [40, 33], torch.float32),
+    (140, 600, 128, [128, 100], torch.float64),
+    (2100, 1024, 16, [16, 12, 8], torch.int8),
+])
+def test_x_pass_launches_are_bit_identical(n, m, r, lanes, xdt, dt, layout,
+                                           bf16):
+    """E1 (both layouts, bf16 off and on) and P1, whose template stages
+    X with cp.async and sums in fixed orders: two launches give the same
+    bits of every output, partials included.  The shapes reach every
+    shared-memory plan (two buffers; one buffer; the resident output in
+    device memory; several sub-chunks a chunk) and, at 1024 cells of
+    int8, X's 16-byte rows."""
+    dev = _card()
+    if layout == "p1":
+        x, lw, lh = _pass2_inputs(n, m, r, lanes, dt, xdt, dev)
+
+        def launch():
+            return vbk.ss_xpass(x, lw, lh)
+    else:
+        x, lw, lh, _, _ = _epi_inputs(n, m, r, lanes, dt, xdt, dev)
+
+        def launch():
+            return vbk.fused_xpass(x, lw, lh, layout=layout, mxu_bf16=bf16)
+    a, b = launch(), launch()
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    if layout == "p1":
+        swn_p, shn_p = vbk.suffstats_plain(x, lw, lh)
+        tol = 1e-10 if dt == torch.float64 else 2e-4
+        assert _rel(lw * a[0], lw * swn_p) <= tol
+        assert _rel(lh * a[1].sum(1), lh * shn_p) <= tol
+
+
+def test_x_pass_division_is_the_division():
+    """E1's inlined division (div_rn) gives the bits of x / w wherever
+    its fast path applies, on random w and x over its range and past
+    both ends."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 24
+
+    def floats():
+        mant = torch.randint(0, 1 << 23, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        ex = torch.randint(65, 189, (n,), device=dev, generator=gen,
+                           dtype=torch.int32)
+        return ((ex << 23) | mant).view(torch.float32)
+
+    for x in (torch.randint(0, 128, (n,), device=dev, generator=gen).float(),
+              -floats(), floats()):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        rc = build.library().div_rn_check(x.data_ptr(), floats().data_ptr(),
+                                          n, out.data_ptr(), build.stream())
+        assert rc == 0
+        assert int((out == 2).sum()) == 0 and int((out == 1).sum()) > n // 2
 
 
 def test_fused_sum_matches_plain():
@@ -429,7 +544,7 @@ def _pass2_inputs(n, m, r, lanes, dt, xdt, dev, seed=0):
     (140, 600, 128, [128, 100], torch.int8),
 ])
 def test_pass2_kernels_match_plain(n, m, r, lanes, xdt, dt):
-    """P1 (+ E1s) and P2 (+ M3) against suffstats_plain and
+    """P1 (+ E1s) and P2 (with its tail) against suffstats_plain and
     elbo_data_plain; a second launch and a zero-padded X read in place
     give the same bits."""
     dev = _card()
@@ -441,7 +556,8 @@ def test_pass2_kernels_match_plain(n, m, r, lanes, xdt, dt):
     d = vbk.elbo_data_pallas_padded(x, lw, lh, **kw)
     torch.cuda.synchronize()
     assert vbk.LAUNCHES["ss_xpass"] == vbk.LAUNCHES["elbo_xpass"] == 1
-    assert vbk.LAUNCHES["fused_sum"] == ml.LAUNCHES["ml_xlog_sum"] == 1
+    assert vbk.LAUNCHES["fused_sum"] == 1
+    assert ml.LAUNCHES == {"ml_hpass": 0, "ml_wpass": 0}
     swn_p, shn_p = vbk.suffstats_plain(x, lw, lh)
     d_p = vbk.elbo_data_plain(x, lw, lh)
     tol = 1e-10 if dt == torch.float64 else 2e-4

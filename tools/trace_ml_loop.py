@@ -76,9 +76,7 @@ def traced(name, args, sweeps):
 
 def kernel_times(name, args):
     x, w, h, _ = args
-    _, part = mlk.ml_hpass(x, w, h)
     t = {"ml_hpass": cuda_ms(lambda: mlk.ml_hpass(x, w, h), 50),
-         "ml_xlog_sum": cuda_ms(lambda: mlk.ml_xlog_sum(part), 50),
          "ml_wpass": cuda_ms(lambda: mlk.ml_wpass(x, w, h), 50),
          "ml_h_plain": cuda_ms(lambda: mlk.ml_h_plain(x, w, h), 10),
          "ml_w_plain": cuda_ms(lambda: mlk.ml_w_plain(x, w, h), 10)}
