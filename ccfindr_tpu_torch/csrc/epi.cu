@@ -8,6 +8,7 @@
 //                    ccfindr_tpu/ops/pallas/vb_kernels.py:326
 //                    _fused_gm_kernel, layout 'cm' :280 _fused_cm_kernel
 //   E1s fused_sum    the fixed-order sum of E1's per-chunk partials
+//                    (sum.cuh)
 //   E2  epi_w_post   ccfindr_tpu/ops/pallas/epilogue.py:71
 //                    _w_epilogue_kernel (post_kernel of post.cuh)
 //   E3  epi_h_post   epilogue.py:134 _h_epilogue_kernel (the same)
@@ -28,38 +29,9 @@
 #include "fused.cuh"
 #include "post.cuh"
 #include "reduce.cuh"
+#include "sum.cuh"
 
 namespace ccfindr {
-
-// ---------------------------------------------------------------------
-// E1s fused_sum
-//
-// Adds E1's partials: out[b, e] = sum_p part[b, p, e] for e < L, in
-// double in the order p = 0, 1, ..., rounded once to the factor type;
-// the last block column adds each lane's xlog partials (one warp).
-// Bound: bytes (the partials, read once).
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kXThreads)
-fused_sum_kernel(const T* __restrict__ part, int P, int L,
-                 const double* __restrict__ xlog_part, int Q,
-                 T* __restrict__ out, double* __restrict__ xlog) {
-  const int b = blockIdx.y;
-  if (blockIdx.x == gridDim.x - 1) {
-    if (threadIdx.x < 32) {
-      const double v = warp_strided_sum(xlog_part + (size_t)b * Q, Q, 1,
-                                        threadIdx.x);
-      if (threadIdx.x == 0) xlog[b] = v;
-    }
-    return;
-  }
-  const int e = blockIdx.x * kXThreads + threadIdx.x;
-  if (e >= L) return;
-  double acc = 0.0;
-  for (int p = 0; p < P; ++p)
-    acc += static_cast<double>(part[((size_t)b * P + p) * L + e]);
-  out[(size_t)b * L + e] = static_cast<T>(acc);
-}
 
 // div_rn (fused.cuh) against the division on n samples: out[i] = 0
 // where its fast path does not apply, 1 where it gives the division's
@@ -139,18 +111,15 @@ int fused_sum(int tcode, const void* part, int P, int L,
               const double* xlog_part, int Q, int B, void* out, double* xlog,
               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ceil_div(L, kXThreads) + 1, B);
   if (tcode == 0)
-    fused_sum_kernel<float><<<grid, kXThreads, 0, s>>>(
-        static_cast<const float*>(part), P, L, xlog_part, Q,
-        static_cast<float*>(out), xlog);
-  else if (tcode == 1)
-    fused_sum_kernel<double><<<grid, kXThreads, 0, s>>>(
-        static_cast<const double*>(part), P, L, xlog_part, Q,
-        static_cast<double*>(out), xlog);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_fused_sum<float>(
+        static_cast<const float*>(part), P, L, xlog_part, Q, B,
+        static_cast<float*>(out), xlog, s));
+  if (tcode == 1)
+    return static_cast<int>(launch_fused_sum<double>(
+        static_cast<const double*>(part), P, L, xlog_part, Q, B,
+        static_cast<double*>(out), xlog, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // div_rn (fused.cuh) against the division on n float samples; out (n)

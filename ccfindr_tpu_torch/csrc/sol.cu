@@ -35,17 +35,12 @@
 
 #include <cstdint>
 
-#include "bf16.cuh"
+#include "fused.cuh"
 #include "post.cuh"
 #include "reduce.cuh"
 #include "specials.cuh"
 
 namespace ccfindr {
-
-constexpr int kSub = 64;       // K1 subtile edge (genes and cells)
-constexpr int kChunk = 512;    // genes and cells one K1 block covers
-constexpr int kThreads = 256;  // K1 block size
-constexpr int kWarps = kThreads / 32;
 
 // scal slots
 enum {
@@ -56,136 +51,48 @@ enum {
 // ---------------------------------------------------------------------
 // K1 sol_xpass
 //
-// Replaces: _sol_kernel's phase X (sol.py:210-260): wth = lwt^T lh,
-//   u = x / wth, swnt += lh u^T, shn += lwt u, rowSums(eh) of the
-//   INCOMING eh, and the x*log(wth) ELBO term under do_elbo.
-// Bound: the stream of X (1-8 bytes an element) plus 3*2*rp flops an
-//   element -- at rp = 16 and int8 X that is 96 flops a byte, so the
-//   FP32 pipes, not HBM, are the roof for this simple kernel.
-// Design: a block owns a 512 x 512 (gene x cell) chunk of one lane and
-//   walks it in 64 x 64 subtiles staged in shared memory (lwt and lh
-//   slices, u).  swn for the current gene subtile accumulates in
-//   shared memory across the cell subtiles; shn is accumulated in the
-//   block's own slice of the per-gene-chunk partial (read-modify-write
-//   by the owning thread only).  Partials cost rp*4*(1/512 + 1/512)
-//   bytes an X element and lane (0.25x int8 X at rp = 16).
-//   kBf16 (precision='bf16', the JAX kernel's mxu_bf16): lwt and lh
-//   are rounded to bf16 as they are staged and u as it is stored
-//   (bf16.cuh); sums and log(wth) stay in the factor type.
-//
-// K1s, the per-shard X pass of the cell-sharded mesh (replaces
-//   ccfindr_tpu/ops/pallas/sol_sharded.py::_xpass_kernel, :80), is this
-//   kernel launched on one cell shard: X's row stride ldx lets it read
-//   the shard's column window of a larger X in place, and lh/eh are the
-//   shard's own.  With shard extents that are multiples of kChunk its
-//   chunks are the single-device launch's, so its swn/ehs/xlog
-//   partials, gathered in shard order, are that launch's bit for bit.
+// Replaces: the X phase of _sol_kernel (ccfindr_tpu/ops/pallas/sol.py:185,
+//   its grid steps over the (gene, cell) tiles, :210-260) and, launched
+//   on one cell shard, _xpass_kernel (ccfindr_tpu/ops/pallas/
+//   sol_sharded.py:80): for each lane wth = lwt^T lh, u = x / wth, the
+//   swn partials of each cell chunk (B, ncc, rp, np), the shn partials
+//   of each gene chunk (B, ngc, rp, mp), sum x*log(wth) in double per
+//   (gene chunk, cell chunk) under the lane's runtime do_elbo (sc[b, 7]),
+//   and rowSums of the INCOMING eh per cell chunk.  kBf16 is the JAX
+//   kernel's mxu_bf16 (bf16.cuh): lwt, lh and u rounded to bf16, sums and
+//   log(wth) in the factor type.
+// Bound on this card: the FP32 pipes.  3 products of 2*rp flops an X
+//   element and lane: at the 10x shape (4,096 x 8,192 int8, 6 lanes of
+//   rp 16) 19.3 GFLOP, 0.29 ms at 67 TFLOP/s, against 33.5 MB of X
+//   (0.01 ms at 3.35 TB/s); beside the products an element costs a
+//   division and a log.  The first design (one element a thread) ran
+//   at 6.8 TFLOP/s, ~10% of the pipes (2.856 ms, H100 80GB HBM3,
+//   700 W): two scalar shared loads an FMA, the IEEE division's
+//   slow-path call in the hot loop, and a read-modify-write of the shn
+//   partial in device memory for every gene subtile.
+// Design: E1's walk (fused.cuh) with kWt: 16 x 16 threads with 4 x 4
+//   register tiles; wth from 16-byte shared fragments of the rank-major
+//   lwt tile (four genes at one rank, ldw) and of lh, each load feeding
+//   8 FMAs; u by div_rn, the division's fast path inlined; X and both
+//   factor tiles staged by cp.async into a double buffer, one barrier a
+//   step; swn (the resident output) reduced a step by a half-warp
+//   reduce-scatter into shared rows, written once a block as its cell
+//   chunk's partial; shn (the streamed output) in registers across the
+//   gene subtiles of an S-tile, written once.  A block owns one chunk of
+//   genes x one chunk of cells of a lane (the wrapper's sol.CHUNK): the
+//   second grid axis keeps the card full where a cell shard is narrow.
+//   The chunks do not depend on the lane count, so a lane's bits do not
+//   either; a cell chunk that divides a shard's extent makes K1s's
+//   partials, gathered in shard order, the single-device launch's.
+//   Every sum is in a fixed order, no atomic: two launches are
+//   bit-identical.  On an H100 80GB HBM3 at 700 W
+//   (tools/bench_sol_xpass.py): 1.42 ms at the 10x shape (13.6 TFLOP/s,
+//   3,072 blocks), 0.367 ms on a 2,048-cell shard (768 blocks), where
+//   512 x 512 chunks give 192 blocks and 0.464 ms.
+// K1s, the per-shard X pass of the cell-sharded mesh, is this launch on
+//   one cell shard: X's row stride ldx reads the shard's column window
+//   of a larger X in place, and lh/eh are the shard's own.
 // ---------------------------------------------------------------------
-template <typename T, typename XT, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-xpass_kernel(const XT* __restrict__ x, const T* __restrict__ lwt,
-             const T* __restrict__ lh, const T* __restrict__ eh,
-             const double* __restrict__ sc, int np, int mp, int ldx,
-             int rp, T* __restrict__ swn_part, T* __restrict__ shn_part,
-             double* __restrict__ xlog_part,
-             double* __restrict__ ehs_part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* lw_s = reinterpret_cast<T*>(smem_raw);  // rp x kSub
-  T* lh_s = lw_s + rp * kSub;                // rp x kSub
-  T* sw_s = lh_s + rp * kSub;                // rp x kSub
-  T* u_s = sw_s + rp * kSub;                 // kSub x (kSub + 1)
-  __shared__ double red[kWarps];
-
-  const int cc = blockIdx.x, gc = blockIdx.y, b = blockIdx.z;
-  const int ncc = gridDim.x, ngc = gridDim.y;
-  const int tid = threadIdx.x;
-  const T* lwt_b = lwt + (size_t)b * rp * np;
-  const T* lh_b = lh + (size_t)b * rp * mp;
-  const bool do_elbo = sc[b * 8 + 7] > 0.0;
-  const int g_begin = gc * kChunk, g_end = min(g_begin + kChunk, np);
-  const int c_begin = cc * kChunk, c_end = min(c_begin + kChunk, mp);
-  T* swn_b = swn_part + ((size_t)b * ncc + cc) * rp * np;
-  T* shn_b = shn_part + ((size_t)b * ngc + gc) * rp * mp;
-  const int nsub = rp * kSub;
-  constexpr int kU = kSub + 1;  // odd stride: conflict-free columns
-  double xl = 0.0;
-
-  for (int g0 = g_begin; g0 < g_end; g0 += kSub) {
-    const int gn = min(kSub, g_end - g0);
-    __syncthreads();  // readers of the previous gene subtile are done
-    for (int e = tid; e < nsub; e += kThreads) {
-      const int k = e / kSub, i = e % kSub;
-      lw_s[e] = i < gn ? operand<kBf16>(lwt_b[(size_t)k * np + g0 + i])
-                       : T(0);
-      sw_s[e] = T(0);
-    }
-    for (int c0 = c_begin; c0 < c_end; c0 += kSub) {
-      const int cn = min(kSub, c_end - c0);
-      __syncthreads();  // readers of the previous lh_s / u_s are done
-      for (int e = tid; e < nsub; e += kThreads) {
-        const int k = e / kSub, j = e % kSub;
-        lh_s[e] = j < cn ? operand<kBf16>(lh_b[(size_t)k * mp + c0 + j])
-                         : T(0);
-      }
-      __syncthreads();
-      for (int e = tid; e < kSub * kSub; e += kThreads) {
-        const int i = e / kSub, j = e % kSub;
-        T u = T(0);
-        if (i < gn && j < cn) {
-          T w = T(0);
-          for (int k = 0; k < rp; ++k)
-            w = fma(lw_s[k * kSub + i], lh_s[k * kSub + j], w);
-          const T xv = static_cast<T>(x[(size_t)(g0 + i) * ldx + c0 + j]);
-          u = operand<kBf16>(xv / w);
-          if (do_elbo) xl += static_cast<double>(xv * log(w));
-        }
-        u_s[i * kU + j] = u;
-      }
-      __syncthreads();
-      // shn: entry (k, j) summed over the subtile's genes
-      for (int e = tid; e < nsub; e += kThreads) {
-        const int k = e / kSub, j = e % kSub;
-        if (j < cn) {
-          T s = T(0);
-          for (int i = 0; i < gn; ++i)
-            s = fma(lw_s[k * kSub + i], u_s[i * kU + j], s);
-          T* dst = shn_b + (size_t)k * mp + c0 + j;
-          *dst = (g0 == g_begin) ? s : *dst + s;
-        }
-      }
-      // swn: entry (k, i) summed over the subtile's cells
-      for (int e = tid; e < nsub; e += kThreads) {
-        const int k = e / kSub, i = e % kSub;
-        T s = T(0);
-        for (int j = 0; j < cn; ++j)
-          s = fma(u_s[i * kU + j], lh_s[k * kSub + j], s);
-        sw_s[e] += s;
-      }
-    }
-    // each sw_s entry is owned by one thread throughout: no barrier
-    for (int e = tid; e < nsub; e += kThreads) {
-      const int k = e / kSub, i = e % kSub;
-      if (i < gn) swn_b[(size_t)k * np + g0 + i] = sw_s[e];
-    }
-  }
-
-  const double xs = block_sum(xl, red);
-  if (tid == 0) xlog_part[((size_t)b * ngc + gc) * ncc + cc] = xs;
-
-  // rowSums of the incoming eh over this cell chunk, once per chunk
-  if (gc == 0) {
-    const T* eh_b = eh + (size_t)b * rp * mp;
-    const int lane = tid & 31;
-    for (int k = tid >> 5; k < rp; k += kWarps) {
-      double s = 0.0;
-      for (int j = c_begin + lane; j < c_end; j += 32)
-        s += static_cast<double>(eh_b[(size_t)k * mp + j]);
-      s = warp_sum(s);
-      if (lane == 0) ehs_part[((size_t)b * ncc + cc) * rp + k] = s;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
 // K2 sol_w_post / K3 sol_h_post: post_kernel of post.cuh on the factors
 // in the (rank rows, long-axis columns) layout both sides share here.
@@ -303,24 +210,15 @@ __global__ void finish_kernel(const double* __restrict__ sc,
 // Launchers
 // ---------------------------------------------------------------------
 template <typename T, typename XT, bool kBf16>
-cudaError_t launch_xpass(const void* x, const void* lwt, const void* lh,
-                         const void* eh, const double* sc, int B, int np,
-                         int mp, int ldx, int rp, void* swn_part,
-                         void* shn_part,
-                         double* xlog_part, double* ehs_part,
-                         cudaStream_t stream) {
-  const dim3 grid(ceil_div(mp, kChunk), ceil_div(np, kChunk), B);
-  const size_t smem = (size_t)(3 * rp * kSub + kSub * (kSub + 1)) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      xpass_kernel<T, XT, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  xpass_kernel<T, XT, kBf16><<<grid, kThreads, smem, stream>>>(
-      static_cast<const XT*>(x), static_cast<const T*>(lwt),
-      static_cast<const T*>(lh), static_cast<const T*>(eh), sc, np, mp, ldx,
-      rp, static_cast<T*>(swn_part), static_cast<T*>(shn_part), xlog_part,
-      ehs_part);
-  return cudaGetLastError();
+cudaError_t launch_sol_xpass(const void* x, size_t ldx, const void* lwt,
+                             const void* lh, const void* eh, const double* sc,
+                             int B, int np, int mp, int rp, int gchunk,
+                             int cchunk, void* swn_part, void* shn_part,
+                             double* xlog_part, double* ehs_part,
+                             cudaStream_t stream) {
+  return launch_xpass_walk<T, XT, true, kBf16, true, true>(
+      x, ldx, lwt, lh, B, np, mp, rp, gchunk, cchunk, swn_part, shn_part,
+      xlog_part, sc, eh, ehs_part, stream);
 }
 
 }  // namespace ccfindr
@@ -334,21 +232,24 @@ using namespace ccfindr;
 // after its launch.
 extern "C" {
 
+// gchunk, cchunk: the genes and cells a K1 block covers (sol.CHUNK).
 int sol_xpass(int tcode, int xcode, int bf16, const void* x,
               const void* lwt, const void* lh, const void* eh,
               const double* sc, int B, int np, int mp, int ldx, int rp,
-              void* swn_part, void* shn_part, double* xlog_part,
-              double* ehs_part, void* stream) {
+              int gchunk, int cchunk, void* swn_part, void* shn_part,
+              double* xlog_part, double* ehs_part, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rp > kMaxRp || ldx < mp) return static_cast<int>(cudaErrorInvalidValue);
-#define XPASS(T, XT)                                                        \
-  return static_cast<int>(                                                  \
-      bf16 ? launch_xpass<T, XT, true>(x, lwt, lh, eh, sc, B, np, mp, ldx,  \
-                                       rp, swn_part, shn_part, xlog_part,   \
-                                       ehs_part, s)                         \
-           : launch_xpass<T, XT, false>(x, lwt, lh, eh, sc, B, np, mp, ldx, \
-                                        rp, swn_part, shn_part, xlog_part,  \
-                                        ehs_part, s))
+#define XPASS(T, XT)                                                       \
+  return static_cast<int>(                                                 \
+      bf16 ? launch_sol_xpass<T, XT, true>(x, (size_t)ldx, lwt, lh, eh, sc, \
+                                           B, np, mp, rp, gchunk, cchunk,  \
+                                           swn_part, shn_part, xlog_part,  \
+                                           ehs_part, s)                    \
+           : launch_sol_xpass<T, XT, false>(x, (size_t)ldx, lwt, lh, eh,   \
+                                            sc, B, np, mp, rp, gchunk,     \
+                                            cchunk, swn_part, shn_part,    \
+                                            xlog_part, ehs_part, s))
   switch (tcode * 4 + xcode) {
     case 0: XPASS(float, int8_t);
     case 1: XPASS(float, int16_t);

@@ -102,7 +102,7 @@ _D = ctypes.c_double
 _L = ctypes.c_int64
 _SIGNATURES = {
     "sol_xpass": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  _P, _P, _P, _P, _P],
+                  _I, _I, _P, _P, _P, _P, _P],
     "sol_w_post": [_I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P],
     "sol_h_post": [_I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -24,7 +24,6 @@ mesh cell padding, pinned at ``fudge``.
 
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -225,7 +224,11 @@ def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
     if chunk is None:
         chunk = fused_chunk(x, layout, nb, sol.round_up(max(r, 8), 8),
                             state0.lw.element_size())
-    sweep = functools.partial(epi_sweep, layout=layout, chunk=chunk)
+
+    def sweep(x, lw, lh, eh, sc, *, m_arr, **kw):
+        return epi_sweep(x, lw, lh, eh, sc, m=m_arr, layout=layout,
+                         chunk=chunk, **kw)
+
     return sol.deferred_loop(x, state0, hyper0, sweep, w_rowmajor=True,
                              cell_mask=cell_mask, m_true=m_true,
                              itmax=itmax, tol=tol,

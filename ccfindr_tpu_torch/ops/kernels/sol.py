@@ -18,9 +18,9 @@ Layouts carry a leading lane axis B: X ``(np, mp)`` shared by all
 lanes; W transposed ``lwt (B, rp, np)``; ``lh``/``eh (B, rp, mp)``;
 ``sc (B, 8)`` float64 ``[aw, bw, ah, bh, fudge, r_live, lgx,
 do_elbo]``; the result ``scal (B, 16)`` float64 in the slot layout
-below.  ``n``/``m`` are the gene/cell counts of the state (columns past
-them are padding: X 0, lwt/lh 1, eh 0), ``m_live`` (default ``m``) the
-live cells of a mesh-padded cell axis (cells in ``[m_live, m)`` pinned
+below.  ``n``/``m_arr`` are the gene/cell counts of the state (columns
+past them are padding: X 0, lwt/lh 1, eh 0), ``m_live`` the live cells
+of a mesh-padded cell axis (cells in ``[m_live, m_arr)`` pinned
 at ``fudge``), ``r`` the state's rank (rows in ``[r, rp)`` pad 0; rows
 in ``[r_live, r)`` are a lane's masked components, pinned at
 ``fudge``).
@@ -40,14 +40,26 @@ from ..vb import (VBRunResult, VBState, digamma_approx,
                   digamma_gammaln_both, gammaln_approx,
                   mask_initial_state, trigamma)
 
+# the JAX package's tile sizes (ccfindr_tpu/ops/pallas/vb_kernels.py),
+# taken by the JAX-named entry points and left unused: the kernels pick
+# their own tiles
+DEFAULT_BN = 1024
+DEFAULT_BM = 512
+
 # scal slots (csrc/sol.cu enum)
 (XLOG, U2, U3, SEW, SLW, SEH, SLH, DTW, DTH,
  PEND, DTERM, AW, BW, AH, BH, HFAIL) = range(16)
 NSCAL = 16
 
-# tiling of csrc/sol.cu: K1 blocks cover CHUNK x CHUNK of X, K2/K3
-# blocks POST_COLS columns
-CHUNK = 512
+# tiling of csrc/sol.cu: a K1 block covers CHUNK = (genes, cells) of X
+# (the one place K1's chunks are set), K2/K3 blocks POST_COLS columns.
+# The chunks fix the order of K1's partial sums, so they depend on no
+# lane count (resume and lane compaction stay bit-exact), and the cell
+# chunk divides 512: a cell shard whose extent is a multiple of 512 gives
+# the single-device partials (sol_sharded).  At 256 x 256, the 10x shape
+# (4,096 x 8,192, 6 lanes) launches 3,072 blocks and a 2,048-cell shard
+# 768 (2.9 waves at two blocks an SM on 132 SMs).
+CHUNK = (256, 256)
 POST_COLS = 256
 MAX_RP = 128
 
@@ -141,6 +153,37 @@ def xpass_plain(x, lwt, lh, eh, sc, mxu_bf16=False):
                                                  dtype=torch.float64),
                        0.0)
     return swnt, shn, xlog, eh.sum(-1, dtype=torch.float64)
+
+
+def xpass_partials_plain(x, lwt, lh, eh, sc, mxu_bf16=False):
+    """K1's output at its chunks (:data:`CHUNK`):
+    (swn_part (B, ncc, rp, np), shn_part (B, ngc, rp, mp), xlog_part
+    (B, ngc*ncc) f64 in (gene chunk, cell chunk) order, ehs_part (B, ncc,
+    rp) f64), each partial the sum over one chunk.  K2/K3/K4 add them in
+    chunk order in float64; summed so they give :func:`xpass_plain`'s
+    values up to the order of the sums inside a chunk."""
+    gch, cch = CHUNK
+    dt = lwt.dtype
+    xf = x.to(dt)
+    if mxu_bf16:
+        lwt, lh = bf16_round(lwt), bf16_round(lh)
+    wth = lwt.transpose(-1, -2) @ lh
+    u = xf / wth
+    if mxu_bf16:
+        u = bf16_round(u)
+    np_, mp_ = x.shape
+    gs = [slice(g0, g0 + gch) for g0 in range(0, np_, gch)]
+    cs = [slice(c0, c0 + cch) for c0 in range(0, mp_, cch)]
+    swn = torch.stack([lh[..., c] @ u[..., c].transpose(-1, -2)
+                       for c in cs], 1)
+    shn = torch.stack([lwt[..., g] @ u[:, g] for g in gs], 1)
+    xl = xf * torch.log(wth)
+    xlog = torch.stack([xl[:, g, c].sum((-2, -1), dtype=torch.float64)
+                        for g in gs for c in cs], 1)
+    xlog = torch.where(sc[:, 7:8] > 0, xlog, 0.0)
+    ehs = torch.stack([eh[..., c].sum(-1, dtype=torch.float64)
+                       for c in cs], 1)
+    return swn, shn, xlog, ehs
 
 
 def post_plain(sfx, lf, denom, a, b, fudge, r_live, r, ncol, npin=None):
@@ -258,14 +301,15 @@ def finish_plain(sc, xlog, csum, wscal, rsum, hscal, n, m, dt, mask,
     return scal
 
 
-def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
-                    hyper_mask=(True,) * 4, newton_niter=100,
-                    newton_tol=1e-4, mxu_bf16=False):
-    """One VB sweep in plain PyTorch; the function K1-K4 compute.
+def sol_sweep_plain(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
+                    bn=DEFAULT_BN, bm=DEFAULT_BM, hyper_mask=(True,) * 4,
+                    newton_niter=100, newton_tol=1e-4, mxu_bf16=False):
+    """One VB sweep in plain PyTorch; the function K1-K4 compute, with
+    :func:`sol_sweep`'s arguments.
 
     Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    x, lwt, lh, eh, m = x_pad, lwt_p, lh_p, eh_p, m_arr
     _check(x, lwt, lh, eh, sc, n, m, r)
-    m_live = m if m_live is None else m_live
     dt = lwt.dtype
     a = [sc[:, q].to(dt) for q in range(6)]
     aw, bw, ah, bh, fudge, r_live = a
@@ -287,17 +331,19 @@ def sol_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
 
 def launch_xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
     """K1 on ``x``, which may be a column window of a larger X (read in
-    place through its row stride).  Returns the partials (swn_part (B,
-    ncc, rp, np), shn_part (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64,
-    ehs_part (B, ncc, rp) f64) with ncc/ngc the cell/gene chunks of X.
-    The wrappers :func:`xpass` and ``sol_sharded.xpass_shard`` count
-    the launch."""
+    place through its row stride).  Returns the partials of
+    :func:`xpass_partials_plain` (swn_part (B, ncc, rp, np), shn_part
+    (B, ngc, rp, mp), xlog_part (B, ngc*ncc) f64, ehs_part (B, ncc, rp)
+    f64) with ncc/ngc the cell/gene chunks (:data:`CHUNK`) of X.  The
+    wrappers :func:`xpass` and ``sol_sharded.xpass_shard`` count the
+    launch."""
     require_cuda(x, lwt, lh, eh, sc)
     if x.stride(1) != 1:
         raise ValueError("X's columns must be contiguous")
     nb, rp_, np_ = lwt.shape
     mp_ = x.shape[1]
-    ncc, ngc = -(-mp_ // CHUNK), -(-np_ // CHUNK)
+    gch, cch = CHUNK
+    ncc, ngc = -(-mp_ // cch), -(-np_ // gch)
     swn_part = torch.empty(nb, ncc, rp_, np_, dtype=lwt.dtype,
                            device=x.device)
     shn_part = torch.empty(nb, ngc, rp_, mp_, dtype=lwt.dtype,
@@ -310,7 +356,7 @@ def launch_xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
         TCODE[lwt.dtype], XCODE[x.dtype], int(bool(mxu_bf16)),
         x.data_ptr(), lwt.data_ptr(),
         lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_,
-        x.stride(0), rp_, swn_part.data_ptr(), shn_part.data_ptr(),
+        x.stride(0), rp_, gch, cch, swn_part.data_ptr(), shn_part.data_ptr(),
         xlog_part.data_ptr(), ehs_part.data_ptr(), stream())
     check_launch("sol_xpass", rc)
     return swn_part, shn_part, xlog_part, ehs_part
@@ -387,16 +433,21 @@ def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
     return scal
 
 
-def sol_sweep(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
-              hyper_mask=(True,) * 4, newton_niter=100, newton_tol=1e-4,
-              mxu_bf16=False):
+def sol_sweep(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
+              bn=DEFAULT_BN, bm=DEFAULT_BM, hyper_mask=(True,) * 4,
+              newton_niter=100, newton_tol=1e-4, mxu_bf16=False):
     """One VB sweep: K1-K4 on CUDA tensors, :func:`sol_sweep_plain` on
-    CPU tensors.  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    CPU tensors.  The arguments are JAX's: ``x_pad`` (np, mp), the
+    factors ``lwt_p``/``lh_p``/``eh_p`` padded with a leading lane axis,
+    ``m_arr`` the state's cell extent (cells past it are padding) and
+    ``m_live`` its live cells (those in ``[m_live, m_arr)`` pinned at
+    ``fudge``); ``bn``/``bm`` are accepted and unused (the kernels tile
+    X themselves).  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    x, lwt, lh, eh, m = x_pad, lwt_p, lh_p, eh_p, m_arr
     _check(x, lwt, lh, eh, sc, n, m, r)
-    m_live = m if m_live is None else m_live
     if x.device.type == "cpu":
-        return sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m=m, r=r,
-                               m_live=m_live, hyper_mask=hyper_mask,
+        return sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m_arr=m,
+                               m_live=m_live, r=r, hyper_mask=hyper_mask,
                                newton_niter=newton_niter,
                                newton_tol=newton_tol, mxu_bf16=mxu_bf16)
     swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc,
@@ -459,12 +510,13 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
     """The deferred-ELBO loop shared by :func:`vb_run_sol` and
     ``ops/kernels/epilogue.py::vb_run_epi``.
 
-    ``sweep(x, lw, lh, eh, sc, n=, m=, m_live=, r=, hyper_mask=)``
+    ``sweep(x, lw, lh, eh, sc, n=, m_arr=, m_live=, r=, hyper_mask=)``
     returns ``(ew, lw, dw, eh, lh, dh, scal)`` with ``scal`` in K4's
     slot layout; W is carried padded as ``(B, rp, np)`` (``w_rowmajor``
     False, the sol sweep) or ``(B, np, rp)`` (True, the JAX layout of
-    the epilogue sweep).  ``m`` is the state's cell extent, ``m_live``
-    (``m_true``, default ``m``) the live cells that normalize the ELBO;
+    the epilogue sweep).  ``m_arr`` is the state's cell extent,
+    ``m_live`` (``m_true``, default ``m_arr``) the live cells that
+    normalize the ELBO;
     ``cell_mask`` pins the others on entry, as the JAX loops do.  With
     ``x`` laid out on a mesh (``ShardedCounts``), the H family is
     carried as its cell shards, each on its shard's device.
@@ -541,7 +593,7 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
                           bh.double(), fud64, r_live, lgx_b,
                           elbo_now.double()], dim=1).contiguous()
         (ew_n, lw_n, dw_n, eh_n, lh_n, dh_n, scal) = sweep(
-            x, lw, lh, eh, sc, n=n, m=m, m_live=m_live, r=r,
+            x, lw, lh, eh, sc, n=n, m_arr=m, m_live=m_live, r=r,
             hyper_mask=hyper_mask)
 
         # complete sweep it-1's ELBO (deferred data term)

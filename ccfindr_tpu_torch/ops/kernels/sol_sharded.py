@@ -29,9 +29,10 @@ One code path serves equal and distinct devices: ``.to`` of a tensor to
 its own device is the tensor itself.  Every cross-shard sum is the
 shards' partials in shard order, added by the next kernel in its fixed
 order, as every cross-block sum of the port is; with shard extents that
-are multiples of K1's ``CHUNK`` (512, itself a multiple of K3's
-``POST_COLS``) the gathered partials are the single-device launch's,
-element for element, so the sweep gives the single-device bits.  With
+are multiples of K1's cell chunk (``sol.CHUNK[1]``, 256, which
+divides 512) and of K3's ``POST_COLS`` (256) the gathered partials are
+the single-device launch's, element for element, so the sweep gives the
+single-device bits: shards of a multiple of 512 cells always do.  With
 one shard it always does.
 
 The plain PyTorch version of each step (``xpass_shard_plain``,
@@ -130,14 +131,15 @@ def _extents(x, m, m_live):
     return [shard_extents(m_live, m, c0, c1 - c0) for c0, c1 in x.cols]
 
 
-def sharded_sweep_plain(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
+def sharded_sweep_plain(x, lwt, lh, eh, sc, *, n, m_arr, m_live, r,
+                        bn=sol.DEFAULT_BN, bm=sol.DEFAULT_BM,
                         hyper_mask=(True,) * 4, newton_niter=100,
                         newton_tol=1e-4, mxu_bf16=False):
     """The sweep of :func:`make_sol_sweep_sharded` in plain PyTorch, on
-    tensors of any device: the function K1s, K2, K3s and K4 compute."""
+    tensors of any device: the function K1s, K2, K3s and K4 compute
+    (``sol.sol_sweep``'s keywords; ``bn``/``bm`` unused)."""
     _check(x, lwt, lh, eh, sc, len(x.cols))
-    m_live = m if m_live is None else m_live
-    ext = _extents(x, m, m_live)
+    ext = _extents(x, m_arr, m_live)
     dev, dt = lwt.device, lwt.dtype
     aw, bw, fudge, r_live = (sc[:, q].to(dt) for q in (0, 1, 4, 5))
     devs = [b.device for b in x.blocks[0]]
@@ -180,14 +182,14 @@ def h_post_shard(shn_part, lh, csum_part, sc, r, ax_live, ax_true):
     return out
 
 
-def sharded_sweep_kernels(x, lwt, lh, eh, sc, *, n, m, r, m_live=None,
+def sharded_sweep_kernels(x, lwt, lh, eh, sc, *, n, m_arr, m_live, r,
+                          bn=sol.DEFAULT_BN, bm=sol.DEFAULT_BM,
                           hyper_mask=(True,) * 4, newton_niter=100,
                           newton_tol=1e-4, mxu_bf16=False):
     """The sweep of :func:`make_sol_sweep_sharded` as K1s, K2, K3s and
     K4 on CUDA tensors: ``k``, 1, ``k`` and 1 launches."""
     _check(x, lwt, lh, eh, sc, len(x.cols))
-    m_live = m if m_live is None else m_live
-    ext = _extents(x, m, m_live)
+    ext = _extents(x, m_arr, m_live)
     dev, dt = lwt.device, lwt.dtype
     nb = lwt.shape[0]
     devs = [b.device for b in x.blocks[0]]

@@ -43,10 +43,7 @@ import torch
 from ..sparse import fold_dterm  # noqa: F401  (the JAX module's name)
 from .build import (TCODE, XCODE, check_launch, library, require_cuda,
                     stream, tickets)
-from .sol import MAX_RP, bf16_round
-
-DEFAULT_BN = 1024
-DEFAULT_BM = 512
+from .sol import DEFAULT_BM, DEFAULT_BN, MAX_RP, bf16_round
 
 # E1's chunk of its outer axis starts here and doubles until the
 # per-chunk partials take no more bytes than X (csrc/fused.cuh); the

@@ -18,7 +18,13 @@ Phases (each prints its result and seconds):
    float64 and float32.  Tolerances (elementwise relative, each output
    array): float64 kernel 1e-10 on every output; float32 kernel 2e-4 on
    the factors and the new hypers, and 1e-5 on the per-element ELBO
-   (pend + dterm) / (n m).  TF32 is off for the plain side;
+   (pend + dterm) / (n m).  TF32 is off for the plain side.  Then K1
+   alone (fused.cuh's walk) against the plain chunked reference
+   (sol.xpass_partials_plain), partial by partial, on X read as a window
+   of a wider matrix (its row stride), for every X type, bf16 off and
+   on, rp 8 (21 lanes) and rp 128, factors float64 and float32: the
+   swn/shn partials at the tolerances above, x*log(wth) per element at
+   the ELBO's, rowSums(eh) to 1e-12;
 3. the VB slice: read_10x(pbmc_sim_dir()) -> filter_cells ->
    filter_genes -> vb_factorize(ranks 2..8, nrun 3, backend='pallas',
    device='cuda') in float32 -> optimal_rank (must be 5) -> cluster_id
@@ -30,7 +36,9 @@ Phases (each prints its result and seconds):
    (int8), ranks [8, 12, 16], nrun 2, Itmax 300: wall time and
    lane-sweeps per second (CUDA events, synchronised), the same loop on
    the plain version beside it, per-kernel times, and the peak device
-   memory; the same scan with ``precision='bf16'`` beside it;
+   memory; the same scan with ``precision='bf16'`` beside it; K1's
+   TFLOP/s of dense work at its chunks (sol.CHUNK) and its ptxas
+   registers and spills (float32 factors, int8 X);
 5. ML kernel vs plain: M1 ml_hpass (its tail adds each lane's x*log(wh)
    partials, where a separate M3 launch used to) and M2 ml_wpass
    on a ragged case (737 x 450, 12 lanes of ranks 4..6 x 4 padded to
@@ -137,13 +145,14 @@ Phases (each prints its result and seconds):
    padded to 8, int16) and on phase 4's 10x matrix over 4 shards (3
    lanes of r = 16, int8), factors float64 and float32, at phase 2's
    tolerances, two launches bit-identical; one shard, and at 10x two
-   and four shards (2048 cells each, whole K1 chunks), bit-identical to
-   the single-device K1-K4 sweep; the 10x scan of phase 4 over
-   make_mesh(cells=2 and 4) on one card, each bit-identical to the
-   single-device scan (lml, n_iter), with the cells=4 run the path whose
-   launches are counted (K1s and K3s four a sweep, K2 and K4 one, K1
-   and K3 none), wall, loop, lane-sweeps per second and peak memory
-   beside the single-device scan; the bundled mesh scan (cells=4) with
+   and four shards (4096 and 2048 cells, whole K1 cell chunks),
+   bit-identical to the single-device K1-K4 sweep; the 10x scan of phase
+   4 over make_mesh(cells=2 and 4) on one card, each bit-identical to
+   the single-device scan (lml, n_iter), with the cells=4 run the path
+   whose launches are counted (K1s and K3s four a sweep, K2 and K4 one,
+   K1 and K3 none), wall, loop, lane-sweeps per second and peak memory
+   beside the single-device scan, and each mesh loop's rate against one
+   device's; a shard's K1s time; the bundled mesh scan (cells=4) with
    ropt 5 in float32 and with precision='bf16', elbo_every=5; 'dense'
    on the cells=4 mesh in float64 equal to 'dense' on one device (n_iter
    of every lane, lml to 1e-9).
@@ -186,13 +195,14 @@ ML_KERNELS = {"ml_hpass": "ccfindr_tpu/ops/pallas/ml_kernels.py:39",
 TAILS = {"ml_hpass": "x*log(wh) per lane", "sp_rowpass": "x*log(wth) per lane",
          "elbo_xpass": "the data term per lane"}
 TAIL_TOL = 1e-14
-# ptxas's report of the redesigned X pass: key -> the instantiation's
-# mangled prefix (factor type, X type, gm, bf16, xlog)
-# (the instantiations the phases time: 'gm' on int8 X, 'cm' on the
-# bundled int16 X, P1 on float32 X)
-XPASS_ENTRIES = {"fused_xpass_gm": "fused_xpass_kernelIfaLb1ELb0ELb1E",
-                 "fused_xpass_cm": "fused_xpass_kernelIfsLb0ELb0ELb1E",
-                 "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0E"}
+# ptxas's report of the X-pass template (fused.cuh): key -> the
+# instantiation's mangled prefix (factor type, X type, gm, bf16, xlog,
+# W rank-major) (the instantiations the phases time: K1 and E1 'gm' on
+# int8 X, 'cm' on the bundled int16 X, P1 on float32 X)
+XPASS_ENTRIES = {"xpass": "fused_xpass_kernelIfaLb1ELb0ELb1ELb1E",
+                 "fused_xpass_gm": "fused_xpass_kernelIfaLb1ELb0ELb1ELb0E",
+                 "fused_xpass_cm": "fused_xpass_kernelIfsLb0ELb0ELb1ELb0E",
+                 "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0ELb0E"}
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
@@ -507,6 +517,13 @@ def sweep_inputs(x_np, ranks, r, dt, xdt, do_elbo, seed, dev):
             dict(n=n, m=m, r=r))
 
 
+def sol_kw(kw, m_live=None):
+    """:func:`sweep_inputs`' extents as the cell-major sweeps take them
+    (JAX's ``n``, ``m_arr``, ``m_live``, ``r``)."""
+    return dict(n=kw["n"], m_arr=kw["m"],
+                m_live=kw["m"] if m_live is None else m_live, r=kw["r"])
+
+
 def compare_sweep(args, dt):
     """Kernel sweep vs plain sweep on the same inputs; returns a dict of
     errors and whether they are within the stated tolerances."""
@@ -515,9 +532,9 @@ def compare_sweep(args, dt):
     from ccfindr_tpu_torch.ops.kernels import sol
 
     x, lwt, lh, eh, sc, kw = args
-    got = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+    got = sol.sol_sweep(x, lwt, lh, eh, sc, **sol_kw(kw))
     torch.cuda.synchronize()
-    want = sol.sol_sweep_plain(x, lwt, lh, eh, sc, **kw)
+    want = sol.sol_sweep_plain(x, lwt, lh, eh, sc, **sol_kw(kw))
     names = ("ewt", "lwtn", "dwt", "eh", "lhn", "dh")
     err = {k: rel_err(g, w) for k, g, w in zip(names, got, want)}
     gs, ws = got[6], want[6]
@@ -561,6 +578,30 @@ def compare_sweep(args, dt):
     ok = ok and err["xpass_swn"] <= tol and err["xpass_shn"] <= tol
     return dict(ok=ok and hfail_ok and finite, err=err, abs_err=abs_err,
                 hfail_equal=hfail_ok, finite=finite)
+
+
+def compare_k1(args, dt, bf16):
+    """K1 alone against the plain chunked reference
+    (``sol.xpass_partials_plain``), partial by partial: the largest
+    relative error of the swn/shn partials, the per-element x*log(wth)
+    error, and whether they are within phase 2's tolerances."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    x, lwt, lh, eh, sc, kw = args
+    got = sol.xpass(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    want = sol.xpass_partials_plain(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    part = max(rel_err(g, w) for g, w in zip(got[:2], want[:2]))
+    xlog = float((got[2] - want[2]).abs().max()) / (kw["n"] * kw["m"])
+    ehs = rel_err(got[3], want[3])
+    tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
+    etol = F64_TOL if dt == torch.float64 else F32_ELBO_TOL
+    ok = (part <= tol and xlog <= etol and ehs <= 1e-12
+          and all(g.shape == w.shape for g, w in zip(got, want))
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    return dict(ok=ok, part=part, xlog=xlog, ehs=ehs)
 
 
 def epi_inputs(x_np, ranks, r, dt, xdt, seed, dev):
@@ -928,7 +969,7 @@ def compare_mesh_sweep(args, cells, m_live, dt):
     from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
 
     x, lwt, lh, eh, sc, kw = args
-    kw = dict(kw, m_live=m_live)
+    kw = sol_kw(kw, m_live)
     xs, got = mesh_sweep(x, lwt, lh, eh, sc, cells,
                          ssh.sharded_sweep_kernels, **kw)
     _, again = mesh_sweep(x, lwt, lh, eh, sc, cells,
@@ -1148,6 +1189,33 @@ class Smoke:
                                     res["abs_err"][k]
                         del args
                 torch.cuda.empty_cache()
+        # K1 alone against the chunked plain reference: every X type,
+        # bf16 off and on, rp 8, 16 and 128, ragged edges and X read as
+        # a window of a wider matrix (its row stride)
+        x_np = planted(737, 450 + 64, 5, seed=4)
+        k1_cases = [("ragged", [rk for rk in range(2, 9) for _ in range(3)],
+                     8), ("rp128", [128, 100], 128)]
+        for cname, ranks, r in k1_cases:
+            for dt in (torch.float64, torch.float32):
+                for xdt in (torch.int8, torch.int16, torch.float32,
+                            torch.float64):
+                    for bf16 in (False, True):
+                        x, lwt, lh, eh, sc, kw = sweep_inputs(
+                            x_np, ranks, r, dt, xdt, 1.0, 5, dev)
+                        lh, eh = (t[..., 32:32 + 450].contiguous()
+                                  for t in (lh, eh))
+                        win = x[:, 32:32 + 450]
+                        res = compare_k1((win, lwt, lh, eh, sc,
+                                          dict(kw, m=450)), dt, bf16)
+                        print(f"  K1 {cname} {str(dt)[6:]} "
+                              f"X={str(xdt)[6:]} (a window, row stride "
+                              f"{win.stride(0)}) bf16={int(bf16)}: "
+                              f"{'ok' if res['ok'] else 'MISMATCH'} "
+                              f"partials {res['part']:.3g} xlog/element "
+                              f"{res['xlog']:.3g} ehs {res['ehs']:.3g}",
+                              flush=True)
+                        ok_all = ok_all and res["ok"]
+            torch.cuda.empty_cache()
         print(f"  tolerances: f64 {F64_TOL:g}; f32 factors/hypers "
               f"{F32_FACTOR_TOL:g}, elbo per element {F32_ELBO_TOL:g}")
         return ok_all
@@ -1343,6 +1411,13 @@ class Smoke:
         for k in KERNELS:
             print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
                   f"({self.kernels[k]['bound_by']})")
+        kk = self.kernels["xpass"]
+        dense = 6 * 16 * n * m * nb
+        print(f"  K1 at {n} x {m} int8, {nb} lanes of rp 16, chunk "
+              f"{sol.CHUNK}: {kk['ms']:.4f} ms, {dense / kk['ms'] / 1e9:.2f}"
+              f" TFLOP/s of dense work ({dense / 1e9:.1f} GFLOP), bound "
+              f"{kk['bound_ms']:.4f} ms; ptxas {ptxas_resources('xpass')}",
+              flush=True)
         print(f"  lane-sweeps/s kernel {runs['kernel']} plain "
               f"{runs['plain']}")
         return True
@@ -2547,7 +2622,7 @@ class Smoke:
             args = sweep_inputs(x_np, ranks, r, torch.float32, xdt, 1.0, 8,
                                 dev)
             x, lwt, lh, eh, sc, kw = args
-            kw = dict(kw, m_live=m_live)
+            kw = sol_kw(kw, m_live)
             want = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
             for cells in ((1,) if cname == "bundled" else (1, 2, 4)):
                 _, got = mesh_sweep(x, lwt, lh, eh, sc, cells,
@@ -2573,6 +2648,7 @@ class Smoke:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         outs = {}
+        runs_ls = {}
         for cells in (None, k, 2, None):
             extra = ({} if cells is None else dict(mesh=ct.make_mesh(
                 cells=cells, devices=[dev] * cells)))
@@ -2598,6 +2674,7 @@ class Smoke:
                   f"of loop ({ls / wall:.1f} of wall), peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
                   f"n_iter {rec['n_iter']}", flush=True)
+            runs_ls.setdefault(cells, []).append(ls / rec["seconds"])
             if cells is not None:
                 same = (np.array_equal(g.measure["lml"],
                                        outs[None].measure["lml"])
@@ -2614,6 +2691,11 @@ class Smoke:
                     counts["xpass_shard"] == counts["h_post_shard"]
                     == cells * nsw and counts["w_post"] == nsw
                     and counts["xpass"] == counts["h_post"] == 0)
+        one = float(np.mean(runs_ls[None]))
+        print(f"  10x loop lane-sweeps/s against one device (the mean of "
+              f"its two turns, {one:.1f}): cells={k} "
+              f"{runs_ls[k][0] / one:.3f}x, cells=2 "
+              f"{runs_ls[2][0] / one:.3f}x", flush=True)
         for key, name in (("xpass_shard", "xpass_shard"),
                           ("w_post_mesh", "w_post"),
                           ("h_post_shard", "h_post_shard"),

@@ -1,12 +1,12 @@
-"""CUDA kernels K1-K4 (csrc/sol.cu, and K1s/K3s/K4 of the cell-sharded
-sweep), M1/M2 (csrc/ml.cu), S1/S2 (csrc/sparse.cu, also in their bf16
-mode), E1, E1s, E2, E3 (csrc/epi.cu) and P1/P2 (csrc/pass2.cu) against
-their plain PyTorch versions, on the card; the tails of M1, S1 and P2
-(each lane's last block adds the lane's partials) against their
-partials; and the lane-count independence the chunked drivers rely
-on.  The kernels have no CPU mode, so every
-test here is marked ``cuda`` and skips without a CUDA device.  The module imports
-no JAX, so on a machine with a card (and without JAX) it runs as
+"""CUDA kernels K1-K4 (csrc/sol.cu, K1 on fused.cuh's walk; K1s/K3s/K4 of
+the cell-sharded sweep), M1/M2 (csrc/ml.cu), S1/S2 (csrc/sparse.cu, also
+in their bf16 mode), E1, E1s, E2, E3 (csrc/epi.cu) and P1/P2
+(csrc/pass2.cu) against their plain PyTorch versions, on the card; the
+tails of M1, S1 and P2 (each lane's last block adds the lane's partials)
+against their partials; and the lane-count independence the chunked
+drivers rely on. The kernels have no CPU mode, so every test here is
+marked ``cuda`` and skips without a CUDA device. The module imports no
+JAX, so on a machine with a card (and without JAX) it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -83,9 +83,10 @@ def test_sweep_kernels_match_plain(n, m, r, lanes, xdt, dt):
     dev = _card()
     x, lwt, lh, eh, sc = _inputs(n, m, r, lanes, dt, xdt, dev)
     sol.reset_launches()
-    got = sol.sol_sweep(x, lwt, lh, eh, sc, n=n, m=m, r=r)
+    got = sol.sol_sweep(x, lwt, lh, eh, sc, n=n, m_arr=m, m_live=m, r=r)
     torch.cuda.synchronize()
-    want = sol.sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m=m, r=r)
+    want = sol.sol_sweep_plain(x, lwt, lh, eh, sc, n=n, m_arr=m, m_live=m,
+                               r=r)
     assert all(v == 1 for v in sol.LAUNCHES.values())
     tol = 1e-10 if dt == torch.float64 else 2e-4
     for g, w in zip(got[:6], want[:6]):
@@ -105,8 +106,9 @@ def test_kernel_sweep_is_deterministic():
     dev = _card()
     x, lwt, lh, eh, sc = _inputs(2000, 3000, 16, [16, 12, 8], torch.float32,
                                  torch.int8, dev, seed=3)
-    a = sol.sol_sweep(x, lwt, lh, eh, sc, n=2000, m=3000, r=16)
-    b = sol.sol_sweep(x, lwt, lh, eh, sc, n=2000, m=3000, r=16)
+    kw = dict(n=2000, m_arr=3000, m_live=3000, r=16)
+    a = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+    b = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
 
@@ -116,7 +118,8 @@ def test_cuda_wrapper_rejects_mixed_devices():
     x, lwt, lh, eh, sc = _inputs(50, 60, 4, [4], torch.float64, torch.int8,
                                  dev)
     with pytest.raises(ValueError, match="several devices"):
-        sol.sol_sweep(x.cpu(), lwt, lh, eh, sc, n=50, m=60, r=4)
+        sol.sol_sweep(x.cpu(), lwt, lh, eh, sc, n=50, m_arr=60, m_live=60,
+                      r=4)
 
 
 def _ml_inputs(n, m, r, nb, dt, xdt, dev, seed=0):
@@ -429,6 +432,26 @@ def test_x_pass_division_is_the_division():
         assert int((out == 2).sum()) == 0 and int((out == 1).sum()) > n // 2
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 391, 16, 64), (2, 13, 5, 333),
+                                   (1, 8, 1, 4098)])
+def test_fused_sum_is_the_ordered_double_sum(shape, dt):
+    """E1s adds the partials in float64 in chunk order and rounds once:
+    its bits are those of part[:, 0] + part[:, 1] + ... taken on the
+    card in float64, whatever its loads (16-byte vectors where the rows
+    allow, elements elsewhere)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    part = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+    xpart = torch.rand(shape[0], 5, generator=gen, device=dev,
+                       dtype=torch.float64)
+    out, _ = vbk.fused_sum(part, xpart)
+    acc = torch.zeros_like(part[:, 0], dtype=torch.float64)
+    for p in range(shape[1]):
+        acc = acc + part[:, p].double()
+    assert torch.equal(out, acc.to(dt))
+
+
 def test_fused_sum_matches_plain():
     dev = _card()
     part = torch.rand(3, 7, 5, 333, dtype=torch.float64, device=dev)
@@ -491,6 +514,78 @@ def test_gene_major_sweep_is_deterministic(layout):
                       layout=layout)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def _window(x, wide):
+    """``x`` as a column window of a matrix ``wide`` columns wider (read
+    in place through its row stride), or ``x`` itself."""
+    if not wide:
+        return x
+    n, m = x.shape
+    xw = torch.zeros(n, m + wide, dtype=x.dtype, device=x.device)
+    xw[:, wide // 2:wide // 2 + m] = x
+    return xw[:, wide // 2:wide // 2 + m]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,lanes,xdt,wide", [
+    (300, 700, 6, [3, 4, 5, 6], torch.int8, 0),
+    (1030, 517, 16, [16, 9], torch.int16, 37),
+    (257, 1100, 16, [16, 12], torch.float32, 0),
+    (140, 600, 128, [128, 100], torch.float64, 64),
+    (600, 1024, 8, [8, 5, 3], torch.int8, 1024),
+])
+def test_k1_partials_match_chunked_plain(n, m, r, lanes, xdt, wide, dt,
+                                         bf16):
+    """K1 on fused.cuh's register-tile walk against the plain chunked
+    reference (``sol.xpass_partials_plain``) partial by partial, and,
+    added in chunk order, against ``sol.xpass_plain``: rp 8, 16 and 128,
+    every X type, bf16 off and on, ragged edges, and X as a window of a
+    wider matrix read through its row stride."""
+    dev = _card()
+    x, lwt, lh, eh, sc = _inputs(n, m, r, lanes, dt, xdt, dev)
+    sc[1::2, 7] = 0.0                   # do_elbo off in odd lanes
+    x = _window(x, wide)
+    sol.reset_launches()
+    got = sol.xpass(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    assert sol.LAUNCHES["xpass"] == 1
+    want = sol.xpass_partials_plain(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) <= tol
+    # x*log(wth) per element, as the ELBO reads it; 0 where do_elbo is off
+    assert float((got[2] - want[2]).abs().max()) / (n * m) <= (
+        1e-10 if dt == torch.float64 else 1e-5)
+    assert not bool(got[2][1::2].any())
+    assert _rel(got[3], want[3]) <= 1e-12
+    plain = sol.xpass_plain(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    assert _rel(got[0].sum(1, dtype=torch.float64), plain[0]) <= tol
+    assert _rel(got[1].sum(1, dtype=torch.float64), plain[1]) <= tol
+
+
+@pytest.mark.parametrize("dt,xdt,r", [(torch.float32, torch.int8, 16),
+                                      (torch.float64, torch.int16, 40),
+                                      (torch.float32, torch.float32, 128)])
+def test_k1_is_deterministic_and_lane_independent(dt, xdt, r):
+    """Two K1 launches give the same bits, and a subset of the lanes
+    gives those lanes' bits of the full batch (the chunks do not depend
+    on the lane count: what resume and lane compaction rely on)."""
+    dev = _card()
+    lanes = [r, r - 2, r - 4, r, r - 1, r - 3]
+    x, lwt, lh, eh, sc = _inputs(1100, 900, r, lanes, dt, xdt, dev, seed=4)
+    a = sol.xpass(x, lwt, lh, eh, sc)
+    b = sol.xpass(x, lwt, lh, eh, sc)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    sub = torch.tensor([1, 4], device=dev)
+    c = sol.xpass(x, lwt[sub].contiguous(), lh[sub].contiguous(),
+                  eh[sub].contiguous(), sc[sub].contiguous())
+    for u, v in zip(a, c):
+        assert torch.equal(u[sub], v)
 
 
 def test_sweep_kernels_bf16_match_plain():
@@ -679,7 +774,7 @@ def test_sharded_sweep_kernels_match_plain(n, m, m_live, r, lanes, cells,
     x[:, m_live:] = 0
     sol.reset_launches()
     ssh.reset_launches()
-    kw = dict(n=n, m=m, m_live=m_live, r=r)
+    kw = dict(n=n, m_arr=m, m_live=m_live, r=r)
     got = _mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_kernels,
                       **kw)
     torch.cuda.synchronize()
@@ -701,14 +796,16 @@ def test_sharded_sweep_kernels_match_plain(n, m, m_live, r, lanes, cells,
     assert torch.equal(gs[:, sol.HFAIL], ws[:, sol.HFAIL])
 
 
-@pytest.mark.parametrize("cells,m", [(1, 700), (2, 2048), (4, 2048)])
+@pytest.mark.parametrize("cells,m", [(1, 700), (2, 2048), (4, 2048),
+                                    (4, 8192)])
 def test_sharded_sweep_is_the_single_device_sweep(cells, m):
-    """One shard, or shards that are whole multiples of K1's 512-cell
-    chunk, give K1-K4's bits; two launches are bit-identical."""
+    """One shard, or shards of a multiple of 512 cells (whole cell
+    chunks of K1 and K3), 2,048-cell shards included, give K1-K4's bits;
+    two launches are bit-identical."""
     dev = _card()
     x, lwt, lh, eh, sc = _inputs(600, m, 16, [16, 12, 8], torch.float32,
                                  torch.int8, dev, seed=5)
-    kw = dict(n=600, m=m, r=16)
+    kw = dict(n=600, m_arr=m, m_live=m, r=16)
     want = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
     got = _mesh_sweep(x, lwt, lh, eh, sc, cells, ssh.sharded_sweep_kernels,
                       **kw)

@@ -105,8 +105,8 @@ def test_sharded_sweep_rejects_mixed_device_types():
     lh = xs.shard_h(torch.ones(nb, rp, m, dtype=F64))
     sweep = tss.make_sol_sweep_sharded(_cpu_mesh(2))
     with pytest.raises(ValueError, match="one type"):
-        sweep(xs, lwt, lh, lh, torch.zeros(nb, 8, dtype=F64), n=n, m=m,
-              r=rp)
+        sweep(xs, lwt, lh, lh, torch.zeros(nb, 8, dtype=F64), n=n,
+              m_arr=m, m_live=m, r=rp)
 
 
 def test_init_distributed():
@@ -318,7 +318,7 @@ def test_sharded_sweep_matches_jax(cells):
     tss.reset_launches()
     got = tsweep(xs, torch.tensor(lwt), xs.shard_h(torch.tensor(lh)),
                  xs.shard_h(torch.tensor(eh)), torch.tensor(sc), n=n,
-                 m=m_arr, m_live=m_live, r=r)
+                 m_arr=m_arr, m_live=m_live, r=r)
     assert all(v == 0 for v in tss.LAUNCHES.values())
     got = got[:3] + tuple(xs.gather_h(p) for p in got[3:6]) + got[6:]
     for b in range(nb):
@@ -351,11 +351,11 @@ def test_plain_sharded_sweep_one_shard_is_sol_sweep_plain():
     args = (torch.tensor(lwt), torch.tensor(lh), torch.tensor(eh),
             torch.tensor(sc))
     for bf16 in (False, True):
-        want = tsol.sol_sweep_plain(xt, *args, n=n, m=m_arr, m_live=80, r=r,
-                                    mxu_bf16=bf16)
+        want = tsol.sol_sweep_plain(xt, *args, n=n, m_arr=m_arr, m_live=80,
+                                    r=r, mxu_bf16=bf16)
         got = tss.make_sol_sweep_sharded(_cpu_mesh(1))(
             xs, args[0], xs.shard_h(args[1]), xs.shard_h(args[2]), args[3],
-            n=n, m=m_arr, m_live=80, r=r, mxu_bf16=bf16)
+            n=n, m_arr=m_arr, m_live=80, r=r, mxu_bf16=bf16)
         for g, w in zip(got, want):
             assert torch.equal(g[0] if isinstance(g, tuple) else g, w)
 
@@ -368,9 +368,9 @@ def test_sharded_sweep_rejects_bad_layouts():
     a = (torch.tensor(lwt), xs.shard_h(torch.tensor(lh)),
          xs.shard_h(torch.tensor(eh)), torch.tensor(sc))
     with pytest.raises(TypeError, match="cell shards"):
-        sweep(torch.tensor(x), *a, n=n, m=m, r=r)
+        sweep(torch.tensor(x), *a, n=n, m_arr=m, m_live=m, r=r)
     with pytest.raises(ValueError, match="cell shards"):
-        sweep(xs, a[0], a[1][:1], a[2], a[3], n=n, m=m, r=r)
+        sweep(xs, a[0], a[1][:1], a[2], a[3], n=n, m_arr=m, m_live=m, r=r)
     with pytest.raises(NotImplementedError, match="A7b"):
         tss.make_sol_sweep_sharded(_cpu_mesh(2, genes=2))
     with pytest.raises(ValueError, match="CUDA"):

@@ -14,9 +14,11 @@ import jax.numpy as jnp
 from ccfindr_tpu.ops import tile as jtile
 from ccfindr_tpu.ops import vb as jvb
 from ccfindr_tpu.ops.pallas import ml_kernels as jmlk
+from ccfindr_tpu.ops.pallas import sol as jsol
 from ccfindr_tpu_torch.ops import tile as ttile
 from ccfindr_tpu_torch.ops import vb as tvb
 from ccfindr_tpu_torch.ops.kernels import ml as tmlk
+from ccfindr_tpu_torch.ops.kernels import sol as tsol
 
 # the port's own addition to a JAX signature: the device it places on
 PORT_ONLY = {"device"}
@@ -31,6 +33,8 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jmlk.make_ml_backend, tmlk.make_ml_backend),
     (jtile.from_scipy_tile, ttile.from_scipy_tile),
     (jtile.from_dense_tile, ttile.from_dense_tile),
+    (jsol.sol_sweep, tsol.sol_sweep),
+    (jsol.sol_sweep, tsol.sol_sweep_plain),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same

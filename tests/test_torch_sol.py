@@ -70,7 +70,8 @@ def test_sweep_plain_matches_jax(xdt, r_live, do_elbo):
                           m_live=m, r=r, bn=BN, bm=BM)
     tsol.reset_launches()
     got = tsol.sol_sweep(_t(xp, xdt), _t(lwt_p)[None], _t(lh_p)[None],
-                         _t(eh_p)[None], _t(sc), n=n, m=m, r=r)
+                         _t(eh_p)[None], _t(sc), n=n, m_arr=m, m_live=m,
+                         r=r)
     names = ("ewt", "lwtn", "dwt", "eh", "lhn", "dh")
     for g, w, name in zip(got[:6], want[:6], names):
         np.testing.assert_allclose(g[0].numpy(), np.asarray(w),
@@ -105,7 +106,8 @@ def test_sweep_plain_unpadded_equals_padded():
         ehp[0, :r, :m] = _t(lh)
         xp = torch.zeros(np_, mp_, dtype=torch.int8)
         xp[:n, :m] = _t(x, torch.int8)
-        return tsol.sol_sweep(xp, lwt, lhp, ehp, sc, n=n, m=m, r=r)
+        return tsol.sol_sweep(xp, lwt, lhp, ehp, sc, n=n, m_arr=m,
+                              m_live=m, r=r)
 
     a = layout(n, m)
     b = layout(16, 128)
@@ -218,7 +220,7 @@ def test_sweep_rejects_bad_inputs(over, exc):
     a = _sweep_args(**over)
     with pytest.raises(exc):
         tsol.sol_sweep(a["x"], a["lwt"], a["lh"], a["eh"], a["sc"], n=10,
-                       m=20, r=5)
+                       m_arr=20, m_live=20, r=5)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -226,3 +228,128 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tsol.xpass(a["x"], a["lwt"], a["lh"], a["eh"], a["sc"])
     assert tsol.LAUNCHES["xpass"] == 0
+
+
+# ---------------------------------------------------------------------
+# K1's partials at its chunks (sol.CHUNK): the reference the card tests
+# hold the kernel's partials against
+# ---------------------------------------------------------------------
+
+def _k1_case(n, m, r, lanes, xdt, seed=11):
+    """Seeded float64 K1 inputs in the kernel layout: lane b's rank rows
+    [lanes[b], r) at eps; lane 1 with do_elbo off."""
+    rng = np.random.default_rng(seed)
+    rp = tsol.round_up(max(r, 8), 8)
+    nb = len(lanes)
+    x = _planted(n, m, r, seed=seed)
+    lwt = np.zeros((nb, rp, n))
+    lh = np.zeros((nb, rp, m))
+    eps = np.finfo(np.float64).eps
+    for b, rk in enumerate(lanes):
+        lwt[b, :rk] = rng.gamma(1.0, 1.0, (rk, n))
+        lh[b, :rk] = rng.gamma(1.0, 1.0, (rk, m))
+        lwt[b, rk:r] = eps
+        lh[b, rk:r] = eps
+    sc = np.zeros((nb, 8))
+    sc[:, :4] = rng.uniform(0.5, 1.5, (nb, 4))
+    sc[:, 4] = eps
+    sc[:, 5] = lanes
+    sc[:, 7] = [float(b != 1) for b in range(nb)]
+    return (_t(x, xdt), _t(lwt), _t(lh), _t(lh * 0.9), _t(sc))
+
+
+def _chunk_sums(parts):
+    """The partials added in chunk order in float64, as K2, K3 and K4
+    add them, then rounded to the factor type."""
+    swn, shn, xlog, ehs = parts
+    return (swn.sum(1, dtype=torch.float64).to(swn.dtype),
+            shn.sum(1, dtype=torch.float64).to(shn.dtype),
+            xlog.sum(1), ehs.sum(1))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,m,r,lanes,xdt", [
+    (300, 700, 6, [3, 4, 5, 6], torch.int8),
+    (517, 260, 16, [16, 9], torch.int16),
+    (70, 513, 40, [40, 33], torch.float64),
+])
+def test_k1_chunked_partials_sum_to_xpass_plain(n, m, r, lanes, xdt, bf16):
+    """The per-chunk partials of ``sol.xpass_partials_plain`` (swn a
+    cell chunk, shn a gene chunk, x*log(wth) a block, rowSums(eh) a cell
+    chunk), summed in chunk order, are ``sol.xpass_plain``'s values to
+    1e-12 (float64: only the order of the sums differs)."""
+    x, lwt, lh, eh, sc = _k1_case(n, m, r, lanes, xdt)
+    parts = tsol.xpass_partials_plain(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    gch, cch = tsol.CHUNK
+    nb, rp = lwt.shape[:2]
+    ngc, ncc = -(-n // gch), -(-m // cch)
+    assert parts[0].shape == (nb, ncc, rp, n)
+    assert parts[1].shape == (nb, ngc, rp, m)
+    assert parts[2].shape == (nb, ngc * ncc)
+    assert parts[3].shape == (nb, ncc, rp)
+    assert ngc * ncc > 1
+    want = tsol.xpass_plain(x, lwt, lh, eh, sc, mxu_bf16=bf16)
+    for g, w in zip(_chunk_sums(parts), want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+    # do_elbo off: every x*log(wth) partial of lane 1 is 0
+    assert not bool(parts[2][1].any())
+
+
+@pytest.mark.parametrize("xdt,r_live,do_elbo", [
+    (torch.float64, 5, 1.0), (torch.int8, 3, 1.0), (torch.int16, 3, 0.0)])
+def test_k1_chunked_partials_give_the_jax_sweep(monkeypatch, xdt, r_live,
+                                               do_elbo):
+    """K1's chunked partials, added in chunk order and fed to the plain
+    K2-K4, give JAX's single-launch sol_sweep (interpret mode) at
+    test_sweep_plain_matches_jax's tolerances, on a shape of several
+    gene and cell chunks."""
+    n, m, r, rp = 270, 530, 5, 8
+    rng = np.random.default_rng(9)
+    x = _planted(n, m, r, seed=3)
+    lw = rng.gamma(1.0, 1.0, (n, r))
+    lh = rng.gamma(1.0, 1.0, (r, m))
+    eh = lh * rng.uniform(0.5, 1.5, (r, m))
+    xp = pk.pad_matrix(jnp.asarray(x), BN, BM)
+    np_, mp_ = xp.shape
+    lwt_p, lh_p = jsol._pad_factors_t(jnp.asarray(lw), jnp.asarray(lh),
+                                      np_, mp_, rp)
+    eh_p = jnp.pad(jnp.asarray(eh), ((0, rp - r), (0, mp_ - m)))
+    sc = jnp.asarray([[1.1, 0.9, 1.2, 0.8, np.finfo(np.float64).eps,
+                       float(r_live), 123.0, do_elbo]])
+    want = jsol.sol_sweep(xp, lwt_p, lh_p, eh_p, sc, n=n, m_arr=m,
+                          m_live=m, r=r, bn=BN, bm=BM)
+
+    def from_partials(*args, **kw):
+        return _chunk_sums(tsol.xpass_partials_plain(*args, **kw))
+
+    monkeypatch.setattr(tsol, "xpass_plain", from_partials)
+    got = tsol.sol_sweep(_t(xp, xdt), _t(lwt_p)[None], _t(lh_p)[None],
+                         _t(eh_p)[None], _t(sc), n=n, m_arr=m, m_live=m,
+                         r=r)
+    names = ("ewt", "lwtn", "dwt", "eh", "lhn", "dh")
+    for g, w, name in zip(got[:6], want[:6], names):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w),
+                                   rtol=1e-10, atol=0, err_msg=name)
+    gs, ws = got[6][0].numpy(), np.asarray(want[6])[0]
+    for js, ts in SLOTS:
+        np.testing.assert_allclose(gs[ts], ws[js], rtol=1e-9, atol=1e-300,
+                                   err_msg=str(ts))
+
+
+@pytest.mark.parametrize("nb", [1, 3, 21])
+def test_k1_chunks_do_not_depend_on_lanes(nb):
+    """K1's chunks are sol.CHUNK whatever the lane count (resume and
+    lane compaction stay bit-exact), and its cell chunk divides 512 and a
+    2,048-cell shard (whole-chunk shards give the single-device
+    partials)."""
+    lanes = [4] * nb
+    x, lwt, lh, eh, sc = _k1_case(600, 2100, 4, lanes, torch.int8)
+    parts = tsol.xpass_partials_plain(x, lwt, lh, eh, sc)
+    gch, cch = tsol.CHUNK
+    assert parts[0].shape[1] == -(-2100 // cch)
+    assert parts[1].shape[1] == -(-600 // gch)
+    assert 512 % cch == 0 and 2048 % cch == 0
+    # the lanes of a batch are the lanes alone
+    one = tsol.xpass_partials_plain(x, lwt[:1], lh[:1], eh[:1], sc[:1])
+    for a, b in zip(parts, one):
+        torch.testing.assert_close(a[:1], b, rtol=1e-14, atol=0)

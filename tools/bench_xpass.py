@@ -83,7 +83,8 @@ def build_variants():
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         for blk in err.split("Compiling entry function")[1:]:
-            kind = "xlog" if "Lb1EEEv" in blk.split("'")[1] else "no xlog"
+            name = blk.split("'")[1]
+            kind = "xlog" if "Lb1ELb0EEEv" in name else "no xlog"
             regs = re.search(r"Used (\d+) registers", blk)
             spill = re.search(r"(\d+) bytes spill stores", blk)
             print(f"  ptxas {name} ({kind}): {regs.group(1)} registers, "

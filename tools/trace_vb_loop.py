@@ -147,9 +147,9 @@ def kernel_times(name, args):
          "finish": cuda_ms(lambda: sol.finish(sc, k1[2], k2[3], k2[4], k3[3],
                                               k3[4], **fin), 50),
          "sweep": cuda_ms(lambda: sol.sol_sweep(x, lwt, lh, eh, sc, n=n,
-                                                m=m, r=r), 50),
+                                                m_arr=m, m_live=m, r=r), 50),
          "plain_sweep": cuda_ms(lambda: sol.sol_sweep_plain(
-             x, lwt, lh, eh, sc, n=n, m=m, r=r), 10)}
+             x, lwt, lh, eh, sc, n=n, m_arr=m, m_live=m, r=r), 10)}
     print(f"== {name} per-call ms (CUDA events): "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
 
