@@ -5,7 +5,9 @@ Counterpart of ``ccfindr_tpu/ops/pallas/ml_kernels.py``.  The H phase
 is M1 ``ml_hpass`` (``hn = w^T (x/wh)`` and each lane's sum of
 ``x*log(wh)``: per-block partials that the lane's last block adds in a
 fixed order); the W phase is M2 ``ml_wpass`` (``wn = (x/wh) h^T``),
-both in ``csrc/ml.cu``.  :func:`ml_h_plain` and :func:`ml_w_plain` are
+both in ``csrc/ml.cu``: two walks of the X pass template
+``csrc/fused.cuh`` (layouts 'cm' and 'gm') without its streamed
+output.  :func:`ml_h_plain` and :func:`ml_w_plain` are
 the same functions in plain PyTorch; :func:`ml_h` and :func:`ml_w`
 (and the JAX names :func:`ml_h_pallas`, :func:`ml_w_pallas`) take them
 only for tensors on the CPU and launch the kernels for CUDA tensors,
@@ -25,8 +27,12 @@ from .build import (TCODE, XCODE, check_launch, library, require_cuda,
                     stream, tickets)
 from .vb_kernels import DEFAULT_BM, DEFAULT_BN, pad_matrix  # noqa: F401
 
-# cells (M1) or genes (M2) one block of csrc/ml.cu owns
-STRIP = 64
+# cells an M1 block owns and genes an M2 block owns: csrc/ml.cu's
+# kMlHChunk and kMlWChunk.  Constants, never derived from the lane
+# count, so a lane's bits do not depend on its batch (resume, lane
+# compaction).
+H_CHUNK = 64
+W_CHUNK = 64
 MAX_R = 128
 
 # launches per kernel since the last reset (bumped only where a kernel
@@ -87,15 +93,21 @@ def ml_w_plain(x, w, h):
 # CUDA wrappers (one per kernel)
 # ---------------------------------------------------------------------
 
+def xlog_part_width(m):
+    """M1's x*log(wh) partials a lane: one a block, ``ceil(m /
+    H_CHUNK)``, whatever the lane count."""
+    return -(-m // H_CHUNK)
+
+
 def ml_hpass(x, w, h):
     """Launch M1.  Returns (hn (B, r, m), xlog (B,) float64, the
-    per-block partials xlog_part (B, ceil(m/64)) float64 that xlog adds
-    in block order)."""
+    per-block partials xlog_part (B, ceil(m / H_CHUNK)) float64 that
+    xlog adds in block order)."""
     require_cuda(x, w, h)
     nb, n, r = w.shape
     m = x.shape[1]
     hn = torch.empty(nb, r, m, dtype=w.dtype, device=w.device)
-    part = torch.empty(nb, -(-m // STRIP), dtype=torch.float64,
+    part = torch.empty(nb, xlog_part_width(m), dtype=torch.float64,
                        device=w.device)
     xlog = torch.empty(nb, dtype=torch.float64, device=w.device)
     rc = library().ml_hpass(TCODE[w.dtype], XCODE[x.dtype], x.data_ptr(),

@@ -40,15 +40,21 @@ Phases (each prints its result and seconds):
    TFLOP/s of dense work at its chunks (sol.CHUNK) and its ptxas
    registers and spills (float32 factors, int8 X);
 5. ML kernel vs plain: M1 ml_hpass (its tail adds each lane's x*log(wh)
-   partials, where a separate M3 launch used to) and M2 ml_wpass
-   on a ragged case (737 x 450, 12 lanes of ranks 4..6 x 4 padded to
-   6, masked rows at eps) and the 10x case (4096 x 8192, 3 lanes of
-   r = 16), X int8 and float32, factors float64 and float32.
+   partials, where a separate M3 launch used to) and M2 ml_wpass, both
+   walks of fused.cuh's X pass without its streamed output, on a
+   ragged case (737 x 450, 12 lanes of ranks 4..6 x 4 padded to 6,
+   masked rows at eps), the 10x case (4096 x 8192, 3 lanes of r = 16,
+   X int8 and float32), r = 1 (300 x 700), r = 17 on a 600 x 900 X
+   with a 64-row and a 64-column band of zeros, and r = 128 (257 x
+   1100, X int8 and float64); every X type in the ragged, r = 1 and
+   r = 17 cases; factors float64 and float32.
    Tolerances (elementwise relative): float64 1e-10 on hn, wn and the
    x*log(wh) sum; float32 2e-4 on hn/wn and 1e-5 on the per-element
    likelihood (sum x log wh - sum wh + lgconst) / (n m); M1's tail equal
    to part.sum(-1) to 1e-14 and to the bits of a one-warp sum in M3's
-   order.  Two launches must be bit-identical;
+   order.  Two launches must be bit-identical, and lanes 1 and 4 of a
+   batch of six (1000 x 1500, r = 16) alone and as a pair must give
+   the batch's bits.  Prints M1's and M2's ptxas registers and spills;
 6. the ML workflow on the bundled data after phase 3's QC:
    factorize(ranks [4, 5, 6], nrun 4, Itmax 400, Tol 1e-4,
    backend='pallas', device='cuda').  In float64 it must equal the same
@@ -63,7 +69,8 @@ Phases (each prints its result and seconds):
    5 and assign_celltype with the PBMC markers: all five types found;
 7. ML at 10x scale: factorize on phase 4's planted matrix, ranks
    [8, 12, 16], nrun 2, Itmax 300: wall time, lane-sweeps per second,
-   the same loop on the plain version, M1/M2 against plain, peak device
+   the same loop on the plain version, M1/M2 against plain and their
+   TFLOP/s of dense work (4 r flops an element and lane), peak device
    memory;
 8. sparse kernels vs plain: S1 sp_rowpass (with its tail) and S2 sp_colpass on
    the bundled 684 x 447 CSR after QC (21 lanes of ranks 2..8 padded to
@@ -197,12 +204,17 @@ TAILS = {"ml_hpass": "x*log(wh) per lane", "sp_rowpass": "x*log(wth) per lane",
 TAIL_TOL = 1e-14
 # ptxas's report of the X-pass template (fused.cuh): key -> the
 # instantiation's mangled prefix (factor type, X type, gm, bf16, xlog,
-# W rank-major) (the instantiations the phases time: K1 and E1 'gm' on
-# int8 X, 'cm' on the bundled int16 X, P1 on float32 X)
-XPASS_ENTRIES = {"xpass": "fused_xpass_kernelIfaLb1ELb0ELb1ELb1E",
-                 "fused_xpass_gm": "fused_xpass_kernelIfaLb1ELb0ELb1ELb0E",
-                 "fused_xpass_cm": "fused_xpass_kernelIfsLb0ELb0ELb1ELb0E",
-                 "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0ELb0E"}
+# W rank-major, the streamed output) (the instantiations the phases
+# time: K1, E1 'gm', M1 and M2 on int8 X, 'cm' on the bundled int16 X,
+# P1 on float32 X)
+XPASS_ENTRIES = {
+    "xpass": "fused_xpass_kernelIfaLb1ELb0ELb1ELb1ELb1E",
+    "fused_xpass_gm": "fused_xpass_kernelIfaLb1ELb0ELb1ELb0ELb1E",
+    "fused_xpass_cm": "fused_xpass_kernelIfsLb0ELb0ELb1ELb0ELb1E",
+    "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0ELb0ELb1E",
+    # M1, M2 (ml.cu): the walk without its streamed output, on int8 X
+    "ml_hpass": "fused_xpass_kernelIfaLb0ELb0ELb1ELb0ELb0E",
+    "ml_wpass": "fused_xpass_kernelIfaLb1ELb0ELb0ELb0ELb0E"}
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
@@ -775,6 +787,14 @@ def compare_ml(x, w, h, dt):
                "ml_wpass": float((wn - wn_p).abs().max())}
     return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
                 deterministic=det, finite=finite, tail_bits=tail_bits)
+
+
+def compare_lanes(x, w, h):
+    """M1's hn, xlog and partials and M2's wn of one launch each."""
+    from ccfindr_tpu_torch.ops.kernels import ml as mlk
+
+    hn, xlw, part = mlk.ml_hpass(x, w, h)
+    return hn, xlw, part, mlk.ml_wpass(x, w, h)
 
 
 def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
@@ -1430,13 +1450,22 @@ class Smoke:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dev = torch.device("cuda")
+        allx = (torch.int8, torch.int16, torch.float32, torch.float64)
+        banded = planted(600, 900, 5, seed=3)
+        banded[64:128] = 0            # a 64-row and a 64-column band of
+        banded[:, 128:192] = 0        # zeros: whole tiles of x = 0
         cases = [("ragged", planted(737, 450, 5, seed=1),
-                  [rk for rk in range(4, 7) for _ in range(4)], 6),
-                 ("10x", planted(4096, 8192, 16, seed=2), [16] * 3, 16)]
+                  [rk for rk in range(4, 7) for _ in range(4)], 6, allx),
+                 ("10x", planted(4096, 8192, 16, seed=2), [16] * 3, 16,
+                  (torch.int8, torch.float32)),
+                 ("r1", planted(300, 700, 1, seed=4), [1] * 3, 1, allx),
+                 ("r17 zero bands", banded, [17, 12, 5], 17, allx),
+                 ("r128", planted(257, 1100, 8, seed=5), [128, 100], 128,
+                  (torch.int8, torch.float64))]
         ok_all = True
-        for cname, x_np, ranks, r in cases:
+        for cname, x_np, ranks, r, xdts in cases:
             for dt in (torch.float64, torch.float32):
-                for xdt in (torch.int8, torch.float32):
+                for xdt in xdts:
                     x, w, h = ml_inputs(x_np, ranks, r, dt, xdt, 5, dev)
                     res = compare_ml(x, w, h, dt)
                     print(f"  {cname} {str(dt)[6:]} X={str(xdt)[6:]}: "
@@ -1455,7 +1484,25 @@ class Smoke:
                 torch.cuda.empty_cache()
         print(f"  tolerances: f64 {F64_TOL:g}; f32 hn/wn "
               f"{F32_FACTOR_TOL:g}, likelihood per element {F32_LIK_TOL:g}")
-        return ok_all
+        # a lane's bits do not depend on its batch (the chunks are
+        # constants): lanes 1 and 4 of six, alone and as a pair
+        x, w, h = ml_inputs(planted(1000, 1500, 16, seed=6),
+                            [16, 12, 8, 16, 12, 8], 16, torch.float32,
+                            torch.int8, 6, dev)
+        full = compare_lanes(x, w, h)
+        indep = True
+        for sub in ([1], [4], [1, 4]):
+            idx = torch.tensor(sub, device=dev)
+            part = compare_lanes(x, w[idx].contiguous(), h[idx].contiguous())
+            indep = indep and all(torch.equal(f[idx], q)
+                                  for f, q in zip(full, part))
+        print(f"  lanes 1, 4 of six alone and as a pair: the bits of the "
+              f"batch {indep}", flush=True)
+        for k in ML_KERNELS:
+            res = ptxas_resources(k)
+            print(f"  ptxas {k} (float32, int8 X): {res}", flush=True)
+            self.kernels[k]["ptxas"] = res
+        return ok_all and indep
 
     # -- 6 ------------------------------------------------------------
     def ml_workflow(self):
@@ -1625,10 +1672,13 @@ class Smoke:
                        4 * 16 * nnz * nb)
         self.set_bound("ml_wpass", nbytes(x, w0, h0, mlk.ml_wpass(x, w0, h0)),
                        4 * 16 * nnz * nb)
+        dense = 4 * 16 * n * m * nb
         for k in ML_KERNELS:
             print(f"  {k}: bound {self.kernels[k]['bound_ms']:.4f} ms "
                   f"({self.kernels[k]['bound_by']}), library "
-                  f"{self.kernels[k]['library_ms']}")
+                  f"{self.kernels[k]['library_ms']}, "
+                  f"{dense / self.kernels[k]['ms'] / 1e9:.2f} TFLOP/s of "
+                  f"dense work ({dense / 1e9:.1f} GFLOP)")
         print(f"  lane-sweeps/s kernel {runs['kernel']} plain "
               f"{runs['plain']}")
         return bool(np.isfinite(f.measure.drop(columns="rank").values).all())

@@ -122,11 +122,16 @@ def test_cuda_wrapper_rejects_mixed_devices():
                       r=4)
 
 
-def _ml_inputs(n, m, r, nb, dt, xdt, dev, seed=0):
+def _ml_inputs(n, m, r, nb, dt, xdt, dev, seed=0, band=False):
     """Lane batch of ML factors; lane 0 pins its last two rank rows at
-    eps, as a batched rank scan pins a short lane's rows."""
+    eps, as a batched rank scan pins a short lane's rows.  ``band``: X
+    rows 64..127 and columns 128..191 all zero (whole 64 x 64 tiles of
+    the walk)."""
     rng = np.random.default_rng(seed)
     x = np.minimum(rng.poisson(2.0, (n, m)), 127)
+    if band:
+        x[64:128] = 0
+        x[:, 128:192] = 0
     w = rng.gamma(1.0, 1.0, (nb, n, r))
     h = rng.gamma(1.0, 1.0, (nb, r, m))
     if r > 2:
@@ -138,16 +143,18 @@ def _ml_inputs(n, m, r, nb, dt, xdt, dev, seed=0):
 
 
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,m,r,nb,xdt", [
-    (300, 700, 6, 4, torch.int8),
-    (1030, 517, 16, 2, torch.int16),
-    (257, 1100, 40, 2, torch.float32),
-    (140, 600, 128, 2, torch.float64),
-    (65, 63, 1, 3, torch.int8),
+@pytest.mark.parametrize("n,m,r,nb,xdt,band", [
+    (300, 700, 6, 4, torch.int8, False),
+    (1030, 517, 16, 2, torch.int16, False),
+    (257, 1100, 40, 2, torch.float32, False),
+    (140, 600, 128, 2, torch.float64, False),
+    (65, 63, 1, 3, torch.int8, False),
+    (700, 450, 17, 3, torch.int16, False),     # past one 16-wide slab
+    (600, 900, 16, 3, torch.int8, True),       # tiles of x = 0
 ])
-def test_ml_kernels_match_plain(n, m, r, nb, xdt, dt):
+def test_ml_kernels_match_plain(n, m, r, nb, xdt, band, dt):
     dev = _card()
-    x, w, h = _ml_inputs(n, m, r, nb, dt, xdt, dev)
+    x, w, h = _ml_inputs(n, m, r, nb, dt, xdt, dev, band=band)
     ml.reset_launches()
     hn, xlw = ml.ml_h(x, w, h)
     wn = ml.ml_w(x, w, h)
@@ -174,6 +181,29 @@ def test_ml_kernels_are_deterministic():
     b = ml.ml_h(x, w, h) + (ml.ml_w(x, w, h),)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("xdt,dt", [(torch.int8, torch.float32),
+                                    (torch.int16, torch.float64)])
+def test_ml_lane_bits_do_not_depend_on_the_batch(xdt, dt):
+    """A lane's hn, wn, x*log(wh) and partials are the same bits alone,
+    in a pair and in the batch of six: M1's and M2's chunks are
+    constants (ml.H_CHUNK, ml.W_CHUNK), as resume and lane compaction
+    need."""
+    dev = _card()
+    x, w, h = _ml_inputs(900, 1300, 16, 6, dt, xdt, dev, seed=5)
+
+    def launch(w, h):
+        hn, total, part = ml.ml_hpass(x, w, h)
+        return hn, total, part, ml.ml_wpass(x, w, h)
+
+    full = launch(w, h)
+    assert full[2].shape == (6, ml.xlog_part_width(1300))
+    for sub in ([2], [5], [0, 3]):
+        idx = torch.tensor(sub, device=dev)
+        got = launch(w[idx].contiguous(), h[idx].contiguous())
+        for f, g in zip(full, got):
+            assert torch.equal(f[idx], g)
 
 
 def _m3_order_sum(part):

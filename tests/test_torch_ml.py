@@ -8,6 +8,9 @@ tests/test_ml.py runs them) 1e-9; lane-batched ml_run against the
 vmapped JAX loop: equal n_iter and cid, lkh 1e-10, factors 1e-8.
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 from ccfindr_tpu.ops import ml as jml
 from ccfindr_tpu.ops.pallas import ml_kernels as jmlk
 from ccfindr_tpu_torch.ops import ml as tml
+from ccfindr_tpu_torch.ops.kernels import build
 from ccfindr_tpu_torch.ops.kernels import ml as tk
 
 torch.set_num_threads(2)
@@ -103,6 +107,72 @@ def test_plain_kernels_match_pallas(xdt):
                                     jnp.asarray(h[b]), bn=8, bm=128)
             np.testing.assert_allclose(wn_t[b].numpy(), np.asarray(wn_j),
                                        rtol=1e-9)
+
+
+# the shapes where M1/M2's walk (csrc/fused.cuh) has edges: (n, m, r,
+# zero bands)
+EDGES = {"r1": (70, 150, 1, False),
+         "r5": (70, 150, 5, False),      # r not a multiple of 4
+         "r17": (70, 150, 17, False),    # r past a 16-wide slab
+         "zero_bands": (150, 200, 4, True)}
+
+
+@pytest.mark.parametrize("xdt", [np.float64, np.int16])
+@pytest.mark.parametrize("case", list(EDGES))
+def test_plain_kernels_match_pallas_at_kernel_edges(case, xdt):
+    """ml_h_plain/ml_w_plain and the CPU wrappers against ml_h_pallas/
+    ml_w_pallas in interpret mode, lane by lane (1e-9), at r = 1, 5 and
+    17 and on an X whose rows 64..127 and columns 64..127 are all zero
+    (whole 64 x 64 tiles of the walk); lane 0 pins its last rank row at
+    eps, as a batched rank scan pins a short lane's rows."""
+    n, m, r, band = EDGES[case]
+    rng = np.random.default_rng(21)
+    x = np.minimum(rng.poisson(2.0, (n, m)), 127)
+    if band:
+        x[64:128] = 0
+        x[:, 64:128] = 0
+    x = x.astype(xdt)
+    w = rng.gamma(1.0, 1.0, (2, n, r))
+    h = rng.gamma(1.0, 1.0, (2, r, m))
+    if r > 1:
+        w[0, :, r - 1] = np.finfo(np.float64).eps
+        h[0, r - 1] = np.finfo(np.float64).eps
+    hn_t, xl_t = tk.ml_h_plain(_t(x), _t(w), _t(h))
+    wn_t = tk.ml_w_plain(_t(x), _t(w), _t(h))
+    hn_w, xl_w = tk.ml_h(_t(x), _t(w), _t(h))
+    assert torch.equal(hn_w, hn_t) and torch.equal(xl_w, xl_t)
+    assert torch.equal(tk.ml_w(_t(x), _t(w), _t(h)), wn_t)
+    if band:
+        assert not hn_t[:, :, 64:128].any() and not wn_t[:, 64:128].any()
+    for b in range(2):
+        hn_j, xl_j = jmlk.ml_h_pallas(jnp.asarray(x), jnp.asarray(w[b]),
+                                      jnp.asarray(h[b]), bn=8, bm=128)
+        np.testing.assert_allclose(hn_t[b].numpy(), np.asarray(hn_j),
+                                   rtol=1e-9)
+        np.testing.assert_allclose(float(xl_t[b]), float(xl_j), rtol=1e-9)
+        wn_j = jmlk.ml_w_pallas(jnp.asarray(x), jnp.asarray(w[b]),
+                                jnp.asarray(h[b]), bn=8, bm=128)
+        np.testing.assert_allclose(wn_t[b].numpy(), np.asarray(wn_j),
+                                   rtol=1e-9)
+
+
+def test_kernel_chunks_do_not_depend_on_the_lane_count():
+    """M1's and M2's chunks are constants of csrc/ml.cu, the same as
+    ops/kernels/ml.py's H_CHUNK and W_CHUNK, passed by the C entries as
+    they stand (never derived from the lane count B), and whole 64-wide
+    tiles of the walk; the width of M1's partials depends on m only.
+    A lane's bits then do not depend on its batch (resume, compaction;
+    the card test test_ml_lane_bits_do_not_depend_on_the_batch)."""
+    src = (build.CSRC / "ml.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kMl[HW]Chunk) = (\d+);", src))
+    assert int(consts["kMlHChunk"]) == tk.H_CHUNK
+    assert int(consts["kMlWChunk"]) == tk.W_CHUNK
+    assert re.search(r"launch_hpass, x, w, h, B, n, m, r, kMlHChunk,", src)
+    assert re.search(r"launch_wpass, x, w, h, B, n, m, r, kMlWChunk,", src)
+    assert tk.H_CHUNK % 64 == 0 and tk.W_CHUNK % 64 == 0
+    for m in (1, 63, 64, 65, 447, 8192):
+        assert tk.xlog_part_width(m) == -(-m // tk.H_CHUNK)
+    assert list(inspect.signature(tk.xlog_part_width).parameters) == ["m"]
 
 
 def test_wrappers_reject_bad_inputs():

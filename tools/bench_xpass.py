@@ -53,8 +53,7 @@ EDITS = {
     "repo": [],
     "division": [("uu = div_rn(xv[q], w[p][q], fast);",
                   "uu = xv[q] / w[p][q];\n            fast = true;")],
-    "one_block": [("__launch_bounds__(kXThreads, sizeof(T) == 4 ? 2 : 1)",
-                   "__launch_bounds__(kXThreads, 1)")],
+    "one_block": [("sizeof(T) == 4 ? (kStr ? 2 : 3) : 1)", "1)")],
 }
 
 
@@ -84,7 +83,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         for blk in err.split("Compiling entry function")[1:]:
             name = blk.split("'")[1]
-            kind = "xlog" if "Lb1ELb0EEEv" in name else "no xlog"
+            kind = "xlog" if "Lb1ELb0ELb1EEEv" in name else "no xlog"
             regs = re.search(r"Used (\d+) registers", blk)
             spill = re.search(r"(\d+) bytes spill stores", blk)
             print(f"  ptxas {name} ({kind}): {regs.group(1)} registers, "
