@@ -24,15 +24,17 @@
 //   (S1) or lw (S2), 4 r bytes in float32, at a data-dependent address
 //   (served mostly from L2: the factors of a lane are a few MB), against
 //   2 r FMAs: a few flops a byte, far below the card's FP32 roof.
-// Design: each nonzero's index and value are read once a pass, 32 at a
-//   time by one coalesced load of the warp and handed out by shuffles;
-//   S2 reads a once more, also coalesced by chunk.  A group of G lanes
-//   (G = 4, 8, 16 or 32 from r) holds one factor row in registers, so a
-//   warp takes 32 / G nonzeros at once and a row's gather is one
-//   contiguous G-lane load.  swn and shn accumulate in registers and are
-//   written once; a warp owns its row (S1) or cell (S2), so no sum
-//   crosses blocks except x*log(wth).  No atomic in any sum (one ticket
-//   a block picks the lane's adder): two launches are bit-identical.
+// Design: each nonzero's index and value are read once a pass by one
+//   coalesced load of a warp.  S1 (redesigned for Hopper, see its note):
+//   a thread owns a nonzero and its whole factor row at r <= 32, the
+//   group walk below above 32.  S2: a group of G lanes (G = 4, 8, 16 or
+//   32 from r) holds one factor row in registers, so a warp takes 32 / G
+//   nonzeros at once (index, a handed out by shuffles) and a row's
+//   gather is one contiguous G-lane load.  swn and shn accumulate in
+//   registers and are written once; a warp owns its row (S1) or cell
+//   (S2), so no sum crosses blocks except x*log(wth).  No atomic in any
+//   sum (one ticket a block picks the lane's adder): two launches are
+//   bit-identical.
 //
 // Layouts (row-major, leading lane axis B): indptr (n+1) int64 and col
 // (nnz) int32, val (nnz) int16/float/double: the CSR; colptr (m+1)
@@ -43,7 +45,8 @@
 // or column gets zeros.  Offsets into the (B, nnz) buffer are 64-bit.
 //
 // Arithmetic is FP32 (or FP64) FMAs in the factor type, exact IEEE
-// division and the exact libdevice log (no fast-math build).  As in the
+// division (S1: fused.cuh's div_rn, the same bits) and the exact
+// libdevice log (no fast-math build).  As in the
 // JAX package's COO and tile paths, a non-positive wth is replaced by 1.
 // kBf16 is the tile kernel's mxu_bf16 (precision='bf16', ccfindr_tpu/
 // ops/tile.py:398-452): S1 rounds the gathered lw row and lh column to
@@ -57,6 +60,7 @@
 #include <cstdint>
 
 #include "bf16.cuh"
+#include "fused.cuh"  // div_ieee
 #include "reduce.cuh"
 
 namespace ccfindr {
@@ -66,28 +70,195 @@ constexpr int kSpWarps = kSpThreads / 32;  // rows (S1) or cells (S2) a block
 constexpr int kSpMaxR = 128;               // largest rank
 constexpr unsigned kFull = 0xffffffffu;
 
-// Lanes of a group that holds one factor row: the smallest of 4, 8, 16,
-// 32 that covers r, so a group lane holds one component up to r = 32 and
-// four at r = 128.
+// S2: lanes of a group that holds one factor row, the smallest of 4, 8,
+// 16, 32 that covers r, so a group lane holds one component up to r = 32
+// and four at r = 128.
 inline int group_of(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : r <= 16 ? 16 : 32; }
 
 // ---------------------------------------------------------------------
 // S1 sp_rowpass
+//
+// Replaces: the row side of ccfindr_tpu/ops/tile.py:348 _tile_kernel
+//   (wth, a = x / wth, swn and x*log(wth) at the nonzeros; tile_ml_h's
+//   a and x*log(wth), tile_ml_w's swn).
+// Bound: the gathers -- at the 10x shape (4,096 x 8,192 at 10%, 2.57 M
+//   nonzeros, r 16, float) each nonzero and lane reads one 64-byte lh row
+//   at a random cell, 0.16 GB a lane from L2/L1 (a lane's lht is 0.5 MB),
+//   against 4 r flops and one division and log: the same gathers S2
+//   makes.  The device-memory bytes (CSR, a, swn) bound it far below.
+// What held the group design (today the r > 32 kernel below) to 3x S2's
+//   time: a group of G lanes held one lh row, so a warp took 32 / G
+//   nonzeros a step, each paying two shuffles to hand out (c, x), a
+//   log2 G butterfly of dependent shuffles for wth, a division in all G
+//   lanes, a shuffle to place a, and a log in one lane of each group.
+// Design (r <= 32, RK the rank rounded up to 4, 8, 16 or 32): a warp owns
+//   a gene row and a thread one nonzero of it at a time, 32 a step, read
+//   by one coalesced load of the warp.  The thread holds the row's lw in
+//   registers and loads its cell's lh row as 16-byte vectors (element by
+//   element where rows are not 16-byte aligned, as at r = 6), forms wth
+//   with r FMAs of its own, divides with div_rn (the IEEE division's
+//   bits; the division itself outside its range), adds a lh into its
+//   own r-wide swn accumulator, stores its a (coalesced, CSR order) and
+//   adds x log(wth) to its double.  No shuffle per nonzero: the warp's
+//   accumulators are reduced once a row, a fixed-order reduce-scatter
+//   (RK - 1 + log2(32 / RK) shuffles), and the lanes that hold a
+//   component store it.
+// Design (r > 32): the group design with G = 32, a lane holding 4 of up
+//   to 128 components, kept as a second instantiation chosen by r in
+//   the launcher: a thread-owned nonzero would hold 3 r registers (lw,
+//   lh and swn rows: 384 at r = 128), past the card's 255, and a rank
+//   slab walk would read the row's CSR and lh twice.  A warp still
+//   takes one nonzero a step there, with a 5-shuffle butterfly for wth
+//   over 4 r flops; ranks above 32 are outside the workflow's scans
+//   (ranks 2..8 bundled, 8..16 at 10x, 16 on the atlas leg).
+// Both: one double partial of x log(wth) a block (8 rows), added by the
+//   lane's last block (reduce.cuh lane_tail_sum); every sum in a fixed
+//   order, so two launches are bit-identical and a lane's bits do not
+//   depend on its batch (a block is one lane's).
+// ptxas -v (float factors, int16 values; chip_smoke.py phase 8 prints
+//   it): RK 16 72 registers (3 blocks of 256 an SM), RK 32 125 (2), RK
+//   8 54, RK 4 52, the group walk 54, 0 bytes of spills each; a cap of
+//   64 registers (4 blocks) spills 20 bytes at RK 16 and runs 1-7%
+//   slower (tools/bench_sparse_pass.py).
 // ---------------------------------------------------------------------
-template <typename T, typename XT, int G, bool kBf16>
-__global__ void __launch_bounds__(kSpThreads)
+
+// Components 0 .. RK - 1 of a factor row, 0 from r on, as the products
+// take them: 16-byte loads where ``vec`` (r * sizeof(T) a multiple of
+// 16 and the factor 16-byte aligned), else one element at a time.
+template <int RK, bool kBf16, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int r,
+                                         bool vec, T (&v)[RK]) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < RK; k += V) {
+      if (k < r) {
+        if constexpr (sizeof(T) == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(p + k);
+          v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
+        } else {
+          const double2 t = *reinterpret_cast<const double2*>(p + k);
+          v[k] = t.x, v[k + 1] = t.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[k + j] = T(0);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < RK; ++k) v[k] = k < r ? p[k] : T(0);
+  }
+#pragma unroll
+  for (int k = 0; k < RK; ++k) v[k] = operand<kBf16>(v[k]);
+}
+
+// One step of warp_reduce_scatter and the steps after it: a lane keeps
+// the half (H components) of v that its lane bit names and adds its
+// partner's copy of that half, into v[0 .. H).
+template <int RK, int H, typename T>
+__device__ __forceinline__ void reduce_halves(T (&v)[RK], int lane) {
+  if constexpr (H >= 1) {
+    constexpr int o = 32 * H / RK;  // 16 at the first step
+    const bool hi = lane & o;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const T keep = hi ? v[i + H] : v[i];
+      const T send = hi ? v[i] : v[i + H];
+      v[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+    reduce_halves<RK, H / 2>(v, lane);
+  }
+}
+
+// v[k] summed over the warp in a fixed order: a reduce-scatter, then a
+// butterfly over the 32 / RK lanes left holding the same component.
+// Returns component lane / (32 / RK), the same bits in each of those
+// lanes.  RK - 1 + log2(32 / RK) shuffles.
+template <int RK, typename T>
+__device__ __forceinline__ T warp_reduce_scatter(T (&v)[RK], int lane) {
+  reduce_halves<RK, RK / 2>(v, lane);
+  T z = v[0];
+#pragma unroll
+  for (int o = 16 / RK; o > 0; o >>= 1) z += __shfl_xor_sync(kFull, z, o);
+  return z;
+}
+
+template <typename T, typename XT, int RK, bool kBf16>
+__global__ void __launch_bounds__(kSpThreads, sizeof(T) * RK <= 32    ? 4
+                                              : sizeof(T) * RK <= 64  ? 3
+                                              : sizeof(T) * RK <= 128 ? 2
+                                                                      : 1)
 sp_rowpass_kernel(const int64_t* __restrict__ indptr,
                   const int* __restrict__ col, const XT* __restrict__ val,
                   const T* __restrict__ lw, const T* __restrict__ lht,
                   const double* __restrict__ do_elbo, int n, int m, int r,
-                  int64_t nnz, T* __restrict__ swn, T* __restrict__ abuf,
-                  double* __restrict__ part, unsigned* __restrict__ tickets,
+                  int64_t nnz, bool vec, T* __restrict__ swn,
+                  T* __restrict__ abuf, double* __restrict__ part,
+                  unsigned* __restrict__ tickets,
                   double* __restrict__ xlog_sum) {
-  constexpr int NG = 32 / G;                  // nonzeros a warp takes at once
-  constexpr int KP = G == 32 ? kSpMaxR / 32 : 1;  // components a lane holds
+  static_assert(RK >= 4 && RK <= 32 && (RK & (RK - 1)) == 0, "RK");
   __shared__ double red[kSpWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % G, grp = lane / G;
+  const int b = blockIdx.y;
+  const int g = blockIdx.x * kSpWarps + warp;
+  const bool xlog = part != nullptr && do_elbo[b] > 0.0;
+  double xl = 0.0;
+
+  if (g < n) {  // warp-uniform
+    const T* lh_b = lht + (size_t)b * m * r;
+    T w[RK], acc[RK];
+    load_row<RK, kBf16>(lw + ((size_t)b * n + g) * r, r, vec, w);
+#pragma unroll
+    for (int k = 0; k < RK; ++k) acc[k] = T(0);
+    const int64_t p_beg = indptr[g], p_end = indptr[g + 1];
+    // a step: nonzero p of the row for each thread (warp-uniform trips)
+    for (int64_t p = p_beg + lane; p - lane < p_end; p += 32) {
+      if (p < p_end) {
+        const int c = col[p];
+        const T xv = static_cast<T>(val[p]);
+        T h[RK];
+        load_row<RK, kBf16>(lh_b + (size_t)c * r, r, vec, h);
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < RK; ++k) s = fma(w[k], h[k], s);
+        const T wth = s > T(0) ? s : T(1);
+        const T a = operand<kBf16>(div_ieee(xv, wth));
+#pragma unroll
+        for (int k = 0; k < RK; ++k) acc[k] = fma(a, h[k], acc[k]);
+        if (abuf != nullptr) abuf[(size_t)b * nnz + p] = a;
+        if (xlog) xl += static_cast<double>(xv * log(wth));
+      }
+    }
+    const T z = warp_reduce_scatter(acc, lane);
+    constexpr int kShare = 32 / RK;  // lanes holding one component
+    const int k = lane / kShare;
+    if (swn != nullptr && lane % kShare == 0 && k < r)
+      swn[((size_t)b * n + g) * r + k] = z;
+  }
+  if (part != nullptr) {
+    const double xs = block_sum(xl, red);
+    if (threadIdx.x == 0) part[(size_t)b * gridDim.x + blockIdx.x] = xs;
+    lane_tail_sum(part + (size_t)b * gridDim.x, gridDim.x, tickets + b,
+                  xlog_sum + b);
+  }
+}
+
+// r > 32: a warp a nonzero, lane sub holding components sub + 32 j
+template <typename T, typename XT, bool kBf16>
+__global__ void __launch_bounds__(kSpThreads)
+sp_rowpass_group_kernel(const int64_t* __restrict__ indptr,
+                        const int* __restrict__ col,
+                        const XT* __restrict__ val, const T* __restrict__ lw,
+                        const T* __restrict__ lht,
+                        const double* __restrict__ do_elbo, int n, int m,
+                        int r, int64_t nnz, T* __restrict__ swn,
+                        T* __restrict__ abuf, double* __restrict__ part,
+                        unsigned* __restrict__ tickets,
+                        double* __restrict__ xlog_sum) {
+  constexpr int KP = kSpMaxR / 32;  // components a lane holds
+  __shared__ double red[kSpWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
   const int g = blockIdx.x * kSpWarps + warp;
   const bool xlog = part != nullptr && do_elbo[b] > 0.0;
@@ -99,7 +270,7 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
     T w[KP], acc[KP];
 #pragma unroll
     for (int j = 0; j < KP; ++j) {
-      const int k = sub + j * G;
+      const int k = lane + 32 * j;
       w[j] = k < r ? operand<kBf16>(lw_g[k]) : T(0);
       acc[j] = T(0);
     }
@@ -113,44 +284,32 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
       const int cnt = static_cast<int>(p_end - p0 < 32 ? p_end - p0 : 32);
       T a_mine = T(0);
 #pragma unroll 4
-      for (int q = 0; q < cnt; q += NG) {  // warp-uniform trip count
-        const int t = q + grp;             // the chunk slot of this group
-        const bool live = t < cnt;
+      for (int t = 0; t < cnt; ++t) {
         const int c = __shfl_sync(kFull, c_l, t);
         const T xv = __shfl_sync(kFull, x_l, t);
         T lh[KP];
         T s = T(0);
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
-          const int k = sub + j * G;
-          lh[j] = (live && k < r) ? operand<kBf16>(lh_b[(size_t)c * r + k])
-                                  : T(0);
+          const int k = lane + 32 * j;
+          lh[j] = k < r ? operand<kBf16>(lh_b[(size_t)c * r + k]) : T(0);
           s = fma(w[j], lh[j], s);
         }
-        // the group's dot product: a butterfly inside G lanes leaves
-        // the same sum in each of them
 #pragma unroll
-        for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
         const T wth = s > T(0) ? s : T(1);
-        const T a = live ? operand<kBf16>(xv / wth) : T(0);
+        const T a = operand<kBf16>(div_ieee(xv, wth));
 #pragma unroll
         for (int j = 0; j < KP; ++j) acc[j] = fma(a, lh[j], acc[j]);
-        if (xlog && live && sub == 0) xl += static_cast<double>(xv * log(wth));
-        // slot lane's ratio moves to lane `lane`, for one coalesced store
-        const T a_t = __shfl_sync(kFull, a, (lane % NG) * G);
-        if (lane / NG == q / NG) a_mine = a_t;
+        if (xlog && lane == 0) xl += static_cast<double>(xv * log(wth));
+        if (lane == t) a_mine = a;
       }
       if (abuf != nullptr && mine) abuf[(size_t)b * nnz + pl] = a_mine;
     }
-    // the groups' partial rows, summed in a fixed butterfly order
-#pragma unroll
-    for (int o = 16; o >= G; o >>= 1)
-#pragma unroll
-      for (int j = 0; j < KP; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], o);
-    if (swn != nullptr && grp == 0) {
+    if (swn != nullptr) {
 #pragma unroll
       for (int j = 0; j < KP; ++j) {
-        const int k = sub + j * G;
+        const int k = lane + 32 * j;
         if (k < r) swn[((size_t)b * n + g) * r + k] = acc[j];
       }
     }
@@ -232,7 +391,7 @@ sp_colpass_kernel(const int64_t* __restrict__ colptr,
 // ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
-template <typename T, typename XT, int G, bool kBf16>
+template <typename T, typename XT, int RK, bool kBf16>
 cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
                            const void* val, const void* lw, const void* lht,
                            const double* do_elbo, int B, int n, int m, int r,
@@ -240,30 +399,42 @@ cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
                            unsigned* tickets, double* xlog,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(n, kSpWarps), B);
-  sp_rowpass_kernel<T, XT, G, kBf16><<<grid, kSpThreads, 0, stream>>>(
-      indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
-      static_cast<const T*>(lht), do_elbo, n, m, r, nnz,
-      static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  if constexpr (RK > 32) {
+    sp_rowpass_group_kernel<T, XT, kBf16><<<grid, kSpThreads, 0, stream>>>(
+        indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
+        static_cast<const T*>(lht), do_elbo, n, m, r, nnz,
+        static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
+  } else {
+    const bool vec = (r * sizeof(T)) % 16 == 0 && aligned(lw) && aligned(lht);
+    sp_rowpass_kernel<T, XT, RK, kBf16><<<grid, kSpThreads, 0, stream>>>(
+        indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
+        static_cast<const T*>(lht), do_elbo, n, m, r, nnz, vec,
+        static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
+  }
   return cudaGetLastError();
 }
 
+// S1's instantiation by r: the thread-owned nonzero with RK = 4, 8, 16
+// or 32 components, the group walk above 32
 template <typename T, typename XT, bool kBf16>
-cudaError_t rowpass_any_g(const int64_t* indptr, const int* col,
+cudaError_t rowpass_any_r(const int64_t* indptr, const int* col,
                           const void* val, const void* lw, const void* lht,
                           const double* do_elbo, int B, int n, int m, int r,
                           int64_t nnz, void* swn, void* abuf, double* part,
                           unsigned* tickets, double* xlog, cudaStream_t s) {
-#define S1G(G)                                                            \
-  return launch_rowpass<T, XT, G, kBf16>(indptr, col, val, lw, lht,       \
-                                         do_elbo, B, n, m, r, nnz, swn,   \
-                                         abuf, part, tickets, xlog, s)
-  switch (group_of(r)) {
-    case 4: S1G(4);
-    case 8: S1G(8);
-    case 16: S1G(16);
-    default: S1G(32);
-  }
-#undef S1G
+#define S1R(RK)                                                           \
+  return launch_rowpass<T, XT, RK, kBf16>(indptr, col, val, lw, lht,      \
+                                          do_elbo, B, n, m, r, nnz, swn,  \
+                                          abuf, part, tickets, xlog, s)
+  if (r <= 4) S1R(4);
+  if (r <= 8) S1R(8);
+  if (r <= 16) S1R(16);
+  if (r <= 32) S1R(32);
+  S1R(kSpMaxR);
+#undef S1R
 }
 
 template <typename T, int G, bool kBf16>
@@ -317,10 +488,10 @@ int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SP_ROW(T, XT)                                                       \
   return static_cast<int>(                                                 \
-      bf16 ? rowpass_any_g<T, XT, true>(indptr, col, val, lw, lht, do_elbo, \
+      bf16 ? rowpass_any_r<T, XT, true>(indptr, col, val, lw, lht, do_elbo, \
                                         B, n, m, r, nnz, swn, abuf, part,   \
                                         tickets, xlog, s)                   \
-           : rowpass_any_g<T, XT, false>(indptr, col, val, lw, lht,         \
+           : rowpass_any_r<T, XT, false>(indptr, col, val, lw, lht,         \
                                          do_elbo, B, n, m, r, nnz, swn,     \
                                          abuf, part, tickets, xlog, s))
   switch (tcode * 4 + xcode) {

@@ -4,9 +4,10 @@ PyTorch versions.
 Counterpart of the Pallas kernel ``ccfindr_tpu/ops/tile.py:348
 _tile_kernel``, in ``csrc/sparse.cu``: S1 ``sp_rowpass`` walks the CSR
 of a :class:`~ccfindr_tpu_torch.ops.tile.TileCounts` one gene row a
-warp (``wth`` and ``a = x/wth`` at each nonzero, ``swn``, ``a`` in CSR
-order, per-block sums of ``x log wth`` that each lane's last block adds
-in block order); S2 ``sp_colpass`` walks its CSC one cell a warp
+warp, a nonzero and its whole factor row a thread up to rank 32 (``wth``
+and ``a = x/wth`` at each nonzero, ``swn``, ``a`` in CSR order,
+per-block sums of ``x log wth`` that each lane's last block adds in
+block order); S2 ``sp_colpass`` walks its CSC one cell a warp
 (``shn`` from S1's ``a``).  :func:`rowpass_plain` and
 :func:`colpass_plain` are the same functions in plain PyTorch (the COO
 pass of :mod:`ccfindr_tpu_torch.ops.sparse`); :func:`rowpass` and

@@ -20,8 +20,10 @@ names, for a lane batch in the JAX package's layouts (``x (np, mp)``,
   ``csrc/pass2.cu``, E1's gene-major walk without the ``x log wth``
   sum, replaces ``_suffstats_kernel``, + E1s) and
   :func:`elbo_data_pallas` (the ELBO data term; P2 ``elbo_xpass``
-  replaces ``_elbo_kernel``; its per-tile partials are added by each
-  lane's last block), paired by
+  replaces ``_elbo_kernel``: a block a strip of :data:`P2_BAND` genes x
+  :data:`P2_CHUNK` cells, its float products split-TF32 on the tensor
+  cores; the strips' partials are added by each lane's last block),
+  paired by
   :func:`make_pallas_backend` for ``ops.vb.vb_run``.  They take X
   zero-padded by :func:`pad_matrix` or not (the kernels read it in
   place); the true ``(n, m, r)`` come from the factors ``lw (B, n, r)``,
@@ -57,6 +59,12 @@ CHUNK = 256
 # partials would take more bytes than X
 PASS2_CHUNK = 64
 PASS2_BLOCKS = 4 * 132
+# P2's strip: a block owns P2_BAND genes x P2_CHUNK cells of one lane
+# (csrc/pass2.cu kP2Band, kP2Chunk).  Constants, never derived from the
+# lane count, so a lane's partials and its bits do not depend on its
+# batch (resume, compaction)
+P2_BAND = 64
+P2_CHUNK = 1024
 
 # launches per kernel since the last reset (bumped only where a kernel
 # is launched)
@@ -322,15 +330,22 @@ def ss_xpass(x, lw, lh, *, chunk=None):
     return swn, part
 
 
+def elbo_part_width(n, m):
+    """P2's partials a lane over the true ``(n, m)``: one a strip,
+    ``ceil(n / P2_BAND) * ceil(m / P2_CHUNK)``, whatever the lane
+    count."""
+    return -(-n // P2_BAND) * -(-m // P2_CHUNK)
+
+
 def elbo_xpass(x, lw, lwl, lh, lhl):
     """Launch P2 on ``x`` read in place: ``-sum x (S/wth - log wth)``
-    (B,) float64, and the per-tile partials ``(B, ntiles)`` float64 that
-    it adds in tile order; ``lwl``/``lhl`` are :func:`xlogx` of
-    ``lw``/``lh``."""
+    (B,) float64, and the per-strip partials ``(B, elbo_part_width(n,
+    m))`` float64 that it adds in strip order (gene band major);
+    ``lwl``/``lhl`` are :func:`xlogx` of ``lw``/``lh``."""
     require_cuda(x, lw, lwl, lh, lhl)
     nb, n, r = lw.shape
     m = lh.shape[-1]
-    part = torch.empty(nb, -(-m // 64) * -(-n // 64), dtype=torch.float64,
+    part = torch.empty(nb, elbo_part_width(n, m), dtype=torch.float64,
                        device=x.device)
     out = torch.empty(nb, dtype=torch.float64, device=x.device)
     rc = library().elbo_xpass(

@@ -85,17 +85,22 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
 
 def _s1_dot(u, v):
     """``sum u v`` over the last axis in S1's order (``csrc/sparse.cu``):
-    the components spread over a group of G = 4, 8, 16 or 32 lanes (four
-    a lane at G = 32), each lane's products added in turn, then a
-    butterfly across the group.  Under ``mxu_bf16`` every product of two
-    rounded operands is exact, so this gives S1's ``wth`` bit for bit,
-    and with it S1's rounding of ``a = x/wth`` to bf16 (a ``wth`` one
-    ulp away could round ``a`` to its neighbour, 2^-8 of it)."""
+    up to r = 32 a thread adds its nonzero's products in component
+    order; above, the group walk spreads the components over the 32
+    lanes of a warp (four a lane), each lane's products added in turn,
+    then a butterfly across the warp.  Under ``mxu_bf16`` every product
+    of two rounded operands is exact, so this gives S1's ``wth`` bit for
+    bit, and with it S1's rounding of ``a = x/wth`` to bf16 (a ``wth``
+    one ulp away could round ``a`` to its neighbour, 2^-8 of it)."""
     r = u.shape[-1]
-    g = 4 if r <= 4 else 8 if r <= 8 else 16 if r <= 16 else 32
-    kp = 4 if g == 32 else 1
-    p = torch.nn.functional.pad(u * v, (0, g * kp - r)).unflatten(-1,
-                                                                 (kp, g))
+    p = u * v
+    if r <= 32:
+        s = p[..., 0]
+        for k in range(1, r):
+            s = s + p[..., k]
+        return s
+    g, kp = 32, 4
+    p = torch.nn.functional.pad(p, (0, g * kp - r)).unflatten(-1, (kp, g))
     s = p[..., 0, :]
     for j in range(1, kp):
         s = s + p[..., j, :]

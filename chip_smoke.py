@@ -79,7 +79,14 @@ Phases (each prints its result and seconds):
    int16 (the counts) and in the factor type (the counts + 0.25),
    factors float64 and float32, do_elbo 1 and 0.  Tolerances as phase 2: float64 1e-10 on every output;
    float32 2e-4 on swn, a and shn and 1e-5 on the per-element data
-   term; S1's tail as M1's.  Two launches must be bit-identical;
+   term; S1's tail as M1's.  Two launches must be bit-identical.  Then
+   S1/S2 at r = 1, 17, 32, 33 and 128 (both sides of S1's dispatch by
+   r: a thread a nonzero up to 32, the group walk above) on a 300 x
+   5000 CSR with empty rows and a row of 4,999 nonzeros (at r = 1
+   the data term, which the fold cancels to zero, is held to its x
+   log wth summand), and lanes 1 and 4 of a batch of six (1000 x 1500,
+   r 16) alone and as a pair must give the batch's bits; S1's ptxas
+   registers and spills;
 9. the bundled workflow on backend='sparse': vb_factorize(ranks 2..8,
    nrun 3) in float64 must equal backend='dense_fused' (n_iter of every
    lane, lml to 1e-9); in float32 optimal_rank must be 5 for seed 0
@@ -90,7 +97,8 @@ Phases (each prints its result and seconds):
    16], nrun 2, Itmax 300, through vb_factorize and factorize, each on
    sparse and, beside it, on pallas over the same matrix: wall time,
    loop time, lane-sweeps per second, peak device memory, and the loop
-   ratio sparse/pallas of each driver; S1/S2 against plain.
+   ratio sparse/pallas of each driver; S1/S2 against plain and their
+   GB/s of gathered factor rows.
    Then the atlas leg: the JAX bench's atlas shape 20480 x 100352
    masked to 2% density (built on the host without the dense matrix),
    vb_factorize(backend='sparse', ranks [16], nrun 2, Itmax 20): its
@@ -122,7 +130,13 @@ Phases (each prints its result and seconds):
    and float32: float64 1e-10 on sw, sh and the data term; float32 2e-4
    on sw/sh and 1e-5 on the data term; two launches bit-identical, and
    a zero-padded X read in place gives the same bits; P2's tail as M1's;
-   P1's time and ptxas registers and spills;
+   P1's time and ptxas registers and spills; then P2 alone at r = 1, 17,
+   32, 33 and 128 on a 300 x 2500 X (neither extent a multiple of its
+   64 x 1024 strip; at r = 1, where S / wth - log wth is 0 in exact
+   arithmetic, the term is held to its summands' scale sum x |log
+   wth|), and lanes 1 and 4 of six (1000 x 1500, r 16) alone and as a
+   pair with the batch's bits; P2's TFLOP/s of dense work (6 r flops an
+   element and lane) and ptxas registers and spills;
 14. the pallas2pass slice: the bundled vb_factorize(ranks 2..8, nrun 3,
    backend='pallas2pass') in float64 must equal backend='dense' (n_iter
    of every lane, lml to 1e-9); in float32 ropt must be 5 for seed 0
@@ -131,7 +145,8 @@ Phases (each prints its result and seconds):
    Itmax 300) beside backend='pallas': wall, loop, lane-sweeps per
    second, device launches a sweep, peak device memory;
 15. bf16 on the sparse backend: S1/S2 with mxu_bf16 against their bf16
-   plain versions on phase 8's two cases at the float32 tolerances; the
+   plain versions on phase 8's two cases and S1 on its skewed r cases
+   at the float32 tolerances; the
    bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
    1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
    the 10x sparse VB scan in bf16 beside float32;
@@ -166,9 +181,10 @@ Phases (each prints its result and seconds):
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time, its plain version's time, its bound
-(the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s, from this
-run's inputs) and the time of one PyTorch call computing the same
-function where there is one.
+(the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s, P2's
+split-TF32 MMA flops over 495 TFLOP/s, from this run's inputs) and the
+time of one PyTorch call computing the same function where there is
+one.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
@@ -214,7 +230,14 @@ XPASS_ENTRIES = {
     "ss_xpass": "fused_xpass_kernelIffLb1ELb0ELb0ELb0ELb1E",
     # M1, M2 (ml.cu): the walk without its streamed output, on int8 X
     "ml_hpass": "fused_xpass_kernelIfaLb0ELb0ELb1ELb0ELb0E",
-    "ml_wpass": "fused_xpass_kernelIfaLb1ELb0ELb0ELb0ELb0E"}
+    "ml_wpass": "fused_xpass_kernelIfaLb1ELb0ELb0ELb0ELb0E",
+    # S1 (sparse.cu) at r 16, int16 values, and P2 (pass2.cu) on float X
+    # with split-TF32 products: the instantiations phases 10 and 13 time
+    "sp_rowpass": "sp_rowpass_kernelIfsLi16ELb0E",
+    "elbo_xpass": "elbo_xpass_kernelIffLb1E"}
+# the ranks on both sides of S1's dispatch by r (a thread a nonzero up
+# to 32, the group walk above) and of P2's rank slabs (32)
+R_CASES = (1, 17, 32, 33, 128)
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
@@ -239,6 +262,7 @@ GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
 # the least time of a kernel (H100 SXM data sheet: float32 outside the
 # tensor cores, HBM3)
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # the tensor cores, dense (P2's split-TF32 products)
 HBM_BYTES = 3.35e12
 # operations an entry of the posterior kernels (K2/K3, E2/E3), counted
 # from csrc/post.cuh in float32: the shift chain and series of
@@ -468,7 +492,7 @@ def div_rn_check(dev, n=1 << 26, rounds=12):
 
 
 def ptxas_resources(key):
-    """Registers and spill bytes of one X-pass instantiation, from this
+    """Registers and spill bytes of one kernel instantiation, from this
     process's build (``XPASS_ENTRIES``); a dict, or None where the
     library was not built in this process."""
     import re
@@ -854,6 +878,12 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
     d_p = fold_dterm(swn_p, shn_p, xlog_p, lw, lh) / nm
     err = dict(swn=rel_err(swn, swn_p), a=rel_err(a, a_p),
                shn=rel_err(shn, shn_p), dterm=rel_err(d, d_p))
+    if lw.shape[-1] == 1:
+        # at r = 1 the fold cancels to zero (swn lw log lw + shn lh log lh
+        # = sum x log(lw lh)): the term is held to its x log wth summand
+        scale = torch.maximum(d_p.double().abs(), xlog_p.abs() / nm)
+        err["dterm"] = float(((d.double() - d_p.double()).abs()
+                              / scale).max())
     _, _, s1_xlog, s1_part = spk.sp_rowpass(tc, lw, lht, do_elbo=flags,
                                             mxu_bf16=bf16)
     tail_ok, tail_err, tail_bits = tail_check(s1_xlog, s1_part)
@@ -873,6 +903,68 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
                "sp_colpass": float((shn - shn_p).abs().max())}
     return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
                 deterministic=det, finite=finite)
+
+
+def skewed_csr(n, m, seed):
+    """A 10%-density Poisson CSR with empty rows (3 and n - 2), an empty
+    column (5) and one row full but for that column (7, m - 1
+    nonzeros): S1's skew case."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    x = (rng.random((n, m)) < 0.1) * rng.poisson(3.0, (n, m))
+    x[7] = rng.poisson(3.0, m) + 1
+    x[[3, n - 2]] = 0
+    x[:, 5] = 0
+    return sps.csr_matrix(x.astype(np.float64))
+
+
+def lanes_alone(launch, args, lanes=(1, 4)):
+    """Whether lanes 1 and 4 of a batch, launched alone and as a pair
+    (``launch(*args)`` on the lane-sliced factor tensors ``args``),
+    give the batch's bits in every output."""
+    import torch
+
+    full = launch(*args)
+    same = True
+    for sub in ([lanes[0]], [lanes[1]], list(lanes)):
+        idx = torch.tensor(sub, device=args[0].device)
+        part = launch(*(a[idx].contiguous() for a in args))
+        same = same and all(torch.equal(f[idx], q)
+                            for f, q in zip(full, part))
+    return same
+
+
+def compare_p2(x, lw, lh, dt):
+    """P2 alone (with its tail) against elbo_data_plain: the data term's
+    error relative to the term, or at r = 1 (where S / wth - log wth is
+    0 in exact arithmetic and the term is rounding noise) relative to
+    its summands' scale sum x |log wth|; the tail as M1's; two launches
+    and X zero-padded and read in place give the same bits."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+
+    lwl, lhl = vbk.xlogx(lw), vbk.xlogx(lh)
+    out, part = vbk.elbo_xpass(x, lw, lwl, lh, lhl)
+    again = vbk.elbo_xpass(x, lw, lwl, lh, lhl)
+    padded = vbk.elbo_xpass(vbk.pad_matrix(x, 64, 1024), lw, lwl, lh, lhl)
+    torch.cuda.synchronize()
+    d_p = vbk.elbo_data_plain(x, lw, lh)
+    n, m = x.shape
+    scale = d_p.abs()
+    if lw.shape[-1] == 1:
+        wth = lw.double() @ lh.double()
+        scale = (x[:n, :m].double() * wth.log().abs()).sum((-2, -1))
+    err = float(((out - d_p).abs() / scale).max())
+    tail_ok, tail_err, _ = tail_check(out, part)
+    tol = F64_TOL if dt == torch.float64 else F32_ELBO_TOL
+    det = torch.equal(out, again[0]) and torch.equal(part, again[1])
+    pad_same = torch.equal(out, padded[0]) and torch.equal(part, padded[1])
+    ok = err <= tol and tail_ok and det and pad_same and bool(
+        torch.isfinite(out).all())
+    return dict(ok=ok, err=err, tail=tail_err, deterministic=det,
+                padded_same=pad_same, parts=tuple(part.shape))
 
 
 def nbytes(*ts):
@@ -1128,12 +1220,13 @@ class Smoke:
         self.x10m = None         # it masked to 10% density (phase 8)
         self.xgm = None          # phase 12's gene-major X (phase 11)
 
-    def set_bound(self, k, moved, flops, library_ms=None):
+    def set_bound(self, k, moved, flops, library_ms=None, peak=FP32_FLOPS):
         """The kernel's least time on the card, the larger of ``moved``
-        bytes over the HBM rate and ``flops`` over the FP32 rate, and
-        the time of one PyTorch call computing the same function."""
+        bytes over the HBM rate and ``flops`` over the peak rate of
+        their type (FP32 unless ``peak`` says otherwise), and the time
+        of one PyTorch call computing the same function."""
         tb = moved / HBM_BYTES * 1e3
-        tf = flops / FP32_FLOPS * 1e3
+        tf = flops / peak * 1e3
         self.kernels[k].update(bound_ms=max(tb, tf),
                                bound_by="bytes" if tb >= tf else "operations",
                                library_ms=library_ms)
@@ -1688,6 +1781,8 @@ class Smoke:
     def sparse_kernel_vs_plain(self):
         import torch
 
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda")
         s = self.filtered if self.filtered is not None \
@@ -1723,9 +1818,39 @@ class Smoke:
                                     res["abs_err"][k]
                     del tc, lw, lh
                 torch.cuda.empty_cache()
+        # S1 on both sides of its dispatch by r (a thread a nonzero up to
+        # r 32, the group walk above), on a CSR with empty rows and a
+        # row of 4,999 nonzeros; S2 beside it
+        skew = skewed_csr(300, 5000, 12)
+        for r in R_CASES:
+            for dt in (torch.float64, torch.float32):
+                tc, lw, lh = sparse_inputs(skew, [r, max(1, r - 5), r], r,
+                                           dt, torch.int16, 13, dev)
+                res = compare_sparse(tc, lw, lh, 1, dt)
+                print(f"  skewed r={r} {str(dt)[6:]}: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} "
+                      + " ".join(f"{k}={v:.3g}"
+                                 for k, v in res["err"].items())
+                      + f" deterministic={res['deterministic']}",
+                      flush=True)
+                ok_all = ok_all and res["ok"]
+                del tc, lw, lh
+        # a lane's bits do not depend on its batch: lanes 1 and 4 of six
+        # alone and as a pair
+        tc, lw, lh = sparse_inputs(skewed_csr(1000, 1500, 14),
+                                   [16, 12, 8, 16, 12, 8], 16, torch.float32,
+                                   torch.int16, 15, dev)
+        indep = lanes_alone(lambda w, h: spk.sp_rowpass(tc, w, h),
+                            (lw, lh.transpose(-1, -2).contiguous()))
+        print(f"  S1: lanes 1, 4 of six alone and as a pair: the bits of the "
+              f"batch {indep}", flush=True)
+        res = ptxas_resources("sp_rowpass")
+        print(f"  ptxas sp_rowpass (float32, int16 values, r 16): {res}",
+              flush=True)
+        self.kernels["sp_rowpass"]["ptxas"] = res
         print(f"  tolerances: f64 {F64_TOL:g}; f32 swn/a/shn "
               f"{F32_FACTOR_TOL:g}, data term per element {F32_ELBO_TOL:g}")
-        return ok_all
+        return ok_all and indep
 
     # -- 9 ------------------------------------------------------------
     def sparse_workflow(self):
@@ -1881,6 +2006,14 @@ class Smoke:
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
+        # the rows each gathers: a factor row of r values a nonzero and lane
+        gathered = a.numel() * 16 * lw.element_size()
+        for k in timed_k:
+            self.kernels[k]["gathered_gb_s"] = (
+                gathered / self.kernels[k]["ms"] / 1e6)
+            print(f"  {k}: {self.kernels[k]['gathered_gb_s']:.1f} GB/s of "
+                  f"gathered factor rows ({gathered / 1e9:.3f} GB)",
+                  flush=True)
         # bounds: S1 forms wth and swn at each nonzero (4 r flops a
         # nonzero and lane), S2 shn (2 r); S2's function is one SpMM
         # for all lanes, shn^T = blockdiag_b(A_b^T) lw with A_b the
@@ -2266,15 +2399,45 @@ class Smoke:
                     self.pass2_times(x, lw, lh)
                 del x, lw, lh
                 torch.cuda.empty_cache()
+        # P2 on both sides of its rank slabs (32) and at r 1, on a 300 x
+        # 2500 X: neither extent a multiple of the strip (64 genes x 1024
+        # cells) nor of its 64-cell steps
+        x_np = planted(300, 2500, 5, seed=12)
+        for r in R_CASES:
+            for dt in (torch.float64, torch.float32):
+                x, lw, lh = pass2_inputs(x_np, [r, max(1, r - 5), r], r, dt,
+                                         13, dev)
+                res = compare_p2(x, lw, lh, dt)
+                print(f"  P2 300 x 2500 r={r} {str(dt)[6:]}: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} dterm="
+                      f"{res['err']:.3g} tail={res['tail']:.3g} "
+                      f"deterministic={res['deterministic']} padded_same="
+                      f"{res['padded_same']} partials {res['parts']}",
+                      flush=True)
+                ok_all = ok_all and res["ok"]
+                del x, lw, lh
+        # a lane's bits do not depend on its batch: lanes 1 and 4 of six
+        # alone and as a pair
+        x, lw, lh = pass2_inputs(planted(1000, 1500, 16, seed=6),
+                                 [16, 12, 8, 16, 12, 8], 16, torch.float32,
+                                 14, dev)
+        indep = lanes_alone(
+            lambda w, h: vbk.elbo_xpass(x, w, vbk.xlogx(w), h, vbk.xlogx(h)),
+            (lw, lh))
+        print(f"  P2: lanes 1, 4 of six alone and as a pair: the bits of the "
+              f"batch {indep}", flush=True)
+        del x, lw, lh
         print(f"  tolerances: f64 {F64_TOL:g}; f32 sw/sh {F32_FACTOR_TOL:g}, "
               f"data term {F32_ELBO_TOL:g}")
-        return ok_all
+        return ok_all and indep
 
     def pass2_times(self, x, lw, lh):
         """P1's and P2's times at the 10x shape (3 lanes of r = 16,
         float32), their plain versions' and their bounds: the products
         are needed at the nonzeros of X only, 6 r flops a nonzero and
-        lane each (P1: wth, swn, shn; P2: wth and the two halves of S)."""
+        lane each (P1: wth, swn, shn on the FP32 pipes; P2: wth and the
+        two halves of S, three split-TF32 MMAs each on the tensor
+        cores)."""
         import torch
 
         from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
@@ -2295,8 +2458,10 @@ class Smoke:
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 3)
         nnz = int((x != 0).sum())
         self.set_bound("ss_xpass", nbytes(x, lw, lh, p1), 6 * r * nnz * nb)
+        # P2's float products are split-TF32 on the tensor cores: three
+        # MMAs for each of the three products, at TF32's rate
         self.set_bound("elbo_xpass", nbytes(x, lw, lwl, lh, lhl, p2),
-                       6 * r * nnz * nb)
+                       3 * 6 * r * nnz * nb, peak=TF32_FLOPS)
         for k in timed:
             kk = self.kernels[k]
             print(f"  {k} at {x.shape[0]} x {x.shape[1]}, {nb} lanes of r "
@@ -2307,6 +2472,16 @@ class Smoke:
               f"ptxas (float32 X and factors) "
               f"{ptxas_resources('ss_xpass')}")
         self.kernels["ss_xpass"]["ptxas"] = ptxas_resources("ss_xpass")
+        # P2: dense work 6 r flops an element and lane (wth and S's two
+        # products), at its time
+        kk = self.kernels["elbo_xpass"]
+        kk["tflops_dense"] = 6 * r * n * lh.shape[-1] * nb / kk["ms"] / 1e9
+        kk["ptxas"] = ptxas_resources("elbo_xpass")
+        print(f"  P2 strips {vbk.P2_BAND} genes x {vbk.P2_CHUNK} cells: "
+              f"{nb * vbk.elbo_part_width(n, lh.shape[-1])} blocks, "
+              f"{kk['tflops_dense']:.2f} TFLOP/s of dense work (6 r flops an "
+              f"element and lane); ptxas (float32 X and factors, split-TF32) "
+              f"{kk['ptxas']}", flush=True)
 
     # -- 14 -----------------------------------------------------------
     def pallas2pass_slice(self):
@@ -2458,6 +2633,20 @@ class Smoke:
                             res["abs_err"][k]
                 del tc, lw, lh
                 torch.cuda.empty_cache()
+        # S1 in bf16 on both sides of its dispatch by r, on phase 8's
+        # skewed CSR (empty rows, a row of 4,999 nonzeros)
+        skew = skewed_csr(300, 5000, 12)
+        for r in R_CASES:
+            for dt in (torch.float64, torch.float32):
+                tc, lw, lh = sparse_inputs(skew, [r, max(1, r - 5), r], r,
+                                           dt, torch.int16, 13, dev)
+                res = compare_sparse(tc, lw, lh, 1, dt, bf16=True)
+                print(f"  skewed r={r} {str(dt)[6:]} bf16: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} "
+                      + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
+                      + f" deterministic={res['deterministic']}", flush=True)
+                ok_all = ok_all and res["ok"]
+                del tc, lw, lh
         # both modes at phase 10's timing inputs (6 lanes, r 16, float32)
         tc, lw, lh = sparse_inputs(self.x10m[1], [8, 8, 12, 12, 16, 16], 16,
                                    torch.float32, torch.int16, 9, dev)

@@ -13,6 +13,9 @@ the wrappers take the plain versions; the CUDA kernels are held against
 them on the card (tests/test_torch_kernels.py, chip_smoke.py).
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,7 @@ import ccfindr_tpu_torch as ct
 from ccfindr_tpu.ops import pallas as jpk
 from ccfindr_tpu.ops import vb as jvb
 from ccfindr_tpu_torch.ops import vb as tvb
+from ccfindr_tpu_torch.ops.kernels import build as tbuild
 from ccfindr_tpu_torch.ops.kernels import sol as tsol
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvk
 
@@ -251,3 +255,97 @@ def test_pallas2pass_refuses_what_jax_refuses(kw, match):
     x = cf.simulate_whx(nrow=12, ncol=15, rank=2, seed=1)["x"] + 0.5
     with pytest.raises(ValueError, match=match):
         ct.vb_factorize(x, ranks=[2], verbose=0, device="cpu", **kw)
+
+
+def test_p2_strip_is_a_constant_of_pass2_cu():
+    """P2's strip (a block: P2_BAND genes x P2_CHUNK cells of one lane)
+    is csrc/pass2.cu's kP2Band x kP2Chunk, passed by the C entry as it
+    stands (never derived from the lane count), in whole 64-cell steps;
+    elbo_xpass sizes its partials from it, whose count depends on (n, m)
+    only: a lane's bits do not depend on its batch.  At 10x a lane has
+    512 partials (the tile design had 8,192)."""
+    src = (tbuild.CSRC / "pass2.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kP2\w+) = (\d+);", src))
+    assert int(consts["kP2Band"]) == tvk.P2_BAND
+    assert int(consts["kP2Chunk"]) == tvk.P2_CHUNK
+    assert tvk.P2_CHUNK % int(consts["kP2Tile"]) == 0
+    assert re.search(r"lhl, B, n, m, r, kP2Chunk, part,", src)
+    for n, m in ((1, 1), (63, 1023), (64, 1024), (65, 1025), (684, 447)):
+        assert tvk.elbo_part_width(n, m) == (-(-n // tvk.P2_BAND)
+                                             * -(-m // tvk.P2_CHUNK))
+    assert tvk.elbo_part_width(4096, 8192) == 512
+    assert list(inspect.signature(tvk.elbo_part_width).parameters) == \
+        ["n", "m"]
+    assert "elbo_part_width(n, m)" in inspect.getsource(tvk.elbo_xpass)
+
+
+def _tf32(v):
+    """float32 to TF32 as cvt.rna.tf32.f32 rounds it: to the nearest
+    10-bit mantissa, ties away from zero (finite values)."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split_tf32_products(pairs, k_total):
+    """P2's float products as csrc/pass2.cu forms them on the tensor
+    cores: each operand split into hi = tf32(v) and lo = tf32(v - hi),
+    and for every 8 rank components the MMAs of ``pairs`` ((A, B, which)
+    with which 'lh' for lo*hi, 'hl' hi*lo, 'hh' hi*hi, in issue order),
+    each an exact 8-deep sum rounded into the float32 accumulator."""
+    n, m = pairs[0][0].shape[0], pairs[0][1].shape[1]
+    acc = np.zeros((n, m), np.float32)
+    for k in range(0, k_total, 8):
+        for a, b, which in pairs:
+            a8 = a[:, k:k + 8].astype(np.float32)
+            b8 = b[k:k + 8].astype(np.float32)
+            ah, bh = _tf32(a8), _tf32(b8)
+            al, bl = _tf32(a8 - ah), _tf32(b8 - bh)
+            lhs, rhs = {"lh": (al, bh), "hl": (ah, bl),
+                        "hh": (ah, bh)}[which]
+            acc = (acc + (lhs.astype(np.float64) @ rhs.astype(np.float64)
+                          ).astype(np.float32)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_keeps_the_float32_data_term_tolerance(seed):
+    """The split-TF32 products that P2 ships for float32 factors keep
+    C1's tolerance: over the 10x cell's value ranges (a planted Poisson
+    X at mean 2 capped at 127, gamma(1, 1) factors of rank 16, lanes of
+    ranks 16, 12 and 8 with the rest at float32 eps, as chip_smoke.py
+    phase 13 makes them) the data term -sum x (S/wth - log wth) formed
+    from them in float32 is within 1e-5 of float64 relative to the term,
+    as the float32 gate of phase 13 holds the kernel; P2's issue order
+    (lo*hi, hi*lo, hi*hi; S's lwl*lh pairs before lw*lhl, the hi*hi
+    products last) is the one emulated."""
+    rng = np.random.default_rng(seed)
+    n, m, r = 256, 512, 16
+    wf = rng.gamma(0.8, 1.0, (n, r))
+    hf = rng.gamma(0.8, 1.0, (r, m))
+    x = np.minimum(rng.poisson(wf @ hf * (2.0 * n * m / (wf @ hf).sum())),
+                   127).astype(np.float32)
+    eps = float(np.finfo(np.float32).eps)
+    for rk in (16, 12, 8):
+        lw = rng.gamma(1.0, 1.0, (n, r)).astype(np.float32)
+        lh = rng.gamma(1.0, 1.0, (r, m)).astype(np.float32)
+        lw[:, rk:] = eps
+        lh[rk:] = eps
+        lwl = tvk.xlogx(torch.tensor(lw)).numpy()
+        lhl = tvk.xlogx(torch.tensor(lh)).numpy()
+        wth = _split_tf32_products([(lw, lh, "lh"), (lw, lh, "hl"),
+                                    (lw, lh, "hh")], r)
+        s = _split_tf32_products([(lwl, lh, "lh"), (lwl, lh, "hl"),
+                                  (lw, lhl, "lh"), (lw, lhl, "hl"),
+                                  (lwl, lh, "hh"), (lw, lhl, "hh")], r)
+        nz = x != 0
+        t = x * (s / wth - np.log(wth))
+        d32 = -t[nz].astype(np.float64).sum()
+        d64 = float(tvk.elbo_data_plain(
+            torch.tensor(x, dtype=torch.float64),
+            torch.tensor(lw, dtype=torch.float64)[None],
+            torch.tensor(lh, dtype=torch.float64)[None])[0])
+        assert abs(d32 - d64) <= 1e-5 * abs(d64), (rk, d32, d64)
+        # without the split (one TF32 product) the term drifts further
+        one = _split_tf32_products([(lw, lh, "hh")], r)
+        assert np.abs(one / wth - 1).max() > 10 * np.abs(
+            wth / (lw.astype(np.float64) @ lh) - 1).max()

@@ -1,0 +1,214 @@
+"""S1 sp_rowpass (csrc/sparse.cu) on one NVIDIA GPU at the shapes the
+sparse main paths give it, with its design choices weighed and, with
+``--baseline DIR``, another tree's S1 timed beside it in the same call.
+
+Shapes (float32 factors, int16 values):
+
+* ``10x``: chip_smoke.py phase 10's timing inputs, the planted 4,096 x
+  8,192 matrix masked to 10% (2.57 M nonzeros), 6 lanes of ranks [8, 8,
+  12, 12, 16, 16] (r 16: rows of 16-byte vectors);
+* ``bundled``: the bundled data after QC (684 x 447), 12 lanes of ranks
+  4..6 x 4 (r 6: rows loaded element by element), the bundled sparse ML
+  scan's shape.
+
+Each shape is timed in the three modes the sweeps launch: ``vb`` (swn,
+a and the x*log(wth) sum: the VB sweep), ``ml_h`` (a and the sum: the
+ML H phase) and ``ml_w`` (swn: the ML W phase).  Variants, each the
+package's sources with one change, built with nvcc into
+``ccfindr_tpu_torch/_build/bench_sparse_pass/`` (one nvcc a variant,
+all started together):
+
+* ``repo``: S1 as the package builds it (a thread a nonzero up to r 32);
+* ``unroll2``: the thread loop unrolled by two (two nonzeros in flight a
+  thread);
+* ``compiler_div``: the compiler's division in place of div_ieee;
+* ``four_blocks``: ``__launch_bounds__(256, 4)`` at r 16 in float (a
+  64-register cap) where the package takes 3 blocks an SM;
+* ``group``: the r > 32 group walk (a warp a nonzero) at every rank.
+
+Each (variant, mode) is timed by CUDA events (20 launches a reading) in
+turns (forward, backward, forward; the median of the three), beside S2
+``sp_colpass`` (the same gathers, by cell) and the plain version
+(``rowpass_plain``).  Prints the card, ptxas's registers and spills of
+S1's instantiations, every reading, the GB/s of gathered factor rows
+(nonzeros x lanes x r x 4 bytes) and each variant's results against the
+plain version.  Run from the repository root:
+``python3 tools/bench_sparse_pass.py [--baseline DIR]`` (DIR: a csrc
+directory, e.g. a ``git archive`` of an older tree under ``.archive/``).
+"""
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, ".")
+from chip_smoke import (bundled_filtered, cuda_ms, masked_10x,  # noqa: E402
+                        planted_10x, rel_err, sparse_inputs)
+
+from ccfindr_tpu_torch.ops.kernels import build  # noqa: E402
+from ccfindr_tpu_torch.ops.kernels import sparse as spk  # noqa: E402
+
+OUT = build.BUILD_DIR / "bench_sparse_pass"
+LOOP = "    for (int64_t p = p_beg + lane; p - lane < p_end; p += 32) {"
+EDITS = {"repo": [],
+         "unroll2": [(LOOP, "#pragma unroll 2\n" + LOOP)],
+         "compiler_div": [("operand<kBf16>(div_ieee(xv, wth));\n#pragma "
+                           "unroll\n        for (int k = 0; k < RK;",
+                           "operand<kBf16>(xv / wth);\n#pragma unroll\n"
+                           "        for (int k = 0; k < RK;")],
+         "four_blocks": [("sizeof(T) * RK <= 32    ? 4",
+                          "sizeof(T) * RK <= 64    ? 4")],
+         "group": [("  if (r <= 4) S1R(4);\n  if (r <= 8) S1R(8);\n"
+                    "  if (r <= 16) S1R(16);\n  if (r <= 32) S1R(32);\n",
+                    "")]}
+MODES = {"vb": (True, True, True), "ml_h": (False, True, True),
+         "ml_w": (True, False, False)}
+
+
+def smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def build_variants(baseline):
+    """Compile sparse.cu of every variant (and of the baseline) at once;
+    returns {name: ctypes library}."""
+    dirs = {}
+    for name, edits in EDITS.items():
+        d = OUT / name
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(build.CSRC, d)
+        text = (d / "sparse.cu").read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} not found")
+            text = text.replace(old, new)
+        (d / "sparse.cu").write_text(text)
+        dirs[name] = d
+    if baseline:
+        d = OUT / "baseline"
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(baseline, d)
+        dirs["baseline"] = d
+    running = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+         str(d / "lib.so"), str(d / "sparse.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, d in dirs.items()}
+    libs = {}
+    for name, p in running.items():
+        _, err = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        for blk in err.split("Compiling entry function")[1:]:
+            kname = blk.split("'")[1]
+            regs = re.search(r"Used (\d+) registers", blk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", blk)
+            if "rowpass" in kname and "Ifs" in kname:  # float, int16 values
+                print(f"  ptxas {name} {kname[:60]}: "
+                      f"{regs.group(1) if regs else '?'} registers, spills "
+                      f"{spill.groups() if spill else '?'}", flush=True)
+        lib = ctypes.CDLL(str(dirs[name] / "lib.so"))
+        for fn in ("sp_rowpass", "sp_colpass"):
+            getattr(lib, fn).argtypes = build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def shapes(dev):
+    csr10 = masked_10x(planted_10x())[1]
+    out = {"10x": sparse_inputs(csr10, [8, 8, 12, 12, 16, 16], 16,
+                                torch.float32, torch.int16, 9, dev)}
+    out["bundled"] = sparse_inputs(bundled_filtered().counts,
+                                   [rk for rk in range(4, 7)
+                                    for _ in range(4)], 6, torch.float32,
+                                   torch.int16, 9, dev)
+    return out
+
+
+def rowpass(lib, tc, lw, lht, mode):
+    """One S1 launch of ``lib`` in ``mode``: (swn, a, xlog), None where
+    the mode does not ask."""
+    want_swn, want_a, want_xlog = MODES[mode]
+    nb, n, r = lw.shape
+    dev = lw.device
+    swn = torch.empty_like(lw) if want_swn else None
+    a = torch.empty(nb, tc.nnz, device=dev) if want_a else None
+    part = (torch.empty(nb, -(-n // spk.ROWS), dtype=torch.float64,
+                        device=dev) if want_xlog else None)
+    xlog = (torch.empty(nb, dtype=torch.float64, device=dev) if want_xlog
+            else None)
+    flags = torch.ones(nb, dtype=torch.float64, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    build.check_launch("sp_rowpass", lib.sp_rowpass(
+        build.TCODE[lw.dtype], build.XCODE[tc.val.dtype], 0,
+        tc.indptr.data_ptr(), tc.col.data_ptr(), tc.val.data_ptr(),
+        lw.data_ptr(), lht.data_ptr(), flags.data_ptr(), nb, n, tc.m, r,
+        tc.nnz, ptr(swn), ptr(a), ptr(part),
+        ptr(build.tickets(nb, dev) if want_xlog else None), ptr(xlog),
+        build.stream()))
+    return swn, a, xlog
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", default=None,
+                    help="a csrc directory whose sparse.cu is timed beside")
+    args = ap.parse_args()
+    print(smi(), flush=True)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    libs = build_variants(args.baseline)
+    print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    for sname, (tc, lw, lh) in shapes(dev).items():
+        nb, n, r = lw.shape
+        lht = lh.transpose(-1, -2).contiguous()
+        print(f"{sname}: X {n} x {tc.m}, nnz {tc.nnz}, {nb} lanes of r {r}",
+              flush=True)
+        swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht)
+        cases = {}
+        for name, lib in libs.items():
+            swn, a, xlog = rowpass(lib, tc, lw, lht, "vb")
+            print(f"  {name}: swn {rel_err(swn, swn_p):.3g} a "
+                  f"{rel_err(a, a_p):.3g} xlog {rel_err(xlog, xlog_p):.3g} "
+                  f"against plain", flush=True)
+            for mode in MODES:
+                cases[f"S1 {mode} {name}"] = (
+                    lambda lib=lib, mode=mode: rowpass(lib, tc, lw, lht,
+                                                       mode))
+        a = a_p.contiguous()
+        cases["S2 repo"] = lambda: spk.sp_colpass(tc, a, lw)
+        cases["S1 plain"] = lambda: spk.rowpass_plain(tc, lw, lht)
+        times = {c: [] for c in cases}
+        order = list(cases)
+        for seq in (order, order[::-1], order):
+            for c in seq:
+                times[c].append(cuda_ms(cases[c], 20 if "plain" not in c
+                                        else 3))
+        gathered = tc.nnz * nb * r * lw.element_size()
+        for c, v in times.items():
+            med = sorted(v)[1]
+            print(f"  {c:24s}: median {med:.4f} ms (readings "
+                  f"{', '.join(f'{t:.4f}' for t in v)}), "
+                  f"{gathered / med / 1e6:.1f} GB/s of gathered factor rows",
+                  flush=True)
+        del swn_p, a_p, xlog_p, a, lht
+        torch.cuda.empty_cache()
+    print(smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()
