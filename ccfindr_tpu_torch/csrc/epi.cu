@@ -10,8 +10,10 @@
 //   E1s fused_sum    the fixed-order sum of E1's per-chunk partials
 //                    (sum.cuh)
 //   E2  epi_w_post   ccfindr_tpu/ops/pallas/epilogue.py:71
-//                    _w_epilogue_kernel (post_kernel of post.cuh)
-//   E3  epi_h_post   epilogue.py:134 _h_epilogue_kernel (the same)
+//                    _w_epilogue_kernel (epi_w.cuh: a thread an entry
+//                    of the row-major W)
+//   E3  epi_h_post   epilogue.py:134 _h_epilogue_kernel (post_kernel of
+//                    post.cuh)
 //
 // A sweep of the gene-major loop (ops/kernels/epilogue.py::vb_run_epi)
 // is E1, E1s, E2, E3 and K4 sol_finish (sol.cu), which reads E2's and
@@ -26,6 +28,7 @@
 
 #include <cstdint>
 
+#include "epi_w.cuh"
 #include "fused.cuh"
 #include "post.cuh"
 #include "reduce.cuh"
@@ -132,14 +135,14 @@ int div_rn_check(const float* x, const float* w, int64_t n,
 }
 
 // E2: W (B, np, rp) row-major; ehs_part (B, nehs, rp) the partials of
-// rowSums(eh); rows >= n are padding.
+// rowSums(eh); rows >= n are padding; csum_part and wscal_part one
+// partial a block of kE2Cols genes (epi_w.cuh).
 int epi_w_post(int tcode, const void* swn, const void* lw,
                const double* ehs_part, int nehs, const double* sc, int B,
                int np, int rp, int r, int n, void* ew, void* lwn, void* dw,
                double* csum_part, double* wscal_part, void* stream) {
-  return post_entry<true>(tcode, swn, 1, lw, ehs_part, nehs, sc, 0, B, np,
-                          rp, r, n, n, ew, lwn, dw, csum_part, wscal_part,
-                          stream);
+  return epi_w_entry(tcode, swn, lw, ehs_part, nehs, sc, B, np, rp, r, n, ew,
+                     lwn, dw, csum_part, wscal_part, stream);
 }
 
 // E3: H (B, rp, mp); csum_part (B, nbw, rp) E2's colSums(ew') partials;
@@ -149,9 +152,8 @@ int epi_h_post(int tcode, const void* shn, const void* lh,
                int mp, int rp, int r, int m_live, int m, void* eh, void* lhn,
                void* dh, double* rsum_part, double* hscal_part,
                void* stream) {
-  return post_entry<false>(tcode, shn, 1, lh, csum_part, nbw, sc, 2, B, mp,
-                           rp, r, m_live, m, eh, lhn, dh, rsum_part,
-                           hscal_part, stream);
+  return post_entry(tcode, shn, 1, lh, csum_part, nbw, sc, 2, B, mp, rp, r,
+                    m_live, m, eh, lhn, dh, rsum_part, hscal_part, stream);
 }
 
 }  // extern "C"

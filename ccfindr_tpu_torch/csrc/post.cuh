@@ -1,15 +1,16 @@
-// The gamma-posterior kernel of one factor, shared by the two sweeps.
+// The gamma-posterior kernel of one factor in (rank rows, long-axis
+// columns) layout, shared by the two sweeps.
 //
 // sol.cu launches it as K2 sol_w_post / K3 sol_h_post on the factors of
 // the cell-major sweep (W transposed, lwt (B, rp, np); H (B, rp, mp)),
-// epi.cu as E2 epi_w_post / E3 epi_h_post on those of the gene-major
-// sweep (W row-major (B, np, rp), as the JAX package lays it out; H as
-// above).  One template covers both: ``kRankMinor`` says whether the
-// rank index is the fastest-moving one (the row-major W) or the slowest.
+// epi.cu as E3 epi_h_post on H of the gene-major sweep (B, rp, mp).
+// The gene-major sweep's W is row-major (B, np, rp), as the JAX package
+// lays it out: E2 epi_w_post has a kernel of its own (epi_w.cuh) that
+// computes each entry with this file's gamma_post.
 //
-// Replaces: _post_tile (ccfindr_tpu/ops/pallas/sol.py:139-182), the
-//   epilogue kernels _w_epilogue_kernel (ccfindr_tpu/ops/pallas/
-//   epilogue.py:71) and _h_epilogue_kernel (:134): the gamma posterior
+// Replaces: _post_tile (ccfindr_tpu/ops/pallas/sol.py:139-182) and the
+//   epilogue kernel _h_epilogue_kernel (ccfindr_tpu/ops/pallas/
+//   epilogue.py:134): the gamma posterior
 //   with its zones -- live entries (rank k < r_live, long-axis index
 //   < n_live); rank rows k < r outside the live zone but inside n_pin
 //   pinned at fudge with e = d = 0; the rest 1 (k < r) or 0 (padding);
@@ -44,7 +45,43 @@ __device__ __forceinline__ bool is_nan(T v) { return v != v; }
 template <typename T>
 __device__ __forceinline__ bool is_finite(T v) { return v - v == T(0); }
 
-template <typename T, bool kRankMinor>
+// One entry of the gamma posterior, the function post_kernel and E2's
+// epi_w_kernel (epi_w.cuh) both compute, so that they share its bits:
+// al = a + lf sfx, be = 1 / (a/b + denominator); inside the live zone
+// e = al be, ln = exp(psi(al)) be floored at fudge (NaN kept), d = al
+// be^2 and the ELBO summands u, logl (log fudge where ln_raw <= fudge)
+// and dt = sfx lf log lf; outside it e = d = u = logl = dt = 0 and ln
+// is fudge where pinned (rank k < r and ``pin``), else 1 (k < r) or 0.
+template <typename T>
+struct PostOut {
+  T e, ln, d, u, logl, dt;
+};
+
+template <typename T>
+__device__ __forceinline__ PostOut<T> gamma_post(T sfx, T lfv, T a, T be,
+                                                 T log_be, T a_over_b,
+                                                 T fudge, T log_fudge,
+                                                 bool live, int k, int r,
+                                                 bool pin) {
+  const T al = a + lfv * sfx;
+  T psi, lgam;
+  digamma_gammaln_both<T>(al, psi, lgam);
+  const T ln_raw = exp(psi) * be;
+  PostOut<T> o{T(0), T(0), T(0), T(0), T(0), T(0)};
+  if (live) {
+    o.e = al * be;
+    o.ln = (ln_raw >= fudge || is_nan(ln_raw)) ? ln_raw : fudge;
+    o.d = al * (be * be);
+    o.u = -a_over_b * o.e + al * (T(1) + log_be) + lgam;
+    o.logl = ln_raw > fudge ? psi + log_be : log_fudge;
+    o.dt = sfx * lfv * log(lfv);
+  } else {
+    o.ln = (k < r && pin) ? fudge : (k < r ? T(1) : T(0));
+  }
+  return o;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kPostThreads)
 post_kernel(const T* __restrict__ sfx_part, int nsfx,
             const T* __restrict__ lf, const double* __restrict__ denom_part,
@@ -84,41 +121,26 @@ post_kernel(const T* __restrict__ sfx_part, int nsfx,
     T e = T(0);
     if (in_range) {
       // element (k, col) of lane b, and of partial p of lane b
-      const size_t off = kRankMinor ? ((size_t)b * ext + col) * rp + k
-                                    : ((size_t)b * rp + k) * ext + col;
+      const size_t off = ((size_t)b * rp + k) * ext + col;
       double acc = 0.0;
       for (int p = 0; p < nsfx; ++p) {
         const size_t bp = (size_t)b * nsfx + p;
-        acc += static_cast<double>(
-            sfx_part[kRankMinor ? (bp * ext + col) * rp + k
-                                : (bp * rp + k) * ext + col]);
+        acc += static_cast<double>(sfx_part[(bp * rp + k) * ext + col]);
       }
       const T sfx = static_cast<T>(acc);
       const T lfv = lf[off];
       const bool live = static_cast<T>(k) < r_live && col_live;
-      const T be = be_s[k], log_be = logbe_s[k];
-      const T al = a + lfv * sfx;
-      T psi, lgam;
-      digamma_gammaln_both<T>(al, psi, lgam);
-      const T ln_raw = exp(psi) * be;
-      T ln, d = T(0), u = T(0), logl = T(0), dt = T(0);
-      if (live) {
-        e = al * be;
-        ln = (ln_raw >= fudge || is_nan(ln_raw)) ? ln_raw : fudge;
-        d = al * (be * be);
-        u = -a_over_b * e + al * (T(1) + log_be) + lgam;
-        logl = ln_raw > fudge ? psi + log_be : log_fudge;
-        dt = sfx * lfv * log(lfv);
-      } else {
-        ln = (k < r && col_pin) ? fudge : (k < r ? T(1) : T(0));
-      }
-      e_out[off] = e;
-      l_out[off] = ln;
-      d_out[off] = d;
-      su += static_cast<double>(u);
-      se += static_cast<double>(e);
-      sl += static_cast<double>(logl);
-      sd += static_cast<double>(dt);
+      const PostOut<T> o =
+          gamma_post(sfx, lfv, a, be_s[k], logbe_s[k], a_over_b, fudge,
+                     log_fudge, live, k, r, col_pin);
+      e = o.e;
+      e_out[off] = o.e;
+      l_out[off] = o.ln;
+      d_out[off] = o.d;
+      su += static_cast<double>(o.u);
+      se += static_cast<double>(o.e);
+      sl += static_cast<double>(o.logl);
+      sd += static_cast<double>(o.dt);
     }
     const double ws = warp_sum(static_cast<double>(e));
     if (lane == 0) wsum[w][k] = ws;
@@ -140,7 +162,7 @@ post_kernel(const T* __restrict__ sfx_part, int nsfx,
   if (tid == 0) out[3] = v;
 }
 
-template <typename T, bool kRankMinor>
+template <typename T>
 cudaError_t launch_post(const void* sfx_part, int nsfx, const void* lf,
                         const double* denom_part, int ndenom,
                         const double* sc, int ab, int B, int ext, int rp,
@@ -148,7 +170,7 @@ cudaError_t launch_post(const void* sfx_part, int nsfx, const void* lf,
                         void* l_out, void* d_out, double* rsum_part,
                         double* scal_part, cudaStream_t stream) {
   const dim3 grid(ceil_div(ext, kPostThreads), B);
-  post_kernel<T, kRankMinor><<<grid, kPostThreads, 0, stream>>>(
+  post_kernel<T><<<grid, kPostThreads, 0, stream>>>(
       static_cast<const T*>(sfx_part), nsfx, static_cast<const T*>(lf),
       denom_part, ndenom, sc, ab, ext, rp, r, n_live, n_pin,
       static_cast<T*>(e_out), static_cast<T*>(l_out),
@@ -158,8 +180,7 @@ cudaError_t launch_post(const void* sfx_part, int nsfx, const void* lf,
 
 // tcode: factor type 0 float, 1 double.  ab: the sc slot of the prior
 // shape (0 for W, 2 for H).
-template <bool kRankMinor>
-int post_entry(int tcode, const void* sfx_part, int nsfx, const void* lf,
+inline int post_entry(int tcode, const void* sfx_part, int nsfx, const void* lf,
                const double* denom_part, int ndenom, const double* sc,
                int ab, int B, int ext, int rp, int r, int n_live, int n_pin,
                void* e_out, void* l_out, void* d_out, double* rsum_part,
@@ -167,11 +188,11 @@ int post_entry(int tcode, const void* sfx_part, int nsfx, const void* lf,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rp > kMaxRp) return static_cast<int>(cudaErrorInvalidValue);
   if (tcode == 0)
-    return static_cast<int>(launch_post<float, kRankMinor>(
+    return static_cast<int>(launch_post<float>(
         sfx_part, nsfx, lf, denom_part, ndenom, sc, ab, B, ext, rp, r,
         n_live, n_pin, e_out, l_out, d_out, rsum_part, scal_part, s));
   if (tcode == 1)
-    return static_cast<int>(launch_post<double, kRankMinor>(
+    return static_cast<int>(launch_post<double>(
         sfx_part, nsfx, lf, denom_part, ndenom, sc, ab, B, ext, rp, r,
         n_live, n_pin, e_out, l_out, d_out, rsum_part, scal_part, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -269,9 +269,9 @@ int sol_w_post(int tcode, const void* swn_part, int ncc, const void* lwt,
                int np, int rp, int r, int n, void* ewt, void* lwtn,
                void* dwt, double* csum_part, double* wscal_part,
                void* stream) {
-  return post_entry<false>(tcode, swn_part, ncc, lwt, ehs_part, nehs, sc, 0,
-                           B, np, rp, r, n, n, ewt, lwtn, dwt, csum_part,
-                           wscal_part, stream);
+  return post_entry(tcode, swn_part, ncc, lwt, ehs_part, nehs, sc, 0, B,
+                    np, rp, r, n, n, ewt, lwtn, dwt, csum_part, wscal_part,
+                    stream);
 }
 
 // m_live: the live cells, m_pin (>= m_live): the extent whose rank rows
@@ -284,9 +284,9 @@ int sol_h_post(int tcode, const void* shn_part, int ngc, const void* lh,
                int mp, int rp, int r, int m_live, int m_pin, void* ehn,
                void* lhn, void* dhn, double* rsum_part, double* hscal_part,
                void* stream) {
-  return post_entry<false>(tcode, shn_part, ngc, lh, csum_part, nbw, sc, 2,
-                           B, mp, rp, r, m_live, m_pin, ehn, lhn, dhn,
-                           rsum_part, hscal_part, stream);
+  return post_entry(tcode, shn_part, ngc, lh, csum_part, nbw, sc, 2, B,
+                    mp, rp, r, m_live, m_pin, ehn, lhn, dhn, rsum_part,
+                    hscal_part, stream);
 }
 
 int sol_finish(int tcode, const double* sc, const double* xlog_part, int nx,

@@ -25,15 +25,15 @@
 //   (served mostly from L2: the factors of a lane are a few MB), against
 //   2 r FMAs: a few flops a byte, far below the card's FP32 roof.
 // Design: each nonzero's index and value are read once a pass by one
-//   coalesced load of a warp.  S1 (redesigned for Hopper, see its note):
-//   a thread owns a nonzero and its whole factor row at r <= 32, the
-//   group walk below above 32.  S2: a group of G lanes (G = 4, 8, 16 or
-//   32 from r) holds one factor row in registers, so a warp takes 32 / G
-//   nonzeros at once (index, a handed out by shuffles) and a row's
-//   gather is one contiguous G-lane load.  swn and shn accumulate in
-//   registers and are written once; a warp owns its row (S1) or cell
-//   (S2), so no sum crosses blocks except x*log(wth).  No atomic in any
-//   sum (one ticket a block picks the lane's adder): two launches are
+//   coalesced load of a warp.  A warp owns a gene row (S1) or a cell
+//   column (S2); at r <= 32 a thread takes one nonzero of it at a time
+//   and that nonzero's whole factor row (S1), or RK / V threads take a
+//   nonzero, each a 16-byte slice of its row (S2 where rows are 16-byte
+//   aligned, see its note); above
+//   32 a group walk, a warp a nonzero.  swn and shn accumulate in
+//   registers and are written once; a warp owns its row or cell, so no
+//   sum crosses blocks except x*log(wth).  No atomic in any sum (one
+//   ticket a block picks the lane's adder): two launches are
 //   bit-identical.
 //
 // Layouts (row-major, leading lane axis B): indptr (n+1) int64 and col
@@ -69,11 +69,6 @@ constexpr int kSpThreads = 256;            // S1/S2 block size
 constexpr int kSpWarps = kSpThreads / 32;  // rows (S1) or cells (S2) a block
 constexpr int kSpMaxR = 128;               // largest rank
 constexpr unsigned kFull = 0xffffffffu;
-
-// S2: lanes of a group that holds one factor row, the smallest of 4, 8,
-// 16, 32 that covers r, so a group lane holds one component up to r = 32
-// and four at r = 128.
-inline int group_of(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : r <= 16 ? 16 : 32; }
 
 // ---------------------------------------------------------------------
 // S1 sp_rowpass
@@ -122,30 +117,36 @@ inline int group_of(int r) { return r <= 4 ? 4 : r <= 8 ? 8 : r <= 16 ? 16 : 32;
 //   slower (tools/bench_sparse_pass.py).
 // ---------------------------------------------------------------------
 
-// Components 0 .. RK - 1 of a factor row, 0 from r on, as the products
-// take them: 16-byte loads where ``vec`` (r * sizeof(T) a multiple of
-// 16 and the factor 16-byte aligned), else one element at a time.
+// Components 0 .. RK - 1 of a factor row (or of a slice of one), 0 from
+// r on, as the products take them: 16-byte loads where ``vec`` (r *
+// sizeof(T) a multiple of 16 and the factor 16-byte aligned) and RK
+// spans whole 16-byte chunks, else one element at a time.
 template <int RK, bool kBf16, typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ p, int r,
                                          bool vec, T (&v)[RK]) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
-  if (vec) {
+  bool loaded = false;
+  if constexpr (RK % V == 0) {
+    if (vec) {
 #pragma unroll
-    for (int k = 0; k < RK; k += V) {
-      if (k < r) {
-        if constexpr (sizeof(T) == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(p + k);
-          v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
+      for (int k = 0; k < RK; k += V) {
+        if (k < r) {
+          if constexpr (sizeof(T) == 4) {
+            const float4 t = *reinterpret_cast<const float4*>(p + k);
+            v[k] = t.x, v[k + 1] = t.y, v[k + 2] = t.z, v[k + 3] = t.w;
+          } else {
+            const double2 t = *reinterpret_cast<const double2*>(p + k);
+            v[k] = t.x, v[k + 1] = t.y;
+          }
         } else {
-          const double2 t = *reinterpret_cast<const double2*>(p + k);
-          v[k] = t.x, v[k + 1] = t.y;
-        }
-      } else {
 #pragma unroll
-        for (int j = 0; j < V; ++j) v[k + j] = T(0);
+          for (int j = 0; j < V; ++j) v[k + j] = T(0);
+        }
       }
+      loaded = true;
     }
-  } else {
+  }
+  if (!loaded) {
 #pragma unroll
     for (int k = 0; k < RK; ++k) v[k] = k < r ? p[k] : T(0);
   }
@@ -324,18 +325,116 @@ sp_rowpass_group_kernel(const int64_t* __restrict__ indptr,
 
 // ---------------------------------------------------------------------
 // S2 sp_colpass
+//
+// Replaces: the column side of ccfindr_tpu/ops/tile.py:348 _tile_kernel
+//   (shn = lw^T (X / wth) at the nonzeros, from the row pass's a).
+// Bound: the gathers -- at the 10x shape each nonzero and lane reads
+//   one 64-byte lw row at a random gene and one a at a random CSR
+//   position (through perm), from L2 (a lane's lw is 0.26 MB, its a 10
+//   MB), against 2 r flops: ~1.5 GB of 32-byte sectors from L2 a launch
+//   for 6 lanes.  The device-memory bytes (CSC, perm, a once, shn) bound
+//   it far below; on the atlas leg a (128 MB a lane) comes from device
+//   memory.
+// What held the earlier designs back (tools/bench_sparse_pass.py, H100):
+//   the group walk (today the r > 32 kernel below: G lanes a row, 32 / G
+//   nonzeros a step, (g, a) handed out by two shuffles a nonzero) spent
+//   its issue slots on shuffles; S1's design on this side (a thread a
+//   nonzero and its whole row, four 16-byte loads a nonzero at r 16 in
+//   float, each touching 32 rows; bench variant s2_row) was faster at
+//   10x but 10% slower than the group walk on the atlas leg.
+// Design (r <= 32, RK the rank rounded up to 4, 8, 16 or 32): a warp
+//   owns a cell column.  Where rows are 16-byte aligned (``vec``) kTpn =
+//   RK / V threads share a nonzero, each a V-wide, 16-byte slice of its
+//   lw row, so a warp takes 32 / kTpn nonzeros a step and each of its
+//   loads covers whole rows (8 rows at r 16 in float).  Elsewhere (r =
+//   6 in float) V = RK: a thread takes a nonzero and its whole row,
+//   element by element, as S1 does.  Each thread reads its nonzero's
+//   gene and CSR position (the kTpn threads of a nonzero read the same
+//   words: one request), gathers a through perm and adds a times its
+//   slice into its V accumulators: no shuffle a nonzero.  The 32 /
+//   kTpn partial sums of a slice are added once a column by a fixed
+//   butterfly, and the block's kSpWarps columns are staged in shared
+//   memory and written a rank row at a time.
+// Design (r > 32): the group walk with G = 32, a lane holding 4 of up to
+//   128 components; a warp takes one nonzero a step there, handed out by
+//   two shuffles (ranks above 32 are outside the workflow's scans).
+// Both: a thread's nonzeros are added in CSC order, then the warp's in
+//   a fixed order, so two launches are bit-identical and a lane's bits
+//   do not depend on its batch (a block is one lane's).  Under kBf16
+//   the gathered lw slice is rounded to bf16 and multiplied by the
+//   already-rounded a; the sums stay in the factor type.
+// ptxas -v (float factors; chip_smoke.py phase 8 prints r 16): 28
+//   registers with 16-byte slices (RK 4 to 32), 32 to 46 with whole
+//   rows a thread (RK 8, 16), the group walk 40, 0 bytes of spills each.
+//   Reading a in CSC order instead of through perm (timing only, bench
+//   variant s2_csc_a) takes 30% off at the 10x shape, 40% on the atlas
+//   leg: the gather of a is a 32-byte sector for 4 bytes.
 // ---------------------------------------------------------------------
-template <typename T, int G, bool kBf16>
+template <typename T, int RK, int V, bool kBf16>
 __global__ void __launch_bounds__(kSpThreads)
 sp_colpass_kernel(const int64_t* __restrict__ colptr,
                   const int* __restrict__ rowc, const int* __restrict__ perm,
                   const T* __restrict__ abuf, const T* __restrict__ lw, int n,
-                  int m, int r, int64_t nnz, T* __restrict__ shn) {
-  constexpr int NG = 32 / G;
-  constexpr int KP = G == 32 ? kSpMaxR / 32 : 1;
+                  int m, int r, int64_t nnz, bool vec, T* __restrict__ shn) {
+  static_assert(RK >= 4 && RK <= 32 && (RK & (RK - 1)) == 0, "RK");
+  static_assert(V >= 1 && V <= RK && RK % V == 0, "V");
+  constexpr int kTpn = RK / V;     // threads a nonzero
+  constexpr int kNps = 32 / kTpn;  // nonzeros a step
+  __shared__ T stage[RK * kSpWarps];  // the block's shn columns
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = lane / kTpn, k0 = (lane % kTpn) * V;
+  const int b = blockIdx.y;
+  const int c = blockIdx.x * kSpWarps + warp;
+
+  if (c < m) {  // warp-uniform
+    const T* a_b = abuf + (size_t)b * nnz;
+    const T* lw_b = lw + (size_t)b * n * r + k0;
+    T acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = T(0);
+    const int64_t q_beg = colptr[c], q_end = colptr[c + 1];
+    // a step: nonzero q of the column for each slot (warp-uniform trips)
+    for (int64_t q = q_beg + slot; q - slot < q_end; q += kNps) {
+      if (q < q_end) {
+        const int g = rowc[q];
+        const T a = a_b[perm[q]];
+        T w[V];
+        load_row<V, kBf16>(lw_b + (size_t)g * r, r - k0, vec, w);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = fma(a, w[j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o >= kTpn; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], o);
+    if (slot == 0) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (k0 + j < r) stage[(k0 + j) * kSpWarps + warp] = acc[j];
+    }
+  }
+  // write each rank row's stretch of the block's consecutive cells
+  __syncthreads();
+  for (int e = threadIdx.x; e < r * kSpWarps; e += kSpThreads) {
+    const int k = e / kSpWarps;
+    const int cc = blockIdx.x * kSpWarps + e % kSpWarps;
+    if (cc < m) shn[((size_t)b * r + k) * m + cc] = stage[e];
+  }
+}
+
+// r > 32: a warp a nonzero, lane sub holding components sub + 32 j
+template <typename T, bool kBf16>
+__global__ void __launch_bounds__(kSpThreads)
+sp_colpass_group_kernel(const int64_t* __restrict__ colptr,
+                        const int* __restrict__ rowc,
+                        const int* __restrict__ perm,
+                        const T* __restrict__ abuf, const T* __restrict__ lw,
+                        int n, int m, int r, int64_t nnz,
+                        T* __restrict__ shn) {
+  constexpr int KP = kSpMaxR / 32;  // components a lane holds
   __shared__ T stage[kSpMaxR * kSpWarps];  // the block's shn columns
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % G, grp = lane / G;
   const int b = blockIdx.y;
   const int c = blockIdx.x * kSpWarps + warp;
   T acc[KP];
@@ -347,36 +446,27 @@ sp_colpass_kernel(const int64_t* __restrict__ colptr,
     const T* lw_b = lw + (size_t)b * n * r;
     const int64_t q_end = colptr[c + 1];
     for (int64_t q0 = colptr[c]; q0 < q_end; q0 += 32) {
+      // one coalesced load of up to 32 nonzeros, handed out by shuffles
       const int64_t ql = q0 + lane;
       const bool mine = ql < q_end;
       const int g_l = mine ? rowc[ql] : 0;
       const T a_l = mine ? a_b[perm[ql]] : T(0);
       const int cnt = static_cast<int>(q_end - q0 < 32 ? q_end - q0 : 32);
 #pragma unroll 4
-      for (int q = 0; q < cnt; q += NG) {
-        const int t = q + grp;
-        const bool live = t < cnt;
+      for (int t = 0; t < cnt; ++t) {
         const int g = __shfl_sync(kFull, g_l, t);
         const T a = __shfl_sync(kFull, a_l, t);
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
-          const int k = sub + j * G;
-          if (live && k < r)
+          const int k = lane + 32 * j;
+          if (k < r)
             acc[j] = fma(a, operand<kBf16>(lw_b[(size_t)g * r + k]), acc[j]);
         }
       }
     }
 #pragma unroll
-    for (int o = 16; o >= G; o >>= 1)
-#pragma unroll
-      for (int j = 0; j < KP; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], o);
-  }
-  // stage the block's kSpWarps columns, then write each rank row's
-  // stretch of consecutive cells together
-  if (grp == 0) {
-#pragma unroll
     for (int j = 0; j < KP; ++j) {
-      const int k = sub + j * G;
+      const int k = lane + 32 * j;
       if (k < r) stage[k * kSpWarps + warp] = acc[j];
     }
   }
@@ -437,33 +527,51 @@ cudaError_t rowpass_any_r(const int64_t* indptr, const int* col,
 #undef S1R
 }
 
-template <typename T, int G, bool kBf16>
+template <typename T, int RK, bool kBf16>
 cudaError_t launch_colpass(const int64_t* colptr, const int* rowc,
                            const int* perm, const void* abuf, const void* lw,
                            int B, int n, int m, int r, int64_t nnz, void* shn,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(m, kSpWarps), B);
-  sp_colpass_kernel<T, G, kBf16><<<grid, kSpThreads, 0, stream>>>(
-      colptr, rowc, perm, static_cast<const T*>(abuf),
-      static_cast<const T*>(lw), n, m, r, nnz, static_cast<T*>(shn));
+  if constexpr (RK > 32) {
+    sp_colpass_group_kernel<T, kBf16><<<grid, kSpThreads, 0, stream>>>(
+        colptr, rowc, perm, static_cast<const T*>(abuf),
+        static_cast<const T*>(lw), n, m, r, nnz, static_cast<T*>(shn));
+  } else if ((r * sizeof(T)) % 16 == 0) {
+    // 16-byte rows; the caller passes lw 16-byte aligned (this launch
+    // refuses it otherwise), so the instantiation, and with it the
+    // order of each sum, depends on r and T alone
+    if ((reinterpret_cast<uintptr_t>(lw) & 15) != 0)
+      return cudaErrorMisalignedAddress;
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    sp_colpass_kernel<T, RK, kVec, kBf16><<<grid, kSpThreads, 0, stream>>>(
+        colptr, rowc, perm, static_cast<const T*>(abuf),
+        static_cast<const T*>(lw), n, m, r, nnz, true, static_cast<T*>(shn));
+  } else {
+    sp_colpass_kernel<T, RK, RK, kBf16><<<grid, kSpThreads, 0, stream>>>(
+        colptr, rowc, perm, static_cast<const T*>(abuf),
+        static_cast<const T*>(lw), n, m, r, nnz, false,
+        static_cast<T*>(shn));
+  }
   return cudaGetLastError();
 }
 
+// S2's instantiation by r, as S1's: RK = 4, 8, 16 or 32 components a
+// row, in 16-byte slices where rows are aligned, the group walk above 32
 template <typename T, bool kBf16>
-cudaError_t colpass_any_g(const int64_t* colptr, const int* rowc,
+cudaError_t colpass_any_r(const int64_t* colptr, const int* rowc,
                           const int* perm, const void* abuf, const void* lw,
                           int B, int n, int m, int r, int64_t nnz, void* shn,
                           cudaStream_t s) {
-#define S2G(G)                                                             \
-  return launch_colpass<T, G, kBf16>(colptr, rowc, perm, abuf, lw, B, n, m, \
-                                     r, nnz, shn, s)
-  switch (group_of(r)) {
-    case 4: S2G(4);
-    case 8: S2G(8);
-    case 16: S2G(16);
-    default: S2G(32);
-  }
-#undef S2G
+#define S2R(RK)                                                              \
+  return launch_colpass<T, RK, kBf16>(colptr, rowc, perm, abuf, lw, B, n, m, \
+                                      r, nnz, shn, s)
+  if (r <= 4) S2R(4);
+  if (r <= 8) S2R(8);
+  if (r <= 16) S2R(16);
+  if (r <= 32) S2R(32);
+  S2R(kSpMaxR);
+#undef S2R
 }
 
 }  // namespace ccfindr
@@ -513,9 +621,9 @@ int sp_colpass(int tcode, int bf16, const int64_t* colptr, const int* rowc,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SP_COL(T)                                                          \
   return static_cast<int>(                                                \
-      bf16 ? colpass_any_g<T, true>(colptr, rowc, perm, abuf, lw, B, n, m, \
+      bf16 ? colpass_any_r<T, true>(colptr, rowc, perm, abuf, lw, B, n, m, \
                                     r, nnz, shn, s)                        \
-           : colpass_any_g<T, false>(colptr, rowc, perm, abuf, lw, B, n, m, \
+           : colpass_any_r<T, false>(colptr, rowc, perm, abuf, lw, B, n, m, \
                                      r, nnz, shn, s))
   switch (tcode) {
     case 0: SP_COL(float);

@@ -29,10 +29,17 @@ import torch
 
 from . import sol
 from .build import TCODE, check_launch, library, require_cuda, stream
+from .sol import DEFAULT_BM, DEFAULT_BN
 from .vb_kernels import (fused_chunk, fused_pallas_raw,
                          fused_xpass_plain)
 from ..vb import VBRunResult, VBState
 from ...utils import lane_sum
+
+# E2's genes a block (csrc/epi_w.cuh kE2Cols): one partial a block of
+# colSums(ew) and of W's ELBO scalars, which E3 and K4 read.  A
+# constant, never derived from the lane count, so a lane's partials and
+# bits do not depend on its batch.  E3's block is sol.POST_COLS cells
+E2_COLS = 256
 
 # launches per kernel since the last reset (bumped only where a kernel
 # is launched)
@@ -44,8 +51,8 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _partials(nb, ext, rp, dev):
-    nblk = -(-ext // sol.POST_COLS)
+def _partials(nb, ext, rp, dev, cols):
+    nblk = -(-ext // cols)
     return (torch.empty(nb, nblk, rp, dtype=torch.float64, device=dev),
             torch.empty(nb, nblk, 4, dtype=torch.float64, device=dev))
 
@@ -53,11 +60,12 @@ def _partials(nb, ext, rp, dev):
 def epi_w_post(swn, lw, ehs_part, sc, r, n):
     """Launch E2 on ``swn``/``lw (B, np, rp)`` with ``ehs_part (B, nd,
     rp)`` the partials of rowSums(eh): ``(ew, lwn, dw, csum_part (B,
-    nblk, rp), wscal_part (B, nblk, 4))``, the partials in K4's layout."""
+    nblk, rp), wscal_part (B, nblk, 4))``, one partial a block of
+    :data:`E2_COLS` genes, in K4's layout."""
     require_cuda(swn, lw, ehs_part, sc)
     nb, np_, rp_ = lw.shape
     ew, lwn, dw = (torch.empty_like(lw) for _ in range(3))
-    csum_part, wscal_part = _partials(nb, np_, rp_, lw.device)
+    csum_part, wscal_part = _partials(nb, np_, rp_, lw.device, E2_COLS)
     rc = library().epi_w_post(
         TCODE[lw.dtype], swn.data_ptr(), lw.data_ptr(), ehs_part.data_ptr(),
         ehs_part.shape[1], sc.data_ptr(), nb, np_, rp_, r, n, ew.data_ptr(),
@@ -74,7 +82,8 @@ def epi_h_post(shn, lh, csum_part, sc, r, m_live, m):
     require_cuda(shn, lh, csum_part, sc)
     nb, rp_, mp_ = lh.shape
     eh, lhn, dh = (torch.empty_like(lh) for _ in range(3))
-    rsum_part, hscal_part = _partials(nb, mp_, rp_, lh.device)
+    rsum_part, hscal_part = _partials(nb, mp_, rp_, lh.device,
+                                      sol.POST_COLS)
     rc = library().epi_h_post(
         TCODE[lh.dtype], shn.data_ptr(), lh.data_ptr(), csum_part.data_ptr(),
         csum_part.shape[1], sc.data_ptr(), nb, mp_, rp_, r, m_live, m,
@@ -99,12 +108,14 @@ def _post_plain(swn, shn, lw, lh, ehs, sc, r, n, m_live, m):
     return w + (csum, wscal, eh, lhn, dh, rsum, hscal)
 
 
-def posterior_update_pallas(swn, shn, lw, lh, ehs, hyper_vec, fudge, *, n,
-                            m, r, r_live=None, m_live=None):
+def posterior_update_pallas(swn_p, shn_p, lw_p, lh_p, ehs, hyper_vec,
+                            fudge, *, n, m, r, bn=DEFAULT_BN, bm=DEFAULT_BM,
+                            r_live=None, m_live=None):
     """The full gamma-posterior update on the X pass's outputs: E2 + E3
     on CUDA tensors, their plain version on CPU tensors.
 
-    ``swn``/``lw`` are ``(B, np, rp)``, ``shn``/``lh`` ``(B, rp, mp)``,
+    ``swn_p``/``lw_p`` are ``(B, np, rp)``, ``shn_p``/``lh_p`` ``(B, rp,
+    mp)`` (the JAX tiles ``bn``/``bm`` are accepted and unused),
     ``ehs (B, rp)`` the rowSums of the current ``eh``, ``hyper_vec (B,
     4)`` = ``[aw, bw, ah, bh]``, ``fudge`` a scalar or ``(B,)``;
     ``r_live (B,)`` (default ``r``) the live rank prefix of each lane,
@@ -115,6 +126,7 @@ def posterior_update_pallas(swn, shn, lw, lh, ehs, hyper_vec, fudge, *, n,
     ``u3``, ``sum_ew``, ``sum_log_lw``, ``sum_eh``, ``sum_log_lh``,
     ``dterm_w``, ``dterm_h`` (the last two for the INPUT lw/lh), in
     float64."""
+    swn, shn, lw, lh = swn_p, shn_p, lw_p, lh_p
     nb = lw.shape[0]
     dev = lw.device
     m_live = m if m_live is None else int(m_live)
@@ -198,16 +210,17 @@ def epi_sweep(x, lw, lh, eh, sc, *, n, m, r, hyper_mask=(True,) * 4,
 # Convergence loop over a lane batch
 # ---------------------------------------------------------------------
 
-def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
+def vb_run_epi(x_pad, state0: VBState, hyper0, *, itmax: int = 10000,
                tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
-               n0: int = 10, dn: int = 1, layout: str = "cm",
-               cell_mask=None, m_true=None, rank_mask=None, r_true=None,
-               it0: int = 1, lk0_init=None, chunk=None) -> VBRunResult:
+               n0: int = 10, dn: int = 1, bn: int = DEFAULT_BN,
+               bm: int = DEFAULT_BM, layout: str = "cm", cell_mask=None,
+               m_true=None, rank_mask=None, r_true=None, it0: int = 1,
+               lk0_init=None, chunk=None) -> VBRunResult:
     """``ccfindr_tpu``'s ``vb_run_epi`` over a lane batch: the
     deferred-ELBO loop of :func:`.sol.vb_run_sol` with one
     :func:`epi_sweep` a sweep, W carried in the JAX layout.
 
-    ``x`` is the (n, m) count matrix or a zero-padded copy;
+    ``x_pad`` is the (n, m) count matrix or a zero-padded copy;
     ``state0``/``hyper0`` are lane-batched; ``rank_mask (B, r)`` and
     ``r_true (B,)`` give each lane's live rank prefix; ``cell_mask``
     (m,) and ``m_true`` (at most the state's cell count) the live cells
@@ -217,19 +230,19 @@ def vb_run_epi(x, state0: VBState, hyper0, *, itmax: int = 10000,
     pins E1's chunk (default: the one :func:`.vb_kernels.fused_chunk`
     gives this batch).  A chunked or lane-compacted driver pins the full
     batch's chunk, so that a lane's partials are added in one order
-    whatever the batch.  The JAX tile sizes ``bn``/``bm`` are not
-    carried.
+    whatever the batch.  The JAX tile sizes ``bn``/``bm`` are accepted
+    and unused; ``chunk`` is the port's own keyword.
     """
     nb, _, r = state0.lw.shape
     if chunk is None:
-        chunk = fused_chunk(x, layout, nb, sol.round_up(max(r, 8), 8),
+        chunk = fused_chunk(x_pad, layout, nb, sol.round_up(max(r, 8), 8),
                             state0.lw.element_size())
 
     def sweep(x, lw, lh, eh, sc, *, m_arr, **kw):
         return epi_sweep(x, lw, lh, eh, sc, m=m_arr, layout=layout,
                          chunk=chunk, **kw)
 
-    return sol.deferred_loop(x, state0, hyper0, sweep, w_rowmajor=True,
+    return sol.deferred_loop(x_pad, state0, hyper0, sweep, w_rowmajor=True,
                              cell_mask=cell_mask, m_true=m_true,
                              itmax=itmax, tol=tol,
                              fudge=fudge, hyper_mask=hyper_mask, n0=n0,

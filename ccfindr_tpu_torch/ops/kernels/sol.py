@@ -468,17 +468,19 @@ def sol_sweep(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
 # Convergence loop over a lane batch
 # ---------------------------------------------------------------------
 
-def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
+def vb_run_sol(x_pad, state0: VBState, hyper0, *, itmax: int = 10000,
                tol: float = 1e-5, fudge=None, hyper_mask=(True,) * 4,
-               n0: int = 10, dn: int = 1, cell_mask=None, m_true=None,
+               n0: int = 10, dn: int = 1, bn: int = DEFAULT_BN,
+               bm: int = DEFAULT_BM, cell_mask=None, m_true=None,
                rank_mask=None, r_true=None, it0: int = 1, lk0_init=None,
                elbo_every: int = 1, mxu_bf16: bool = False,
                sweep_fn=None) -> VBRunResult:
     """The deferred-ELBO convergence loop of ``ccfindr_tpu``'s
     ``vb_run_sol`` over a lane batch, one :func:`sol_sweep` a sweep.
 
-    ``x`` is the (n, m) count matrix (or a zero-padded copy; columns
-    past the state's extents are padding); ``state0``/``hyper0`` are
+    ``x_pad`` is the (n, m) count matrix (or a zero-padded copy;
+    columns past the state's extents are padding; the JAX tiles
+    ``bn``/``bm`` are accepted and unused); ``state0``/``hyper0`` are
     lane-batched; ``rank_mask`` (B, r) and ``r_true`` (B,) give each
     lane's live rank prefix; ``cell_mask`` (m,) and ``m_true`` the live
     cells of a mesh-padded cell axis (a prefix: the cells past ``m_true``
@@ -495,7 +497,7 @@ def vb_run_sol(x, state0: VBState, hyper0, *, itmax: int = 10000,
     """
     sweep = functools.partial(sweep_fn if sweep_fn is not None
                               else sol_sweep, mxu_bf16=mxu_bf16)
-    return deferred_loop(x, state0, hyper0, sweep, w_rowmajor=False,
+    return deferred_loop(x_pad, state0, hyper0, sweep, w_rowmajor=False,
                          cell_mask=cell_mask, m_true=m_true,
                          itmax=itmax, tol=tol, fudge=fudge,
                          hyper_mask=hyper_mask, n0=n0, dn=dn,

@@ -7,12 +7,14 @@ of a :class:`~ccfindr_tpu_torch.ops.tile.TileCounts` one gene row a
 warp, a nonzero and its whole factor row a thread up to rank 32 (``wth``
 and ``a = x/wth`` at each nonzero, ``swn``, ``a`` in CSR order,
 per-block sums of ``x log wth`` that each lane's last block adds in
-block order); S2 ``sp_colpass`` walks its CSC one cell a warp
-(``shn`` from S1's ``a``).  :func:`rowpass_plain` and
-:func:`colpass_plain` are the same functions in plain PyTorch (the COO
-pass of :mod:`ccfindr_tpu_torch.ops.sparse`); :func:`rowpass` and
-:func:`colpass` take them only for tensors on the CPU and launch the
-kernels for CUDA tensors, with no fallback between them.
+block order); S2 ``sp_colpass`` walks its CSC one cell a warp, a few
+threads a nonzero, each a 16-byte slice of its ``lw`` row (``shn``
+from S1's ``a``, read through ``perm``).
+:func:`rowpass_plain` and :func:`colpass_plain` are the same functions
+in plain PyTorch (the COO pass of :mod:`ccfindr_tpu_torch.ops.sparse`);
+:func:`rowpass` and :func:`colpass` take them only for tensors on the
+CPU and launch the kernels for CUDA tensors, with no fallback between
+them.
 
 Factors carry a leading lane axis B: ``lw (B, n, r)``, ``lht (B, m, r)``
 (lh transposed, contiguous), float32 or float64, ``r <= 128``; ``a``
@@ -162,8 +164,12 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
 
 
 def sp_colpass(tc, a, lw, mxu_bf16=False):
-    """Launch S2: ``shn (B, r, m)``."""
+    """Launch S2: ``shn (B, r, m)``.  ``lw`` goes to the kernel 16-byte
+    aligned (copied where it is not), so that its instantiation, and the
+    order of each sum, depend on ``r`` and the dtype alone."""
     require_cuda(tc.val, a, lw)
+    if lw.data_ptr() % 16:
+        lw = lw.clone()
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
     rc = library().sp_colpass(

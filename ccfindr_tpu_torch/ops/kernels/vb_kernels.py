@@ -206,15 +206,17 @@ def fused_sum(part, xlog_part):
     return out, xlog
 
 
-def fused_pallas_raw(x, lw, lh, *, layout="cm", mxu_bf16=False,
-                     chunk=None):
+def fused_pallas_raw(x_pad, lw_p, lh_p, *, bn=DEFAULT_BN, bm=DEFAULT_BM,
+                     layout="cm", mxu_bf16=False, chunk=None):
     """The fused X pass: ``(swn (B, np, rp), shn (B, rp, mp), xlog (B,)
     float64)``.  E1 + E1s on CUDA tensors, :func:`fused_xpass_plain` on
     CPU tensors.  ``layout`` picks E1's loop order ('gm' keeps a gene
     chunk's swn on chip and is the JAX driver's choice for large gene
     panels, 'cm' the dual); both give the same values.  ``mxu_bf16``
-    (``precision='bf16'``) rounds the products' operands to bf16;
-    ``chunk`` pins E1's chunk (:func:`fused_chunk`)."""
+    (``precision='bf16'``) rounds the products' operands to bf16; the
+    JAX tiles ``bn``/``bm`` are accepted and unused; ``chunk``, the
+    port's own keyword, pins E1's chunk (:func:`fused_chunk`)."""
+    x, lw, lh = x_pad, lw_p, lh_p
     _check(x, lw, lh, layout)
     if x.device.type == "cpu":
         return fused_xpass_plain(x, lw, lh, mxu_bf16)
@@ -358,12 +360,12 @@ def elbo_xpass(x, lw, lwl, lh, lhl):
     return out, part
 
 
-def suffstats_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
-                            bm=DEFAULT_BM, chunk=None):
+def suffstats_pallas_padded(x_pad, lw, lh, *, n, m, r, bn, bm, chunk=None):
     """The numerators ``(swn (B, n, r), shn (B, r, m))``: P1 + E1s on
     CUDA tensors, :func:`suffstats_plain` on CPU tensors.  ``(n, m, r)``
-    must be the factors' extents; ``bn``/``bm`` (the JAX tiles) are
-    accepted and not used."""
+    must be the factors' extents; ``bn``/``bm`` (the JAX tiles, required
+    as in JAX) are accepted and not used; ``chunk``, the port's own
+    keyword, pins P1's gene chunk (:func:`pass2_chunk`)."""
     lw, lh = lw.contiguous(), lh.contiguous()
     _check_pass2(x_pad, lw, lh)
     if (lw.shape[-2], lh.shape[-1], lw.shape[-1]) != (n, m, r):
@@ -378,7 +380,7 @@ def suffstats_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
 
 
 def suffstats_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
-                     chunk=None):
+                     *, chunk=None):
     """Drop-in for ``ops.vb.suffstats_dense``: ``(sw, sh) = (lw * swn,
     lh * shn)``.  ``x`` may be pre-padded (:func:`pad_matrix`); the true
     shapes come from ``lw (B, n, r)``/``lh (B, r, m)``."""
@@ -389,11 +391,10 @@ def suffstats_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
     return lw * swn, lh * shn
 
 
-def elbo_data_pallas_padded(x_pad, lw, lh, *, n, m, r, bn=DEFAULT_BN,
-                            bm=DEFAULT_BM):
+def elbo_data_pallas_padded(x_pad, lw, lh, *, n, m, r, bn, bm):
     """The ELBO data term (B,) in the factor dtype: P2 on CUDA
-    tensors, :func:`elbo_data_plain` on CPU tensors.  ``bn``/``bm`` are
-    accepted and not used."""
+    tensors, :func:`elbo_data_plain` on CPU tensors.  ``bn``/``bm`` (the
+    JAX tiles, required as in JAX) are accepted and not used."""
     lw, lh = lw.contiguous(), lh.contiguous()
     _check_pass2(x_pad, lw, lh)
     if (lw.shape[-2], lh.shape[-1], lw.shape[-1]) != (n, m, r):
@@ -412,7 +413,7 @@ def elbo_data_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
                                    r=r, bn=bn, bm=bm)
 
 
-def make_pallas_backend(bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
+def make_pallas_backend(bn: int = DEFAULT_BN, bm: int = DEFAULT_BM, *,
                         chunk=None):
     """``(suffstats, data_term)`` for ``ops.vb.vb_run`` over a
     :func:`pad_matrix`-padded X: ``vb_factorize(backend='pallas2pass')``.

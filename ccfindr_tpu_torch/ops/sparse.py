@@ -125,11 +125,13 @@ def coo_colpass(row, col, a, lw, m, mxu_bf16=False):
     return shn_t
 
 
-def fold_dterm(swn, shn, xlog, lw, lh):
+def fold_dterm(swn, shn, lw, lh, xlog):
     """The ELBO data term from a fused pass's outputs, in the factor
-    dtype: ``-(sum swn lw log lw + sum shn lh log lh) + xlog`` (the
-    fold of ``ccfindr_tpu.ops.pallas.vb_kernels.fold_dterm``; the sums
-    are taken in float64)."""
+    dtype and in JAX's argument order: ``-(sum swn lw log lw + sum shn
+    lh log lh) + xlog`` a lane, for ``swn``/``lw (B, n, r)``,
+    ``shn``/``lh (B, r, m)`` and ``xlog (B,)`` (the fold of
+    ``ccfindr_tpu.ops.pallas.vb_kernels.fold_dterm``; the sums are taken
+    in float64)."""
     f64 = torch.float64
     return (xlog - lane_sum(swn * (lw * torch.log(lw)), 2, f64)
             - lane_sum(shn * (lh * torch.log(lh)), 2, f64)).to(lw.dtype)

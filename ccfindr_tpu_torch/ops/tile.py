@@ -147,7 +147,7 @@ def fused_tile(tc: TileCounts, lw, lh, do_elbo=None, mxu_bf16=False):
     swn, a, xlog = spk.rowpass(tc, lw, lh.transpose(-1, -2).contiguous(),
                                do_elbo=do_elbo, mxu_bf16=mxu_bf16)
     shn = spk.colpass(tc, a, lw, mxu_bf16=mxu_bf16)
-    return swn, shn, fold_dterm(swn, shn, xlog, lw, lh)
+    return swn, shn, fold_dterm(swn, shn, lw, lh, xlog)
 
 
 def make_tile_fused(mxu_bf16=False):

@@ -85,7 +85,12 @@ Phases (each prints its result and seconds):
    5000 CSR with empty rows and a row of 4,999 nonzeros (at r = 1
    the data term, which the fold cancels to zero, is held to its x
    log wth summand), and lanes 1 and 4 of a batch of six (1000 x 1500,
-   r 16) alone and as a pair must give the batch's bits; S1's ptxas
+   r 16) alone and as a pair must give the batch's bits; then S2 alone
+   (16-byte row slices up to r 32, whole rows where unaligned, the
+   group walk above) at r = 1, 6, 16, 17, 32, 33 and 128 on a 1000 x
+   5000 CSC with empty columns and a column of 999 nonzeros, four
+   lanes, against its plain version on S1's a, two launches and lanes 1
+   and 3 alone and as a pair bit-identical; S1's and S2's ptxas
    registers and spills;
 9. the bundled workflow on backend='sparse': vb_factorize(ranks 2..8,
    nrun 3) in float64 must equal backend='dense_fused' (n_iter of every
@@ -113,6 +118,10 @@ Phases (each prints its result and seconds):
    3 lanes of r = 16), factors float64 and float32: phase 2's
    tolerances, two launches bit-identical; the whole gene-major sweep
    (E1, E1s, E2, E3, K4) against its plain version on the ragged case;
+   E2 (a thread an entry of the row-major W) also against K2 on the
+   transposed layout, bit for bit in e, lwn and d (the same expressions
+   an entry), and lanes 1 and B - 1 alone and as a pair with the
+   batch's bits; E2's ptxas registers and spills;
    then vb_run_epi on the bundled lanes: layout 'cm' in float32 (the
    run E1 'cm' is counted and timed on), and both layouts in float64,
    which must equal vb_run_sol (n_iter of every lane, lml to 1e-9);
@@ -122,7 +131,8 @@ Phases (each prints its result and seconds):
    lane-sweeps per second, peak device memory, E1's partial bytes;
    gated on a finite lml, E1 'gm', E1s, E2, E3 and K4 launched with
    equal counts and K1-K3 not at all; vb_run_sol on the same lanes
-   beside it; E1/E1s/E2/E3 against their plain versions (3 lanes);
+   beside it; E1/E1s/E2/E3 against their plain versions (3 lanes); E2's
+   and E3's bounds from the instructions an entry of their SASS;
 13. two-pass kernels vs plain, one pass: P1 ss_xpass (+ E1s) and P2
    elbo_xpass (with its tail) on a ragged case (737 x 450, 21 lanes of ranks 2..8
    padded to 8, the masked components at fudge) and on phase 4's 10x
@@ -145,8 +155,8 @@ Phases (each prints its result and seconds):
    Itmax 300) beside backend='pallas': wall, loop, lane-sweeps per
    second, device launches a sweep, peak device memory;
 15. bf16 on the sparse backend: S1/S2 with mxu_bf16 against their bf16
-   plain versions on phase 8's two cases and S1 on its skewed r cases
-   at the float32 tolerances; the
+   plain versions on phase 8's two cases, S1 on its skewed r cases and
+   S2 on its (phase 8's skewed CSC) at the float32 tolerances; the
    bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
    1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
    the 10x sparse VB scan in bf16 beside float32;
@@ -182,9 +192,10 @@ Phases (each prints its result and seconds):
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time, its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s, P2's
-split-TF32 MMA flops over 495 TFLOP/s, from this run's inputs) and the
-time of one PyTorch call computing the same function where there is
-one.
+split-TF32 MMA flops over 495 TFLOP/s, the posterior kernels' SASS
+instructions over the issue rate of 33.5 T thread-instructions/s, from
+this run's inputs and build) and the time of one PyTorch call computing
+the same function where there is one.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
@@ -234,10 +245,17 @@ XPASS_ENTRIES = {
     # S1 (sparse.cu) at r 16, int16 values, and P2 (pass2.cu) on float X
     # with split-TF32 products: the instantiations phases 10 and 13 time
     "sp_rowpass": "sp_rowpass_kernelIfsLi16ELb0E",
-    "elbo_xpass": "elbo_xpass_kernelIffLb1E"}
+    "elbo_xpass": "elbo_xpass_kernelIffLb1E",
+    # S2 (sparse.cu) at r 16 and E2 (epi_w.cuh), float factors: the
+    # instantiations phases 10 and 12 time
+    "sp_colpass": "sp_colpass_kernelIfLi16ELi4ELb0E",
+    "epi_w_post": "12epi_w_kernelIfE"}
 # the ranks on both sides of S1's dispatch by r (a thread a nonzero up
 # to 32, the group walk above) and of P2's rank slabs (32)
 R_CASES = (1, 17, 32, 33, 128)
+# S2's: each of its register widths (4, 8, 16, 32: r 1, 6, 16, 17 and
+# 32) and the group walk (33, 128)
+S2_R_CASES = (1, 6, 16, 17, 32, 33, 128)
 ML_SOURCE = "ccfindr_tpu_torch/csrc/ml.cu"
 SP_KERNELS = ("sp_rowpass", "sp_colpass")
 SP_SOURCE = "ccfindr_tpu_torch/csrc/sparse.cu"
@@ -248,6 +266,7 @@ EPI_KERNELS = {"fused_xpass_gm": "ccfindr_tpu/ops/pallas/vb_kernels.py:326",
                "epi_w_post": "ccfindr_tpu/ops/pallas/epilogue.py:71",
                "epi_h_post": "ccfindr_tpu/ops/pallas/epilogue.py:134"}
 EPI_SOURCE = "ccfindr_tpu_torch/csrc/epi.cu"
+E2_SOURCE = "ccfindr_tpu_torch/csrc/epi_w.cuh"  # E2's kernel (epi.cu binds it)
 P2_KERNELS = {"ss_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:108",
               "elbo_xpass": "ccfindr_tpu/ops/pallas/vb_kernels.py:185"}
 P2_SOURCE = "ccfindr_tpu_torch/csrc/pass2.cu"
@@ -264,10 +283,12 @@ GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # the tensor cores, dense (P2's split-TF32 products)
 HBM_BYTES = 3.35e12
-# operations an entry of the posterior kernels (K2/K3, E2/E3), counted
-# from csrc/post.cuh in float32: the shift chain and series of
-# digamma/lgamma, two logs, one exp and the entry's sums
-POST_OPS = 90
+# the card's issue rate in thread-instructions a second: 4 warp
+# instructions a clock on each of 132 SMs, the rate at which the FP32
+# pipes take one FMA (2 flops) a lane (67 TFLOP/s / 2).  The posterior
+# kernels' (K2/K3, E2/E3, K3s) operations are the instructions their
+# entries need on this run's data (Smoke.post_need, from E2's SASS)
+INSTR_RATE = FP32_FLOPS / 2
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 ATLAS = (20480, 100352, 20, 0.02)   # bench.py:696 shape, bench.py:330 density
@@ -491,6 +512,89 @@ def div_rn_check(dev, n=1 << 26, rounds=12):
     return fast, differ, n * rounds
 
 
+def sass_entry_instructions(prefix):
+    """Instructions one thread issues for one entry of E2's gamma
+    posterior, the float kernel whose mangled name holds ``prefix``, as
+    ``(fixed, step)``: an entry issues ``fixed`` of them, plus ``step``
+    for each step of the digamma shift chain it takes (specials.cuh: in
+    float a step while its argument is below 6, at most 6; each step's
+    division sits behind a branch that skips it).  Both come from the
+    static SASS of this run's build (``cuobjdump -sass``): its entry loop
+    (the loop with the longest body), less what only a division's slow
+    path runs (the shortest forward branch over each CALL) and the
+    bodies of nested loops; the shift steps are the other forward
+    branches over exactly one CALL.  The entries an iteration takes are
+    its global stores over three (e, ln and d)."""
+    import os
+    import re
+    import shutil
+
+    from ccfindr_tpu_torch.ops.kernels import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:]
+             if prefix in f.split("\n", 1)[0]]
+    if not funcs:
+        raise RuntimeError(f"no SASS function matches {prefix}")
+    ins, labels, pending = [], {}, []
+    for line in funcs[0].splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            for lb in pending:
+                labels[lb] = int(m.group(1), 16)
+            pending = []
+            ins.append((int(m.group(1), 16), m.group(2)))
+    at = {a: i for i, (a, _) in enumerate(ins)}
+
+    def target(t):
+        b = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", t)
+        if b is None:
+            return None
+        v = b.group(1)
+        return at.get(labels.get(v) if v.startswith(".L") else int(v, 16))
+
+    branches = [(i, target(t)) for i, (_, t) in enumerate(ins)
+                if target(t) is not None]
+    loops = [(j, i) for i, j in branches if j <= i]
+    if not loops:
+        raise RuntimeError(f"no loop in the SASS of {prefix}")
+    lo, hi = max(loops, key=lambda p: p[1] - p[0])
+    skip = set()
+    for j, i in loops:                      # nested loops
+        if lo <= j and i <= hi and (j, i) != (lo, hi):
+            skip.update(range(j, i + 1))
+    fwd = [(i, j) for i, j in branches if lo <= i <= hi and j > i]
+    calls = [c for c in range(lo, hi + 1) if "CALL" in ins[c][1]]
+    slow = set()
+    for c in calls:                         # division slow paths
+        over = [(j - i, i, j) for i, j in fwd if i < c < j]
+        if over:
+            _, i, j = min(over)
+            slow.add((i, j))
+            skip.update(range(i + 1, j))
+    guards = [(i, j) for i, j in fwd if (i, j) not in slow and j <= hi
+              and sum(i < c < j for c in calls) == 1]
+    body = [q for q in range(lo, hi + 1) if q not in skip]
+    stepped = {q for i, j in guards for q in range(i + 1, j)} - skip
+    stores = sum(1 for q in body if re.search(r"\bSTG\b", ins[q][1]))
+    if stores == 0 or stores % 3:
+        raise RuntimeError(f"{stores} stores in the entry loop of {prefix}")
+    entries = stores // 3
+    if len(guards) != 6 * entries:
+        raise RuntimeError(f"{len(guards)} shift steps in the entry loop of "
+                           f"{prefix}, for {entries} entries")
+    return ((len(body) - len(stepped)) / entries,
+            len(stepped) / len(guards))
+
+
 def ptxas_resources(key):
     """Registers and spill bytes of one kernel instantiation, from this
     process's build (``XPASS_ENTRIES``); a dict, or None where the
@@ -696,11 +800,15 @@ def compare_fused(x, lw, lh, layout, bf16, dt):
 
 
 def compare_epi_post(x, lw, lh, eh, sc, kw, dt, m_live):
-    """E2 + E3 vs their plain version on the plain X pass's outputs,
-    and a second launch for bit-identity."""
+    """E2 + E3 vs their plain version on the plain X pass's outputs, a
+    second launch for bit-identity, E2's e, lwn and d against K2's on
+    the transposed layout (the same expressions an entry: the same
+    bits), and lanes 1 and B - 1 of E2 alone and as a pair against the
+    batch's bits."""
     import torch
 
     from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+    from ccfindr_tpu_torch.ops.kernels import sol
 
     n, m, r = kw["n"], kw["m"], kw["r"]
     swn, shn, _ = fused_plain(x, lw, lh, False)
@@ -719,12 +827,22 @@ def compare_epi_post(x, lw, lh, eh, sc, kw, dt, m_live):
            zip(names, got, want[:4] + want[5:9])}
     tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
     det = all(torch.equal(a, b) for a, b in zip(w + h, w2 + h2))
+    k2 = sol.w_post(swn.transpose(-1, -2).contiguous()[:, None],
+                    lw.transpose(-1, -2).contiguous(), ehs[:, None], sc, r,
+                    n)
+    k2_bits = all(torch.equal(g, v.transpose(-1, -2))
+                  for g, v in zip(w[:3], k2[:3]))
+    alone = lanes_alone(
+        lambda s_, l_, e_, c_: epi.epi_w_post(s_, l_, e_, c_, r, n),
+        (swn, lw, ehs[:, None].contiguous(), sc),
+        lanes=(1, lw.shape[0] - 1))
     abs_err = {"epi_w_post": max(float((g - v).abs().max())
                                  for g, v in zip(got[:3], want[:3])),
                "epi_h_post": max(float((g - v).abs().max())
                                  for g, v in zip(got[4:7], want[5:8]))}
-    return dict(ok=all(v <= tol for v in err.values()) and det, err=err,
-                abs_err=abs_err, deterministic=det)
+    return dict(ok=all(v <= tol for v in err.values()) and det and k2_bits
+                and alone, err=err, abs_err=abs_err, deterministic=det,
+                k2_bits=k2_bits, lanes_alone=alone)
 
 
 def compare_epi_sweep(x, lw, lh, eh, sc, kw, dt):
@@ -874,8 +992,8 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
                                            mxu_bf16=bf16)
     shn_p = spk.colpass_plain(tc, a_p, lw, mxu_bf16=bf16)
     nm = tc.n * tc.m
-    d = fold_dterm(swn, shn, xlog, lw, lh) / nm
-    d_p = fold_dterm(swn_p, shn_p, xlog_p, lw, lh) / nm
+    d = fold_dterm(swn, shn, lw, lh, xlog) / nm
+    d_p = fold_dterm(swn_p, shn_p, lw, lh, xlog_p) / nm
     err = dict(swn=rel_err(swn, swn_p), a=rel_err(a, a_p),
                shn=rel_err(shn, shn_p), dterm=rel_err(d, d_p))
     if lw.shape[-1] == 1:
@@ -917,6 +1035,38 @@ def skewed_csr(n, m, seed):
     x[[3, n - 2]] = 0
     x[:, 5] = 0
     return sps.csr_matrix(x.astype(np.float64))
+
+
+def skewed_csc(n, m, seed):
+    """:func:`skewed_csr` transposed, n genes x m cells: empty columns
+    (3 and m - 2), an empty row (5) and one column full but for that row
+    (7, n - 1 nonzeros): S2's skew case."""
+    return skewed_csr(m, n, seed).T.tocsr()
+
+
+def compare_colpass(tc, lw, lh, dt, bf16=False):
+    """S2 alone against colpass_plain on the same a (S1's), a second
+    launch for bit-identity, and lanes 1 and B - 1 alone and as a pair
+    against the batch's bits."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+    lht = lh.transpose(-1, -2).contiguous()
+    a = spk.sp_rowpass(tc, lw, lht, mxu_bf16=bf16)[1]
+    shn = spk.sp_colpass(tc, a, lw, mxu_bf16=bf16)
+    again = spk.sp_colpass(tc, a, lw, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    want = spk.colpass_plain(tc, a, lw, mxu_bf16=bf16)
+    err = rel_err(shn, want)
+    det = torch.equal(shn, again)
+    alone = lanes_alone(
+        lambda a_, w_: (spk.sp_colpass(tc, a_, w_, mxu_bf16=bf16),),
+        (a, lw), lanes=(1, lw.shape[0] - 1))
+    tol = F64_TOL if dt == torch.float64 and not bf16 else F32_FACTOR_TOL
+    return dict(ok=err <= tol and det and alone
+                and bool(torch.isfinite(shn).all()), err=err,
+                deterministic=det, lanes_alone=alone)
 
 
 def lanes_alone(launch, args, lanes=(1, 4)):
@@ -1028,11 +1178,12 @@ def compare_pass2(x, lw, lh, dt):
     m = lh.shape[-1]
     chunk = vbk.pass2_chunk(x, n, m, nb, r, lw.element_size())
 
+    tiles = dict(n=n, m=m, r=r, bn=vbk.DEFAULT_BN, bm=vbk.DEFAULT_BM)
+
     def launch(xx):
-        swn, shn = vbk.suffstats_pallas_padded(xx, lw, lh, n=n, m=m, r=r,
-                                               chunk=chunk)
-        return swn, shn, vbk.elbo_data_pallas_padded(xx, lw, lh, n=n, m=m,
-                                                     r=r)
+        swn, shn = vbk.suffstats_pallas_padded(xx, lw, lh, chunk=chunk,
+                                               **tiles)
+        return swn, shn, vbk.elbo_data_pallas_padded(xx, lw, lh, **tiles)
 
     got, again, padded = launch(x), launch(x), launch(vbk.pad_matrix(x))
     torch.cuda.synchronize()
@@ -1204,6 +1355,7 @@ class Smoke:
         self.kernels.update({k: dict(name=k, route="cuda", source=EPI_SOURCE,
                                      replaces=rep)
                              for k, rep in EPI_KERNELS.items()})
+        self.kernels["epi_w_post"]["source"] = E2_SOURCE
         self.kernels.update({k: dict(name=k, route="cuda", source=P2_SOURCE,
                                      replaces=rep)
                              for k, rep in P2_KERNELS.items()})
@@ -1219,6 +1371,41 @@ class Smoke:
         self.x10 = None          # the planted 10x matrix (phase 4)
         self.x10m = None         # it masked to 10% density (phase 8)
         self.xgm = None          # phase 12's gene-major X (phase 11)
+        self.sass = {}           # post_need's SASS counts
+
+    def post_need(self, sfx, lf, a, r_live, n_live, rank_axis):
+        """Instructions the gamma posterior needs on these float inputs
+        (``sfx``, ``lf`` (B, ., .) with the rank along ``rank_axis``,
+        ``a`` and ``r_live`` (B,), ``n_live`` the live extent of the
+        other axis): for each live entry E2's ``fixed`` of them, plus
+        ``step`` for each shift step its ``al = a + lf sfx`` takes
+        (sass_entry_instructions, one count for every posterior kernel,
+        cached).  Pinned and padding entries need only their stores,
+        which the bytes bound holds."""
+        import torch
+
+        if lf.dtype != torch.float32:
+            raise ValueError("the SASS count is of the float kernel")
+        if not self.sass:
+            f, s = sass_entry_instructions(XPASS_ENTRIES["epi_w_post"])
+            self.sass.update(fixed=f, step=s)
+            print(f"  SASS epi_w_post: {f:g} instructions an entry and "
+                  f"{s:g} a shift step it takes (the entry loop of "
+                  f"{XPASS_ENTRIES['epi_w_post']}, float)", flush=True)
+        shape, cshape = [1, 1, 1], [1, 1, 1]
+        shape[rank_axis] = cshape[3 - rank_axis] = -1
+        rank = torch.arange(lf.shape[rank_axis], device=lf.device)
+        col = torch.arange(lf.shape[3 - rank_axis], device=lf.device)
+        live = ((rank.view(shape) < r_live.to(lf.dtype).view(-1, 1, 1))
+                & (col.view(cshape) < n_live))
+        xs = a.to(lf.dtype).view(-1, 1, 1) + lf * sfx
+        steps = torch.zeros(xs.shape, dtype=torch.int32, device=xs.device)
+        for _ in range(6):                  # specials.cuh, float
+            lt = xs < 6
+            steps += lt
+            xs = torch.where(lt, xs + 1, xs)
+        nlive, nstep = int(live.sum()), int(steps[live].sum())
+        return self.sass["fixed"] * nlive + self.sass["step"] * nstep
 
     def set_bound(self, k, moved, flops, library_ms=None, peak=FP32_FLOPS):
         """The kernel's least time on the card, the larger of ``moved``
@@ -1516,9 +1703,11 @@ class Smoke:
         self.set_bound("xpass", nbytes(x, lwt, lh, eh, sc, p1),
                        6 * 16 * nnz * nb)
         self.set_bound("w_post", nbytes(p1[0], lwt, p1[3], sc, p2),
-                       POST_OPS * nb * 16 * n)
+                       self.post_need(p1[0], lwt, a[0], a[5], n, 1),
+                       peak=INSTR_RATE)
         self.set_bound("h_post", nbytes(p1[1], lh, p2[3], sc, p3),
-                       POST_OPS * nb * 16 * m)
+                       self.post_need(p1[1], lh, a[2], a[5], m, 1),
+                       peak=INSTR_RATE)
         self.set_bound("finish", nbytes(sc, p1[2], p2[3], p2[4], p3[3],
                                         p3[4], fin_out), 0)
         for k in KERNELS:
@@ -1844,13 +2033,40 @@ class Smoke:
                             (lw, lh.transpose(-1, -2).contiguous()))
         print(f"  S1: lanes 1, 4 of six alone and as a pair: the bits of the "
               f"batch {indep}", flush=True)
-        res = ptxas_resources("sp_rowpass")
-        print(f"  ptxas sp_rowpass (float32, int16 values, r 16): {res}",
-              flush=True)
-        self.kernels["sp_rowpass"]["ptxas"] = res
+        # S2 at each of its register widths and on the group walk, on a
+        # CSC with empty columns and a column of 999 nonzeros
+        ok_s2 = self.colpass_cases(False)
+        for key in SP_KERNELS:
+            res = ptxas_resources(key)
+            print(f"  ptxas {key} (float32, int16 values, r 16): {res}",
+                  flush=True)
+            self.kernels[key]["ptxas"] = res
         print(f"  tolerances: f64 {F64_TOL:g}; f32 swn/a/shn "
               f"{F32_FACTOR_TOL:g}, data term per element {F32_ELBO_TOL:g}")
-        return ok_all and indep
+        return ok_all and indep and ok_s2
+
+    def colpass_cases(self, bf16):
+        """S2 alone (compare_colpass) at S2_R_CASES on the skewed CSC
+        (1000 genes x 5000 cells), four lanes, factors float64 and
+        float32; ``bf16`` in its mxu_bf16 mode."""
+        import torch
+
+        skew = skewed_csc(1000, 5000, 16)
+        ok = True
+        for r in S2_R_CASES:
+            for dt in (torch.float64, torch.float32):
+                tc, lw, lh = sparse_inputs(
+                    skew, [r, max(1, r - 5), r, max(1, r - 2)], r, dt,
+                    torch.int16, 17, torch.device("cuda"))
+                res = compare_colpass(tc, lw, lh, dt, bf16)
+                print(f"  S2 skewed columns r={r} {str(dt)[6:]}"
+                      f"{' bf16' if bf16 else ''}: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} shn="
+                      f"{res['err']:.3g} deterministic={res['deterministic']}"
+                      f" lanes alone={res['lanes_alone']}", flush=True)
+                ok = ok and res["ok"]
+                del tc, lw, lh
+        return ok
 
     # -- 9 ------------------------------------------------------------
     def sparse_workflow(self):
@@ -2118,8 +2334,9 @@ class Smoke:
                               f"{'ok' if res['ok'] else 'MISMATCH'} "
                               + " ".join(f"{k}={v:.3g}" for k, v in
                                          res["err"].items())
-                              + f" deterministic={res['deterministic']}",
-                              flush=True)
+                              + f" deterministic={res['deterministic']}"
+                              f" E2==K2 bits={res['k2_bits']} lanes "
+                              f"alone={res['lanes_alone']}", flush=True)
                         ok_all = ok_all and res["ok"]
                         if cname == "full-width" and dt == torch.float32:
                             for k, v in res["abs_err"].items():
@@ -2188,7 +2405,7 @@ class Smoke:
               f"plain {self.kernels[k]['plain_ms']:.4f} ms, bound "
               f"{self.kernels[k]['bound_ms']:.4f} ms "
               f"({self.kernels[k]['bound_by']})", flush=True)
-        for key in ("fused_xpass_gm", "fused_xpass_cm"):
+        for key in ("fused_xpass_gm", "fused_xpass_cm", "epi_w_post"):
             res = ptxas_resources(key)
             print(f"  ptxas {key} (float32): {res}", flush=True)
             self.kernels[key]["ptxas"] = res
@@ -2357,10 +2574,19 @@ class Smoke:
               f"({dense / 1e9:.1f} GFLOP), chunk "
               f"{vbk.fused_chunk(x, 'gm', 3, 16, 4)}; ptxas "
               f"{ptxas_resources('fused_xpass_gm')}", flush=True)
-        self.set_bound("epi_w_post", nbytes(swn, lw, ehs, sc, e2),
-                       POST_OPS * 3 * 16 * n)
-        self.set_bound("epi_h_post", nbytes(shn, lh, e2[3], sc, e3),
-                       POST_OPS * 3 * 16 * m)
+        # E2's and E3's operations are the instructions their live
+        # entries need on these inputs (post_need), at INSTR_RATE; their
+        # bytes are the function's (the reduced csum and scalars, not
+        # the per-block partials)
+        self.set_bound("epi_w_post", nbytes(swn, lw, ehs, sc, e2[:3],
+                                            e2[3].sum(1), e2[4].sum(1)),
+                       self.post_need(swn, lw, a[0], a[5], n, 2),
+                       peak=INSTR_RATE)
+        self.set_bound("epi_h_post", nbytes(shn, lh, e2[3].sum(1), sc,
+                                            e3[:3], e3[3].sum(1),
+                                            e3[4].sum(1)),
+                       self.post_need(shn, lh, a[2], a[5], m, 1),
+                       peak=INSTR_RATE)
         for k in timed:
             kk = self.kernels[k]
             print(f"  {k}: kernel {kk['ms']:.4f} ms, plain "
@@ -2647,6 +2873,9 @@ class Smoke:
                       + f" deterministic={res['deterministic']}", flush=True)
                 ok_all = ok_all and res["ok"]
                 del tc, lw, lh
+        # S2 in bf16 at each of its register widths and on the group
+        # walk, on phase 8's skewed CSC
+        ok_all = self.colpass_cases(True) and ok_all
         # both modes at phase 10's timing inputs (6 lanes, r 16, float32)
         tc, lw, lh = sparse_inputs(self.x10m[1], [8, 8, 12, 12, 16, 16], 16,
                                    torch.float32, torch.int16, 9, dev)
@@ -3026,10 +3255,13 @@ class Smoke:
                                              ehs[0], sc, pall[0]),
                        6 * 16 * nnz0 * nb)
         self.set_bound("w_post_mesh", nbytes(swnt, lwt, ehs_sum, sc, p2),
-                       POST_OPS * nb * 16 * n)
+                       self.post_need(swnt, lwt, a[0], a[5], n, 1),
+                       peak=INSTR_RATE)
         self.set_bound("h_post_shard", nbytes(pall[0][1], lhs[0], p2[3], sc,
                                               p3[0]),
-                       POST_OPS * nb * 16 * mp_loc)
+                       self.post_need(pall[0][1], lhs[0], a[2], a[5],
+                                      mp_loc, 1),
+                       peak=INSTR_RATE)
         self.set_bound("finish_mesh", nbytes(sc, xlog, p2[3], p2[4], rsum,
                                              hscal, fin_out), 0)
         for key in MESH_KERNELS:

@@ -14,6 +14,9 @@ kernels are compared with them on the card (tests/test_torch_kernels.py
 and chip_smoke.py).
 """
 
+import inspect
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,7 @@ from ccfindr_tpu.ops.vb import Hyper as JHyper, VBState as JVBState
 from ccfindr_tpu_torch.ops import ml as tml
 from ccfindr_tpu_torch.ops import tile as ttk
 from ccfindr_tpu_torch.ops import vb as tvb
+from ccfindr_tpu_torch.ops.kernels import build as tbuild
 from ccfindr_tpu_torch.ops.kernels import epilogue as tep
 from ccfindr_tpu_torch.ops.kernels import sol as tsol
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvk
@@ -91,8 +95,8 @@ def test_fused_pallas_raw_matches_jax(layout, r):
     # the JAX module's fold of the ELBO data term, from the port's outputs
     want = pk.fold_dterm(swn[:n, :r], shn[:r, :m], jnp.asarray(lw),
                          jnp.asarray(lh), xlog)
-    fold = tvk.fold_dterm(got[0][..., :r], got[1][:, :r], got[2],
-                          _t(lw)[None], _t(lh)[None])
+    fold = tvk.fold_dterm(got[0][..., :r], got[1][:, :r], _t(lw)[None],
+                          _t(lh)[None], got[2])
     np.testing.assert_allclose(float(fold[0]), float(want), rtol=1e-10)
     # CPU tensors take the plain version: no kernel was launched
     assert all(v == 0 for v in tvk.LAUNCHES.values())
@@ -154,6 +158,27 @@ def test_bf16_round_is_nearest_even():
         tsol.bf16_round(v),
         torch.tensor([1.0, 1.0 + 2 ** -6, -2.5, 1.0], dtype=torch.float64),
         rtol=0, atol=0)
+
+
+def test_e2_block_is_a_constant_of_epi_w_cuh():
+    """E2's block (E2_COLS genes of one lane, a thread an entry) is
+    csrc/epi_w.cuh's kE2Cols, used by the launch as it stands (never
+    derived from the lane count): the wrapper sizes E2's partials, which
+    E3 and K4 read, from it; E3's partials stay one a POST_COLS cells
+    (post.cuh's block)."""
+    src = (tbuild.CSRC / "epi_w.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (kE2\w+) = (\d+);", src))
+    assert int(consts["kE2Cols"]) == tep.E2_COLS
+    assert re.search(r"grid\(ceil_div\(np, kE2Cols\), B\)", src)
+    post = (tbuild.CSRC / "post.cuh").read_text()
+    assert int(re.search(r"constexpr int kPostThreads = (\d+);",
+                         post).group(1)) == tsol.POST_COLS
+    for ext, rp in ((1, 8), (255, 16), (256, 24), (100_000, 16)):
+        c, s_ = tep._partials(3, ext, rp, "cpu", tep.E2_COLS)
+        assert c.shape == (3, -(-ext // tep.E2_COLS), rp)
+        assert s_.shape == (3, -(-ext // tep.E2_COLS), 4)
+    assert "E2_COLS" in inspect.getsource(tep.epi_w_post)
+    assert "sol.POST_COLS" in inspect.getsource(tep.epi_h_post)
 
 
 # ---------------------------------------------------------------------

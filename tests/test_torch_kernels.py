@@ -310,7 +310,7 @@ def test_sparse_kernels_match_plain(n, m, r, nb, vdt, dt):
         assert _rel(got, want) <= tol
     assert float(xlog[1::2].abs().sum()) == 0.0
     lh = lht.transpose(-1, -2)
-    d, d_p = (fold_dterm(s_, h_, x_, lw, lh).double() / (n * m)
+    d, d_p = (fold_dterm(s_, h_, lw, lh, x_).double() / (n * m)
               for s_, h_, x_ in ((swn, shn, xlog), (swn_p, shn_p, xlog_p)))
     # relative to the term; at r = 1 the fold cancels to zero (swn lw
     # log lw + shn lh log lh = sum x log(lw lh)), and a relative error
@@ -533,6 +533,85 @@ def test_epilogue_kernels_match_plain(n, m, r, lanes, xdt, m_live, dt):
         1e-10 if dt == torch.float64 else 1e-5)
 
 
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,np_,r,lanes", [
+    (300, 300, 8, [8, 5, 3]),
+    (517, 530, 24, [24, 17]),
+    (140, 150, 128, [128, 100]),
+])
+def test_e2_matches_plain_and_k2_bits(n, np_, r, lanes, dt):
+    """E2 (a thread an entry of the row-major W) against its plain
+    version at rp 8, 24 (which does not divide the block) and 128, with
+    r_live < r and ragged genes (rows past n are padding); its e, lwn
+    and d are K2's bits on the transposed layout (the same expressions
+    an entry); two launches and lanes run alone give the batch's bits."""
+    dev = _card()
+    x, lw, lh, eh, sc = _epi_inputs(np_, 600, r, lanes, dt, torch.int16,
+                                    dev)
+    swn, _, _ = vbk.fused_xpass_plain(x, lw, lh)
+    ehs = eh.sum(-1, dtype=torch.float64)[:, None].contiguous()
+    epi.reset_launches()
+    got = epi.epi_w_post(swn, lw, ehs, sc, r, n)
+    again = epi.epi_w_post(swn, lw, ehs, sc, r, n)
+    torch.cuda.synchronize()
+    assert epi.LAUNCHES == {"epi_w_post": 2, "epi_h_post": 0}
+    nblk = -(-np_ // epi.E2_COLS)
+    assert got[3].shape == (len(lanes), nblk, r)
+    assert got[4].shape == (len(lanes), nblk, 4)
+    a = [sc[:, q].to(dt) for q in range(6)]
+    want = sol.post_plain(swn.transpose(-1, -2), lw.transpose(-1, -2),
+                          ehs[:, 0], *a[:2], *a[4:], r, n)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    for g, w in zip(got[:3], want[:3]):
+        assert _rel(g, w.transpose(-1, -2)) <= tol
+    assert _rel(got[3].sum(1), want[3]) <= tol
+    assert _rel(got[4].sum(1), want[4]) <= tol
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    k2 = sol.w_post(swn.transpose(-1, -2).contiguous()[:, None],
+                    lw.transpose(-1, -2).contiguous(), ehs, sc, r, n)
+    for g, w in zip(got[:3], k2[:3]):
+        assert torch.equal(g, w.transpose(-1, -2))
+    for b in range(1, len(lanes)):
+        one = epi.epi_w_post(swn[b:b + 1], lw[b:b + 1], ehs[b:b + 1],
+                             sc[b:b + 1], r, n)
+        assert all(torch.equal(u, v[b:b + 1]) for u, v in zip(one, got))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dt,r", [(torch.float32, 1), (torch.float32, 6),
+                                  (torch.float32, 16), (torch.float64, 16),
+                                  (torch.float32, 17), (torch.float32, 33),
+                                  (torch.float64, 128)])
+def test_s2_matches_plain(dt, r, bf16):
+    """S2 (16-byte row slices up to r 32, whole rows a thread where rows
+    are unaligned, as at r 1, 6 and 17, the group walk above) against
+    its plain version on S1's a, with an empty column; two launches and
+    lanes run alone, and lw at a storage offset that is not 16-byte
+    aligned, give the batch's bits."""
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(411, 1300, r, 3, dt, torch.int16, dev,
+                                 seed=r)
+    a = spk.rowpass_plain(tc, lw, lht, mxu_bf16=bf16)[1].contiguous()
+    spk.reset_launches()
+    shn = spk.colpass(tc, a, lw, mxu_bf16=bf16)
+    again = spk.colpass(tc, a, lw, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    assert spk.LAUNCHES == {"sp_rowpass": 0, "sp_colpass": 2}
+    want = spk.colpass_plain(tc, a, lw, mxu_bf16=bf16)
+    assert shn.shape == (3, r, 1300)
+    assert _rel(shn, want) <= (1e-10 if dt == torch.float64 else 2e-4)
+    assert float(shn[:, :, 7].abs().sum()) == 0.0     # the empty column
+    assert torch.equal(shn, again)
+    for b in (1, 2):
+        one = spk.colpass(tc, a[b:b + 1].contiguous(),
+                          lw[b:b + 1].contiguous(), mxu_bf16=bf16)
+        assert torch.equal(one, shn[b:b + 1])
+    off = torch.empty(lw.numel() + 1, dtype=dt, device=dev)[1:]
+    off = off.view(lw.shape).copy_(lw)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(spk.colpass(tc, a, off, mxu_bf16=bf16), shn)
+
+
 @pytest.mark.parametrize("layout", ["gm", "cm"])
 def test_gene_major_sweep_is_deterministic(layout):
     dev = _card()
@@ -676,7 +755,7 @@ def test_pass2_kernels_match_plain(n, m, r, lanes, xdt, dt):
     x, lw, lh = _pass2_inputs(n, m, r, lanes, dt, xdt, dev)
     vbk.reset_launches()
     ml.reset_launches()
-    kw = dict(n=n, m=m, r=r)
+    kw = dict(n=n, m=m, r=r, bn=vbk.DEFAULT_BN, bm=vbk.DEFAULT_BM)
     swn, shn = vbk.suffstats_pallas_padded(x, lw, lh, **kw)
     d = vbk.elbo_data_pallas_padded(x, lw, lh, **kw)
     torch.cuda.synchronize()
@@ -703,7 +782,8 @@ def test_pass2_wrappers_refuse_bad_input():
     with pytest.raises(ValueError, match="several devices"):
         vbk.suffstats_pallas(x, lw.cpu(), lh)
     with pytest.raises(ValueError, match="shape mismatch"):
-        vbk.elbo_data_pallas_padded(x[:40], lw, lh, n=50, m=60, r=4)
+        vbk.elbo_data_pallas_padded(x[:40], lw, lh, n=50, m=60, r=4,
+                                    bn=vbk.DEFAULT_BN, bm=vbk.DEFAULT_BM)
     with pytest.raises(TypeError, match="share"):
         vbk.suffstats_pallas(x, lw, lh.float())
 
@@ -748,7 +828,8 @@ def test_lane_subset_with_pinned_chunk_is_bit_identical(which):
 
         def run(w, h, chunk):
             return vbk.suffstats_pallas_padded(x, w, h, n=3000, m=700,
-                                               r=16, chunk=chunk)
+                                               r=16, bn=vbk.DEFAULT_BN,
+                                               bm=vbk.DEFAULT_BM, chunk=chunk)
         chunk = vbk.pass2_chunk(x, 3000, 700, 12, 16, 4)
         own = vbk.pass2_chunk(x, 3000, 700, 3, 16, 4)
     else:

@@ -13,15 +13,20 @@ import jax.numpy as jnp
 
 from ccfindr_tpu.ops import tile as jtile
 from ccfindr_tpu.ops import vb as jvb
+from ccfindr_tpu.ops.pallas import epilogue as jep
 from ccfindr_tpu.ops.pallas import ml_kernels as jmlk
 from ccfindr_tpu.ops.pallas import sol as jsol
+from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
 from ccfindr_tpu_torch.ops import tile as ttile
 from ccfindr_tpu_torch.ops import vb as tvb
+from ccfindr_tpu_torch.ops.kernels import epilogue as tep
 from ccfindr_tpu_torch.ops.kernels import ml as tmlk
 from ccfindr_tpu_torch.ops.kernels import sol as tsol
+from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvbk
 
-# the port's own addition to a JAX signature: the device it places on
-PORT_ONLY = {"device"}
+# the port's own additions to a JAX signature: the device it places on,
+# and the chunk that pins a kernel's order of partial sums
+PORT_ONLY = {"device", "chunk"}
 # dtype defaults are each framework's float32
 FRAMEWORK_DEFAULTS = {"dtype"}
 
@@ -35,13 +40,27 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jtile.from_dense_tile, ttile.from_dense_tile),
     (jsol.sol_sweep, tsol.sol_sweep),
     (jsol.sol_sweep, tsol.sol_sweep_plain),
+    (jsol.vb_run_sol, tsol.vb_run_sol),
+    (jep.vb_run_epi, tep.vb_run_epi),
+    (jep.posterior_update_pallas, tep.posterior_update_pallas),
+    (jvbk.fused_pallas_raw, tvbk.fused_pallas_raw),
+    (jvbk.suffstats_pallas, tvbk.suffstats_pallas),
+    (jvbk.suffstats_pallas_padded, tvbk.suffstats_pallas_padded),
+    (jvbk.make_pallas_backend, tvbk.make_pallas_backend),
+    (jvbk.elbo_data_pallas, tvbk.elbo_data_pallas),
+    (jvbk.elbo_data_pallas_padded, tvbk.elbo_data_pallas_padded),
+    (jvbk.pad_matrix, tvbk.pad_matrix),
+    (jvbk.fold_dterm, tvbk.fold_dterm),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same
-    order and with the same default; the port adds only ``device``."""
+    order and with the same default; the port adds only ``device`` and
+    ``chunk`` (keyword-only)."""
     jp = inspect.signature(jfn).parameters
     tp = inspect.signature(tfn).parameters
     assert [k for k in tp if k not in PORT_ONLY] == list(jp)
+    if "chunk" in tp:
+        assert tp["chunk"].kind == inspect.Parameter.KEYWORD_ONLY
     for name, p in jp.items():
         assert tp[name].kind == p.kind, name
         if name not in FRAMEWORK_DEFAULTS:
@@ -122,3 +141,44 @@ def test_tile_layout_keywords_change_nothing():
         for f in ("indptr", "col", "val", "colptr", "row", "perm"):
             assert torch.equal(getattr(t, f), getattr(a, f)), f
         assert (t.n, t.m) == (a.n, a.m)
+
+
+@pytest.mark.parametrize("nb,n,r,m", [(1, 5, 5, 5), (3, 7, 4, 9)])
+def test_fold_dterm_takes_jax_order(nb, n, r, m):
+    """vb_kernels.fold_dterm(swn, shn, lw, lh, xlog) is JAX's fold, lane
+    by lane, at float64.  The square case (B 1, n = r = m) is one where
+    an order with xlog third would broadcast and return a wrong number
+    without raising."""
+    rng = np.random.default_rng(n + m)
+    swn, lw = rng.gamma(1.0, 1.0, (2, nb, n, r))
+    shn, lh = rng.gamma(1.0, 1.0, (2, nb, r, m))
+    xlog = rng.normal(size=nb)
+    got = tvbk.fold_dterm(*(torch.tensor(a) for a in (swn, shn, lw, lh,
+                                                      xlog)))
+    assert got.shape == (nb,) and got.dtype == torch.float64
+    for b in range(nb):
+        want = float(jvbk.fold_dterm(jnp.asarray(swn[b]), jnp.asarray(shn[b]),
+                                     jnp.asarray(lw[b]), jnp.asarray(lh[b]),
+                                     jnp.asarray(xlog[b])))
+        np.testing.assert_allclose(float(got[b]), want, rtol=1e-12)
+
+
+def test_vb_run_sol_takes_jax_tiles():
+    """A JAX-style call, vb_run_sol(x_pad, st, hy, bn=1024, bm=512), runs
+    on CPU tensors and equals the call without tiles, bit for bit; so
+    does vb_run_epi's."""
+    rng = np.random.default_rng(8)
+    n, m, r = 24, 31, 3
+    x = torch.tensor(rng.poisson(2.0, (n, m)).astype(np.float64))
+    gen = torch.Generator().manual_seed(1)
+    hy1 = tvb.Hyper(1.0, 1.0, 1.0, 1.0)
+    sts = [tvb.vb_init_random(gen, n, m, r, hy1, torch.float64, "cpu")
+           for _ in range(2)]
+    st = tvb.VBState(*(torch.stack(f) for f in zip(*sts)))
+    hy = tvb.Hyper(*(torch.ones(2, dtype=torch.float64),) * 4)
+    for run in (tsol.vb_run_sol, tep.vb_run_epi):
+        a = run(x, st, hy, itmax=15)
+        b = run(x, st, hy, bn=1024, bm=512, itmax=15)
+        assert torch.equal(a.n_iter, b.n_iter) and torch.equal(a.lml, b.lml)
+        for f in ("lw", "lh", "ew", "eh"):
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

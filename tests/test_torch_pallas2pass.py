@@ -124,9 +124,10 @@ def test_padded_functions_check_their_extents():
     x = torch.tensor(_planted(n, m, 2, seed=1))
     lw, lh = (torch.tensor(a) for a in _lanes(n, m, [3], seed=2))
     with pytest.raises(ValueError, match="extents"):
-        tvk.suffstats_pallas_padded(x, lw, lh, n=n, m=m, r=4)
+        tvk.suffstats_pallas_padded(x, lw, lh, n=n, m=m, r=4, bn=BN, bm=BM)
     with pytest.raises(ValueError, match="shape mismatch"):
-        tvk.elbo_data_pallas_padded(x[:10], lw, lh, n=n, m=m, r=3)
+        tvk.elbo_data_pallas_padded(x[:10], lw, lh, n=n, m=m, r=3, bn=BN,
+                                    bm=BM)
     with pytest.raises(TypeError, match="share"):
         tvk.suffstats_pallas(x, lw, lh.float())
 

@@ -139,7 +139,7 @@ def test_plain_passes_match_jax_over_chunks(monkeypatch):
                                        m=tc.m, want_a=True)
     shn = shn_t.transpose(-1, -2)
     assert torch.equal(tsk.coo_colpass(rows, tc.col, a, lw_t, tc.m), shn_t)
-    dterm = tsk.fold_dterm(swn, shn, xlog, lw_t, lh_t)
+    dterm = tsk.fold_dterm(swn, shn, lw_t, lh_t, xlog)
     js = jsk.from_scipy(csr, dtype=jnp.float64)
     for b in range(2):
         sw_j, sh_j, d_j = jsk.fused_coo(js, jnp.asarray(lw[b]),

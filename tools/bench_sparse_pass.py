@@ -1,6 +1,7 @@
-"""S1 sp_rowpass (csrc/sparse.cu) on one NVIDIA GPU at the shapes the
-sparse main paths give it, with its design choices weighed and, with
-``--baseline DIR``, another tree's S1 timed beside it in the same call.
+"""S1 sp_rowpass and S2 sp_colpass (csrc/sparse.cu) on one NVIDIA GPU at
+the shapes the sparse main paths give them, with their design choices
+weighed and, with ``--baseline DIR``, another tree's S1 and S2 timed
+beside them in the same call.
 
 Shapes (float32 factors, int16 values):
 
@@ -9,7 +10,10 @@ Shapes (float32 factors, int16 values):
   12, 12, 16, 16] (r 16: rows of 16-byte vectors);
 * ``bundled``: the bundled data after QC (684 x 447), 12 lanes of ranks
   4..6 x 4 (r 6: rows loaded element by element), the bundled sparse ML
-  scan's shape.
+  scan's shape;
+* ``atlas``: chip_smoke.py phase 10's atlas leg, 20,480 x 100,352 at 2%
+  (32.1 M nonzeros), 2 lanes of r 16: a (256 MB) no longer fits L2, so
+  S2's gather of a through perm comes from device memory.
 
 Each shape is timed in the three modes the sweeps launch: ``vb`` (swn,
 a and the x*log(wth) sum: the VB sweep), ``ml_h`` (a and the sum: the
@@ -24,16 +28,26 @@ all started together):
 * ``compiler_div``: the compiler's division in place of div_ieee;
 * ``four_blocks``: ``__launch_bounds__(256, 4)`` at r 16 in float (a
   64-register cap) where the package takes 3 blocks an SM;
-* ``group``: the r > 32 group walk (a warp a nonzero) at every rank.
+* ``group``: the r > 32 group walk (a warp a nonzero) at every rank;
+* ``s2_csc_a`` (timing only, its shn is wrong): S2 reading a in CSC
+  order, a[q] in place of a[perm[q]], which measures what the gather of
+  a through perm costs;
+* ``s2_group``: S2's r > 32 group walk (G = 32, a warp a nonzero) at
+  every rank;
+* ``s2_row``: S2 with a thread a nonzero and its whole lw row (V = RK:
+  S1's design on the column side, the partial sums of a column added
+  by a butterfly over the warp).
 
-Each (variant, mode) is timed by CUDA events (20 launches a reading) in
-turns (forward, backward, forward; the median of the three), beside S2
-``sp_colpass`` (the same gathers, by cell) and the plain version
-(``rowpass_plain``).  Prints the card, ptxas's registers and spills of
-S1's instantiations, every reading, the GB/s of gathered factor rows
-(nonzeros x lanes x r x 4 bytes) and each variant's results against the
-plain version.  Run from the repository root:
-``python3 tools/bench_sparse_pass.py [--baseline DIR]`` (DIR: a csrc
+The S1 variants are timed in S1's three modes, the S2 variants (and the
+package's S2, and the baseline's) in S2's float and bf16 modes; each
+(variant, mode) by CUDA events (20 launches a reading) in turns
+(forward, backward, forward; the median of the three), beside the plain
+versions (``rowpass_plain``, ``colpass_plain``).  Prints the card,
+ptxas's registers and spills of S1's and S2's float instantiations,
+every reading, the GB/s of gathered factor rows (nonzeros x lanes x r x
+4 bytes) and each variant's results against the plain version.  Run
+from the repository root: ``python3 tools/bench_sparse_pass.py
+[--baseline DIR]`` (DIR: a csrc
 directory, e.g. a ``git archive`` of an older tree under ``.archive/``).
 """
 import argparse
@@ -47,8 +61,9 @@ import time
 import torch
 
 sys.path.insert(0, ".")
-from chip_smoke import (bundled_filtered, cuda_ms, masked_10x,  # noqa: E402
-                        planted_10x, rel_err, sparse_inputs)
+from chip_smoke import (ATLAS, atlas_csr, bundled_filtered,  # noqa: E402
+                        cuda_ms, masked_10x, planted_10x, rel_err,
+                        sparse_inputs)
 
 from ccfindr_tpu_torch.ops.kernels import build  # noqa: E402
 from ccfindr_tpu_torch.ops.kernels import sparse as spk  # noqa: E402
@@ -65,7 +80,13 @@ EDITS = {"repo": [],
                           "sizeof(T) * RK <= 64    ? 4")],
          "group": [("  if (r <= 4) S1R(4);\n  if (r <= 8) S1R(8);\n"
                     "  if (r <= 16) S1R(16);\n  if (r <= 32) S1R(32);\n",
-                    "")]}
+                    "")],
+         "s2_csc_a": [("const T a = a_b[perm[q]];", "const T a = a_b[q];")],
+         "s2_group": [("  if (r <= 4) S2R(4);\n  if (r <= 8) S2R(8);\n"
+                       "  if (r <= 16) S2R(16);\n  if (r <= 32) S2R(32);\n",
+                       "")],
+         "s2_row": [("sp_colpass_kernel<T, RK, kVec, kBf16>",
+                     "sp_colpass_kernel<T, RK, RK, kBf16>")]}
 MODES = {"vb": (True, True, True), "ml_h": (False, True, True),
          "ml_w": (True, False, False)}
 
@@ -112,7 +133,8 @@ def build_variants(baseline):
             regs = re.search(r"Used (\d+) registers", blk)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", blk)
-            if "rowpass" in kname and "Ifs" in kname:  # float, int16 values
+            if ("rowpass" in kname and "Ifs" in kname  # float, int16 values
+                    or "colpass" in kname and "If" in kname):
                 print(f"  ptxas {name} {kname[:60]}: "
                       f"{regs.group(1) if regs else '?'} registers, spills "
                       f"{spill.groups() if spill else '?'}", flush=True)
@@ -132,6 +154,8 @@ def shapes(dev):
                                    [rk for rk in range(4, 7)
                                     for _ in range(4)], 6, torch.float32,
                                    torch.int16, 9, dev)
+    out["atlas"] = sparse_inputs(atlas_csr(*ATLAS), [16, 16], 16,
+                                 torch.float32, torch.int16, 9, dev)
     return out
 
 
@@ -162,10 +186,22 @@ def rowpass(lib, tc, lw, lht, mode):
     return swn, a, xlog
 
 
+def colpass(lib, tc, a, lw, bf16):
+    """One S2 launch of ``lib``: shn (B, r, m)."""
+    nb, n, r = lw.shape
+    shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
+    build.check_launch("sp_colpass", lib.sp_colpass(
+        build.TCODE[lw.dtype], int(bf16), tc.colptr.data_ptr(),
+        tc.row.data_ptr(), tc.perm.data_ptr(), a.data_ptr(), lw.data_ptr(),
+        nb, n, tc.m, r, tc.nnz, shn.data_ptr(), build.stream()))
+    return shn
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", default=None,
-                    help="a csrc directory whose sparse.cu is timed beside")
+                    help="a csrc directory whose sparse.cu (S1 and S2) is "
+                    "timed beside")
     args = ap.parse_args()
     print(smi(), flush=True)
     dev = torch.device("cuda")
@@ -179,19 +215,32 @@ def main():
         print(f"{sname}: X {n} x {tc.m}, nnz {tc.nnz}, {nb} lanes of r {r}",
               flush=True)
         swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht)
+        a = a_p.contiguous()
+        a16 = spk.rowpass_plain(tc, lw, lht, mxu_bf16=True)[1].contiguous()
+        shn_p = spk.colpass_plain(tc, a, lw)
         cases = {}
         for name, lib in libs.items():
-            swn, a, xlog = rowpass(lib, tc, lw, lht, "vb")
-            print(f"  {name}: swn {rel_err(swn, swn_p):.3g} a "
-                  f"{rel_err(a, a_p):.3g} xlog {rel_err(xlog, xlog_p):.3g} "
-                  f"against plain", flush=True)
-            for mode in MODES:
-                cases[f"S1 {mode} {name}"] = (
-                    lambda lib=lib, mode=mode: rowpass(lib, tc, lw, lht,
-                                                       mode))
-        a = a_p.contiguous()
-        cases["S2 repo"] = lambda: spk.sp_colpass(tc, a, lw)
+            if not name.startswith("s2_"):
+                swn, a_k, xlog = rowpass(lib, tc, lw, lht, "vb")
+                print(f"  {name}: swn {rel_err(swn, swn_p):.3g} a "
+                      f"{rel_err(a_k, a_p):.3g} xlog "
+                      f"{rel_err(xlog, xlog_p):.3g} against plain",
+                      flush=True)
+                for mode in MODES:
+                    cases[f"S1 {mode} {name}"] = (
+                        lambda lib=lib, mode=mode: rowpass(lib, tc, lw, lht,
+                                                           mode))
+            if name in ("repo", "baseline") or name.startswith("s2_"):
+                shn = colpass(lib, tc, a, lw, False)
+                print(f"  {name}: S2 shn {rel_err(shn, shn_p):.3g} against "
+                      f"plain", flush=True)
+                for bf16 in (False, True):
+                    aa = a16 if bf16 else a
+                    cases[f"S2 {'bf16 ' if bf16 else ''}{name}"] = (
+                        lambda lib=lib, aa=aa, bf16=bf16: colpass(
+                            lib, tc, aa, lw, bf16))
         cases["S1 plain"] = lambda: spk.rowpass_plain(tc, lw, lht)
+        cases["S2 plain"] = lambda: spk.colpass_plain(tc, a, lw)
         times = {c: [] for c in cases}
         order = list(cases)
         for seq in (order, order[::-1], order):
@@ -205,7 +254,7 @@ def main():
                   f"{', '.join(f'{t:.4f}' for t in v)}), "
                   f"{gathered / med / 1e6:.1f} GB/s of gathered factor rows",
                   flush=True)
-        del swn_p, a_p, xlog_p, a, lht
+        del swn_p, a_p, xlog_p, a, a16, shn_p, lht
         torch.cuda.empty_cache()
     print(smi(), flush=True)
 
