@@ -108,12 +108,28 @@ enum {
 //   steps zeroed, and a per-lane hyper mask.  Fed the partials of the
 //   cell shards gathered in shard order, it is also the port of
 //   ccfindr_tpu/ops/pallas/sol_sharded.py::_fin_kernel (:220).
-// Bound: latency -- a few hundred dependent scalar operations a lane.
-// Design: one warp a lane reduces every partial in a fixed order in
-//   double (lane-strided sums, then a butterfly); lane 0 assembles the
-//   ELBO in double and runs the Newton in the factor type, as the JAX
-//   kernel ran it in its factor dtype.
+// Bound: latency -- the partial sums' loads, then a few hundred
+//   dependent scalar operations a lane (up to niter - 1 Newton steps).
+// What held the first design back: one warp a lane made its 1 + 8 +
+//   2 rp sums one after another (41 rounds of loads and a butterfly at
+//   rp 16, 0.034 ms a launch at the 10x shape) before the Newton
+//   started, and the redesigned posterior writes 8x more, narrower block
+//   partials.
+// Design: one block of kFinThreads a lane; sum j of the 9 + 2 rp (x log
+//   wth, the 4 W and 4 H scalars, then csum_k and rsum_k for each k) is
+//   one warp_strided_sum, in the first design's order, on warp j %
+//   kFinWarps, so the warps make them at once, into shared memory.
+//   Thread 0 then forms csum . rsum in k order, assembles the ELBO in
+//   double and runs the Newton in the factor type, as the JAX kernel ran
+//   it in its factor dtype: on the same partials every output slot has
+//   the first design's bits.  At the 10x shape (H100 80GB HBM3, 700 W,
+//   tools/bench_post.py) the sums take ~0.008 ms (0.013 one warp a
+//   lane) and a launch ~0.025, the rest the Newton's 5-7 steps on one
+//   thread.
 // ---------------------------------------------------------------------
+constexpr int kFinThreads = 512;
+constexpr int kFinWarps = kFinThreads / 32;
+
 template <typename T>
 __device__ T newton_step(T a0, T mean_e, T mean_l, T b0, bool enabled) {
   if (!enabled) return T(0);
@@ -131,34 +147,57 @@ __device__ T positive_step(T a0, T d) {
 }
 
 template <typename T>
-__global__ void finish_kernel(const double* __restrict__ sc,
-                              const double* __restrict__ xlog_part, int nx,
-                              const double* __restrict__ csum_part,
-                              const double* __restrict__ wscal_part, int nbw,
-                              const double* __restrict__ rsum_part,
-                              const double* __restrict__ hscal_part, int nbh,
-                              int rp, int n, int m, int mask, int niter,
-                              double tol, double* __restrict__ scal) {
-  const int b = blockIdx.x, lane = threadIdx.x;
+__global__ void __launch_bounds__(kFinThreads)
+finish_kernel(const double* __restrict__ sc,
+              const double* __restrict__ xlog_part, int nx,
+              const double* __restrict__ csum_part,
+              const double* __restrict__ wscal_part, int nbw,
+              const double* __restrict__ rsum_part,
+              const double* __restrict__ hscal_part, int nbh, int rp, int n,
+              int m, int mask, int niter, double tol,
+              double* __restrict__ scal) {
+  __shared__ double sums[9 + 2 * kMaxRp];
+  const int b = blockIdx.x, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const double* scb = sc + b * 8;
-  const double xlog = warp_strided_sum(xlog_part + (size_t)b * nx, nx, 1,
-                                       lane);
+  // sum j: 0 x log wth, 1-4 the W scalars, 5-8 the H scalars, then
+  // csum_k (9 + 2k) and rsum_k (10 + 2k)
+  for (int j = w; j < 9 + 2 * rp; j += kFinWarps) {
+    const double* p;
+    int count, stride;
+    if (j == 0) {
+      p = xlog_part + (size_t)b * nx;
+      count = nx;
+      stride = 1;
+    } else if (j < 5) {
+      p = wscal_part + (size_t)b * nbw * 4 + (j - 1);
+      count = nbw;
+      stride = 4;
+    } else if (j < 9) {
+      p = hscal_part + (size_t)b * nbh * 4 + (j - 5);
+      count = nbh;
+      stride = 4;
+    } else if ((j - 9) % 2 == 0) {
+      p = csum_part + (size_t)b * nbw * rp + (j - 9) / 2;
+      count = nbw;
+      stride = rp;
+    } else {
+      p = rsum_part + (size_t)b * nbh * rp + (j - 9) / 2;
+      count = nbh;
+      stride = rp;
+    }
+    const double v = warp_strided_sum(p, count, stride, lane);
+    if (lane == 0) sums[j] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const double xlog = sums[0];
   double ws[4], hs[4];
   for (int q = 0; q < 4; ++q) {
-    ws[q] = warp_strided_sum(wscal_part + (size_t)b * nbw * 4 + q, nbw, 4,
-                             lane);
-    hs[q] = warp_strided_sum(hscal_part + (size_t)b * nbh * 4 + q, nbh, 4,
-                             lane);
+    ws[q] = sums[1 + q];
+    hs[q] = sums[5 + q];
   }
   double cr = 0.0;
-  for (int k = 0; k < rp; ++k) {
-    const double c = warp_strided_sum(csum_part + (size_t)b * nbw * rp + k,
-                                      nbw, rp, lane);
-    const double h = warp_strided_sum(rsum_part + (size_t)b * nbh * rp + k,
-                                      nbh, rp, lane);
-    cr += c * h;
-  }
-  if (lane != 0) return;
+  for (int k = 0; k < rp; ++k) cr += sums[9 + 2 * k] * sums[10 + 2 * k];
 
   const double aw = scb[0], bw = scb[1], ah = scb[2], bh = scb[3];
   const double r_live = scb[5], lgx = scb[6];
@@ -296,12 +335,12 @@ int sol_finish(int tcode, const double* sc, const double* xlog_part, int nx,
                double* scal, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tcode == 0)
-    finish_kernel<float><<<B, 32, 0, s>>>(sc, xlog_part, nx, csum_part,
+    finish_kernel<float><<<B, kFinThreads, 0, s>>>(sc, xlog_part, nx, csum_part,
                                           wscal_part, nbw, rsum_part,
                                           hscal_part, nbh, rp, n, m, mask,
                                           niter, tol, scal);
   else if (tcode == 1)
-    finish_kernel<double><<<B, 32, 0, s>>>(sc, xlog_part, nx, csum_part,
+    finish_kernel<double><<<B, kFinThreads, 0, s>>>(sc, xlog_part, nx, csum_part,
                                            wscal_part, nbw, rsum_part,
                                            hscal_part, nbh, rp, n, m, mask,
                                            niter, tol, scal);

@@ -39,6 +39,7 @@ from ...utils import lane_sum
 # colSums(ew) and of W's ELBO scalars, which E3 and K4 read.  A
 # constant, never derived from the lane count, so a lane's partials and
 # bits do not depend on its batch.  E3's block is sol.POST_COLS cells
+# (post.cuh's kPostCols), one partial a block
 E2_COLS = 256
 
 # launches per kernel since the last reset (bumped only where a kernel

@@ -52,15 +52,18 @@ DEFAULT_BM = 512
 NSCAL = 16
 
 # tiling of csrc/sol.cu: a K1 block covers CHUNK = (genes, cells) of X
-# (the one place K1's chunks are set), K2/K3 blocks POST_COLS columns.
-# The chunks fix the order of K1's partial sums, so they depend on no
-# lane count (resume and lane compaction stay bit-exact), and the cell
-# chunk divides 512: a cell shard whose extent is a multiple of 512 gives
-# the single-device partials (sol_sharded).  At 256 x 256, the 10x shape
-# (4,096 x 8,192, 6 lanes) launches 3,072 blocks and a 2,048-cell shard
-# 768 (2.9 waves at two blocks an SM on 132 SMs).
+# (the one place K1's chunks are set), a K2/K3 block all rank rows of
+# POST_COLS long-axis columns of a lane (csrc/post.cuh kPostCols, a
+# thread an entry), one rank-sum and scalar partial a block.  The chunks
+# and POST_COLS fix the order of the partial sums, so they depend on no
+# lane count (resume and lane compaction stay bit-exact), and both divide
+# 512: a cell shard whose extent is a multiple of 512 gives the
+# single-device partials (sol_sharded).  At 256 x 256, the 10x shape
+# (4,096 x 8,192, 6 lanes) launches 3,072 K1 blocks and a 2,048-cell
+# shard 768 (2.9 waves at two blocks an SM on 132 SMs); at 32 columns K2
+# launches 768 blocks, K3 1,536 and K3s on a shard 384.
 CHUNK = (256, 256)
-POST_COLS = 256
+POST_COLS = 32
 MAX_RP = 128
 
 # the convergence loop asks the device whether any lane is still

@@ -29,10 +29,10 @@ One code path serves equal and distinct devices: ``.to`` of a tensor to
 its own device is the tensor itself.  Every cross-shard sum is the
 shards' partials in shard order, added by the next kernel in its fixed
 order, as every cross-block sum of the port is; with shard extents that
-are multiples of K1's cell chunk (``sol.CHUNK[1]``, 256, which
-divides 512) and of K3's ``POST_COLS`` (256) the gathered partials are
-the single-device launch's, element for element, so the sweep gives the
-single-device bits: shards of a multiple of 512 cells always do.  With
+are multiples of K1's cell chunk (``sol.CHUNK[1]``, 256) and of K3's
+``sol.POST_COLS`` (32), both of which divide 512, the gathered partials
+are the single-device launch's, element for element, so the sweep gives
+the single-device bits: shards of a multiple of 512 cells always do.  With
 one shard it always does.
 
 The plain PyTorch version of each step (``xpass_shard_plain``,

@@ -38,7 +38,16 @@ Phases (each prints its result and seconds):
    the plain version beside it, per-kernel times, and the peak device
    memory; the same scan with ``precision='bf16'`` beside it; K1's
    TFLOP/s of dense work at its chunks (sol.CHUNK) and its ptxas
-   registers and spills (float32 factors, int8 X);
+   registers and spills (float32 factors, int8 X); K2's, K3's and K4's
+   partial bytes over 3.35 TB/s beside their bounds, K4 with hyper_mask
+   all False (its sums alone) and the Newton steps each lane took,
+   post_kernel's and finish_kernel's ptxas registers and spills in
+   float and double; then post_kernel as K2 and K3 at its edge cases
+   (POST_CASES: rp 1, 8, 16, 24, 128, extents not a multiple of
+   POST_COLS, r_live < r, m_live < m, nsfx 1 to 32, ndenom 1 to 128) in
+   float64 and float32 against post_plain at phase 2's tolerances, two
+   launches and lanes alone bit-identical, and K4 under each of the 16
+   hyper masks with niter 1 and 100 against finish_plain;
 5. ML kernel vs plain: M1 ml_hpass (its tail adds each lane's x*log(wh)
    partials, where a separate M3 launch used to) and M2 ml_wpass, both
    walks of fused.cuh's X pass without its streamed output, on a
@@ -124,7 +133,9 @@ Phases (each prints its result and seconds):
    batch's bits; E2's ptxas registers and spills;
    then vb_run_epi on the bundled lanes: layout 'cm' in float32 (the
    run E1 'cm' is counted and timed on), and both layouts in float64,
-   which must equal vb_run_sol (n_iter of every lane, lml to 1e-9);
+   which must equal vb_run_sol (n_iter of every lane, lml to 1e-9); E3
+   at its edge cases as phase 4 holds K2 and K3 (nsfx 1, ndenom 1 and
+   391, m_live < m);
 12. the gene-major slice: planted 100,000 x 4,096 int8 (0.41 GB), for
    which the driver's layout must be 'gm'; vb_factorize(ranks [8, 12,
    16], nrun 2, Itmax 100, backend='pallas') in float32: wall, loop,
@@ -132,7 +143,8 @@ Phases (each prints its result and seconds):
    gated on a finite lml, E1 'gm', E1s, E2, E3 and K4 launched with
    equal counts and K1-K3 not at all; vb_run_sol on the same lanes
    beside it; E1/E1s/E2/E3 against their plain versions (3 lanes); E2's
-   and E3's bounds from the instructions an entry of their SASS;
+   and E3's bounds from the instructions an entry of their SASS, E3's
+   partial bytes beside them;
 13. two-pass kernels vs plain, one pass: P1 ss_xpass (+ E1s) and P2
    elbo_xpass (with its tail) on a ragged case (737 x 450, 21 lanes of ranks 2..8
    padded to 8, the masked components at fudge) and on phase 4's 10x
@@ -167,7 +179,7 @@ Phases (each prints its result and seconds):
    compact_every=50: the resumed and the compacted runs must equal the
    uninterrupted one bit for bit (lml or likelihood, dispersion and
    cophenetic, basis, coeff, n_iter); the same for compact_every=50 on
-   'pallas2pass' and on 'dense' (printed, not gated); the 10x VB scan
+   'pallas2pass', 'dense' and 'dense_fused' (gated); the 10x VB scan
    with compact_every=50 beside the unchunked one (lane-sweeps executed
    and wall, printed);
 17. the cell-sharded mesh: the mesh sweep's kernels (K1s per shard, K2
@@ -187,10 +199,17 @@ Phases (each prints its result and seconds):
    device's; a shard's K1s time; the bundled mesh scan (cells=4) with
    ropt 5 in float32 and with precision='bf16', elbo_every=5; 'dense'
    on the cells=4 mesh in float64 equal to 'dense' on one device (n_iter
-   of every lane, lml to 1e-9).
+   of every lane, lml to 1e-9); K2 gathered, K3s and K4 gathered: their
+   partial bytes beside the bounds, K4's sums alone and Newton steps,
+   K3s and K2 gathered at their edge cases and K4 on the gathered
+   partials of a 600 x 2048 X over 4 shards under every hyper mask, as
+   phase 4.
 
 Every kernel's entry in the kernels line has its launches on its path,
-its error against plain, its time, its plain version's time, its bound
+its error against plain, its time (by CUDA events; for the posterior
+kernels and K4, whose launches are shorter than the host's call, a
+launch's time in a CUDA graph of 20 launches, the call's time kept as
+``call_ms``), its plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s, P2's
 split-TF32 MMA flops over 495 TFLOP/s, the posterior kernels' SASS
 instructions over the issue rate of 33.5 T thread-instructions/s, from
@@ -249,7 +268,17 @@ XPASS_ENTRIES = {
     # S2 (sparse.cu) at r 16 and E2 (epi_w.cuh), float factors: the
     # instantiations phases 10 and 12 time
     "sp_colpass": "sp_colpass_kernelIfLi16ELi4ELb0E",
-    "epi_w_post": "12epi_w_kernelIfE"}
+    "epi_w_post": "12epi_w_kernelIfE",
+    # post_kernel (post.cuh: K2, K3, K3s, E3) and K4 in both factor types
+    "post_kernel float": "11post_kernelIfE",
+    "post_kernel double": "11post_kernelIdE",
+    "finish_kernel float": "13finish_kernelIfE",
+    "finish_kernel double": "13finish_kernelIdE"}
+POST_PTXAS = ("post_kernel float", "post_kernel double",
+              "finish_kernel float", "finish_kernel double")
+# the kernels timed from a CUDA graph of their launches (Smoke.time_kernel)
+GRAPH_TIMED = ("w_post", "h_post", "epi_h_post", "w_post_mesh",
+               "h_post_shard", "finish", "finish_mesh")
 # the ranks on both sides of S1's dispatch by r (a thread a nonzero up
 # to 32, the group walk above) and of P2's rank slabs (32)
 R_CASES = (1, 17, 32, 33, 128)
@@ -718,6 +747,182 @@ def compare_sweep(args, dt):
     ok = ok and err["xpass_swn"] <= tol and err["xpass_shn"] <= tol
     return dict(ok=ok and hfail_ok and finite, err=err, abs_err=abs_err,
                 hfail_equal=hfail_ok, finite=finite)
+
+
+def post_case(rp, r, lanes, ext, nsfx, ndenom, dt, dev, seed=0):
+    """Inputs of one posterior launch: sfx partials (B, nsfx, rp, ext),
+    the factor (B, rp, ext) (rank rows >= r pad 0), denominator partials
+    (B, ndenom, rp) and sc; lane b live up to rank lanes[b]."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nb = len(lanes)
+    sfx = rng.gamma(1.0, 1.0 / nsfx, (nb, nsfx, rp, ext))
+    lf = np.zeros((nb, rp, ext))
+    lf[:, :r] = rng.gamma(1.0, 1.0, (nb, r, ext))
+    denom = rng.gamma(2.0, 1.0, (nb, ndenom, rp))
+    sc = np.zeros((nb, 8))
+    sc[:, :4] = rng.uniform(0.5, 1.5, (nb, 4))
+    sc[:, 4] = float(torch.finfo(dt).eps)
+    sc[:, 5] = lanes
+    sc[:, 7] = 1.0
+    t = lambda a, d=dt: torch.as_tensor(a, dtype=d, device=dev)  # noqa
+    return t(sfx), t(lf), t(denom, torch.float64), t(sc, torch.float64)
+
+
+# post_kernel's edge cases at each launch site: (rp, r, the lanes' live
+# ranks, ext, n_live, n_pin, nsfx, ndenom): every rp class (1, 8, 16,
+# 24, 128), extents that are not a multiple of POST_COLS, r_live < r,
+# n_live < n_pin (mesh cell padding, H only), nsfx 1 (E3), 16 (K3), 32
+# (K2), ndenom 1 to 391 (E3 on E2's partials)
+POST_CASES = {
+    "w_post": [(1, 1, [1, 1, 1], 77, 77, 77, 1, 1),
+               (8, 8, [8, 5, 3], 4096, 4096, 4096, 32, 32),
+               (24, 20, [20, 17], 1000, 1000, 1000, 16, 1),
+               (128, 128, [128, 100], 300, 300, 300, 3, 5)],
+    "h_post": [(16, 16, [16, 12, 8], 8192, 8192, 8192, 16, 128),
+               (16, 13, [13, 9], 2050, 2000, 2050, 16, 128),
+               (128, 120, [120, 64], 129, 100, 129, 2, 3)],
+    "epi_h_post": [(16, 16, [16, 12, 8], 4093, 4093, 4093, 1, 391),
+                   (24, 20, [20, 17], 1000, 990, 1000, 1, 391),
+                   (8, 8, [8, 5, 3], 447, 440, 447, 1, 1),
+                   (128, 128, [128, 100], 300, 300, 300, 1, 3)],
+    "h_post_shard": [(16, 16, [16, 12, 8], 2048, 2000, 2048, 16, 128),
+                     (8, 8, [8, 5, 3], 112, 111, 112, 3, 2)],
+    "w_post_mesh": [(16, 16, [16, 12, 8], 4096, 4096, 4096, 32, 32)],
+}
+
+
+def compare_post_cases(site):
+    """post_kernel at ``site`` (K2 ``w_post``/``w_post_mesh``, K3
+    ``h_post``, K3s ``h_post_shard``, E3 ``epi_h_post``) on POST_CASES
+    against post_plain in float64 and float32: e, ln, d and the rank
+    sums at phase 2's tolerances, one partial a POST_COLS block, two
+    launches bit-identical, and lanes 1 and (0, B - 1) alone giving the
+    batch's bits.  Prints a line a case; returns whether all held."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+    from ccfindr_tpu_torch.ops.kernels import sol
+    from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
+
+    dev = torch.device("cuda")
+    ok_all = True
+    for rp, r, lanes, ext, n_live, n_pin, nsfx, nden in POST_CASES[site]:
+        for dt in (torch.float64, torch.float32):
+            sfx, lf, den, sc = post_case(rp, r, lanes, ext, nsfx, nden, dt,
+                                         dev)
+            ab = 0 if site.startswith("w_post") else 2
+            if ab == 0:
+                def launch(s_, l_, d_, c_):
+                    return sol.w_post(s_, l_, d_, c_, r, n_live)
+            elif site == "epi_h_post":
+                def launch(s_, l_, d_, c_):
+                    return epi.epi_h_post(s_[:, 0], l_, d_, c_, r, n_live,
+                                          n_pin)
+            elif site == "h_post_shard":
+                def launch(s_, l_, d_, c_):
+                    return ssh.h_post_shard(s_, l_, d_, c_, r, n_live, n_pin)
+            else:
+                def launch(s_, l_, d_, c_):
+                    return sol.h_post(s_, l_, d_, c_, r, n_live, n_pin)
+            got = launch(sfx, lf, den, sc)
+            again = launch(sfx, lf, den, sc)
+            torch.cuda.synchronize()
+            a = [sc[:, q].to(dt) for q in range(6)]
+            want = sol.post_plain(sfx.sum(1, dtype=torch.float64).to(dt), lf,
+                                  den.sum(1), a[ab], a[ab + 1], a[4], a[5],
+                                  r, n_live, npin=n_pin)
+            tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
+            err = max(rel_err(g, w) for g, w in zip(got[:3], want[:3]))
+            rs = rel_err(got[3].sum(1), want[3])
+            nblk = -(-ext // sol.POST_COLS)
+            shapes = (got[3].shape == (len(lanes), nblk, rp)
+                      and got[4].shape == (len(lanes), nblk, 4))
+            det = all(torch.equal(u, v) for u, v in zip(got, again))
+            alone = True
+            for sub in ([1], [0, len(lanes) - 1]):
+                idx = torch.tensor(sub, device=dev)
+                one = launch(*(t[idx].contiguous() for t in (sfx, lf, den,
+                                                             sc)))
+                alone = alone and all(torch.equal(u[idx], v)
+                                      for u, v in zip(got, one))
+            ok = err <= tol and rs <= tol and shapes and det and alone
+            print(f"  {site} rp {rp} r {r} lanes {lanes} ext {ext} live "
+                  f"{n_live} pin {n_pin} nsfx {nsfx} ndenom {nden} "
+                  f"{str(dt)[6:]}: {'ok' if ok else 'MISMATCH'} e/ln/d "
+                  f"{err:.3g} rank sums {rs:.3g} partials {nblk} a lane "
+                  f"{shapes} deterministic {det} lanes alone {alone}",
+                  flush=True)
+            ok_all = ok_all and ok
+    return ok_all
+
+
+def compare_finish_masks(parts_of, n, m, label):
+    """K4 under each of the 16 hyper masks with niter 1 and 100, on the
+    partials ``parts_of(dt)`` gives (xlog, csum, wscal, rsum, hscal and
+    sc), in float64 and float32, against finish_plain: the hypers at
+    phase 2's tolerances, the per-element ELBO, the failure flags; two
+    launches and lane 1 alone bit-identical.  Returns whether all held."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    ok_all = True
+    for dt in (torch.float64, torch.float32):
+        sc, *parts = parts_of(dt)
+        tol = F64_TOL if dt == torch.float64 else F32_FACTOR_TOL
+        etol = F64_TOL if dt == torch.float64 else F32_ELBO_TOL
+        worst, fails = 0.0, []
+        for mask in range(16):
+            hm = tuple(bool(mask >> i & 1) for i in range(4))
+            for niter in (1, 100):
+                kw = dict(n=n, m=m, dt=dt, hyper_mask=hm,
+                          newton_niter=niter, newton_tol=1e-4)
+                got = sol.finish(sc, *parts, **kw)
+                again = sol.finish(sc, *parts, **kw)
+                one = sol.finish(sc[1:2], *(p[1:2].contiguous()
+                                            for p in parts), **kw)
+                torch.cuda.synchronize()
+                want = sol.finish_plain(sc, *(p.sum(1) for p in parts), n,
+                                        m, dt, hm, niter, 1e-4)
+                hyp = [sol.AW, sol.BW, sol.AH, sol.BH]
+                err = rel_err(got[:, hyp], want[:, hyp])
+                elbo = rel_err((got[:, sol.PEND] + got[:, sol.DTERM])
+                               / (n * m), (want[:, sol.PEND]
+                                           + want[:, sol.DTERM]) / (n * m))
+                ok = (err <= tol and elbo <= etol
+                      and torch.equal(got[:, sol.HFAIL], want[:, sol.HFAIL])
+                      and torch.equal(got, again)
+                      and torch.equal(one, got[1:2]))
+                worst = max(worst, err)
+                if not ok:
+                    fails.append((mask, niter, err, elbo))
+        print(f"  K4 {label} {str(dt)[6:]}: 16 hyper masks x niter 1, 100 "
+              f"{'ok' if not fails else f'MISMATCH {fails}'}; worst hyper "
+              f"error {worst:.3g}; two launches and lane 1 alone "
+              "bit-identical", flush=True)
+        ok_all = ok_all and not fails
+    return ok_all
+
+
+def newton_iterations(sc, parts, **kw):
+    """The Newton steps each lane of K4 took: the least niter - 1 at
+    which its failure flag clears (99 + where it never does)."""
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    full = sol.finish(sc, *parts, **kw)
+    iters = []
+    for b in range(sc.shape[0]):
+        if full[b, sol.HFAIL] > 0:
+            iters.append(kw["newton_niter"] - 1)
+            continue
+        for niter in range(1, kw["newton_niter"] + 1):
+            if sol.finish(sc, *parts, **dict(kw, newton_niter=niter))[
+                    b, sol.HFAIL] == 0:
+                iters.append(niter - 1)
+                break
+    return iters
 
 
 def compare_k1(args, dt, bf16):
@@ -1297,6 +1502,39 @@ def device_launches(fn):
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
+def kernel_ms(fn, reps=20):
+    """Device milliseconds a launch of ``fn`` (one kernel launch a call):
+    ``reps`` calls captured in a CUDA graph and replayed, timed by CUDA
+    events, the median of three replays.  The replay issues the launches
+    back to back from the device, so a kernel shorter than the host's
+    call is timed by its own length, where :func:`cuda_ms` can time the
+    host's issue of the call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(3):
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / reps)
+    del g
+    return float(np.median(ms))
+
+
 class Interrupted(Exception):
     """Raised into a chunked driver to stand for a crash."""
 
@@ -1417,6 +1655,42 @@ class Smoke:
         self.kernels[k].update(bound_ms=max(tb, tf),
                                bound_by="bytes" if tb >= tf else "operations",
                                library_ms=library_ms)
+
+    def time_kernel(self, k, fn, reps):
+        """The kernel's ``ms``: for the posterior kernels and K4, whose
+        launches are shorter than the host's call, a launch's device time
+        from a CUDA graph (:func:`kernel_ms`), with the call's time by
+        CUDA events kept as ``call_ms``; for the others the time by CUDA
+        events."""
+        kd = self.kernels[k]
+        kd["ms"] = cuda_ms(fn, reps)
+        if k in GRAPH_TIMED:
+            kd["call_ms"] = kd["ms"]
+            kd["ms"] = kernel_ms(fn, reps)
+
+    def post_floor(self, k, *ts):
+        """The bytes ``ts`` (the partials a posterior kernel or K4 reads
+        and writes, its factors and outputs) over the HBM rate, kept
+        beside the bound as ``floor_ms`` and printed."""
+        kd = self.kernels[k]
+        kd["floor_ms"] = nbytes(*ts) / HBM_BYTES * 1e3
+        print(f"  {kd['name']}: {kd['ms']:.4f} ms; bound {kd['bound_ms']:.4f}"
+              f" ms ({kd['bound_by']}); its partials' bytes "
+              f"{nbytes(*ts) / 1e6:.2f} MB -> floor {kd['floor_ms']:.4f} ms",
+              flush=True)
+
+    def post_ptxas(self, post_keys, fin_key=None):
+        """ptxas's registers and spills of post_kernel (and K4) in float
+        and double, printed and kept on the kernels' entries."""
+        res = {k: ptxas_resources(k) for k in POST_PTXAS}
+        for k, v in res.items():
+            print(f"  ptxas {k}: {v}", flush=True)
+        for k in post_keys:
+            self.kernels[k]["ptxas"] = {t: res[f"post_kernel {t}"]
+                                        for t in ("float", "double")}
+        if fin_key is not None:
+            self.kernels[fin_key]["ptxas"] = {
+                t: res[f"finish_kernel {t}"] for t in ("float", "double")}
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -1689,7 +1963,7 @@ class Smoke:
                            dt, (True,) * 4, 100, 1e-4)),
         }
         for k, (kern, plain) in timed.items():
-            self.kernels[k]["ms"] = cuda_ms(kern, 20)
+            self.time_kernel(k, kern, 20)
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
             print(f"  {k}: kernel {self.kernels[k]['ms']:.4f} ms, plain "
                   f"{self.kernels[k]['plain_ms']:.4f} ms", flush=True)
@@ -1722,7 +1996,36 @@ class Smoke:
               flush=True)
         print(f"  lane-sweeps/s kernel {runs['kernel']} plain "
               f"{runs['plain']}")
-        return True
+
+        # K2/K3 (post_kernel, POST_COLS columns a block) and K4: the bytes
+        # of the partials they read and write beside the bound, ptxas,
+        # K4's sums alone (hyper_mask all False) and the Newton steps
+        fin_parts = (k1[2], k2[3], k2[4], k3[3], k3[4])
+        self.post_floor("w_post", k1[0], lwt, k1[3], sc, k2)
+        self.post_floor("h_post", k1[1], lh, k2[3], sc, k3)
+        self.post_floor("finish", sc, *fin_parts, fin_out)
+        kf = self.kernels["finish"]
+        kf["sums_ms"] = kernel_ms(lambda: sol.finish(
+            sc, *fin_parts, **dict(fin, hyper_mask=(False,) * 4)))
+        kf["newton_steps"] = newton_iterations(sc, fin_parts, **fin)
+        print(f"  K4: {kf['ms']:.4f} ms, with hyper_mask all False (the "
+              f"sums alone) {kf['sums_ms']:.4f} ms; Newton steps a lane "
+              f"{kf['newton_steps']}", flush=True)
+        self.post_ptxas(("w_post", "h_post"), "finish")
+        ok = compare_post_cases("w_post")
+        ok = compare_post_cases("h_post") and ok
+
+        def parts_of(dt):
+            x_np = planted(1030, 2100, 8, seed=9)
+            xx, lwt_, lh_, eh_, sc_, _ = sweep_inputs(
+                x_np, [16, 12, 8], 16, dt, torch.int8, 1.0, 9, dev)
+            p1 = sol.xpass(xx, lwt_, lh_, eh_, sc_)
+            p2 = sol.w_post(p1[0], lwt_, p1[3], sc_, 16, 1030)
+            p3 = sol.h_post(p1[1], lh_, p2[3], sc_, 16, 2100)
+            return sc_, p1[2], p2[3], p2[4], p3[3], p3[4]
+
+        return compare_finish_masks(parts_of, 1030, 2100,
+                                    "(1030 x 2100, 3 lanes rp 16)") and ok
 
 
     # -- 5 ------------------------------------------------------------
@@ -2422,7 +2725,9 @@ class Smoke:
                   f"equal {same} ({b.n_iter.tolist()}), lml rel "
                   f"{lml_err:.3g}", flush=True)
             ok64 = ok64 and same and lml_err <= 1e-9
-        return ok_all and ok_cm and ok64 and div_ok
+        # E3 (post_kernel on E2's partials) at its edge cases
+        ok_e3 = compare_post_cases("epi_h_post")
+        return ok_all and ok_cm and ok64 and div_ok and ok_e3
 
     # -- 12 -----------------------------------------------------------
     def gene_major(self):
@@ -2542,7 +2847,7 @@ class Smoke:
                 20),
         }
         for k, (kern, plain, reps) in timed.items():
-            self.kernels[k]["ms"] = cuda_ms(kern, reps)
+            self.time_kernel(k, kern, reps)
             self.kernels[k]["plain_ms"] = cuda_ms(plain, 3)
         nnz = int((x != 0).sum())
         self.set_bound("fused_xpass_gm", nbytes(x, lw, lh, e1),
@@ -2593,6 +2898,8 @@ class Smoke:
                   f"{kk['plain_ms']:.4f} ms, bound {kk['bound_ms']:.4f} ms "
                   f"({kk['bound_by']}), library {kk['library_ms']}",
                   flush=True)
+        self.post_floor("epi_h_post", shn, lh, e2[3], sc, e3)
+        self.post_ptxas(("epi_h_post",))
         return ok
 
     # -- 13 -----------------------------------------------------------
@@ -2996,16 +3303,18 @@ class Smoke:
                   f"[{time.perf_counter() - t0:.1f} s]", flush=True)
             ok = ok and stopped and rb and rc
 
-        # the routes whose resume the card does not gate: the two-pass
-        # loop (kernels P1/P2 and the lane_sum glue) and the dense
-        # parity route (cuBLAS batched matmuls), compacted
-        for backend in ("pallas2pass", "dense"):
+        # compaction on the other routes: the two-pass loop (kernels
+        # P1/P2 and the lane_sum glue) and the dense parity routes
+        # (batched products on the card), each gated
+        for backend in ("pallas2pass", "dense", "dense_fused"):
             kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
                       backend=backend, device="cuda", verbose=0, seed=0)
+            t0 = time.perf_counter()
             same = same_vb(ct.vb_factorize(s, **kw),
                            ct.vb_factorize(s, compact_every=50, **kw))
             print(f"  VB {backend}: compact_every=50 == uninterrupted {same} "
-                  "(printed, not gated)", flush=True)
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+            ok = ok and same
 
         kwm = dict(ranks=[4, 5, 6], nrun=4, Itmax=400, Tol=1e-4,
                    backend="pallas", device="cuda", verbose=0, seed=0)
@@ -3243,7 +3552,7 @@ class Smoke:
                                          n, m, dt, (True,) * 4, 100, 1e-4)),
         }
         for key, (kern, plain) in timed.items():
-            self.kernels[key]["ms"] = cuda_ms(kern, 20)
+            self.time_kernel(key, kern, 20)
             self.kernels[key]["plain_ms"] = cuda_ms(plain, 5)
         # bounds: the bytes of the function, as in phase 4 (a shard's
         # swnt partial and shn, the reduced swnt, ehs, csum, rsum and
@@ -3270,6 +3579,46 @@ class Smoke:
                   f"{kd['plain_ms']:.4f} ms, bound {kd['bound_ms']:.4f} ms "
                   f"({kd['bound_by']}), launches {kd['launches']}, max abs "
                   f"err {kd['max_abs_err']:.3g}", flush=True)
+        self.post_floor("w_post_mesh", swn_part, lwt, ehs_part, sc, k2)
+        self.post_floor("h_post_shard", parts[0][1], lhs[0], k2[3], sc, k3[0])
+        fin_parts = (xlog_part, k2[3], k2[4], rsum_part, hscal_part)
+        self.post_floor("finish_mesh", sc, *fin_parts, fin_out)
+        kf = self.kernels["finish_mesh"]
+        kf["sums_ms"] = kernel_ms(lambda: sol.finish(
+            sc, *fin_parts, **dict(fin, hyper_mask=(False,) * 4)))
+        kf["newton_steps"] = newton_iterations(sc, fin_parts, **fin)
+        print(f"  K4 gathered: with hyper_mask all False (the sums alone) "
+              f"{kf['sums_ms']:.4f} ms; Newton steps a lane "
+              f"{kf['newton_steps']}", flush=True)
+        self.post_ptxas(("w_post_mesh", "h_post_shard"), "finish_mesh")
+        # post_kernel at the mesh's edge cases, and K4 on gathered
+        # partials (a 600 x 2048 X over 4 shards) under every hyper mask
+        ok = compare_post_cases("h_post_shard") and ok
+        ok = compare_post_cases("w_post_mesh") and ok
+
+        def gathered_parts(dt):
+            x_np = planted(600, 2048, 8, seed=10)
+            xx, lwt_, lh_, eh_, sc_, _ = sweep_inputs(
+                x_np, [16, 12, 8], 16, dt, torch.int8, 1.0, 10, dev)
+            xsh = ShardedCounts(xx, np.array([[dev] * k], dtype=object))
+            lhk, ehk = xsh.shard_h(lh_), xsh.shard_h(eh_)
+            ps = [ssh.xpass_shard(b, lwt_, l_, e_, sc_)
+                  for b, l_, e_ in zip(xsh.blocks[0], lhk, ehk)]
+            ngc_ = ps[0][1].shape[1]
+            xlog_ = ssh.gather([p[2].view(3, ngc_, -1) for p in ps], 2,
+                               dev).view(3, -1)
+            w_ = sol.w_post(ssh.gather([p[0] for p in ps], 1, dev), lwt_,
+                            ssh.gather([p[3] for p in ps], 1, dev), sc_, 16,
+                            600)
+            hs_ = [ssh.h_post_shard(p[1], l_, w_[3], sc_, 16, 512, 512)
+                   for p, l_ in zip(ps, lhk)]
+            return (sc_, xlog_, w_[3], w_[4],
+                    ssh.gather([h_[3] for h_ in hs_], 1, dev),
+                    ssh.gather([h_[4] for h_ in hs_], 1, dev))
+
+        ok = compare_finish_masks(gathered_parts, 600, 2048,
+                                  f"gathered (600 x 2048 over {k} shards)"
+                                  ) and ok
 
         # device launches a sweep of the loop on these lanes, one device
         # beside cells=4 (torch.profiler; itmax 10 at tol 0 runs 11

@@ -165,18 +165,21 @@ def test_e2_block_is_a_constant_of_epi_w_cuh():
     csrc/epi_w.cuh's kE2Cols, used by the launch as it stands (never
     derived from the lane count): the wrapper sizes E2's partials, which
     E3 and K4 read, from it; E3's partials stay one a POST_COLS cells
-    (post.cuh's block)."""
+    (post.cuh's block, kPostCols)."""
     src = (tbuild.CSRC / "epi_w.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (kE2\w+) = (\d+);", src))
     assert int(consts["kE2Cols"]) == tep.E2_COLS
     assert re.search(r"grid\(ceil_div\(np, kE2Cols\), B\)", src)
     post = (tbuild.CSRC / "post.cuh").read_text()
-    assert int(re.search(r"constexpr int kPostThreads = (\d+);",
+    assert int(re.search(r"constexpr int kPostCols = (\d+);",
                          post).group(1)) == tsol.POST_COLS
     for ext, rp in ((1, 8), (255, 16), (256, 24), (100_000, 16)):
         c, s_ = tep._partials(3, ext, rp, "cpu", tep.E2_COLS)
         assert c.shape == (3, -(-ext // tep.E2_COLS), rp)
         assert s_.shape == (3, -(-ext // tep.E2_COLS), 4)
+        c, s_ = tep._partials(3, ext, rp, "cpu", tsol.POST_COLS)
+        assert c.shape == (3, -(-ext // tsol.POST_COLS), rp)
+        assert s_.shape == (3, -(-ext // tsol.POST_COLS), 4)
     assert "E2_COLS" in inspect.getsource(tep.epi_w_post)
     assert "sol.POST_COLS" in inspect.getsource(tep.epi_h_post)
 

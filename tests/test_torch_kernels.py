@@ -924,3 +924,113 @@ def test_sharded_sweep_is_the_single_device_sweep(cells, m):
                         ssh.sharded_sweep_kernels, **kw)
     for u, v, w in zip(got, again, want):
         assert torch.equal(u, v) and torch.equal(u, w)
+
+
+# ---------------------------------------------------------------------
+# post_kernel (K2, K3, K3s, E3: a thread an entry, POST_COLS columns a
+# block) and finish_kernel (K4: a block a lane, the sums on many warps)
+# ---------------------------------------------------------------------
+
+def _post_case(rp, r, lanes_live, ext, nsfx, ndenom, dt, dev, seed=0):
+    """Partials, factor and sc of a posterior launch: lane b's live rank
+    rows lanes_live[b] (rows in [r_live, r) are masked, rows >= r pad)."""
+    rng = np.random.default_rng(seed)
+    nb = len(lanes_live)
+    sfx = rng.gamma(1.0, 1.0 / nsfx, (nb, nsfx, rp, ext))
+    lf = np.zeros((nb, rp, ext))
+    lf[:, :r] = rng.gamma(1.0, 1.0, (nb, r, ext))
+    denom = rng.gamma(2.0, 1.0, (nb, ndenom, rp))
+    sc = np.zeros((nb, 8))
+    sc[:, :4] = rng.uniform(0.5, 1.5, (nb, 4))
+    sc[:, 4] = float(torch.finfo(dt).eps)
+    sc[:, 5] = lanes_live
+    sc[:, 7] = 1.0
+    t = lambda a, d=dt: torch.tensor(a, dtype=d, device=dev)  # noqa: E731
+    return t(sfx), t(lf), t(denom, torch.float64), t(sc, torch.float64)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rp,r,lanes,ext,n_live,n_pin,nsfx,ndenom", [
+    (1, 1, [1, 1, 1], 77, 77, 77, 1, 1),          # rp 1, a ragged block
+    (8, 8, [8, 5, 3], 4096, 4096, 4096, 32, 32),  # K2 at 10x's partials
+    (16, 16, [16, 12, 8], 8192, 8192, 8192, 16, 128),  # K3 at 10x's
+    (16, 13, [13, 9], 2048, 2000, 2048, 16, 128),  # a shard: live < pin
+    (24, 20, [20, 17], 1000, 1000, 1000, 1, 391),  # E3: E2's partials
+    (128, 128, [128, 100], 300, 290, 300, 3, 5),  # the largest rank
+])
+def test_post_kernel_matches_plain(rp, r, lanes, ext, n_live, n_pin, nsfx,
+                                   ndenom, dt):
+    """post_kernel, as K2 (W's prior, n_live = n_pin) and as K3 (H's),
+    against post_plain: e, ln, d and the rank sums at the sweep's
+    tolerances, partials one a POST_COLS block; two launches are
+    bit-identical, and lanes run alone give the batch's bits."""
+    dev = _card()
+    sfx, lf, denom, sc = _post_case(rp, r, lanes, ext, nsfx, ndenom, dt,
+                                    dev)
+    a = [sc[:, q].to(dt) for q in range(6)]
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    nblk = -(-ext // sol.POST_COLS)
+    for which in ("w", "h"):
+        if which == "w":
+            def launch(s_, l_, d_, c_):
+                return sol.w_post(s_, l_, d_, c_, r, n_live)
+            live, pin, ab = n_live, n_live, 0
+        else:
+            def launch(s_, l_, d_, c_):
+                return sol.launch_h_post(s_, l_, d_, c_, r, n_live, n_pin)
+            live, pin, ab = n_live, n_pin, 2
+        got = launch(sfx, lf, denom, sc)
+        again = launch(sfx, lf, denom, sc)
+        torch.cuda.synchronize()
+        want = sol.post_plain(sfx.sum(1, dtype=torch.float64).to(dt), lf,
+                              denom.sum(1), a[ab], a[ab + 1], a[4], a[5], r,
+                              live, npin=pin)
+        assert got[3].shape == (len(lanes), nblk, rp)
+        assert got[4].shape == (len(lanes), nblk, 4)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.dtype == dt and _rel(g, w) <= tol
+        assert _rel(got[3].sum(1), want[3]) <= tol
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        for sub in ([1], [0, len(lanes) - 1]):
+            idx = torch.tensor(sub, device=dev)
+            one = launch(*(t[idx].contiguous() for t in (sfx, lf, denom,
+                                                         sc)))
+            assert all(torch.equal(u[idx], v) for u, v in zip(got, one))
+
+
+@pytest.mark.parametrize("niter", [1, 100])
+@pytest.mark.parametrize("mask", range(16))
+def test_finish_matches_plain(mask, niter):
+    """K4 under each hyper mask on the partials of K1-K3 (the sums on
+    many warps of a block, the Newton on thread 0) against finish_plain:
+    the hypers at the sweep's tolerances, the per-element ELBO, the
+    Newton's failure flags; two launches and lanes alone bit-identical."""
+    dev = _card()
+    hm = tuple(bool(mask >> i & 1) for i in range(4))
+    for dt in (torch.float64, torch.float32):
+        n, m, r = 1030, 2100, 16
+        x, lwt, lh, eh, sc = _inputs(n, m, r, [16, 12, 8], dt, torch.int8,
+                                     dev, seed=9)
+        k1 = sol.xpass(x, lwt, lh, eh, sc)
+        k2 = sol.w_post(k1[0], lwt, k1[3], sc, r, n)
+        k3 = sol.h_post(k1[1], lh, k2[3], sc, r, m)
+        parts = (k1[2], k2[3], k2[4], k3[3], k3[4])
+        kw = dict(n=n, m=m, dt=dt, hyper_mask=hm, newton_niter=niter,
+                  newton_tol=1e-4)
+        got = sol.finish(sc, *parts, **kw)
+        again = sol.finish(sc, *parts, **kw)
+        torch.cuda.synchronize()
+        want = sol.finish_plain(sc, *(p.sum(1) for p in parts), n, m, dt,
+                                hm, niter, 1e-4)
+        tol = 1e-10 if dt == torch.float64 else 2e-4
+        for slot in (sol.AW, sol.BW, sol.AH, sol.BH):
+            assert _rel(got[:, slot], want[:, slot]) <= tol
+        assert _rel((got[:, sol.PEND] + got[:, sol.DTERM]) / (n * m),
+                    (want[:, sol.PEND] + want[:, sol.DTERM]) / (n * m)) <= (
+            1e-10 if dt == torch.float64 else 1e-5)
+        assert torch.equal(got[:, sol.HFAIL], want[:, sol.HFAIL])
+        assert torch.equal(got, again)
+        idx = torch.tensor([1], device=dev)
+        one = sol.finish(sc[idx], *(p[idx].contiguous() for p in parts),
+                         **kw)
+        assert torch.equal(one, got[idx])

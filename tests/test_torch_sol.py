@@ -353,3 +353,45 @@ def test_k1_chunks_do_not_depend_on_lanes(nb):
     one = tsol.xpass_partials_plain(x, lwt[:1], lh[:1], eh[:1], sc[:1])
     for a, b in zip(parts, one):
         torch.testing.assert_close(a[:1], b, rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("ext,rp", [(1, 8), (257, 16), (4096, 24),
+                                    (8192, 128)])
+def test_post_block_is_a_constant_of_post_cuh(monkeypatch, ext, rp):
+    """K2/K3's block (all rank rows of POST_COLS long-axis columns of a
+    lane, csrc/post.cuh kPostCols) is a constant that divides 512 and
+    K1's cell chunk, so whole-chunk cell shards give the single-device
+    partials; _post sizes its rank-sum and scalar partials from (ext,
+    rp) alone, one a block, whatever the lane count."""
+    import re
+
+    from ccfindr_tpu_torch.ops.kernels import build as tbuild
+
+    src = (tbuild.CSRC / "post.cuh").read_text()
+    cols = int(re.search(r"constexpr int kPostCols = (\d+);",
+                         src).group(1))
+    assert cols == tsol.POST_COLS
+    assert 512 % cols == 0 and tsol.CHUNK[1] % cols == 0
+    assert re.search(r"grid\(ceil_div\(ext, kPostCols\), B\)", src)
+
+    launched = []
+
+    class _Lib:
+        def sol_h_post(self, *args):
+            launched.append(args)
+            return 0
+
+    monkeypatch.setattr(tsol, "require_cuda", lambda *ts: None)
+    monkeypatch.setattr(tsol, "library", lambda: _Lib())
+    monkeypatch.setattr(tsol, "stream", lambda: 0)
+    nblk = -(-ext // tsol.POST_COLS)
+    for nb in (1, 3, 6):
+        lh = torch.ones(nb, rp, ext)
+        shn = torch.ones(nb, 2, rp, ext)
+        csum = torch.zeros(nb, 5, rp, dtype=torch.float64)
+        sc = torch.zeros(nb, 8, dtype=torch.float64)
+        out = tsol.launch_h_post(shn, lh, csum, sc, rp, ext, ext)
+        assert out[3].shape == (nb, nblk, rp)
+        assert out[4].shape == (nb, nblk, 4)
+        assert all(t.shape == lh.shape for t in out[:3])
+    assert len(launched) == 3

@@ -200,7 +200,9 @@ EDITS = {"repo": [],
          "lb6": [(LB, LB.replace("(kE2Threads)", "(kE2Threads, 6)"))],
          "cols128": [("kE2Cols = 256;", "kE2Cols = 128;")],
          "unroll1": [(LOOP, LOOP.replace("unroll 2", "unroll 1"))]}
-COLS = {"cols128": 128, "baseline": sol.POST_COLS}   # others: E2_COLS
+# E2's genes a block (others: E2_COLS); the baseline tree's E2 is its
+# post_kernel, a column a thread, 256 a block
+COLS = {"cols128": 128, "baseline": 256}
 
 
 def build_variants(baseline):
@@ -296,12 +298,13 @@ def h_inputs(nb, rp, m, dt, dev, seed=1):
     return shn, lh
 
 
-def e3(lib, csum_part, sc, r, shn, lh):
-    """E3 on ``shn``/``lh (B, rp, m)`` and the given E2 partials."""
+def e3(lib, csum_part, sc, r, shn, lh, cols=sol.POST_COLS):
+    """E3 on ``shn``/``lh (B, rp, m)`` and the given E2 partials, one
+    partial a block of ``cols`` cells."""
     nb, nbw, rp = csum_part.shape
     m, dt = lh.shape[-1], lh.dtype
     out = [torch.empty_like(lh) for _ in range(3)]
-    nblk = -(-m // sol.POST_COLS)
+    nblk = -(-m // cols)
     rs = torch.empty(nb, nblk, rp, dtype=torch.float64, device=lh.device)
     hs = torch.empty(nb, nblk, 4, dtype=torch.float64, device=lh.device)
     build.check_launch("e3", lib.e3(
@@ -370,12 +373,17 @@ def main():
                 cases[f"E3 on {name}'s partials"] = (
                     lambda part=part: e3(libs["repo"], part, sc, r, shn, lh))
         if "baseline" in libs:
-            got = [e3(libs[k], ref[3], sc, r, shn, lh)
+            got = [e3(libs[k], ref[3], sc, r, shn, lh, COLS.get(k,
+                                                                sol.POST_COLS))
                    for k in ("repo", "baseline")]
             torch.cuda.synchronize()
-            same = all(torch.equal(u, v) for u, v in zip(*got))
-            print(f"  E3 (post.cuh) repo == baseline bit for bit on the "
-                  f"same inputs: {same}", flush=True)
+            same = all(torch.equal(u, v) for u, v in zip(got[0][:3],
+                                                          got[1][:3]))
+            tot = max(rel_err(got[0][q].sum(1), got[1][q].sum(1))
+                      for q in (3, 4))
+            print(f"  E3 (post.cuh) repo == baseline on the same inputs: "
+                  f"eh, lhn, dh bit for bit {same}, rank-sum and scalar "
+                  f"totals rel {tot:.3g}", flush=True)
         cases["E2 plain"] = lambda: sol.post_plain(
             swn.transpose(-1, -2), lw.transpose(-1, -2), ehs[:, 0], *a[:2],
             *a[4:], r, n)

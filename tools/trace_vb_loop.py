@@ -5,15 +5,19 @@ QC, 21 lanes, rank <= 8, int16 X), the 10x-scale planted matrix (4096 x
 8192, 6 lanes, rank <= 16, int8 X), both on the cell-major loop
 ``vb_run_sol``, and the gene-major cell (planted 100,000 x 4,096, 6
 lanes, rank <= 16, int8 X) on ``vb_run_epi(layout='gm')``, the loop
-``vb_factorize(backend='pallas')`` takes there, and the two-pass cell
+``vb_factorize(backend='pallas')`` takes there, the two-pass cell
 (the 10x matrix in float32, zero-padded, on ``ops.vb.vb_run`` with
-``make_pallas_backend()``: ``backend='pallas2pass'``) -- prints each
+``make_pallas_backend()``: ``backend='pallas2pass'``), and the mesh
+cell (the 10x matrix over ``make_mesh(cells=4)`` on one card, the
+sharded sweep of ``sol_sharded``: K1s and K3s a shard, K2 and K4 on the
+gathered partials) -- prints each
 kernel's time per launch (CUDA events), then runs the loop with
 ``tol=0`` (a fixed number of sweeps) untraced and under
 ``torch.profiler``: wall time, device-busy time (union of kernel
 intervals), the idle share, device launches a sweep, and device time
 by kernel.  Run from the repository root: ``python3
-tools/trace_vb_loop.py`` (``--cells gm`` runs one cell).
+tools/trace_vb_loop.py`` (``--cells gm`` runs one cell; the cells are
+bundled, 10x, gm, p2 and mesh).
 """
 import argparse
 import functools
@@ -34,7 +38,9 @@ from ccfindr_tpu_torch.data import pbmc_sim_dir  # noqa: E402
 from ccfindr_tpu_torch.ops import vb  # noqa: E402
 from ccfindr_tpu_torch.ops.kernels import epilogue as epi  # noqa: E402
 from ccfindr_tpu_torch.ops.kernels import sol  # noqa: E402
+from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh  # noqa: E402
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk  # noqa: E402
+from ccfindr_tpu_torch.parallel.sharded import ShardedCounts  # noqa: E402
 
 dev = torch.device("cuda")
 
@@ -191,7 +197,7 @@ def epi_kernel_times(name, args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cells", default="bundled,10x,gm,p2")
+    ap.add_argument("--cells", default="bundled,10x,gm,p2,mesh")
     cells = ap.parse_args().cells.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(smi())
@@ -227,6 +233,15 @@ def main():
         traced("two-pass 10x 4096x8192 B=6 r=16 float32 X",
                (vbk.pad_matrix(x.float()), st, hy, rm, rt), 50,
                run=functools.partial(vb.vb_run, suffstats=ss, data_term=dt))
+    if "mesh" in cells:
+        x, st, hy, rm, rt = setup(planted(4096, 8192, 16, seed=0),
+                                  [8, 12, 16], 2, 16)
+        xs = ShardedCounts(x, np.array([[dev] * 4], dtype=object))
+        sweep = ssh.make_sol_sweep_sharded(ct.make_mesh(cells=4,
+                                                        devices=[dev] * 4))
+        traced("mesh cells=4 10x 4096x8192 B=6 rp=16 int8",
+               (xs, st, hy, rm, rt), 100,
+               run=functools.partial(sol.vb_run_sol, sweep_fn=sweep))
     print(smi())
 
 
