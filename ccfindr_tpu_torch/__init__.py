@@ -10,7 +10,9 @@ used ``vmap``.  This package never imports JAX.
 """
 
 from .container import SCSet, scNMFSet, remove_zeros  # noqa: F401
-from .io import read_10x, read_mtx  # noqa: F401
+from .io import read_10x, write_10x, read_mtx, write_mtx  # noqa: F401
+from .interop import (to_anndata, from_anndata, read_h5ad,  # noqa: F401
+                      write_h5ad, read_10x_h5)
 from .qc import (filter_cells, filter_genes, plot_genes,  # noqa: F401
                  normalize_count, calc_vmr, has_mode)
 from .simulate import simulate_data, simulate_whx  # noqa: F401
@@ -32,7 +34,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "SCSet", "scNMFSet", "remove_zeros",
-    "read_10x", "read_mtx",
+    "read_10x", "write_10x", "read_mtx", "write_mtx",
+    "to_anndata", "from_anndata", "read_h5ad", "write_h5ad",
+    "read_10x_h5",
     "filter_cells", "filter_genes", "plot_genes", "normalize_count",
     "calc_vmr", "has_mode",
     "simulate_data", "simulate_whx",

@@ -19,6 +19,8 @@ replicates x ``nrun`` restarts.
   :class:`~ccfindr_tpu_torch.ops.consensus.ConsensusAccumulator`: exact
   dispersion without the m(m-1)/2 connectivity vector, and a
   subsampled cophenetic above ``cophenetic_max_cells``;
+* ``mesh`` lays X out a cell shard a device and runs the shard passes
+  of :mod:`ccfindr_tpu_torch.parallel.sharded`;
 * ``checkpoint_every``/``compact_every`` run the loop in chunks of
   sweeps (:func:`_chunked_ml`, the twin of the VB driver's), and
   ``checkpoint_dir`` keeps each finished sample of a randomized scan.
@@ -38,7 +40,8 @@ from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, auto_storage_dtype, resolve_device
-from .vb_driver import (_check_sparse_options, _not_ported, _sparse_counts,
+from ..parallel import sharded
+from .vb_driver import (_cat_field, _check_sparse_options, _sparse_counts,
                         check_processes, chunk_lanes)
 
 
@@ -157,6 +160,46 @@ def _shuffle_sparse_columns(csr, rng):
     return sp.csr_matrix(out)
 
 
+def _ml_mesh_layout(mesh, backend, mat, x_dtype, dtype, m_pad):
+    """X laid out once on each runs row of ``mesh``, a cell shard on
+    each device of the row's first gene shard (the JAX driver shards
+    X's cells only, P(None, 'cells'), replicated over 'genes'): the
+    sparse layout of ``from_scipy_tile_sharded``, or the zero-padded
+    dense X's blocks (``parallel.sharded.ShardedCounts``)."""
+    if backend == "sparse":
+        base = tile_ops.from_scipy_tile_sharded(
+            mat, mesh.shape["cells"], m_pad=m_pad, dtype=dtype, device="cpu")
+        return [base.to(row[0]) for row in mesh.devices]
+    x = torch.as_tensor(mat).to(dtype=x_dtype)
+    x = torch.nn.functional.pad(x, (0, m_pad - x.shape[1]))
+    return [sharded.ShardedCounts(x, row[:1]) for row in mesh.devices]
+
+
+def _ml_rows(rows, w, h, c0, z0, l0, kw, dev):
+    """The mesh's ``runs`` axis for ``ml_run``: the lane batch split into
+    contiguous groups, one a runs row (``rows``, X laid out on each), each
+    run on its row's first device, the results joined in lane order on
+    ``dev``.  A lane's numbers do not depend on the grouping."""
+    nb = w.shape[0]
+    outs = []
+    for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
+                                                 len(rows))):
+        if len(lanes) == 0:
+            continue
+        sel = slice(int(lanes[0]), int(lanes[-1]) + 1)
+        d = x_row.device
+
+        def part(t):
+            return None if t is None else t[sel].to(d)
+
+        kw_g = dict(kw)
+        if kw.get("rank_mask") is not None:
+            kw_g["rank_mask"] = part(kw["rank_mask"])
+        outs.append(ml_ops.ml_run(x_row, part(w), part(h), lk0_init=part(l0),
+                                  cid0=part(c0), zstep0=part(z0), **kw_g))
+    return _cat_field(outs, dev)
+
+
 def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
               verbose=2, Itmax=10000, ncnn_step=40,
               criterion="likelihood", linkage="average", Tol=1e-5,
@@ -206,17 +249,30 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     ``store_connectivity``), so a rerun of a crashed multi-sample scan
     skips them.
 
+    ``mesh`` (``make_mesh``, where a device may repeat) runs the scan
+    over a device grid in this process, as the JAX driver runs it over a
+    ``jax`` mesh: the cell axis is zero-padded to the mesh (the initial
+    factors drawn at the padded width, as in JAX; the likelihood
+    normalised by the true extents), X is laid out a cell shard on each
+    runs row, the lane batch is split into contiguous groups, one a runs
+    row, and the deferred-likelihood loop runs the shard passes of
+    ``parallel/sharded.py``: M1/M2 (``'pallas'``, ``make_ml_sharded``),
+    S1/S2 (``'sparse'``, ``make_tile_ml_sharded``), or the matmul phases
+    (``'dense'``, ``'dense_fused'``), the H numerator cell-local and the
+    W numerator and ``x log wh`` added in shard order.  (JAX's
+    ``'dense'`` keeps its three-pass loop on a mesh that divides the
+    cells; the port takes the two-pass loop, which stops at the same
+    sweep.)
+
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``mesh`` (A7b), ``distributed`` or ``_process_count`` over several
-    processes (A7c) and ``sparse_layout='ell'`` (A6).
+    ``distributed`` or ``_process_count`` over several processes (A7c)
+    and ``sparse_layout='ell'`` (A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
     errors r_se, d_se, c_se for randomized replicates) filled.
     """
-    if mesh is not None:
-        raise _not_ported("the ML mesh", "A7b")
     check_processes(distributed, _process_count)
     if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -270,7 +326,21 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     pd_ = float(gamma_a) / float(gamma_b) if prior else 0.0
     run_kwargs = dict(tol=float(Tol), criterion=criterion,
                       ncnn_step=int(ncnn_step), pn=pn, pd=pd_)
-    if backend == "dense_fused":
+    # mesh: the cell axis zero-padded to the 'cells' axis (the likelihood
+    # normalised by the true (n, m) through nm_true), X laid out a cell
+    # shard on each runs row, the lanes split over the runs rows
+    # (ccfindr_tpu/drivers/ml_driver.py:301-394)
+    m_pad = m
+    if mesh is not None:
+        m_pad = -(-m // mesh.shape["cells"]) * mesh.shape["cells"]
+        if backend == "sparse":
+            fh, fw = sharded.make_tile_ml_sharded(mesh)
+        elif backend == "pallas":
+            fh, fw = sharded.make_ml_sharded(mesh)
+        else:
+            fh, fw = sharded.ml_dense_sharded(mesh)
+        run_kwargs.update(fused_h=fh, fused_w=fw, nm_true=(n, m))
+    elif backend == "dense_fused":
         run_kwargs.update(fused_h=ml_ops.ml_h_dense,
                           fused_w=ml_ops.ml_w_dense)
     elif backend == "pallas":
@@ -324,8 +394,8 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         """One lane batch of rank ``r`` to convergence (in chunks under
         ``checkpoint_every``/``compact_every``); the batched scan masks
         each lane's rank rows past its own rank."""
-        w0, h0 = initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, r,
-                                 dtype, device)
+        w0, h0 = initial_factors(seed, ismpl, pairs, nrank, nrun, n, m_pad,
+                                 r, dtype, device)
         kw = dict(run_kwargs)
         rmask = None
         if batch_ranks:
@@ -338,6 +408,9 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             if rmask is not None:
                 kw["rank_mask"] = rmask[torch.as_tensor(lanes,
                                                         device=device)]
+            if mesh is not None:
+                return _ml_rows(x, w, h, c0, z0, l0,
+                                dict(kw, itmax=im, it0=i0), device)
             return ml_ops.ml_run(x, w, h, itmax=im, it0=i0, lk0_init=l0,
                                  cid0=c0, zstep0=z0, **kw)
 
@@ -347,7 +420,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                 if checkpoint_every and checkpoint_dir is not None:
                     os.makedirs(checkpoint_dir, exist_ok=True)
                     ckf = os.path.join(checkpoint_dir, ckname)
-                res = _chunked_ml(call, w0, h0, len(pairs), m, itmax,
+                res = _chunked_ml(call, w0, h0, len(pairs), m_pad, itmax,
                                   int(every), ckf, verbose)
             else:
                 res = call(w0, h0, None, None, None, itmax, 1,
@@ -378,7 +451,10 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         else:
             mat = mat0
         with timings.phase("ml_setup", sample=ismpl):
-            if backend == "sparse":
+            if mesh is not None:
+                x = _ml_mesh_layout(mesh, backend, mat, x_dtype, dtype,
+                                    m_pad)
+            elif backend == "sparse":
                 x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
             else:
                 x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
@@ -407,11 +483,11 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             label = f" rank {rank}" if batch_ranks else ""
             with timings.phase("ml_consensus", sample=ismpl, rank=rank):
                 imax, rmax, disp, coph, conav = consensus_stats(
-                    [o.cid[b] for b in idxs], [o.lkh[b] for b in idxs],
+                    [o.cid[b][:m] for b in idxs], [o.lkh[b] for b in idxs],
                     [o.n_iter[b] for b in idxs], label)
             local[k] = dict(rmax=rmax, disp=disp, coph=coph,
                             wmax=np.asarray(o.w[idxs[imax]][:, :rank]),
-                            hmax=np.asarray(o.h[idxs[imax]][:rank, :]))
+                            hmax=np.asarray(o.h[idxs[imax]][:rank, :m]))
             conav_last = conav
             if verbose >= 1:
                 print(f"Sample# {ismpl + 1}: rank {rank}: "

@@ -22,8 +22,10 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   to the mesh as the JAX driver does, lays X out on each runs row of
   the mesh (``parallel.sharded``) and runs contiguous groups of lanes,
   one a runs row: ``'pallas'`` with the cell-sharded kernel sweep of
-  :mod:`ccfindr_tpu_torch.ops.kernels.sol_sharded`, ``'dense'`` and
-  ``'dense_fused'`` with the block passes of ``parallel.sharded``;
+  :mod:`ccfindr_tpu_torch.ops.kernels.sol_sharded` (or, gene-sharded or
+  gene-major, the fused X pass a block), ``'sparse'``,
+  ``'pallas2pass'``, ``'dense'`` and ``'dense_fused'`` with the shard
+  passes of ``parallel.sharded``;
 * ``checkpoint_every``/``compact_every`` run the loop in chunks of
   sweeps (:func:`_chunked_vb`), with the carry saved between chunks and
   only the running lanes in the next chunk; ``checkpoint_dir`` alone
@@ -323,6 +325,31 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
                        hyper_failed=hf, done=n_rec >= 0)
 
 
+def _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
+                 overrides):
+    """X laid out once on each runs row of ``mesh`` (the JAX driver's
+    ``_place_sharded``), zero-padded to the mesh: the sparse layout a
+    cell shard (``from_scipy_tile_sharded``), the dense ones a (gene,
+    cell) block (``parallel.sharded.place_counts``; the two-pass
+    backend in the factor dtype, as the JAX driver keeps it), or, for
+    the user's ``suffstats``/``data_term`` on a dense backend, the whole
+    padded X on the row's first device.  Each device gets its own blocks only,
+    converted on the host (a compressed X crosses, not float32)."""
+    ncells = mesh.shape["cells"]
+    if backend == "sparse":
+        base = tile_ops.from_scipy_tile_sharded(mat, ncells, m_pad=m_pad,
+                                                dtype=dtype, device="cpu")
+        return [base.to(row[0]) for row in mesh.devices]
+    n, m = mat.shape
+    x = torch.as_tensor(mat).to(dtype=dtype if backend == "pallas2pass"
+                                else x_dtype)
+    if (n_pad, m_pad) != (n, m):
+        x = torch.nn.functional.pad(x, (0, m_pad - m, 0, n_pad - n))
+    if overrides:
+        return [x.to(row[0, 0]) for row in mesh.devices]
+    return sharded.place_counts(x, mesh)
+
+
 def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                  initializer="random", Itmax=10000,
                  hyper_update=(True, True, True, True),
@@ -361,13 +388,16 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       the CUDA kernels S1/S2 (ops/tile.py, ``csrc/sparse.cu``) on the
       card, their plain PyTorch version on the CPU.  ``sparse_layout``
       ``'auto'``, ``'tile'`` and ``'coo'`` all take this layout: the
-      JAX package's COO scan was a TPU alternative to its tile kernel,
-      with the same result, and the CSR kernels serve both here.
+      JAX package's COO pass (``ops.sparse.fused_coo``) is in the port
+      ``fused_tile`` over a CSR view of the same nonzeros, so ``'coo'``
+      builds the CSR layout at once and keeps ``elbo_every`` and
+      ``precision='bf16'``, which the JAX package's COO scan refuses.
 
     ``suffstats``/``data_term`` (``(x, lw, lh)`` of a lane batch ->
     ``(sw, sh)`` and ``(B,)``) override the backend's passes; on
     ``'pallas'`` they replace its kernel loops by ``ops.vb.vb_run`` over
-    the zero-padded X, as in the JAX driver.
+    the zero-padded X, as in the JAX driver (on a mesh the functions take
+    the whole padded X, as JAX hands them its sharded array).
 
     ``mesh`` (``make_mesh(runs, cells, genes, devices)``, where a
     device may repeat) runs the scan over a device grid in this
@@ -375,10 +405,16 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     axis (and with ``genes > 1`` the gene axis) is zero-padded to the
     mesh and masked, X is laid out on each runs row, the lane batch is
     split into contiguous groups, one a runs row, and the shards'
-    partials are added in shard order.  ``'pallas'`` runs the
-    cell-sharded kernel sweep K1s, K2, K3s, K4
-    (ops/kernels/sol_sharded.py); ``'dense'`` and ``'dense_fused'`` the
-    block passes of ``parallel/sharded.py``, also gene-sharded.
+    partials are added in shard order (``parallel/sharded.py``).
+    ``'pallas'`` runs the cell-sharded kernel sweep K1s, K2, K3s, K4
+    (ops/kernels/sol_sharded.py), or, with ``genes > 1`` or where
+    ``_fused_layout`` answers ``'gm'``, the fused X pass E1 + E1s a
+    block (``make_fused_sharded``) in ``ops.vb.vb_run``; ``'sparse'``
+    S1/S2 a cell shard (``make_tile_fused_sharded``, for every
+    ``sparse_layout``); ``'pallas2pass'`` P1 +
+    E1s and P2 a block (``make_pass2_sharded``); ``'dense'`` and
+    ``'dense_fused'`` the block passes of ``parallel/sharded.py``, also
+    gene-sharded.
 
     ``elbo_every=k`` evaluates the ELBO and the stopping test only
     every k-th sweep (``'sparse'``, and ``'pallas'`` on cell-major
@@ -402,11 +438,12 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     Options of the JAX package that the port does not carry yet raise
     ``NotImplementedError`` naming the ROADMAP item that brings them:
-    on a mesh, ``'sparse'``, ``'pallas2pass'``, ``suffstats``/
-    ``data_term`` and the gene-sharded or gene-major ``'pallas'``
-    sweeps (A7b); ``distributed`` or ``_process_count`` over several
-    processes (A7c); ``sparse_layout='ell'`` (A6) and
-    ``svd_method='randomized'`` (A8).
+    ``distributed`` or ``_process_count`` over several processes (A7c)
+    and ``sparse_layout='ell'`` (A6).  ``svd_method`` (``'auto'``,
+    ``'exact'``, ``'randomized'``) is ``ops.vb.vb_init_svd``'s: above
+    4096 on the short axis ``'auto'`` takes the randomized SVD on the
+    device, whose start differs from JAX's only through its random test
+    matrix.
 
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
@@ -424,8 +461,6 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise ValueError("precision='bf16' is supported by "
                          "backend='pallas' (cell-major shapes) and "
                          "backend='sparse'")
-    if svd_method == "randomized":
-        raise _not_ported("svd_method='randomized'", "A8")
     if int(elbo_every) < 1:
         raise ValueError(f"elbo_every must be a positive integer, got "
                          f"{elbo_every!r}")
@@ -440,11 +475,6 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise ValueError("elbo_every and precision='bf16' need the kernel "
                          "loops of backend='pallas', which suffstats/"
                          "data_term replace")
-    if mesh is not None and (backend in ("sparse", "pallas2pass")
-                             or overrides):
-        what = (f"backend={backend!r}" if not overrides
-                else "suffstats/data_term")
-        raise _not_ported(f"{what} on a mesh", "A7b")
 
     device = resolve_device(device)
     if dtype is None:
@@ -478,12 +508,6 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     for r in ranks:
         if r > min(n, m):
             raise ValueError("Rank exceeded min(nrow,ncol)")
-    if svd_method == "auto":
-        if initializer in ("svd", "svd2") and min(n, m) > 4096:
-            raise _not_ported("svd_method='randomized' (chosen by "
-                              "'auto' above 4096)", "A8")
-        svd_method = "exact"
-
     # mesh mode: the cell axis (and the gene axis of a gene-sharded mesh)
     # zero-padded to the mesh and masked, as the JAX driver pads it
     # (ccfindr_tpu/drivers/vb_driver.py:584-615)
@@ -493,11 +517,20 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         ng, ncells = mesh.shape["genes"], mesh.shape["cells"]
         m_pad = sol_ops.round_up(m, ncells)
         n_pad = sol_ops.round_up(n, ng)
-        if backend == "pallas" and (ng > 1 or _fused_layout(
+        if backend == "sparse" and ng > 1:
+            raise ValueError("gene-axis sharding applies to the dense "
+                             "layouts; the sparse layouts shard cells")
+        # the JAX driver's mesh routes for 'pallas': the cell-sharded
+        # sweep, or the fused X pass a (gene, cell) block where genes
+        # are sharded or _fused_layout answers 'gm' on the padded extents
+        fused_mesh = backend == "pallas" and not overrides and (
+            ng > 1 or _fused_layout(
                 n_pad, m_pad, sol_ops.round_up(max(max(ranks), 8), 8))
-                != "cm"):
-            raise _not_ported("the gene-sharded or gene-major 'pallas' "
-                              "sweep on a mesh", "A7b")
+            != "cm")
+        if fused_mesh and elbo_every != 1:
+            raise ValueError("elbo_every is supported by backend='pallas' "
+                             "on cell-major shapes (one device or a "
+                             "cell-sharded mesh) and by backend='sparse'")
         if m_pad != m:
             mesh_kwargs.update(cell_mask=torch.as_tensor(
                 (np.arange(m_pad) < m).astype(np_dtype), device=device),
@@ -544,7 +577,37 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     # the blocking a route's kernels would choose from the lane count,
     # pinned for the full batch (see pinned() below)
     pin = None
-    if backend == "sparse":
+    rows = None
+    if mesh is not None:
+        rows = _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
+                            overrides)
+        if backend == "sparse":
+            run_kwargs.update(fused=sharded.make_tile_fused_sharded(
+                mesh, mxu_bf16=precision == "bf16"),
+                elbo_every=int(elbo_every))
+        elif overrides:
+            # the user's passes take the whole padded X, as the JAX
+            # driver hands them its sharded array; 'dense_fused' keeps
+            # its fused pass, which vb_run prefers, as in JAX
+            if backend == "dense_fused":
+                run_kwargs["fused"] = vb_ops.fused_dense
+        elif backend == "pallas2pass":
+            ss, dt = sharded.make_pass2_sharded(mesh)
+            run_kwargs.update(suffstats=ss, data_term=dt)
+        elif fused_mesh:
+            run_kwargs["fused"] = sharded.make_fused_sharded(
+                mesh, mxu_bf16=precision == "bf16")
+        elif backend == "pallas":
+            run_fn = sol_ops.vb_run_sol
+            run_kwargs.update(
+                sweep_fn=sol_sharded.make_sol_sweep_sharded(mesh),
+                elbo_every=int(elbo_every), mxu_bf16=precision == "bf16")
+        elif backend == "dense_fused":
+            run_kwargs["fused"] = sharded.fused_sharded
+        else:
+            run_kwargs.update(suffstats=sharded.suffstats_sharded,
+                              data_term=sharded.data_term_sharded)
+    elif backend == "sparse":
         x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
         run_kwargs.update(fused=tile_ops.make_tile_fused(
             mxu_bf16=precision == "bf16"), elbo_every=int(elbo_every))
@@ -556,51 +619,32 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         if backend == "pallas2pass":
             pin = "pass2"
     else:
-        # convert on the host: the compressed X crosses, not float32
-        x = torch.as_tensor(mat).to(dtype=x_dtype)
-        if mesh is None:
-            x = x.to(device)
-    rows = None
-    if mesh is not None:
-        # X zero-padded to the mesh on the host and laid out once on each
-        # runs row (the JAX driver's _place_sharded): each device gets its
-        # blocks only; the lanes move to a row's first device
-        if (n_pad, m_pad) != (n, m):
-            x = torch.nn.functional.pad(x, (0, m_pad - m, 0, n_pad - n))
-        rows = sharded.place_counts(x, mesh)
+        x = torch.as_tensor(mat).to(dtype=x_dtype).to(device)
         if backend == "pallas":
-            run_fn = sol_ops.vb_run_sol
-            run_kwargs.update(
-                sweep_fn=sol_sharded.make_sol_sweep_sharded(mesh),
-                elbo_every=int(elbo_every), mxu_bf16=precision == "bf16")
+            # the JAX driver's choice between its two single-device
+            # sweeps (ccfindr_tpu/drivers/vb_driver.py:775-801), on its
+            # padded extents: gene-major above 65,536 genes
+            layout = _fused_layout(sol_ops.round_up(n, DEFAULT_BN),
+                                   sol_ops.round_up(m, DEFAULT_BM),
+                                   sol_ops.round_up(max(max(ranks), 8), 8))
+            if layout == "cm":
+                run_fn = sol_ops.vb_run_sol
+                run_kwargs.update(elbo_every=int(elbo_every),
+                                  mxu_bf16=precision == "bf16")
+            else:
+                if elbo_every != 1:
+                    raise ValueError("elbo_every is supported by "
+                                     "backend='pallas' on cell-major "
+                                     "shapes and by backend='sparse'")
+                if precision == "bf16":
+                    raise ValueError("precision='bf16' is supported by "
+                                     "backend='pallas' on cell-major "
+                                     "shapes")
+                run_fn = functools.partial(epi_ops.vb_run_epi,
+                                           layout=layout)
+                pin = "gm"
         elif backend == "dense_fused":
-            run_kwargs["fused"] = sharded.fused_sharded
-        else:
-            run_kwargs.update(suffstats=sharded.suffstats_sharded,
-                              data_term=sharded.data_term_sharded)
-    elif backend == "pallas" and not overrides:
-        # the JAX driver's choice between its two single-device sweeps
-        # (ccfindr_tpu/drivers/vb_driver.py:775-801), on its padded
-        # extents: gene-major above 65,536 genes
-        layout = _fused_layout(sol_ops.round_up(n, DEFAULT_BN),
-                               sol_ops.round_up(m, DEFAULT_BM),
-                               sol_ops.round_up(max(max(ranks), 8), 8))
-        if layout == "cm":
-            run_fn = sol_ops.vb_run_sol
-            run_kwargs.update(elbo_every=int(elbo_every),
-                              mxu_bf16=precision == "bf16")
-        else:
-            if elbo_every != 1:
-                raise ValueError("elbo_every is supported by "
-                                 "backend='pallas' on cell-major shapes "
-                                 "and by backend='sparse'")
-            if precision == "bf16":
-                raise ValueError("precision='bf16' is supported by "
-                                 "backend='pallas' on cell-major shapes")
-            run_fn = functools.partial(epi_ops.vb_run_epi, layout=layout)
-            pin = "gm"
-    elif backend == "dense_fused":
-        run_kwargs["fused"] = vb_ops.fused_dense
+            run_kwargs["fused"] = vb_ops.fused_dense
     itmax = int(Itmax)
     every = checkpoint_every or compact_every
 

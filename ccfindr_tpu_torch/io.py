@@ -1,11 +1,11 @@
-"""10x Genomics input: MatrixMarket + gene/barcode TSV triples.
+"""10x Genomics I/O: MatrixMarket + gene/barcode TSV triples.
 
-Copy of the reading half of ``ccfindr_tpu.io`` (reference:
-R/utils.R:28-54 read_10x) on its NumPy route; the writers and the
-native C++ parser are not carried yet.  Parsing uses a NumPy fast path
-(np.loadtxt on the coordinate block) rather than scipy.io.mmread's
-generic parser, since count matrices are always "coordinate
-integer/real general".
+Copy of ``ccfindr_tpu.io`` (reference: R/utils.R:28-54 read_10x,
+R/utils.R:867-884 write_10x).  The coordinate body is parsed and
+written by the native C++ code of :mod:`ccfindr_tpu_torch.native`
+where ``g++`` can build it, else by a NumPy fast path (np.loadtxt on
+the coordinate block) rather than scipy.io.mmread's generic parser,
+since count matrices are always "coordinate integer/real general".
 """
 
 from __future__ import annotations
@@ -70,11 +70,36 @@ def _read_mtx_header(path: str):
 
 
 def read_mtx(path: str) -> sp.csr_matrix:
-    """Read a MatrixMarket coordinate file into CSR (NumPy parser;
-    the native C++ parser of the JAX package is not carried).
+    """Read a MatrixMarket coordinate file into CSR.
+
+    Uses the native C++ parser (ccfindr_tpu_torch/native/mmio.cpp) when
+    available — single buffered pass, ~20-50x faster than the
+    pure-Python route at atlas scale — with a NumPy fallback.
     """
+    import ctypes
+
+    from .native import get_lib
+
     n, m, nnz, field, symmetry, nlines = _read_mtx_header(path)
     dtype = np.int64 if field in ("integer", "pattern") else np.float64
+
+    lib = get_lib()
+    if lib is not None and field != "pattern" \
+            and not path.endswith(".gz"):
+        rows = np.empty(nnz, np.int32)
+        cols = np.empty(nnz, np.int32)
+        vals = np.empty(nnz, np.float64)
+        nthreads = min(os.cpu_count() or 1, 16)
+        rc = lib.mtx_parse_mt(
+            path.encode(), nlines, nnz,
+            rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            nthreads)
+        if rc == 0:
+            return _assemble_coo(vals.astype(dtype), rows, cols, n, m,
+                                 symmetry)
+    # pure-Python fallback (and the pattern-field / gzip paths)
     with _open_maybe_gz(path) as f:
         for _ in range(nlines):
             f.readline()
@@ -102,6 +127,43 @@ def _assemble_coo(vals, rows, cols, n, m, symmetry) -> sp.csr_matrix:
                             np.concatenate([cols, rows[off]]),
                             np.concatenate([vals, sgn * vals[off]]))
     return sp.coo_matrix((vals, (rows, cols)), shape=(n, m)).tocsr()
+
+
+def write_mtx(path: str, mat, field: str | None = None) -> None:
+    """Write a sparse matrix as MatrixMarket coordinate format
+    (native C++ body writer when available)."""
+    import ctypes
+
+    from .native import get_lib
+
+    coo = sp.coo_matrix(mat)
+    if field is None:
+        field = ("integer" if np.issubdtype(coo.data.dtype, np.integer)
+                 or np.all(coo.data == np.round(coo.data)) else "real")
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} general\n")
+        f.write(f"{coo.shape[0]} {coo.shape[1]} {coo.nnz}\n")
+
+    lib = get_lib()
+    if lib is not None:
+        rows = np.ascontiguousarray(coo.row, np.int32)
+        cols = np.ascontiguousarray(coo.col, np.int32)
+        vals = np.ascontiguousarray(coo.data, np.float64)
+        rc = lib.mtx_write_body(
+            path.encode(), coo.nnz,
+            rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            1 if field == "integer" else 0)
+        if rc == 0:
+            return
+    with open(path, "a") as f:
+        if field == "integer":
+            for r, c, v in zip(coo.row, coo.col, coo.data):
+                f.write(f"{r + 1} {c + 1} {int(v)}\n")
+        else:
+            for r, c, v in zip(coo.row, coo.col, coo.data):
+                f.write(f"{r + 1} {c + 1} {v:.10g}\n")
 
 
 def read_10x(dir: str, count: str = "matrix.mtx", genes: str = "genes.tsv",
@@ -148,4 +210,42 @@ def read_10x(dir: str, count: str = "matrix.mtx", genes: str = "genes.tsv",
                 remove_zeros=False)
     if remove_zeros_:
         obj = remove_zeros(obj)
+    return obj
+
+
+def write_10x(obj: SCSet, dir: str, count: str = "matrix.mtx",
+              genes: str = "genes.tsv", barcodes: str = "barcodes.tsv",
+              version: int = 2):
+    """Write SCSet contents in 10x format (reference R/utils.R:867-884).
+
+    ``version=3`` writes the CellRanger v3 layout instead: gzipped
+    ``matrix.mtx.gz`` / ``features.tsv.gz`` / ``barcodes.tsv.gz``.
+    """
+    import gzip
+    import shutil
+
+    os.makedirs(dir, exist_ok=True)
+    if version == 3:
+        count, genes, barcodes = ("matrix.mtx.gz", "features.tsv.gz",
+                                  "barcodes.tsv.gz")
+    mtx_path = os.path.join(dir, count)
+    if mtx_path.endswith(".gz"):
+        tmp = mtx_path[:-3]
+        write_mtx(tmp, obj.counts)
+        with open(tmp, "rb") as fin, gzip.open(mtx_path, "wb") as fout:
+            shutil.copyfileobj(fin, fout)
+        os.remove(tmp)
+    else:
+        write_mtx(mtx_path, obj.counts)
+
+    def _tsv(df, name):
+        p = os.path.join(dir, name)
+        if p.endswith(".gz"):
+            with gzip.open(p, "wt") as f:
+                df.to_csv(f, sep="\t", header=False, index=False)
+        else:
+            df.to_csv(p, sep=" ", header=False, index=False)
+
+    _tsv(obj.row_data, genes)
+    _tsv(obj.col_data, barcodes)
     return obj

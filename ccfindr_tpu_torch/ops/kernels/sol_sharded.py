@@ -232,8 +232,9 @@ def make_sol_sweep_sharded(mesh):
     nc = mesh.shape["cells"]
     if mesh.shape["genes"] != 1:
         raise NotImplementedError(
-            "the gene-sharded sweep is not ported to ccfindr_tpu_torch "
-            "yet (ROADMAP A7b)")
+            "the cell-major sweep runs over cell shards only (as the JAX "
+            "package's); a gene-sharded mesh runs the fused X pass of "
+            "parallel.sharded.make_fused_sharded")
 
     def sweep(x, lwt, lh, eh, sc, **kw):
         _check(x, lwt, lh, eh, sc, nc)

@@ -15,6 +15,12 @@ names, for a lane batch in the JAX package's layouts (``x (np, mp)``,
   rows of ``lw`` past the true gene count and columns of ``lh`` past the
   true cell count meet zero rows and columns of ``x``, and rank rows
   past ``r`` are zero.
+* :func:`fused_pallas_padded`, :func:`fused_pallas` and
+  :func:`make_fused_backend` wrap that pass as ``vb_run``'s fused
+  function ``(swn, shn, dterm)`` (the factors padded to X's extents,
+  the data term folded): the X pass of a gene-sharded or gene-major
+  mesh (``parallel.sharded.make_fused_sharded``), each block of X in
+  the layout ``_fused_layout`` picks for it;
 * the two-pass backend (``backend='pallas2pass'``):
   :func:`suffstats_pallas` (``(sw, sh)``; P1 ``ss_xpass`` of
   ``csrc/pass2.cu``, E1's gene-major walk without the ``x log wth``
@@ -226,6 +232,79 @@ def fused_pallas_raw(x_pad, lw_p, lh_p, *, bn=DEFAULT_BN, bm=DEFAULT_BM,
     if layout == "gm":
         return full, other, xlog
     return other, full, xlog
+
+
+def _pad_factors(lw, lh, np_, mp_, rp_):
+    """The JAX function's padding of a lane batch: W rows -> 1, ranks ->
+    0; H ranks -> 0, columns -> 1 (a padded row or column of X is 0 and
+    meets a positive ``wth``)."""
+    n, r = lw.shape[-2:]
+    m = lh.shape[-1]
+    pad = torch.nn.functional.pad
+    lw_p = pad(pad(lw, (0, 0, 0, np_ - n), value=1.0), (0, rp_ - r))
+    lh_p = pad(pad(lh, (0, mp_ - m), value=1.0), (0, 0, 0, rp_ - r))
+    return lw_p.contiguous(), lh_p.contiguous()
+
+
+def fused_pallas_padded(x_pad, lw, lh, *, n, m, r, bn, bm, layout=None,
+                        mxu_bf16=False, chunk=None):
+    """The fused X pass for ``vb_run(fused=...)``: ``(swn (B, n, r), shn
+    (B, r, m), dterm (B,))``, the numerators (sw = lw*swn, sh = lh*shn)
+    and the ELBO data term of the same (lw, lh), folded by
+    :func:`fold_dterm` in JAX's order.  E1 + E1s on CUDA tensors
+    (:func:`fused_pallas_raw`), its plain version on CPU tensors.
+
+    ``x_pad`` is read in place whatever its padding; the factors ``lw
+    (B, n, r)``, ``lh (B, r, m)`` (or JAX's unbatched ``(n, r)``, ``(r,
+    m)``) are padded to its extents and to ``rp = round_up(max(r, 8),
+    8)`` ranks.  ``layout`` (default: :func:`_fused_layout` on the
+    extents padded to the JAX tiles ``bn``/``bm``, as the JAX function
+    picks it on its padded X) is E1's loop order; ``chunk``, the port's
+    own keyword, pins E1's chunk (default :func:`fused_chunk` of this
+    batch)."""
+    one = lw.dim() == 2
+    if one:
+        lw, lh = lw[None], lh[None]
+    if (lw.shape[-2], lh.shape[-1], lw.shape[-1]) != (n, m, r):
+        raise ValueError(f"(n, m, r) = {(n, m, r)} are not the factors' "
+                         f"extents")
+    np_, mp_ = x_pad.shape
+    rp_ = -(-max(r, 8) // 8) * 8
+    if layout is None:
+        layout = _fused_layout(-(-np_ // bn) * bn, -(-mp_ // bm) * bm, rp_)
+    lw_p, lh_p = _pad_factors(lw, lh, np_, mp_, rp_)
+    swn_p, shn_p, xlog = fused_pallas_raw(x_pad, lw_p, lh_p, layout=layout,
+                                          mxu_bf16=mxu_bf16, chunk=chunk)
+    swn = swn_p[..., :n, :r]
+    shn = shn_p[..., :r, :m]
+    dterm = fold_dterm(swn, shn, lw, lh, xlog)
+    return (swn[0], shn[0], dterm[0]) if one else (swn, shn, dterm)
+
+
+def fused_pallas(x, lw, lh, bn: int = DEFAULT_BN, bm: int = DEFAULT_BM,
+                 layout=None, mxu_bf16=False, *, chunk=None):
+    """Single-pass fused backend for ``ops.vb.vb_run(fused=...)``:
+    ``(swn, shn, dterm)`` for the SAME (lw, lh), reading X once.  The
+    JAX function pads X to its tiles every call; E1 has no tiles and
+    reads X in place, so nothing is copied (:func:`fused_pallas_padded`
+    takes the layout decision on the extents the tiles would give).
+    ``mxu_bf16`` rounds the products' operands to bf16
+    (``precision='bf16'``, also on the mesh path through
+    ``parallel.sharded.make_fused_sharded``)."""
+    n, r = lw.shape[-2:]
+    m = lh.shape[-1]
+    return fused_pallas_padded(x, lw, lh, n=n, m=m, r=r, bn=bn, bm=bm,
+                               layout=layout, mxu_bf16=mxu_bf16,
+                               chunk=chunk)
+
+
+def make_fused_backend(bn: int = DEFAULT_BN, bm: int = DEFAULT_BM):
+    """Fused function for ``vb_run``'s single-pass path over
+    :func:`fused_pallas`."""
+    def fused(x, lw, lh):
+        return fused_pallas(x, lw, lh, bn=bn, bm=bm)
+
+    return fused
 
 
 # ---------------------------------------------------------------------

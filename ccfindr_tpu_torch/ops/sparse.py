@@ -15,13 +15,25 @@ gathers the factor rows of a chunk of nonzeros and scatters with
 of the CUDA kernels S1/S2 (:mod:`ccfindr_tpu_torch.ops.kernels.sparse`),
 which run the sparse backend over the CSR layout of
 :mod:`ccfindr_tpu_torch.ops.tile`.
+
+The JAX package's COO API (:class:`SparseCounts`, :func:`from_scipy`,
+:func:`suffstats_coo`, :func:`elbo_data_coo`, :func:`fused_coo`, ...)
+keeps its layout: flat COO padded to a chunk multiple with dummy
+coordinates ``(n, m)``.  Its passes are
+:func:`ccfindr_tpu_torch.ops.tile.fused_tile`'s (S1/S2, their plain
+versions on CPU tensors) over a CSR view of the same nonzeros, built
+once by the constructor (:attr:`SparseCounts.csr`): one implementation
+of the pass, and on the card no ``index_add_``, whose atomics add in a
+varying order.  ``vb_factorize(sparse_layout='coo')`` therefore builds
+the CSR layout at once.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..utils import lane_sum
+from ..utils import lane_sum, resolve_device
 from .kernels.sol import bf16_round
 
 # nonzeros a chunk gathers at once (bounds the (B, chunk, r) temporaries)
@@ -135,3 +147,260 @@ def fold_dterm(swn, shn, lw, lh, xlog):
     f64 = torch.float64
     return (xlog - lane_sum(swn * (lw * torch.log(lw)), 2, f64)
             - lane_sum(shn * (lh * torch.log(lh)), 2, f64)).to(lw.dtype)
+
+
+# ---------------------------------------------------------------------
+# The JAX package's COO API (ccfindr_tpu/ops/sparse.py)
+# ---------------------------------------------------------------------
+
+def _csr_view(row, col, val, n, m):
+    """The nonzeros of a COO (dummies ``row == n`` and zeros dropped) as
+    the CSR layout of :class:`~ccfindr_tpu_torch.ops.tile.TileCounts`,
+    built on their device by sorts and searches: no scatter, no atomic.
+    A repeated coordinate stays two nonzeros (they add in the passes)."""
+    from .tile import TileCounts
+
+    keep = (row < n) & (val != 0)
+    r, c, v = row[keep].long(), col[keep].long(), val[keep]
+    order = torch.argsort(r * m + c, stable=True)
+    r, c, v = r[order], c[order], v[order]
+    perm = torch.argsort(c * n + r, stable=True)
+    dev = row.device
+    indptr = torch.searchsorted(r, torch.arange(n + 1, device=dev))
+    colptr = torch.searchsorted(c[perm], torch.arange(m + 1, device=dev))
+    return TileCounts(indptr=indptr, col=c.to(torch.int32).contiguous(),
+                      val=v.contiguous(), colptr=colptr,
+                      row=r[perm].to(torch.int32).contiguous(),
+                      perm=perm.to(torch.int32).contiguous(), n=n, m=m)
+
+
+class SparseCounts:
+    """Chunk-padded COO count matrix, the JAX package's layout.
+
+    ``row``/``col`` (nnz_pad,) int32 with the dummy coordinate ``(n,
+    m)`` in the padding, ``val`` (nnz_pad,) in the factor dtype (0 in the
+    padding); ``n``, ``m`` the extents.  :attr:`csr` is the same
+    nonzeros as a :class:`~ccfindr_tpu_torch.ops.tile.TileCounts` (CSR
+    plus the CSC permutation), built once by the constructor, over which
+    the passes (S1/S2) and the products of ``ops.rsvd`` run."""
+
+    def __init__(self, row, col, val, n, m):
+        self.row, self.col, self.val = row, col, val
+        self.n, self.m = int(n), int(m)
+        self.csr = _csr_view(row, col, val, self.n, self.m)
+        self._live = None
+
+    @property
+    def device(self):
+        return self.val.device
+
+    def live(self):
+        """``(row, col, val)`` without the dummy padding (the gathers of
+        :func:`elbo_data_coo` take the real indices only); built once."""
+        if self._live is None:
+            keep = self.row < self.n
+            self._live = (self.row[keep], self.col[keep], self.val[keep])
+        return self._live
+
+    def to(self, device):
+        """The same matrix on ``device``."""
+        return SparseCounts(self.row.to(device), self.col.to(device),
+                            self.val.to(device), self.n, self.m)
+
+
+class Shards(tuple):
+    """A cell-sharded sparse layout: one layout a cell shard, in shard
+    order, each with its cells' nonzeros only and shard-local column
+    indices (a :class:`SparseCounts` or a
+    :class:`~ccfindr_tpu_torch.ops.tile.TileCounts`).
+
+    ``n`` is the gene count, ``m`` the local cell count ``m_pad //
+    len(self)``; ``val`` holds every nonzero of the whole X once, on the
+    host, in the order of the one-device layout (the loops' ``sum
+    lgamma(x + 1)`` and the ML constant read it, and so give a one-device
+    run's bits).  Where the JAX package stacks the shards on a leading
+    axis laid out over the mesh, the port keeps one layout a shard, each
+    on its own device (:meth:`to`)."""
+
+    def __new__(cls, shards, n, m, val):
+        self = super().__new__(cls, shards)
+        self.n, self.m, self.val = int(n), int(m), val
+        return self
+
+    @property
+    def device(self):
+        return self[0].device
+
+    def to(self, devices):
+        """The shards moved each to its device (one a shard, in order)."""
+        devices = list(devices)
+        if len(devices) != len(self):
+            raise ValueError(f"{len(self)} shards, {len(devices)} devices")
+        return Shards([s.to(d) for s, d in zip(self, devices)], self.n,
+                      self.m, self.val)
+
+
+def _pad_coo(rows, cols, vals, n, m, chunk, np_dtype):
+    pad = (-len(rows)) % chunk
+    return (np.concatenate([rows.astype(np.int32),
+                            np.full(pad, n, np.int32)]),
+            np.concatenate([cols.astype(np.int32),
+                            np.full(pad, m, np.int32)]),
+            np.concatenate([vals.astype(np_dtype), np.zeros(pad, np_dtype)]))
+
+
+def _np_dtype(dtype):
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def from_scipy(mat, dtype=torch.float32, chunk: int = 1 << 16,
+               device="cuda") -> SparseCounts:
+    """Build a chunk-padded SparseCounts from a scipy sparse matrix, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    import scipy.sparse as sp
+
+    device = resolve_device(device)
+    coo = sp.coo_matrix(mat)
+    row, col, val = _pad_coo(coo.row, coo.col, coo.data, coo.shape[0],
+                             coo.shape[1], chunk, _np_dtype(dtype))
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return SparseCounts(row=t(row), col=t(col), val=t(val), n=coo.shape[0],
+                        m=coo.shape[1])
+
+
+def from_dense(x, dtype=torch.float32, chunk: int = 1 << 16,
+               device="cuda") -> SparseCounts:
+    import scipy.sparse as sp
+
+    return from_scipy(sp.csr_matrix(np.asarray(x)), dtype=dtype,
+                      chunk=chunk, device=device)
+
+
+def from_scipy_sharded(mat, n_shards: int, m_pad: int | None = None,
+                       dtype=torch.float32, chunk: int = 1 << 16,
+                       device="cuda") -> Shards:
+    """Cell-sharded COO: nonzeros partitioned by equal cell ranges.
+
+    Returns :class:`Shards` of ``n_shards`` SparseCounts, shard ``s``
+    holding the cells ``[s m_loc, (s+1) m_loc)`` with LOCAL column
+    indices and ``m = m_loc = m_pad // n_shards``; each pads to the
+    largest local nonzero count (a chunk multiple) with the dummy
+    coordinate ``(n, m_loc)``, as the JAX function's stacked arrays.
+    All shards lie on ``device``; ``Shards.to`` spreads them over a
+    mesh's devices."""
+    import scipy.sparse as sp
+
+    device = resolve_device(device)
+    csc = sp.csc_matrix(mat)
+    n, m = csc.shape
+    if m_pad is None:
+        m_pad = -(-m // n_shards) * n_shards
+    if m_pad % n_shards != 0:
+        raise ValueError(f"m_pad={m_pad} not divisible by {n_shards}")
+    m_loc = m_pad // n_shards
+    np_dtype = _np_dtype(dtype)
+    locs = []
+    for s in range(n_shards):
+        j0, j1 = s * m_loc, min((s + 1) * m_loc, m)
+        block = sp.coo_matrix(csc[:, j0:max(j1, j0)])
+        locs.append((block.row, block.col, block.data))
+    nnz_pad = -(-max(max(len(r) for r, _, _ in locs), 1) // chunk) * chunk
+    shards = []
+    for r, c, v in locs:
+        row, col, val = _pad_coo(r, c, v, n, m_loc, nnz_pad, np_dtype)
+        shards.append(SparseCounts(
+            *(torch.as_tensor(a, device=device) for a in (row, col, val)),
+            n=n, m=m_loc))
+    whole = sp.coo_matrix(mat)
+    return Shards(shards, n, m_loc,
+                  torch.as_tensor(whole.data.astype(np_dtype)))
+
+
+def lgamma_term(sc: SparseCounts):
+    """sum_ij lgamma(x_ij + 1) — only nonzeros contribute."""
+    return torch.lgamma(sc.val + 1.0).sum()
+
+
+def _batched(lw, lh):
+    """The factors with a lane axis: JAX's unbatched ``(n, r)``/``(r,
+    m)`` get one (and the caller drops it again)."""
+    if lw.dim() == 2:
+        return lw[None], lh[None], True
+    return lw, lh, False
+
+
+def suffstats_coo(sc: SparseCounts, lw, lh, chunk: int = 1 << 16):
+    """(sw, sh) sufficient stats over nonzeros: sw = lw * ((X/wth)
+    lh^T), sh = lh * (lw^T (X/wth)), as the dense pass, at O(nnz r):
+    S1 + S2 over :attr:`SparseCounts.csr`, as :func:`fused_coo`, without
+    the ``x log wth`` sum.  ``chunk`` (JAX's gather width) is accepted
+    and not used."""
+    from .kernels import sparse as spk
+
+    lw, lh, one = _batched(lw, lh)
+    lw = lw.contiguous()
+    swn, a, _ = spk.rowpass(sc.csr, lw, lh.transpose(-1, -2).contiguous(),
+                            want_xlog=False)
+    sw, sh = lw * swn, lh * spk.colpass(sc.csr, a, lw)
+    return (sw[0], sh[0]) if one else (sw, sh)
+
+
+def elbo_data_coo(sc: SparseCounts, lw, lh, chunk: int = 1 << 16):
+    """-sum_{x>0} x (S/wth - log wth) with S = (lw log lw) lh + lw (lh
+    log lh), a lane.  The JAX function's form: gathers of the factor
+    rows at the nonzeros and an ordered sum, no scatter, on either
+    device."""
+    lw, lh, one = _batched(lw, lh)
+    row, col, val = sc.live()
+    lwl, lht = lw * torch.log(lw), lh.transpose(-1, -2)
+    lhl = lht * torch.log(lht)
+    acc = torch.zeros(lw.shape[0], dtype=lw.dtype, device=lw.device)
+    for p0 in range(0, val.shape[0], chunk):
+        rr = row[p0:p0 + chunk].long()
+        cc = col[p0:p0 + chunk].long()
+        vv = val[p0:p0 + chunk].to(lw.dtype)
+        lw_g, lh_g = lw[:, rr], lht[:, cc]
+        wth = (lw_g * lh_g).sum(-1)
+        s = (lwl[:, rr] * lh_g).sum(-1) + (lw_g * lhl[:, cc]).sum(-1)
+        safe = torch.where(wth > 0, wth, 1.0)
+        t = torch.where(vv > 0, vv * (s / safe - torch.log(safe)), 0.0)
+        acc = acc - t.sum(-1)
+    return acc[0] if one else acc
+
+
+def fused_coo(sc: SparseCounts, lw, lh, chunk: int = 1 << 16):
+    """One pass over the nonzeros: ``(swn, shn, dterm)``, the suffstat
+    numerators (sw = lw*swn, sh = lh*shn) and the ELBO data term for the
+    same (lw, lh), as ``ops.vb.fused_dense`` returns them; the
+    S-dependent part of the ELBO folds into the numerators
+    (:func:`fold_dterm`).  It is :func:`ccfindr_tpu_torch.ops.tile.fused_tile`
+    over :attr:`SparseCounts.csr`; ``chunk`` (JAX's gather width) is
+    accepted and not used."""
+    from .tile import fused_tile
+
+    lw, lh, one = _batched(lw, lh)
+    swn, shn, dterm = fused_tile(sc.csr, lw.contiguous(), lh)
+    return (swn[0], shn[0], dterm[0]) if one else (swn, shn, dterm)
+
+
+def make_sparse_fused(chunk: int = 1 << 16):
+    """Fused function for vb_run(fused=...)/vb_factorize(backend=
+    'sparse', sparse_layout='coo')."""
+    def fused(x, lw, lh):
+        return fused_coo(x, lw, lh, chunk=chunk)
+
+    return fused
+
+
+def make_sparse_backend(chunk: int = 1 << 16):
+    """(suffstats, data_term) pair operating on SparseCounts 'x'."""
+    def sparse_suffstats(x, lw, lh):
+        return suffstats_coo(x, lw, lh, chunk=chunk)
+
+    def sparse_data_term(x, lw, lh):
+        return elbo_data_coo(x, lw, lh, chunk=chunk)
+
+    return sparse_suffstats, sparse_data_term

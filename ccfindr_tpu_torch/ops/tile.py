@@ -13,7 +13,10 @@ each cell from the same ``a``.  The plain PyTorch version of both is
 * VB: :func:`fused_tile` -> ``(swn, shn, dterm)`` as
   ``ops.vb.fused_dense`` (S1 + S2 + M3, the ELBO fold in torch);
 * ML: :func:`tile_ml_h` -> ``(hn, sum x log wh)`` (S1 + S2 + M3) and
-  :func:`tile_ml_w` -> ``wn`` (S1 alone).
+  :func:`tile_ml_w` -> ``wn`` (S1 alone);
+* a cell-sharded mesh: :func:`from_scipy_tile_sharded`, one layout a
+  cell shard, whose passes ``parallel.sharded.make_tile_fused_sharded``
+  and ``make_tile_ml_sharded`` run shard by shard.
 
 Factors carry a leading lane axis: ``lw (B, n, r)``, ``lh (B, r, m)``.
 Neither X nor any (n, m) array is ever formed densely.
@@ -26,7 +29,7 @@ import torch
 
 from ..utils import resolve_device
 from .kernels import sparse as spk
-from .sparse import fold_dterm
+from .sparse import Shards, fold_dterm
 
 
 class TileCounts:
@@ -67,6 +70,12 @@ class TileCounts:
                 self.indptr.diff())
         return self._csr_rows
 
+    def to(self, device):
+        """The same layout on ``device``."""
+        return TileCounts(*(getattr(self, f).to(device) for f in (
+            "indptr", "col", "val", "colptr", "row", "perm")), self.n,
+            self.m)
+
     def to_scipy(self):
         import scipy.sparse as sp
 
@@ -90,23 +99,39 @@ def from_scipy_tile(mat, dtype=torch.float32, bn: int | None = None,
     package's TPU slot layout; the CSR layout has no slots, so they are
     accepted and not used.
     """
+    device = resolve_device(device)
+    csr = _clean_csr(mat)
+    return _layout(csr, _values(csr.data, dtype), device)
+
+
+def _clean_csr(mat):
     import scipy.sparse as sp
 
-    device = resolve_device(device)
     csr = sp.csr_matrix(mat, copy=True)
     csr.sum_duplicates()
     csr.eliminate_zeros()
+    return csr
+
+
+def _values(data, dtype):
+    """The stored values: int16 for integer counts in [0, 32767]
+    (exact), else ``dtype``."""
+    if len(data) == 0 or (data.min() >= 0
+                          and data.max() <= np.iinfo(np.int16).max
+                          and np.array_equal(data, np.round(data))):
+        return data.astype(np.int16)
+    return data.astype(torch.empty((), dtype=dtype).numpy().dtype)
+
+
+def _layout(csr, vals, device) -> TileCounts:
+    """The layout of a cleaned CSR with its stored values ``vals``."""
+    import scipy.sparse as sp
+
     n, m = csr.shape
     nnz = csr.nnz
     if nnz >= 2 ** 31:
         raise ValueError(f"{nnz} nonzeros: the layout's int32 positions "
                          "take fewer than 2**31")
-    data = csr.data
-    if nnz == 0 or (data.min() >= 0 and data.max() <= np.iinfo(np.int16).max
-                    and np.array_equal(data, np.round(data))):
-        vals = data.astype(np.int16)
-    else:
-        vals = data.astype(torch.empty((), dtype=dtype).numpy().dtype)
     # the CSC order: a CSC conversion of the positions 0..nnz-1
     pos = sp.csr_matrix((np.arange(nnz, dtype=np.int64), csr.indices,
                          csr.indptr), shape=(n, m)).tocsc()
@@ -130,6 +155,42 @@ def from_dense_tile(x, dtype=torch.float32, device="cuda",
 
     return from_scipy_tile(sp.csr_matrix(np.asarray(x)), dtype=dtype,
                            device=device, **kw)
+
+
+def from_scipy_tile_sharded(mat, n_shards: int, m_pad: int | None = None,
+                            dtype=torch.float32, bn: int | None = None,
+                            bm: int | None = None, quantile: float = 0.99,
+                            kt_cap: int = 64, pack="auto",
+                            device="cuda") -> Shards:
+    """Cell-sharded layout: :class:`Shards` of ``n_shards``
+    :class:`TileCounts`, shard ``s`` holding the cells ``[s m_loc, (s+1)
+    m_loc)`` of X with LOCAL column indices and ``m = m_loc = m_pad //
+    n_shards`` (the padded cells past X's own are empty columns).
+
+    One value type for all shards, chosen on the whole matrix as
+    :func:`from_scipy_tile` chooses it, so the shards and a one-device
+    layout hold the same values; ``Shards.val`` is the one-device
+    layout's ``val``.  All shards lie on ``device`` (``Shards.to``
+    spreads them over a mesh).  The TPU slot keywords (``bn``, ``bm``,
+    ``quantile``, ``kt_cap``, ``pack``) are accepted and not used."""
+    device = resolve_device(device)
+    csr = _clean_csr(mat)
+    n, m = csr.shape
+    if m_pad is None:
+        m_pad = -(-m // n_shards) * n_shards
+    if m_pad % n_shards != 0:
+        raise ValueError(f"m_pad={m_pad} not divisible by {n_shards}")
+    m_loc = m_pad // n_shards
+    vals = _values(csr.data, dtype)
+    csc = csr.tocsc()
+    shards = []
+    for s in range(n_shards):
+        j0, j1 = s * m_loc, min((s + 1) * m_loc, m)
+        blk = _clean_csr(csc[:, j0:max(j1, j0)])
+        if j1 - j0 < m_loc:
+            blk.resize(n, m_loc)
+        shards.append(_layout(blk, blk.data.astype(vals.dtype), device))
+    return Shards(shards, n, m_loc, torch.as_tensor(vals))
 
 
 def fused_tile(tc: TileCounts, lw, lh, do_elbo=None, mxu_bf16=False):

@@ -496,35 +496,57 @@ def vb_init_random(generator, n, m, rank, hyper: Hyper,
 def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
                 dtype=torch.float32, method: str = "auto",
                 seed: int = 0, device="cuda") -> VBState:
-    """Deterministic SVD-based inits on the host (numpy/scipy).
+    """Deterministic SVD-based inits.
 
     ``'svd'``  — NNDSVD (Boutsidis & Gallopoulos 2008) with the correct
     negative-part norms; ``'svd2'`` — truncated SVD, absolute values,
     scaled so mean(h) = bh (reference R/bayesian.R:150-159).
-    ``method``: ``'exact'`` (host Lanczos with a seeded start vector, or
-    a full SVD for small shapes); ``'auto'``, the JAX package's default,
-    takes ``'exact'`` up to 4096 on the short axis and above it picks
-    ``'randomized'``, which, like ``'randomized'`` itself, raises: the
-    randomized device SVD waits (ROADMAP A8), so no default call silently
-    computes another start than JAX's.
+    ``method``: ``'exact'`` — host Lanczos with a seeded start vector,
+    or a full SVD for small shapes; ``'randomized'`` —
+    :func:`ccfindr_tpu_torch.ops.rsvd.randomized_svd` on ``device`` in
+    ``dtype`` (dense products, or CSR products for a sparse X, never
+    densified); ``'auto'``, the default, as in the JAX package: exact
+    up to 4096 on the short axis, randomized above it and for a
+    :class:`~ccfindr_tpu_torch.ops.sparse.SparseCounts`.  ``x`` may be
+    dense, scipy sparse or a SparseCounts.
+
+    The randomized start draws its test matrix Omega from a
+    ``torch.Generator`` seeded by ``seed``, where the JAX package draws
+    it from ``jax.random``: above 4096 the default start differs from
+    JAX's only through Omega's draw, and with JAX's Omega it is JAX's
+    start.
     """
     import scipy.sparse as sp
 
+    from .sparse import SparseCounts
+
     device = resolve_device(device)
-    sparse_in = sp.issparse(x)
-    n, m = np.shape(x)
+    if isinstance(x, SparseCounts):
+        n, m = x.n, x.m
+        sparse_in = True
+    else:
+        sparse_in = sp.issparse(x)
+        x = (sp.csr_matrix(x).astype(np.float64) if sparse_in
+             else np.asarray(x, dtype=np.float64))
+        n, m = x.shape
     if method == "auto":
-        if min(n, m) > 4096:
-            raise NotImplementedError(
-                "svd_method='randomized' (chosen by 'auto' above 4096 on "
-                "the short axis) is not ported yet (ROADMAP A8)")
-        method = "exact"
-    if method != "exact":
-        raise NotImplementedError(
-            "svd_method='randomized' is not ported yet (ROADMAP A8)")
-    x = (sp.csr_matrix(x).astype(np.float64) if sparse_in
-         else np.asarray(x, dtype=np.float64))
-    if min(n, m) / 2 > rank:
+        method = ("randomized" if min(n, m) > 4096
+                  or isinstance(x, SparseCounts) else "exact")
+    if method == "randomized":
+        from . import rsvd
+        from .sparse import from_scipy
+
+        if isinstance(x, SparseCounts):
+            x = x.to(device)
+        elif sparse_in:
+            x = from_scipy(x, dtype=dtype, device=device)
+        else:
+            x = torch.as_tensor(x, dtype=dtype, device=device)
+        u, s, vt = (t.cpu().numpy().astype(np.float64)
+                    for t in rsvd.randomized_svd(x, rank, seed=seed))
+    elif method != "exact":
+        raise ValueError(f"unknown svd method {method!r}")
+    elif min(n, m) / 2 > rank:
         import scipy.sparse.linalg as spla
 
         # seeded start vector: svds defaults to a RANDOM v0

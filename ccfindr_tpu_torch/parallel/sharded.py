@@ -14,9 +14,31 @@ they compute what ``ops.vb.fused_dense``, ``suffstats_dense`` and
 ``elbo_data_term`` compute, bit for bit.
 
 The cell-major kernel sweep over the same layout is
-``ops/kernels/sol_sharded.py``.  The gene-major and sparse mesh passes
-(``make_fused_sharded`` and its siblings) are not ported yet (ROADMAP
-A7b).
+``ops/kernels/sol_sharded.py``.  The JAX package's ``make_*_sharded``
+functions are here under their names, each returning the hooks of
+``ops.vb.vb_run`` or ``ops.ml.ml_run`` that run a kernel wrapper on
+every shard and add the partials in shard order, genes then cells, on
+the lanes' device (where the JAX package ``psum``s, in an order it
+leaves open):
+
+* :func:`make_fused_sharded` — E1 + E1s (``vb_kernels.fused_pallas``)
+  on each (gene, cell) block of a :class:`ShardedCounts`: ``swn`` added
+  over cell shards, ``shn`` over gene shards, the data term folded a
+  block and added over both (the gene-sharded or gene-major ``'pallas'``
+  mesh);
+* :func:`make_tile_fused_sharded`, :func:`make_sparse_fused_sharded` —
+  S1/S2 (``ops.tile.fused_tile``, ``ops.sparse.fused_coo``) on each
+  cell shard of a :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout;
+* :func:`make_ml_sharded` (M1/M2) and :func:`make_tile_ml_sharded`
+  (S1/S2): the ML phases, the H numerator cell-local, ``x log wh`` and
+  the W numerator added over shards;
+* :func:`make_pass2_sharded` (port only) — P1 + E1s and P2 on each
+  block: ``backend='pallas2pass'`` on a mesh.
+
+A shard's lanes cross to its device and its outputs back; where every
+shard is on the lanes' device nothing crosses.  The kernels that add a
+lane's partials through a ticket counter (M1, S1, P2) launch one shard
+after the other on one stream, which the counters need.
 """
 
 from __future__ import annotations
@@ -36,8 +58,9 @@ class ShardedCounts:
     """X (n, m) on a (genes, cells) grid of devices, one runs row of a
     mesh: block (g, c) holds rows ``rows[g]`` and columns ``cols[c]`` on
     ``devices[g, c]``; a block on X's own device is a view of it, the
-    others are copies.  The drivers give X from the host, so a device
-    holds its own blocks and no more.
+    others are copies (:meth:`packed` gives every block contiguous).
+    The drivers give X from the host, so a device holds its own blocks
+    and no more.
 
     X is not kept whole.  What the convergence loops take from the whole
     X is taken here, with the single-device arithmetic so that a mesh run
@@ -63,8 +86,18 @@ class ShardedCounts:
             tuple(x[g0:g1, c0:c1].to(devices[g, c])
                   for c, (c0, c1) in enumerate(self.cols))
             for g, (g0, g1) in enumerate(self.rows))
+        self._packed = None
         self.lgx = lgamma_sum(x, self.device)
         self.val = x[x != 0].cpu()
+
+    def packed(self):
+        """The blocks, each contiguous (the kernels that read a block in
+        place take no row stride): a view is copied once, at first use,
+        and kept; a copy is itself."""
+        if self._packed is None:
+            self._packed = tuple(tuple(b.contiguous() for b in row)
+                                 for row in self.blocks)
+        return self._packed
 
     def shard_h(self, t):
         """An H-family tensor (..., m) as its cell shards, each
@@ -131,3 +164,282 @@ def suffstats_sharded(x: ShardedCounts, lw, lh):
 def data_term_sharded(x: ShardedCounts, lw, lh):
     """``ops.vb.elbo_data_term`` over the blocks: (B,)."""
     return fused_sharded(x, lw, lh)[2]
+
+
+# ---------------------------------------------------------------------
+# The JAX package's make_*_sharded functions (ccfindr_tpu/parallel/sharded.py)
+# ---------------------------------------------------------------------
+
+def _grid(mesh, x, genes=True):
+    """The (genes, cells) shards of ``x`` checked against the mesh (its
+    cell axis alone for the ML passes, which shard X's cells only, as
+    the JAX package's do)."""
+    want = (mesh.shape["genes"] if genes else 1, mesh.shape["cells"])
+    got = ((len(x.rows), len(x.cols)) if isinstance(x, ShardedCounts)
+           else (1, len(x)))
+    if got != want:
+        raise ValueError(f"X is laid out on {got[0]} gene x {got[1]} cell "
+                         f"shards; the mesh has {want[0]} x {want[1]}")
+
+
+def _add(acc, part):
+    return part if acc is None else acc + part
+
+
+def _to(t, dev):
+    return None if t is None else t.to(dev)
+
+
+def _blocks(x: ShardedCounts, fn, lw, lh):
+    """``fn(block, lw_g, lh_c)`` on every (gene, cell) block in order,
+    genes then cells: a list of (g, c, outputs) with the outputs moved to
+    ``lw``'s device.  ``lw_g``/``lh_c`` are the lanes' gene rows and cell
+    columns of the block, contiguous on its device; ``fn`` returns a
+    tuple."""
+    dev = lw.device
+    blocks = x.packed()
+    out = []
+    for g, (g0, g1) in enumerate(x.rows):
+        lw_g = lw[..., g0:g1, :]
+        for c, (c0, c1) in enumerate(x.cols):
+            xb = blocks[g][c]
+            d = xb.device
+            res = fn(xb, lw_g.to(d).contiguous(),
+                     lh[..., c0:c1].to(d).contiguous())
+            out.append((g, c, tuple(_to(t, dev) for t in res)))
+    return out
+
+
+def _fold_blocks(parts, ng, nc):
+    """Block outputs ``(row part, column part, scalar)`` (each may be
+    None) added in shard order: a gene shard's rows (``swn``, ``wn``)
+    over cells, then joined over genes; a cell shard's columns (``shn``,
+    ``hn``) over genes, then joined over cells; the scalar over all
+    blocks."""
+    rows, cols, tot = [None] * ng, [None] * nc, None
+    for g, c, (rp, cp, sc) in parts:
+        if rp is not None:
+            rows[g] = _add(rows[g], rp)
+        if cp is not None:
+            cols[c] = _add(cols[c], cp)
+        if sc is not None:
+            tot = _add(tot, sc)
+    return (None if rows[0] is None else torch.cat(rows, -2),
+            None if cols[0] is None else torch.cat(cols, -1), tot)
+
+
+def make_fused_sharded(mesh, fused_local=None, bn: int = None,
+                       bm: int = None, mxu_bf16: bool = False):
+    """Fused function for ``ops.vb.vb_run(fused=...)`` over a mesh,
+    genes and cells: ``fused(x, lw, lh) -> (swn, shn, dterm)`` for
+    ``x`` a :class:`ShardedCounts` of the mesh's grid.
+
+    ``fused_local(x_block, lw_g, lh_c) -> (swn_part, shn_part,
+    dterm_part)`` runs on each block's device; the default is E1 + E1s
+    (``ops.kernels.vb_kernels.fused_pallas``, ``mxu_bf16`` for
+    ``precision='bf16'``) in the layout ``_fused_layout`` picks on the
+    block's extents padded to the JAX tiles ``bn``/``bm``, with E1's
+    chunk from the block's extents and the lane width alone (never the
+    lane count, so that compaction and resume keep their bits).  The
+    block partials are added in shard order: ``swn`` over cell shards,
+    ``shn`` over gene shards, ``dterm`` (folded a block) over both."""
+    from ..ops.kernels import vb_kernels as vbk
+
+    if fused_local is None:
+        tiles = dict(bn=bn or vbk.DEFAULT_BN, bm=bm or vbk.DEFAULT_BM)
+
+        def fused_local(x, lw, lh):
+            rp = -(-max(lw.shape[-1], 8) // 8) * 8
+            layout = vbk._fused_layout(
+                -(-x.shape[0] // tiles["bn"]) * tiles["bn"],
+                -(-x.shape[1] // tiles["bm"]) * tiles["bm"], rp)
+            chunk = vbk.fused_chunk(x, layout, 1, rp, lw.element_size())
+            return vbk.fused_pallas(x, lw, lh, layout=layout,
+                                    mxu_bf16=mxu_bf16, chunk=chunk,
+                                    **tiles)
+
+    def fused(x, lw, lh):
+        _grid(mesh, x)
+        return _fold_blocks(_blocks(x, lambda *a: tuple(fused_local(*a)),
+                                    lw, lh), len(x.rows), len(x.cols))
+
+    return fused
+
+
+def _cell_shards(x, fn, lh, *rest):
+    """``fn(shard, lh_c, *rest)`` on every cell shard of a sparse
+    :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout in order, the
+    lanes (``rest``: factors replicated over the shards, or None) moved to
+    the shard's device; the outputs come back to ``lh``'s device."""
+    dev = lh.device
+    out = []
+    for c, tc in enumerate(x):
+        d = tc.device
+        res = fn(tc, lh[..., c * x.m:(c + 1) * x.m].to(d).contiguous(),
+                 *(None if t is None else t.to(d) for t in rest))
+        out.append(tuple(t.to(dev) for t in res))
+    return out
+
+
+def _sparse_fused(x, lw, lh, local):
+    """The sparse VB pass over cell shards: ``swn`` and the folded data
+    terms added in shard order, ``shn`` joined."""
+    swn, shn, dterm = None, [], None
+    for sw, sh, dt in local:
+        swn = _add(swn, sw)
+        shn.append(sh)
+        dterm = _add(dterm, dt)
+    return swn, torch.cat(shn, -1), dterm
+
+
+def make_sparse_fused_sharded(mesh, chunk: int = 1 << 16):
+    """Fused sparse function for ``ops.vb.vb_run(fused=...)`` over a
+    cell-sharded mesh: ``ops.sparse.fused_coo`` (S1/S2 on the card) on
+    each shard of ``from_scipy_sharded``'s layout; ``swn`` and the data
+    term added in shard order, ``shn`` cell-local."""
+    from ..ops import sparse as sk
+
+    def fused(x, lw, lh):
+        _grid(mesh, x)
+        return _sparse_fused(x, lw, lh, _cell_shards(
+            x, lambda tc, lh_c, lw_d: sk.fused_coo(tc, lw_d, lh_c,
+                                                   chunk=chunk), lh, lw))
+
+    return fused
+
+
+def make_ell_fused_sharded(mesh):
+    """The JAX package's ELL mesh backend: not ported (ROADMAP A6; the
+    CSR kernels S1/S2 replace the ELL layout)."""
+    raise NotImplementedError(
+        "sparse_layout='ell' (ELL worked around the TPU's slow XLA "
+        "gathers; the CSR kernels replace it) is not ported to "
+        "ccfindr_tpu_torch yet (ROADMAP A6)")
+
+
+def make_tile_fused_sharded(mesh, mxu_bf16: bool = False):
+    """Fused sparse function for ``ops.vb.vb_run(fused=...)`` over a
+    cell-sharded mesh: ``ops.tile.fused_tile`` (S1/S2) on each shard of
+    ``from_scipy_tile_sharded``'s layout, with ``vb_run``'s ``do_elbo``
+    flag (the ``elbo_every`` cadence) and ``mxu_bf16``
+    (``precision='bf16'``); ``swn`` and the data term added in shard
+    order, ``shn`` cell-local."""
+    from ..ops import tile as tl
+
+    def fused(x, lw, lh, do_elbo=None):
+        _grid(mesh, x)
+        return _sparse_fused(x, lw, lh, _cell_shards(
+            x, lambda tc, lh_c, lw_d, de: tl.fused_tile(
+                tc, lw_d, lh_c, do_elbo=de, mxu_bf16=mxu_bf16),
+            lh, lw, do_elbo))
+
+    return fused
+
+
+def make_tile_ml_sharded(mesh):
+    """``(fused_h, fused_w)`` for ``ops.ml.ml_run`` over a cell-sharded
+    sparse layout: ``ops.tile.tile_ml_h``/``tile_ml_w`` (S1/S2) a shard;
+    the H numerator stays cell-local, ``x log wh`` and the W numerator
+    are added in shard order."""
+    from ..ops import tile as tl
+
+    def fused_h(x, w, h):
+        _grid(mesh, x, genes=False)
+        hn, xlw = [], None
+        for hn_c, xl in _cell_shards(
+                x, lambda tc, h_c, w_d: tl.tile_ml_h(tc, w_d, h_c), h, w):
+            hn.append(hn_c)
+            xlw = _add(xlw, xl)
+        return torch.cat(hn, -1), xlw
+
+    def fused_w(x, w, h):
+        _grid(mesh, x, genes=False)
+        wn = None
+        for (part,) in _cell_shards(
+                x, lambda tc, h_c, w_d: (tl.tile_ml_w(tc, w_d, h_c),), h, w):
+            wn = _add(wn, part)
+        return wn
+
+    return fused_h, fused_w
+
+
+def _ml_block_pair(mesh, h_fn, w_fn):
+    """``(fused_h, fused_w)`` over the blocks of a :class:`ShardedCounts`
+    laid out on ``mesh``'s grid, from a block's ``h_fn(x, w, h) -> (hn,
+    xlw)`` and ``w_fn(x, w, h) -> wn``: ``hn`` added over gene shards
+    (cell-local), ``x log wh`` over all blocks, ``wn`` over cell shards,
+    in shard order."""
+    def fused_h(x, w, h):
+        _grid(mesh, x, genes=False)
+        _, hn, xlw = _fold_blocks(_blocks(
+            x, lambda *a: (None,) + tuple(h_fn(*a)), w, h), len(x.rows),
+            len(x.cols))
+        return hn, xlw
+
+    def fused_w(x, w, h):
+        _grid(mesh, x, genes=False)
+        return _fold_blocks(_blocks(
+            x, lambda *a: (w_fn(*a), None, None), w, h), len(x.rows),
+            len(x.cols))[0]
+
+    return fused_h, fused_w
+
+
+def make_ml_sharded(mesh, bn: int = None, bm: int = None):
+    """``(fused_h, fused_w)`` for ``ops.ml.ml_run`` over a mesh: M1/M2
+    (``ops.kernels.ml.ml_h_pallas``/``ml_w_pallas``) on each block of a
+    :class:`ShardedCounts`; the H numerator and H stay cell-local, the W
+    numerator and ``x log wh`` are added in shard order.  ``bn``/``bm``
+    (the JAX tiles) are accepted and not used."""
+    from ..ops.kernels import ml as mlk
+
+    return _ml_block_pair(mesh, mlk.ml_h_pallas, mlk.ml_w_pallas)
+
+
+def ml_dense_sharded(mesh):
+    """``(fused_h, fused_w)`` of ``ops.ml.ml_h_dense``/``ml_w_dense``
+    over the blocks of a :class:`ShardedCounts` (``factorize``'s
+    ``'dense'`` and ``'dense_fused'`` on a mesh)."""
+    from ..ops import ml as ml_ops
+
+    return _ml_block_pair(mesh, ml_ops.ml_h_dense, ml_ops.ml_w_dense)
+
+
+def make_pass2_sharded(mesh):
+    """``(suffstats, data_term)`` for ``ops.vb.vb_run`` over a mesh
+    (``backend='pallas2pass'``; a port addition, the JAX package lets
+    GSPMD split its two passes): P1 + E1s and P2
+    (``vb_kernels.suffstats_pallas_padded``, ``elbo_data_pallas_padded``)
+    on each block of a :class:`ShardedCounts`, P1's gene chunk from the
+    block's extents and the rank alone; the partials added in shard
+    order."""
+    from ..ops.kernels import vb_kernels as vbk
+
+    # the padded functions' JAX tile keywords, which they do not use
+    tiles = dict(bn=vbk.DEFAULT_BN, bm=vbk.DEFAULT_BM)
+
+    def ss_block(x, lw, lh):
+        nb, n, r = lw.shape
+        m = lh.shape[-1]
+        chunk = vbk.pass2_chunk(x, n, m, 1, r, lw.element_size())
+        return vbk.suffstats_pallas_padded(x, lw, lh, n=n, m=m, r=r,
+                                           chunk=chunk, **tiles)
+
+    def dt_block(x, lw, lh):
+        _, n, r = lw.shape
+        return None, None, vbk.elbo_data_pallas_padded(
+            x, lw, lh, n=n, m=lh.shape[-1], r=r, **tiles)
+
+    def suffstats(x, lw, lh):
+        _grid(mesh, x)
+        swn, shn, _ = _fold_blocks(_blocks(
+            x, lambda *a: tuple(ss_block(*a)) + (None,), lw, lh),
+            len(x.rows), len(x.cols))
+        return lw * swn, lh * shn
+
+    def data_term(x, lw, lh):
+        _grid(mesh, x)
+        return _fold_blocks(_blocks(x, dt_block, lw, lh), len(x.rows),
+                            len(x.cols))[2]
+
+    return suffstats, data_term

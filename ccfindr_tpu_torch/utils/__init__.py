@@ -1,5 +1,5 @@
-"""Host utilities: the device check, phase timings and the compressed X
-storage type."""
+"""Host utilities: the device check, phase timings, the trace context
+(:func:`profile_trace`) and the compressed X storage type."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import time
 
 import numpy as _np
 import torch
+
+from .profiling import profile_trace  # noqa: F401
 
 
 def resolve_device(device):

@@ -203,7 +203,39 @@ Phases (each prints its result and seconds):
    partial bytes beside the bounds, K4's sums alone and Newton steps,
    K3s and K2 gathered at their edge cases and K4 on the gathered
    partials of a 600 x 2048 X over 4 shards under every hyper mask, as
-   phase 4.
+   phase 4;
+18. the randomized SVD and the host modules: ops.rsvd.randomized_svd
+   (rank 16, float32, S2's products of X and X^T) on the card over
+   phase 10's atlas CSR, two calls and each step twice bit-identical,
+   its singular values against the same range finder in float64 on the
+   host (scipy and numpy, the same Omega) within RSVD_S_TOL (relative),
+   its time; vb_factorize(backend='sparse', initializer='svd2',
+   svd_method='auto', ranks [16], Itmax 20) on the atlas, which takes
+   the randomized SVD (min(n, m) > 4096; it raised before) and must
+   call it once and end finite; write_10x -> read_10x of phase 8's
+   10%-density matrix through the native parser, exact;
+19. the mesh backends of parallel/sharded.py, each on one card against
+   the same call on one device (float32: factors to 2e-4 of their
+   largest entry, per-element lml or likelihood to 1e-5 relative, the
+   same ropt for VB; Tol 0, so that both run Itmax = 150 sweeps, 500 on
+   the bundled data), its launches counted on the mesh run (every count
+   set to 0 just before it): sparse VB at the 10x-10% shape over
+   cells=4 (S1/S2 a shard) in float32 and in bf16 with elbo_every=5,
+   sparse_layout='coo' over cells=2 (the CSR shards of 'tile'; the
+   COO API's make_sparse_fused_sharded is held against one device's
+   fused_coo on its own), 'pallas' at 10x over genes=2,
+   cells=2 (E1 'cm' + E1s a block; K1 not launched), the gene-major
+   100,000 x 4,096 X over cells=2 (E1 'gm' a shard; Itmax 30, where
+   phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
+   and 'sparse' (S1/S2) at 10x over cells=4, and 'pallas2pass' on the
+   bundled data over cells=2 (P1 + E1s and P2 a block).  Each site's
+   kernel against its plain version on a shard's own inputs at phase 2's
+   float32 tolerances, a second launch and lanes alone bit-identical,
+   every output of E1 (the streamed factor numerator, the other one and
+   x log wth summed by E1s) against the plain X pass at each E1 site,
+   its time a launch (a CUDA graph of launches, the call by CUDA events
+   beside) beside the same kernel on the one-device inputs, its bound
+   from the shard's bytes and operations.
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -306,6 +338,33 @@ MESH_KERNELS = {"xpass_shard": ("sol_xpass_shard", f"{_SSH}:80"),
                 "h_post_shard": ("sol_h_post_shard", f"{_SSH}:149"),
                 "finish_mesh": ("sol_finish_gathered", f"{_SSH}:220")}
 MESH_CELLS = 4                    # phase 17's shards, all on cuda:0
+# phase 19's mesh sites of kernels already ported (a shard's or a
+# block's launch on a path that sharded X): key -> (the launch counter,
+# its name in the kernels line, source, the JAX function it replaces)
+_VBK = "ccfindr_tpu/ops/pallas/vb_kernels.py"
+_MLK = "ccfindr_tpu/ops/pallas/ml_kernels.py"
+MESH_SITES = {
+    "fused_xpass_cm_block": ("fused_xpass_cm", "fused_xpass_cm a block",
+                             EPI_SOURCE, f"{_VBK}:454"),
+    "fused_sum_block": ("fused_sum", "fused_sum a block", EPI_SOURCE,
+                        f"{_VBK}:454"),
+    "fused_xpass_gm_shard": ("fused_xpass_gm", "fused_xpass_gm a shard",
+                             EPI_SOURCE, f"{_VBK}:454"),
+    "ml_hpass_shard": ("ml_hpass", "ml_hpass a shard", ML_SOURCE,
+                       f"{_MLK}:83"),
+    "ml_wpass_shard": ("ml_wpass", "ml_wpass a shard", ML_SOURCE,
+                       f"{_MLK}:122"),
+    "sp_rowpass_shard": ("sp_rowpass", "sp_rowpass a shard", SP_SOURCE,
+                         "ccfindr_tpu/ops/tile.py:469"),
+    "sp_colpass_shard": ("sp_colpass", "sp_colpass a shard", SP_SOURCE,
+                         "ccfindr_tpu/ops/tile.py:469"),
+    "ss_xpass_block": ("ss_xpass", "ss_xpass a block", P2_SOURCE,
+                       f"{_VBK}:127"),
+    "elbo_xpass_block": ("elbo_xpass", "elbo_xpass a block", P2_SOURCE,
+                         f"{_VBK}:205")}
+# phase 18's randomized SVD: the singular values of the card's float32
+# range finder against the float64 host one on the same Omega
+RSVD_S_TOL = 1e-3
 GM_SHAPE = (100_000, 4_096, 16)  # phase 12's planted X (genes, cells, rank)
 # the least time of a kernel (H100 SXM data sheet: float32 outside the
 # tensor cores, HBM3)
@@ -1322,6 +1381,25 @@ def compare_p2(x, lw, lh, dt):
                 padded_same=pad_same, parts=tuple(part.shape))
 
 
+def s2_library(tc, a, lw):
+    """One PyTorch call computing S2's function on the same inputs, as
+    phase 10 times it: a block-diagonal CSR (lane b's block the pattern
+    of X^T holding its a) times the lanes' lw rows, torch.sparse.mm.
+    Returns the call."""
+    import torch
+
+    nbl, nnz = a.shape
+    n, m, r = tc.n, tc.m, lw.shape[-1]
+    rows = tc.csr_rows()
+    off = torch.arange(nbl, device=a.device)[:, None]
+    blk = torch.sparse_coo_tensor(
+        torch.stack([(tc.col.long()[None] + off * m).reshape(-1),
+                     (rows[None] + off * n).reshape(-1)]),
+        a.reshape(-1), (nbl * m, nbl * n)).coalesce().to_sparse_csr()
+    lw_flat = lw.reshape(nbl * n, r)
+    return lambda: torch.sparse.mm(blk, lw_flat)
+
+
 def nbytes(*ts):
     """Bytes of the tensors (nested tuples and lists allowed)."""
     import torch
@@ -1600,6 +1678,10 @@ class Smoke:
         self.kernels.update({k: dict(name=name, route="cuda", source=SOURCE,
                                      replaces=rep)
                              for k, (name, rep) in MESH_KERNELS.items()})
+        self.kernels.update({k: dict(name=name, route="cuda", source=src,
+                                     replaces=rep)
+                             for k, (_, name, src, rep)
+                             in MESH_SITES.items()})
         for k, what in TAILS.items():
             self.kernels[k]["tail"] = (f"its last block of a lane adds "
                                        f"{what} (M3 folded in)")
@@ -1609,6 +1691,7 @@ class Smoke:
         self.x10 = None          # the planted 10x matrix (phase 4)
         self.x10m = None         # it masked to 10% density (phase 8)
         self.xgm = None          # phase 12's gene-major X (phase 11)
+        self.atlas = None        # phase 10's atlas CSR (phase 18)
         self.sass = {}           # post_need's SASS counts
 
     def post_need(self, sfx, lf, a, r_live, n_live, rank_axis):
@@ -2567,7 +2650,7 @@ class Smoke:
         # the atlas leg: capacity, not speed
         an, am_, ar, dens = ATLAS
         t0 = time.perf_counter()
-        big = atlas_csr(an, am_, ar, dens)
+        big = self.atlas = atlas_csr(an, am_, ar, dens)
         print(f"  atlas X {big.shape[0]} x {big.shape[1]} (from {an} x "
               f"{am_}, planted rank {ar}, mask {dens}), nnz {big.nnz}, "
               f"built on the host in {time.perf_counter() - t0:.1f} s; "
@@ -3677,11 +3760,563 @@ class Smoke:
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
         return ok and nit1 == nit4 and lml_err <= 1e-9
 
+    # -- 18 -----------------------------------------------------------
+    def rsvd_host(self):
+        import os
+        import shutil
+        import tempfile
+
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch import native
+        from ccfindr_tpu_torch.ops import rsvd
+        from ccfindr_tpu_torch.ops import sparse as tsk
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        ok = True
+        big = self.atlas
+        if big is None:
+            t0 = time.perf_counter()
+            big = self.atlas = atlas_csr(*ATLAS)
+            print(f"  atlas X {big.shape[0]} x {big.shape[1]}, nnz "
+                  f"{big.nnz}, built on the host in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # the randomized SVD on the card (float32 range finder, CSR
+        # products) against the float64 host one on the same Omega
+        sc = tsk.from_scipy(big, dtype=torch.float32, device="cuda")
+        outs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(rsvd.randomized_svd(sc, 16, seed=0))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        same = all(torch.equal(u, v) for u, v in zip(*outs))
+        # each step twice on the same input: which one keeps its bits
+        om = rsvd._draw_omega(big.shape[1], 26, torch.float32, 0, "cuda")
+        y = rsvd.coo_matmul(sc, om)
+        q = torch.linalg.qr(y)[0]
+        z = rsvd.coo_rmatmul(sc, q)
+        steps = {"X @ Omega": torch.equal(y, rsvd.coo_matmul(sc, om)),
+                 "X^T @ Q": torch.equal(z, rsvd.coo_rmatmul(sc, q)),
+                 "qr": torch.equal(q, torch.linalg.qr(y)[0]),
+                 "svd": all(torch.equal(u, v) for u, v in zip(
+                     torch.linalg.svd(z.T, full_matrices=False),
+                     torch.linalg.svd(z.T, full_matrices=False)))}
+        print(f"  each step twice, bit-identical: {steps}", flush=True)
+        del om, y, q, z
+        # the reference: the same range finder in float64 on the host,
+        # by scipy's sparse products and numpy's QR and SVD
+        t0 = time.perf_counter()
+        om = rsvd._draw_omega(big.shape[1], 26, torch.float64, 0,
+                              "cpu").numpy()
+        big64 = big.astype(np.float64)
+        q = np.linalg.qr(big64 @ om)[0]
+        for _ in range(4):
+            q = np.linalg.qr(big64 @ np.linalg.qr(big64.T @ q)[0])[0]
+        host_sv = np.linalg.svd((big64.T @ q).T, compute_uv=False)[:16]
+        host_s = time.perf_counter() - t0
+        s_err = float(np.max(np.abs(outs[0][1].double().cpu().numpy()
+                                    - host_sv) / host_sv))
+        u_orth = float((outs[0][0].double().T @ outs[0][0].double()
+                        - torch.eye(16, dtype=torch.float64,
+                                    device="cuda")).abs().max())
+        print(f"  randomized_svd atlas (rank 16, k 26, 4 power iterations, "
+              f"float32 on the card): {secs * 1e3:.1f} ms (second call); "
+              f"two calls bit-identical {same}; singular values against "
+              f"the float64 host run on the same Omega (scipy/numpy, "
+              f"{host_s:.1f} s): max rel {s_err:.3g} (gate "
+              f"{RSVD_S_TOL:g}); |U^T U - I| {u_orth:.3g}; s[:4] "
+              f"{outs[0][1][:4].tolist()}", flush=True)
+        self.rsvd_ms = secs * 1e3
+        ok = ok and same and s_err <= RSVD_S_TOL
+        del sc, outs
+        torch.cuda.empty_cache()
+
+        # the SVD start through the driver: 'auto' above 4096 picks the
+        # randomized SVD (it raised before)
+        calls = []
+        real = rsvd.randomized_svd
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        rsvd.randomized_svd = counted
+        try:
+            spk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = ct.vb_factorize(big, ranks=[16], Itmax=20, backend="sparse",
+                                initializer="svd2", svd_method="auto",
+                                device="cuda", verbose=0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            rsvd.randomized_svd = real
+        counts = dict(spk.LAUNCHES)
+        print(f"  atlas vb_factorize(sparse, svd2, svd_method='auto', ranks "
+              f"[16], Itmax 20): {secs:.2f} s, randomized_svd calls "
+              f"{len(calls)}, launches {counts}, lml "
+              f"{f.measure['lml'].tolist()}", flush=True)
+        ok = (ok and len(calls) == 1 and min(counts.values()) > 0
+              and bool(np.isfinite(f.measure["lml"]).all()))
+
+        # write_10x -> read_10x through the native parser, exact
+        if self.x10m is None:
+            self.x10m = masked_10x(self.x10 if self.x10 is not None
+                                   else planted_10x())
+        _, csr = self.x10m
+        n, m = csr.shape
+        s10 = ct.SCSet(count=csr, row_data=[f"gene{i}" for i in range(n)],
+                       col_data=[f"cell{j}" for j in range(m)],
+                       remove_zeros=False)
+        d = tempfile.mkdtemp(prefix="ccfindr_smoke_")
+        try:
+            t0 = time.perf_counter()
+            ct.write_10x(s10, d)
+            t1 = time.perf_counter()
+            back = ct.read_10x(d, remove_zeros=False)
+            t2 = time.perf_counter()
+            size = os.path.getsize(os.path.join(d, "matrix.mtx"))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        import scipy.sparse as sp
+
+        diff = sp.csr_matrix(back.counts) - csr
+        exact = (back.counts.shape == csr.shape and diff.nnz == 0
+                 and list(back.row_data.iloc[:, 0])
+                 == list(s10.row_data.iloc[:, 0]))
+        print(f"  write_10x / read_10x of the 10x-10% matrix ({csr.nnz} "
+              f"nonzeros, {size / 1e6:.1f} MB): write {t1 - t0:.2f} s, read "
+              f"{t2 - t1:.2f} s, native parser "
+              f"{native.get_lib() is not None}, exact {exact}", flush=True)
+        return ok and exact and native.get_lib() is not None
+
+    # -- 19 -----------------------------------------------------------
+    def site(self, key, kern, plain, outs_tol, reps, alone, full=None,
+             launch=None):
+        """A mesh site's kernel on a shard's (or block's) own inputs:
+        ``kern()`` and ``plain()`` give the outputs compared (their
+        tolerances ``outs_tol``: 'f' the float32 factor tolerance, 's' the
+        per-element one), a second launch bit-identical, ``alone()`` the
+        lanes-alone bits; the time of ``launch()`` (default ``kern``; one
+        kernel launch a call) from a CUDA graph of its launches
+        (:func:`kernel_ms`; these launches are as short as the host's
+        call), the call's time by CUDA events kept as ``call_ms``, the
+        plain version's, and the same kernel on the one-device inputs
+        (``full``) timed the same way beside it."""
+        import torch
+
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        ok = all(e <= (F32_FACTOR_TOL if t == "f" else F32_ELBO_TOL)
+                 for e, t in zip(errs, outs_tol))
+        again = kern()
+        det = all(torch.equal(u, v) for u, v in zip(got, again))
+        lanes = alone()
+        kd = self.kernels[key]
+        kd["max_abs_err"] = max(float((g.double() - w.double()).abs().max())
+                                for g, w in zip(got, want))
+        launch = kern if launch is None else launch
+        kd["call_ms"] = cuda_ms(launch, reps)
+        kd["ms"] = kernel_ms(launch, reps)
+        kd["plain_ms"] = cuda_ms(lambda: plain(), 3)
+        one = ""
+        if full is not None:
+            kd["one_device_ms"] = kernel_ms(full, reps)
+            one = (f", one device {kd['one_device_ms']:.4f} ms (events "
+                   f"{cuda_ms(full, reps):.4f})")
+        print(f"  {kd['name']}: vs plain rel {[f'{e:.3g}' for e in errs]}, "
+              f"deterministic {det}, lanes alone {lanes}; kernel "
+              f"{kd['ms']:.4f} ms a launch (events {kd['call_ms']:.4f})"
+              f"{one}, plain {kd['plain_ms']:.4f} ms", flush=True)
+        return ok and det and lanes
+
+    def mesh_backends(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import sparse as tsk
+        from ccfindr_tpu_torch.ops import tile
+        from ccfindr_tpu_torch.ops.kernels import epilogue as epi
+        from ccfindr_tpu_torch.ops.kernels import ml as mlk
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+        from ccfindr_tpu_torch.ops.kernels import vb_kernels as vbk
+        from ccfindr_tpu_torch.parallel import sharded as tsh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        mods = (vbk, mlk, spk, sol, ssh, epi)
+        x10 = self.x10 if self.x10 is not None else planted_10x()
+        if self.x10m is None:
+            self.x10m = masked_10x(x10)
+        _, csr10 = self.x10m
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        ok = True
+
+        def mesh(cells, genes=1):
+            return ct.make_mesh(cells=cells, genes=genes,
+                                devices=[dev] * (cells * genes))
+
+        def drive(fn, x, **kw):
+            """The call on one device, then on the mesh with every count
+            set to 0 just before it and read just after."""
+            one = fn(x, **{k: v for k, v in kw.items() if k != "mesh"})
+            for mod in mods:
+                mod.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(x, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {}
+            for mod in mods:
+                counts.update({k: v for k, v in mod.LAUNCHES.items() if v})
+            return one, got, secs, counts
+
+        def close(one, got, label, secs, counts, ropt=True,
+                  tol=(F32_ELBO_TOL, F32_FACTOR_TOL)):
+            col = "lml" if "lml" in one.measure else "likelihood"
+            lerr = float(np.max(np.abs(got.measure[col] - one.measure[col])
+                                / np.abs(one.measure[col])))
+            ferr = max(float(np.abs(u - v).max() / np.abs(v).max())
+                       for f in ("basis", "coeff")
+                       for u, v in zip(getattr(got, f), getattr(one, f)))
+            same = None
+            if ropt:
+                same = (ct.optimal_rank(got)["ropt"]
+                        == ct.optimal_rank(one)["ropt"])
+            bits = (np.array_equal(got.measure[col], one.measure[col])
+                    and all(np.array_equal(u, v) for u, v in
+                            zip(got.basis, one.basis)))
+            nit = (batch_record(got) if col == "likelihood"
+                   else got.metadata["timings"][0])["n_iter"]
+            print(f"  {label}: {secs:.2f} s on the mesh; against one "
+                  f"device: {col} rel {lerr:.3g}, factors rel {ferr:.3g}, "
+                  f"same ropt {same}, bit-identical {bits}; n_iter {nit}; "
+                  f"launches {counts}", flush=True)
+            return lerr <= tol[0] and ferr <= tol[1] and same is not False
+
+        # Tol 0: every lane runs Itmax sweeps on both sides, so that the
+        # comparison sees the shards' rounding and not a stopping test
+        # near Tol that the rounding flips (a lane stopped one sweep
+        # apart differs by that sweep's update, ~1e-3 at 10x)
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=150, Tol=0.0,
+                    device="cuda", verbose=0, seed=0)
+
+        # sparse VB at the 10x-10% shape over cells=4 (float32; bf16 with
+        # elbo_every=5), and sparse_layout='coo' over cells=2 (which the
+        # driver runs on the CSR shards of 'tile')
+        # bf16: ROADMAP C's tolerances for a bf16 loop (five sweeps,
+        # 1e-2 on the factors, 1e-4 on lml: a one-ulp change of wth
+        # moves a rounded a by 2^-8 of itself, and the shards' sums round
+        # swn otherwise than one device), then the scan to convergence
+        # (Itmax 300 at the driver's default Tol) for the same ropt
+        bf16 = dict(precision="bf16", elbo_every=5)
+        for label, extra, cells, tol in (
+                ("sparse VB cells=4 float32", {}, 4, None),
+                ("sparse VB cells=4 bf16 elbo_every=5, 5 sweeps",
+                 dict(bf16, Itmax=5), 4, (1e-4, 1e-2)),
+                ("sparse VB cells=4 bf16 elbo_every=5, to convergence",
+                 dict(bf16, Tol=1e-5, Itmax=300), 4, (np.inf, np.inf)),
+                ("sparse VB coo cells=2", dict(sparse_layout="coo"), 2,
+                 None)):
+            one, got, secs, counts = drive(
+                ct.vb_factorize, csr10, backend="sparse", mesh=mesh(cells),
+                **dict(kw10, **extra))
+            ok = close(one, got, label, secs, counts,
+                       **({} if tol is None else dict(tol=tol))) and ok
+            if not extra:
+                for k in ("sp_rowpass", "sp_colpass"):
+                    self.kernels[f"{k}_shard"]["launches"] = counts.get(k, 0)
+                ok = ok and counts.get("sp_rowpass", 0) > 0 and \
+                    counts.get("sp_colpass", 0) > 0
+        # S1/S2 a shard of the cells=4 layout (6 lanes, r 16)
+        shards = tile.from_scipy_tile_sharded(csr10, 4, dtype=torch.float32,
+                                              device="cuda")
+        tcf = tile.from_scipy_tile(csr10, dtype=torch.float32, device="cuda")
+        n, m = csr10.shape
+        ranks6 = [8, 8, 12, 12, 16, 16]
+        tc, lw, lh = sparse_inputs(csr10, ranks6, 16, torch.float32,
+                                   torch.int16, 9, dev)
+        t0_ = shards[0]
+        lht = lh.transpose(-1, -2).contiguous()
+        lht0 = lht[:, :shards.m].contiguous()
+        a0 = spk.sp_rowpass(t0_, lw, lht0)[1]
+
+        def s1(lw_, lht_):
+            return spk.sp_rowpass(t0_, lw_, lht_)[:3]
+
+        def s2(a_, lw_):
+            return (spk.sp_colpass(t0_, a_, lw_),)
+
+        ones = torch.ones(len(ranks6), dtype=torch.float64, device=dev)
+        ok = self.site(
+            "sp_rowpass_shard", lambda: s1(lw, lht0),
+            lambda: spk.rowpass_plain(t0_, lw, lht0), "ffs", 20,
+            lambda: lanes_alone(s1, (lw, lht0)),
+            full=lambda: spk.sp_rowpass(tcf, lw, lht, do_elbo=ones),
+            launch=lambda: spk.sp_rowpass(t0_, lw, lht0, do_elbo=ones)
+        ) and ok
+        a_full = spk.sp_rowpass(tcf, lw, lht)[1]
+        ok = self.site(
+            "sp_colpass_shard", lambda: s2(a0, lw),
+            lambda: (spk.colpass_plain(t0_, a0, lw),), "f", 20,
+            lambda: lanes_alone(s2, (a0, lw)),
+            full=lambda: spk.sp_colpass(tcf, a_full, lw)) and ok
+        # the COO API's mesh builder (the JAX driver's 'coo' route; the
+        # port's driver runs 'coo' on the CSR shards above): fused_coo a
+        # shard of from_scipy_sharded against fused_coo on one device
+        coo_one = tsk.fused_coo(tsk.from_scipy(csr10, device="cuda"), lw, lh)
+        coo_mesh = tsh.make_sparse_fused_sharded(mesh(2))(
+            tsk.from_scipy_sharded(csr10, 2, device="cuda"), lw, lh)
+        errs = [rel_err(g, w) for g, w in zip(coo_mesh, coo_one)]
+        coo_ok = (max(errs[:2]) <= F32_FACTOR_TOL
+                  and errs[2] <= F32_ELBO_TOL)
+        print(f"  make_sparse_fused_sharded cells=2 vs fused_coo on one "
+              f"device: rel (swn, shn, dterm) {[f'{e:.3g}' for e in errs]}",
+              flush=True)
+        ok = ok and coo_ok
+        del coo_one, coo_mesh
+        nnz0 = t0_.nnz
+        self.set_bound("sp_rowpass_shard", nbytes(
+            t0_.indptr, t0_.col, t0_.val, lw, lht0, s1(lw, lht0)),
+            4 * 16 * nnz0 * len(ranks6))
+        self.set_bound("sp_colpass_shard", nbytes(
+            t0_.colptr, t0_.row, t0_.perm, a0, lw, s2(a0, lw)),
+            2 * 16 * nnz0 * len(ranks6),
+            library_ms=cuda_ms(s2_library(t0_, a0, lw), 20))
+        del shards, tcf, tc, lw, lh, lht, lht0, a0, a_full, ones
+        torch.cuda.empty_cache()
+
+        # 'pallas' at 10x over genes=2, cells=2: E1 + E1s a block
+        one, got, secs, counts = drive(ct.vb_factorize, x10,
+                                       backend="pallas", mesh=mesh(2, 2),
+                                       **kw10)
+        ok = close(one, got, "pallas 10x genes=2 cells=2", secs,
+                   counts) and ok
+        self.kernels["fused_xpass_cm_block"]["launches"] = counts.get(
+            "fused_xpass_cm", 0)
+        self.kernels["fused_sum_block"]["launches"] = counts.get(
+            "fused_sum", 0)
+        ok = (ok and counts.get("fused_xpass_cm", 0) > 0
+              and counts.get("fused_sum", 0) == counts["fused_xpass_cm"]
+              and counts.get("xpass", 0) == 0)
+        x = torch.as_tensor(x10, device=dev)
+        n, m = x.shape
+        xs = tsh.place_counts(x, mesh(2, 2))[0]
+        xb = xs.packed()[0][0]
+        g1, c1 = xs.rows[0][1], xs.cols[0][1]
+        nb, rp = 6, 16
+        gen = torch.Generator().manual_seed(3)
+        lw = torch.rand(nb, n, rp, generator=gen).to(dev) + 0.1
+        lh = torch.rand(nb, rp, m, generator=gen).to(dev) + 0.1
+        lwb = lw[:, :g1].contiguous()
+        lhb = lh[..., :c1].contiguous()
+        chunk = vbk.fused_chunk(xb, "cm", 1, rp, 4)
+
+        def e1(lw_, lh_):
+            full, part, xp = vbk.fused_xpass(xb, lw_, lh_, layout="cm",
+                                             chunk=chunk)
+            return full, part, xp
+
+        e1o = e1(lwb, lhb)
+
+        def e1s(part, xp):
+            return vbk.fused_sum(part, xp)
+
+        def e1_outs(outs, order):
+            """All three of E1's results on a block, in the plain
+            function's order (swn, shn, xlog): the streamed output, and
+            the partials and x log wth summed by E1s; ``order`` (0, 1)
+            for 'gm', whose streamed output is swn, (1, 0) for 'cm'."""
+            full, part, xp = outs
+            summed, xlog = e1s(part, xp)
+            pair = (full, summed)
+            return pair[order[0]], pair[order[1]], xlog
+
+        ok = self.site(
+            "fused_xpass_cm_block",
+            lambda: e1_outs(e1(lwb, lhb), (1, 0)),
+            lambda: vbk.fused_xpass_plain(xb, lwb, lhb), "ffs", 10,
+            lambda: lanes_alone(e1, (lwb, lhb)),
+            full=lambda: vbk.fused_xpass(x, lw, lh, layout="cm"),
+            launch=lambda: e1(lwb, lhb)) and ok
+        # E1s's function: the partials summed in float64
+        ok = self.site(
+            "fused_sum_block", lambda: e1s(e1o[1], e1o[2]),
+            lambda: (e1o[1].sum(1, dtype=torch.float64).to(e1o[1].dtype),
+                     e1o[2].sum(1)), "fs", 20,
+            lambda: lanes_alone(e1s, (e1o[1], e1o[2]))) and ok
+        nnzb = int((xb != 0).sum())
+        self.set_bound("fused_xpass_cm_block", nbytes(xb, lwb, lhb, e1o),
+                       6 * rp * nnzb * nb)
+        summed = e1s(e1o[1], e1o[2])
+        self.set_bound("fused_sum_block", nbytes(e1o[1], e1o[2], summed), 0,
+                       library_ms=kernel_ms(lambda: e1o[1].sum(1), 20))
+        del x, xs, xb, lw, lh, lwb, lhb, e1o, summed
+        torch.cuda.empty_cache()
+
+        # the gene-major shape over cells=2 (Itmax cut to 30 from phase
+        # 12's 100): E1 'gm' a shard
+        if self.xgm is None:
+            self.xgm = planted_gm()
+        kwg = dict(kw10, Itmax=30)
+        one, got, secs, counts = drive(ct.vb_factorize, self.xgm,
+                                       backend="pallas", mesh=mesh(2),
+                                       **kwg)
+        ok = close(one, got, "pallas gene-major 100,000 x 4,096 cells=2 "
+                   "(Itmax 30)", secs, counts) and ok
+        self.kernels["fused_xpass_gm_shard"]["launches"] = counts.get(
+            "fused_xpass_gm", 0)
+        ok = (ok and counts.get("fused_xpass_gm", 0) > 0
+              and counts.get("epi_w_post", 0) == 0)
+        x = torch.as_tensor(self.xgm, device=dev)
+        n, m = x.shape
+        xs = tsh.place_counts(x, mesh(2))[0]
+        xb = xs.packed()[0][0]
+        c1 = xs.cols[0][1]
+        nb = 3
+        lw = torch.rand(nb, n, rp, generator=gen).to(dev) + 0.1
+        lh = torch.rand(nb, rp, m, generator=gen).to(dev) + 0.1
+        lhb = lh[..., :c1].contiguous()
+        chunk = vbk.fused_chunk(xb, "gm", 1, rp, 4)
+
+        def e1g(lw_, lh_):
+            return vbk.fused_xpass(xb, lw_, lh_, layout="gm", chunk=chunk)
+
+        ok = self.site(
+            "fused_xpass_gm_shard",
+            lambda: e1_outs(e1g(lw, lhb), (0, 1)),
+            lambda: vbk.fused_xpass_plain(xb, lw, lhb), "ffs", 3,
+            lambda: lanes_alone(e1g, (lw, lhb), lanes=(0, 2)),
+            full=lambda: vbk.fused_xpass(x, lw, lh, layout="gm"),
+            launch=lambda: e1g(lw, lhb)) and ok
+        nnzb = int((xb != 0).sum())
+        self.set_bound("fused_xpass_gm_shard",
+                       nbytes(xb, lw, lhb, e1g(lw, lhb)),
+                       6 * rp * nnzb * nb)
+        del x, xs, xb, lw, lh, lhb
+        torch.cuda.empty_cache()
+
+        # the ML mesh at 10x over cells=4: M1/M2 ('pallas') and S1/S2
+        # ('sparse') a shard
+        kwm = dict(ranks=[8, 12, 16], nrun=2, Itmax=150, Tol=0.0,
+                   device="cuda", verbose=0, seed=0)
+        for backend, xin in (("pallas", x10), ("sparse", csr10)):
+            one, got, secs, counts = drive(ct.factorize, xin,
+                                           backend=backend, mesh=mesh(4),
+                                           **kwm)
+            ok = close(one, got, f"ML {backend} 10x cells=4", secs, counts,
+                       ropt=False) and ok
+            if backend == "pallas":
+                for k in ("ml_hpass", "ml_wpass"):
+                    self.kernels[f"{k}_shard"]["launches"] = counts.get(k, 0)
+                ok = ok and min(counts.get("ml_hpass", 0),
+                                counts.get("ml_wpass", 0)) > 0
+            else:
+                ok = ok and counts.get("sp_rowpass", 0) > 0
+        x = torch.as_tensor(x10, device=dev)
+        n, m = x.shape
+        xs = tsh.place_counts(x, mesh(4))[0]
+        xb = xs.packed()[0][0]
+        c1 = xs.cols[0][1]
+        w = torch.rand(6, n, 16, generator=gen).to(dev) + 0.1
+        h = torch.rand(6, 16, m, generator=gen).to(dev) + 0.1
+        hb = h[..., :c1].contiguous()
+
+        def m1(w_, h_):
+            return mlk.ml_hpass(xb, w_, h_)[:2]
+
+        def m2(w_, h_):
+            return (mlk.ml_wpass(xb, w_, h_),)
+
+        ok = self.site("ml_hpass_shard", lambda: m1(w, hb),
+                       lambda: mlk.ml_h_plain(xb, w, hb), "fs", 20,
+                       lambda: lanes_alone(m1, (w, hb)),
+                       full=lambda: mlk.ml_hpass(x, w, h)) and ok
+        ok = self.site("ml_wpass_shard", lambda: m2(w, hb),
+                       lambda: (mlk.ml_w_plain(xb, w, hb),), "f", 20,
+                       lambda: lanes_alone(m2, (w, hb)),
+                       full=lambda: mlk.ml_wpass(x, w, h)) and ok
+        nnzb = int((xb != 0).sum())
+        self.set_bound("ml_hpass_shard", nbytes(xb, w, hb, m1(w, hb)),
+                       4 * 16 * nnzb * 6)
+        self.set_bound("ml_wpass_shard", nbytes(xb, w, hb, m2(w, hb)),
+                       4 * 16 * nnzb * 6)
+        del x, xs, xb, w, h, hb
+        torch.cuda.empty_cache()
+
+        # 'pallas2pass' on the bundled data over cells=2
+        kwp = dict(ranks=[4, 5, 6], nrun=2, Itmax=500, Tol=0.0,
+                   device="cuda", verbose=0, seed=0)
+        one, got, secs, counts = drive(ct.vb_factorize, s,
+                                       backend="pallas2pass",
+                                       mesh=mesh(2), **kwp)
+        ok = close(one, got, "pallas2pass bundled cells=2", secs,
+                   counts) and ok
+        for k in ("ss_xpass", "elbo_xpass"):
+            self.kernels[f"{k}_block"]["launches"] = counts.get(k, 0)
+        ok = ok and min(counts.get("ss_xpass", 0),
+                        counts.get("elbo_xpass", 0)) > 0
+        xb_np = np.asarray(s.counts_dense(dtype=np.float32))
+        xb_np = np.pad(xb_np, ((0, 0), (0, xb_np.shape[1] % 2)))
+        x = torch.as_tensor(xb_np, device=dev)
+        n, m = x.shape
+        xs = tsh.place_counts(x, mesh(2))[0]
+        xb = xs.packed()[0][0]
+        c1 = xs.cols[0][1]
+        lw = torch.rand(6, n, 6, generator=gen).to(dev) + 0.1
+        lh = torch.rand(6, 6, m, generator=gen).to(dev) + 0.1
+        lhb = lh[..., :c1].contiguous()
+        chunk = vbk.pass2_chunk(xb, n, c1, 1, 6, 4)
+
+        def p1(lw_, lh_):
+            return vbk.suffstats_pallas_padded(
+                xb, lw_, lh_, n=n, m=c1, r=6, bn=vbk.DEFAULT_BN,
+                bm=vbk.DEFAULT_BM, chunk=chunk)
+
+        def p2(lw_, lh_):
+            return (vbk.elbo_xpass(xb, lw_, vbk.xlogx(lw_), lh_,
+                                   vbk.xlogx(lh_))[0],)
+
+        lwl, lhl, lhlb = vbk.xlogx(lw), vbk.xlogx(lh), vbk.xlogx(lhb)
+        ok = self.site("ss_xpass_block", lambda: p1(lw, lhb),
+                       lambda: vbk.suffstats_plain(xb, lw, lhb), "ff", 10,
+                       lambda: lanes_alone(p1, (lw, lhb)),
+                       full=lambda: vbk.ss_xpass(x, lw, lh),
+                       launch=lambda: vbk.ss_xpass(xb, lw, lhb,
+                                                   chunk=chunk)) and ok
+        ok = self.site("elbo_xpass_block", lambda: p2(lw, lhb),
+                       lambda: (vbk.elbo_data_plain(xb, lw, lhb),), "s", 10,
+                       lambda: lanes_alone(p2, (lw, lhb)),
+                       full=lambda: vbk.elbo_xpass(x, lw, lwl, lh, lhl),
+                       launch=lambda: vbk.elbo_xpass(xb, lw, lwl, lhb,
+                                                     lhlb)) and ok
+        nnzb = int((xb != 0).sum())
+        self.set_bound("ss_xpass_block", nbytes(xb, lw, lhb, p1(lw, lhb)),
+                       6 * 6 * nnzb * 6)
+        self.set_bound("elbo_xpass_block", nbytes(xb, lw, lhb, p2(lw, lhb)),
+                       3 * 6 * 6 * nnzb * 6, peak=TF32_FLOPS)
+        for key in MESH_SITES:
+            kd = self.kernels[key]
+            print(f"  {kd['name']}: bound {kd['bound_ms']:.4f} ms "
+                  f"({kd['bound_by']}), launches {kd['launches']}",
+                  flush=True)
+        return ok
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -3717,7 +4352,9 @@ def main(argv=None):
               "14": ("pallas2pass-slice", smoke.pallas2pass_slice),
               "15": ("sparse-bf16", smoke.sparse_bf16),
               "16": ("checkpoint-compaction", smoke.checkpointing),
-              "17": ("cell-sharded-mesh", smoke.mesh)}
+              "17": ("cell-sharded-mesh", smoke.mesh),
+              "18": ("randomized-svd+host", smoke.rsvd_host),
+              "19": ("mesh-backends", smoke.mesh_backends)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

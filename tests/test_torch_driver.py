@@ -16,8 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 import ccfindr_tpu as cf
 import ccfindr_tpu_torch as ct
+from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.data import pbmc_sim_dir
 
 torch.set_num_threads(2)
@@ -230,16 +234,45 @@ def test_dtype_follows_device(small):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(backend="pallas", mesh=ct.make_mesh(genes=2, cells=1,
-                                              devices=["cpu"] * 2)), "A7b"),
     (dict(distributed=dict(num_processes=2)), "A7c"),
     (dict(_process_count=2), "A7c"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
-    (dict(initializer="svd2", svd_method="randomized"), "A8"),
 ])
 def test_options_not_ported_raise(small, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ct.vb_factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+
+
+def _jax_omega(m, k, dtype, seed, device):
+    """JAX's randomized-SVD test matrix, handed to the port."""
+    om = jax.random.normal(jax.random.PRNGKey(seed), (m, k), jnp.float64)
+    return torch.as_tensor(np.array(om), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("option", ["gene_sharded_pallas", "randomized_svd"])
+def test_options_once_raising_match_jax(small, monkeypatch, option):
+    """Two options that raised before their port: 'pallas' over a
+    gene-sharded mesh (E1 a block, ROADMAP A7b) and
+    svd_method='randomized' (A8, with JAX's test matrix), each against
+    the JAX driver's run at _assert_same_result's tolerances."""
+    if option == "gene_sharded_pallas":
+        kw = dict(backend="pallas", initializer="svd2")
+        jkw = dict(mesh=cf.make_mesh(genes=2, cells=1,
+                                     devices=jax.devices()[:2]))
+        tkw = dict(mesh=ct.make_mesh(genes=2, cells=1, devices=["cpu"] * 2))
+    else:
+        monkeypatch.setattr(trsvd, "_draw_omega", _jax_omega)
+        kw = dict(backend="dense", initializer="svd2",
+                  svd_method="randomized")
+        jkw = tkw = {}
+    kw.update(ranks=[2, 3], Itmax=200, verbose=0)
+    # an even gene count: the JAX driver pads an svd2 start to a ragged
+    # mesh twice (ROADMAP C), so the mesh case takes extents it divides
+    x = small[:small.shape[0] // 2 * 2]
+    assert (x.sum(axis=0) > 0).all()
+    a = cf.vb_factorize(cf.SCSet(count=x), **kw, **jkw)
+    b = ct.vb_factorize(ct.SCSet(count=x), device="cpu", **kw, **tkw)
+    _assert_same_result(a, b)
 
 
 def test_elbo_every_needs_pallas(small):

@@ -1034,3 +1034,152 @@ def test_finish_matches_plain(mask, niter):
         one = sol.finish(sc[idx], *(p[idx].contiguous() for p in parts),
                          **kw)
         assert torch.equal(one, got[idx])
+
+
+# ---------------------------------------------------------------------
+# the mesh backends a shard, and the COO API on the card
+# ---------------------------------------------------------------------
+
+def _mesh(cells, genes=1):
+    from ccfindr_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(cells=cells, genes=genes, devices=["cuda:0"] * (
+        cells * genes))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_shards_back_to_back_match_plain(dt):
+    """M1, S1 and P2 add each lane's partials through a cached ticket
+    counter a lane and stream: shard launches one after the other on one
+    stream (as the mesh backends issue them) each equal their plain
+    version on the shard's own inputs, and each equals the same launch
+    alone, bit for bit."""
+    from ccfindr_tpu_torch.parallel import sharded as tsh
+
+    dev = _card()
+    n, m, r, lanes = 300, 1400, 6, [6, 5, 4]
+    x, lwt, lh, _, _ = _inputs(n, m, r, lanes, dt, torch.int8, dev)
+    lw = lwt[:, :r].transpose(-1, -2).contiguous()
+    lh = lh[:, :r].contiguous()
+    tol, tol_s = (1e-10, 1e-10) if dt == torch.float64 else (2e-4, 1e-5)
+    xs = tsh.place_counts(x, _mesh(2))[0]
+    blocks = xs.packed()[0]
+    cols = [slice(c0, c1) for c0, c1 in xs.cols]
+    # M1 then M1 again on the other shard, then each alone
+    outs = [ml.ml_hpass(b, lw, lh[..., c].contiguous())
+            for b, c in zip(blocks, cols)]
+    for b, c, (hn, xl, _) in zip(blocks, cols, outs):
+        hn_p, xl_p = ml.ml_h_plain(b, lw, lh[..., c])
+        assert _rel(hn, hn_p) <= tol and _rel(xl, xl_p) <= tol_s
+        alone = ml.ml_hpass(b, lw, lh[..., c].contiguous())
+        assert torch.equal(alone[0], hn) and torch.equal(alone[1], xl)
+    # P2 the same way
+    outs = [vbk.elbo_xpass(b, lw, vbk.xlogx(lw), lh[..., c].contiguous(),
+                           vbk.xlogx(lh[..., c]).contiguous())[0]
+            for b, c in zip(blocks, cols)]
+    for b, c, d in zip(blocks, cols, outs):
+        assert _rel(d, vbk.elbo_data_plain(b, lw, lh[..., c])) <= tol_s
+    # S1 on the shards of the sparse layout
+    csr = sp.csr_matrix(x.cpu().numpy().astype(np.float64))
+    shards = tile.from_scipy_tile_sharded(csr, 2, dtype=dt, device="cuda")
+    lht = lh.transpose(-1, -2)
+    outs = [spk.sp_rowpass(tc, lw, lht[:, c].contiguous())
+            for tc, c in zip(shards, cols)]
+    for tc, c, (swn, a, xl, _) in zip(shards, cols, outs):
+        swn_p, a_p, xl_p = spk.rowpass_plain(tc, lw, lht[:, c])
+        assert _rel(swn, swn_p) <= tol and _rel(xl, xl_p) <= tol_s
+        again = spk.sp_rowpass(tc, lw, lht[:, c].contiguous())
+        assert torch.equal(again[0], swn) and torch.equal(again[2], xl)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_mesh_factories_match_cpu(dt):
+    """Each make_*_sharded function on one card (cells=2; the
+    fused pass also genes=2) against the same function on the CPU (plain
+    versions); one launch per shard and kernel."""
+    from ccfindr_tpu_torch.parallel import sharded as tsh
+
+    dev = _card()
+    n, m, r, lanes = 256, 1024, 6, [6, 4]
+    x, lwt, lh, _, _ = _inputs(n, m, r, lanes, dt, torch.int8, dev)
+    lw = lwt[:, :r].transpose(-1, -2).contiguous()
+    lh = lh[:, :r].contiguous()
+    tol, tol_s = (1e-10, 1e-10) if dt == torch.float64 else (2e-4, 1e-5)
+    cpu = tuple(t.cpu() for t in (x, lw, lh))
+
+    def cpu_mesh(cells, genes=1):
+        from ccfindr_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(cells=cells, genes=genes,
+                         devices=["cpu"] * (cells * genes))
+
+    def host(ts):
+        return tuple(t.cpu() for t in ts)
+
+    for genes in (1, 2):
+        got = host(tsh.make_fused_sharded(_mesh(2, genes))(
+            tsh.place_counts(x, _mesh(2, genes))[0], lw, lh))
+        want = tsh.make_fused_sharded(cpu_mesh(2, genes))(
+            tsh.place_counts(cpu[0], cpu_mesh(2, genes))[0], *cpu[1:])
+        assert _rel(got[0], want[0]) <= tol and _rel(got[1], want[1]) <= tol
+        assert _rel(got[2], want[2]) <= tol_s
+    xs, xc = (tsh.place_counts(x, _mesh(2))[0],
+              tsh.place_counts(cpu[0], cpu_mesh(2))[0])
+    ml.reset_launches()
+    got = host(tsh.make_ml_sharded(_mesh(2))[0](xs, lw, lh))
+    assert ml.LAUNCHES["ml_hpass"] == 2
+    want = tsh.make_ml_sharded(cpu_mesh(2))[0](xc, *cpu[1:])
+    assert _rel(got[0], want[0]) <= tol and _rel(got[1], want[1]) <= tol_s
+    vbk.reset_launches()
+    got = host(tsh.make_pass2_sharded(_mesh(2))[0](xs, lw, lh))
+    assert vbk.LAUNCHES["ss_xpass"] == 2
+    want = tsh.make_pass2_sharded(cpu_mesh(2))[0](xc, *cpu[1:])
+    assert _rel(got[0], want[0]) <= tol and _rel(got[1], want[1]) <= tol
+    csr = sp.csr_matrix(cpu[0].numpy().astype(np.float64))
+    from ccfindr_tpu_torch.ops import sparse as tsk
+
+    for build, make in ((tile.from_scipy_tile_sharded,
+                         tsh.make_tile_fused_sharded),
+                        (tsk.from_scipy_sharded,
+                         tsh.make_sparse_fused_sharded)):
+        spk.reset_launches()
+        got = host(make(_mesh(2))(build(csr, 2, dtype=dt, device="cuda"),
+                                  lw, lh))
+        assert spk.LAUNCHES == {"sp_rowpass": 2, "sp_colpass": 2}
+        want = make(cpu_mesh(2))(build(csr, 2, dtype=dt, device="cpu"),
+                                 *cpu[1:])
+        assert _rel(got[0], want[0]) <= tol and _rel(got[1], want[1]) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_coo_api_on_the_card_is_bit_stable(dt):
+    """The COO passes on a CUDA tensor run S1/S2 over the CSR view (no
+    index_add_), match their plain versions on the CPU, and give the same
+    bits twice; so do the randomized SVD's CSR products."""
+    from ccfindr_tpu_torch.ops import rsvd
+    from ccfindr_tpu_torch.ops import sparse as tsk
+
+    _card()
+    rng = np.random.default_rng(3)
+    x = (rng.random((400, 900)) < 0.1) * rng.poisson(3.0, (400, 900))
+    csr = sp.csr_matrix(x.astype(np.float64))
+    lw = torch.tensor(rng.gamma(1.0, 1.0, (3, 400, 5)), dtype=dt)
+    lh = torch.tensor(rng.gamma(1.0, 1.0, (3, 5, 900)), dtype=dt)
+    tol, tol_s = (1e-10, 1e-10) if dt == torch.float64 else (2e-4, 1e-5)
+    gpu = tsk.from_scipy(csr, dtype=dt, device="cuda")
+    host = tsk.from_scipy(csr, dtype=dt, device="cpu")
+    spk.reset_launches()
+    a = tsk.fused_coo(gpu, lw.cuda(), lh.cuda())
+    assert spk.LAUNCHES == {"sp_rowpass": 1, "sp_colpass": 1}
+    b = tsk.fused_coo(gpu, lw.cuda(), lh.cuda())
+    want = tsk.fused_coo(host, lw, lh)
+    for u, v, w in zip(a, b, want):
+        assert torch.equal(u, v)
+    assert _rel(a[0].cpu(), want[0]) <= tol and \
+        _rel(a[1].cpu(), want[1]) <= tol
+    assert _rel(a[2].cpu(), want[2]) <= tol_s
+    s1 = rsvd.randomized_svd(gpu, 4, seed=2)
+    s2 = rsvd.randomized_svd(gpu, 4, seed=2)
+    assert all(torch.equal(p, q) for p, q in zip(s1, s2))
+    sh = rsvd.randomized_svd(host, 4, seed=2)
+    assert _rel(s1[1].cpu(), sh[1]) <= tol

@@ -371,7 +371,7 @@ def test_sharded_sweep_rejects_bad_layouts():
         sweep(torch.tensor(x), *a, n=n, m_arr=m, m_live=m, r=r)
     with pytest.raises(ValueError, match="cell shards"):
         sweep(xs, a[0], a[1][:1], a[2], a[3], n=n, m_arr=m, m_live=m, r=r)
-    with pytest.raises(NotImplementedError, match="A7b"):
+    with pytest.raises(NotImplementedError, match="make_fused_sharded"):
         tss.make_sol_sweep_sharded(_cpu_mesh(2, genes=2))
     with pytest.raises(ValueError, match="CUDA"):
         tss.xpass_shard(xs.blocks[0][0], *a[:1], a[1][0], a[2][0], a[3])
@@ -616,18 +616,42 @@ def test_mesh_elbo_every_and_bf16():
                                rtol=0.05)
 
 
+@pytest.mark.parametrize("backend,cells,genes,override", [
+    ("pallas", 2, 2, False), ("sparse", 4, 1, False),
+    ("pallas2pass", 2, 1, False), ("dense", 2, 1, True)])
+def test_mesh_options_match_jax(backend, cells, genes, override):
+    """The mesh options that raised before they were ported: the
+    gene-sharded 'pallas' sweep (E1 a block), 'sparse' (S1/S2 a cell
+    shard), 'pallas2pass' (P1/P2 a block) and a user's suffstats/
+    data_term (the whole padded X), each against the JAX driver's mesh
+    run, at the tolerances of test_vb_factorize_mesh_matches_jax."""
+    extra = {}
+    if override:
+        extra = dict(suffstats=jvb.suffstats_dense,
+                     data_term=jvb.elbo_data_term)
+    x = _divisible_counts()
+    kw = dict(ranks=[2, 3], nrun=1, verbose=0, Itmax=200,
+              initializer="svd2", backend=backend)
+    j = cf.vb_factorize(x, mesh=_jax_mesh(cells, genes=genes), **kw,
+                        **extra)
+    if override:
+        extra = dict(suffstats=tvb.suffstats_dense,
+                     data_term=tvb.elbo_data_term)
+    t = ct.vb_factorize(x, mesh=_cpu_mesh(cells, genes=genes), device="cpu",
+                        **kw, **extra)
+    assert t.ranks == j.ranks
+    assert _sweeps(t) == _sweeps(j)
+    np.testing.assert_allclose(t.measure["lml"], j.measure["lml"],
+                               rtol=1e-9)
+    for k in range(len(t.ranks)):
+        np.testing.assert_allclose(t.basis[k], j.basis[k], rtol=1e-7,
+                                   atol=1e-300)
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(backend="pallas", mesh=_cpu_mesh(2, genes=2)), "A7b"),
-    (dict(backend="sparse", mesh=_cpu_mesh(2)), "A7b"),
-    (dict(backend="pallas2pass", mesh=_cpu_mesh(2)), "A7b"),
-    (dict(backend="dense", mesh=_cpu_mesh(2),
-          suffstats=tvb.suffstats_dense), "A7b"),
     (dict(_process_count=2), "A7c"),
 ])
 def test_mesh_options_still_to_port(kw, match):
     x = ct.simulate_whx(nrow=12, ncol=20, rank=2, seed=1)["x"]
     with pytest.raises(NotImplementedError, match=match):
         ct.vb_factorize(x, ranks=[2], verbose=0, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        ct.factorize(x, ranks=[2], verbose=0, device="cpu",
-                     mesh=_cpu_mesh(2))

@@ -247,8 +247,20 @@ def test_interpret_and_gsea_match_jax(pbmc_ml, tmp_path):
     assert ct.assignCelltype is ct.assign_celltype
 
 
+def test_factorize_mesh_matches_jax(small, jax_init):
+    """factorize(mesh=...) raised before ROADMAP A7b: over cells=2, M1/M2
+    a shard (their plain versions here) against the JAX driver's mesh
+    run from the same draws, at _assert_same_result's tolerances."""
+    kw = dict(ranks=[2, 3], nrun=2, Itmax=150, seed=2, verbose=0,
+              backend="pallas")
+    a = cf.factorize(cf.SCSet(count=small), mesh=cf.make_mesh(
+        cells=2, devices=jax.devices()[:2]), **kw)
+    b = ct.factorize(ct.SCSet(count=small), device="cpu", mesh=ct.make_mesh(
+        cells=2, devices=["cpu"] * 2), **kw)
+    _assert_same_result(a, b)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=ct.make_mesh(cells=2, devices=["cpu"] * 2)), "A7b"),
     (dict(distributed=dict(num_processes=2)), "A7c"),
     (dict(_process_count=2), "A7c"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),

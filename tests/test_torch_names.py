@@ -11,18 +11,26 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
+from ccfindr_tpu.ops import rsvd as jrsvd
+from ccfindr_tpu.ops import sparse as jsk
 from ccfindr_tpu.ops import tile as jtile
 from ccfindr_tpu.ops import vb as jvb
 from ccfindr_tpu.ops.pallas import epilogue as jep
 from ccfindr_tpu.ops.pallas import ml_kernels as jmlk
 from ccfindr_tpu.ops.pallas import sol as jsol
 from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
+from ccfindr_tpu.parallel import sharded as jsh
+from ccfindr_tpu_torch.ops import rsvd as trsvd
+from ccfindr_tpu_torch.ops import sparse as tsk
 from ccfindr_tpu_torch.ops import tile as ttile
 from ccfindr_tpu_torch.ops import vb as tvb
 from ccfindr_tpu_torch.ops.kernels import epilogue as tep
 from ccfindr_tpu_torch.ops.kernels import ml as tmlk
 from ccfindr_tpu_torch.ops.kernels import sol as tsol
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvbk
+from ccfindr_tpu_torch.parallel import sharded as tsh
 
 # the port's own additions to a JAX signature: the device it places on,
 # and the chunk that pins a kernel's order of partial sums
@@ -51,15 +59,39 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jvbk.elbo_data_pallas_padded, tvbk.elbo_data_pallas_padded),
     (jvbk.pad_matrix, tvbk.pad_matrix),
     (jvbk.fold_dterm, tvbk.fold_dterm),
+    (jvbk.fused_pallas, tvbk.fused_pallas),
+    (jvbk.fused_pallas_padded, tvbk.fused_pallas_padded),
+    (jvbk.make_fused_backend, tvbk.make_fused_backend),
+    (jrsvd.randomized_svd, trsvd.randomized_svd),
+    (jrsvd.coo_matmul, trsvd.coo_matmul),
+    (jrsvd.coo_rmatmul, trsvd.coo_rmatmul),
+    (jsk.SparseCounts, tsk.SparseCounts),
+    (jsk.from_scipy, tsk.from_scipy),
+    (jsk.from_dense, tsk.from_dense),
+    (jsk.from_scipy_sharded, tsk.from_scipy_sharded),
+    (jsk.lgamma_term, tsk.lgamma_term),
+    (jsk.suffstats_coo, tsk.suffstats_coo),
+    (jsk.elbo_data_coo, tsk.elbo_data_coo),
+    (jsk.fused_coo, tsk.fused_coo),
+    (jsk.make_sparse_fused, tsk.make_sparse_fused),
+    (jsk.make_sparse_backend, tsk.make_sparse_backend),
+    (jtile.from_scipy_tile_sharded, ttile.from_scipy_tile_sharded),
+    (jsh.make_fused_sharded, tsh.make_fused_sharded),
+    (jsh.make_sparse_fused_sharded, tsh.make_sparse_fused_sharded),
+    (jsh.make_ell_fused_sharded, tsh.make_ell_fused_sharded),
+    (jsh.make_tile_fused_sharded, tsh.make_tile_fused_sharded),
+    (jsh.make_tile_ml_sharded, tsh.make_tile_ml_sharded),
+    (jsh.make_ml_sharded, tsh.make_ml_sharded),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same
     order and with the same default; the port adds only ``device`` and
-    ``chunk`` (keyword-only)."""
+    ``chunk`` (``chunk`` keyword-only where JAX has none: the COO API and
+    ``make_sparse_fused_sharded`` take JAX's own ``chunk``)."""
     jp = inspect.signature(jfn).parameters
     tp = inspect.signature(tfn).parameters
-    assert [k for k in tp if k not in PORT_ONLY] == list(jp)
-    if "chunk" in tp:
+    assert [k for k in tp if k not in PORT_ONLY or k in jp] == list(jp)
+    if "chunk" in tp and "chunk" not in jp:
         assert tp["chunk"].kind == inspect.Parameter.KEYWORD_ONLY
     for name, p in jp.items():
         assert tp[name].kind == p.kind, name
@@ -92,17 +124,32 @@ def test_vb_init_svd_auto_is_exact_below_4096(variant):
                                atol=1e-12)
 
 
+def _jax_omega(m, k, dtype, seed, device):
+    om = jax.random.normal(jax.random.PRNGKey(seed), (m, k), jnp.float64)
+    return torch.as_tensor(np.array(om), dtype=dtype, device=device)
+
+
 @pytest.mark.parametrize("shape", [(4097, 4100), (5000, 4097)])
-def test_vb_init_svd_auto_raises_where_jax_takes_randomized(shape):
-    """Above 4096 on the short axis JAX's 'auto' picks the randomized
-    SVD (ROADMAP A8): the port raises there, never computing another
-    start silently."""
-    x = sp.random(*shape, density=1e-4, random_state=0, format="csr")
+def test_vb_init_svd_auto_takes_randomized_above_4096(shape, monkeypatch):
+    """Above 4096 on the short axis 'auto' picks the randomized SVD (it
+    raised before ROADMAP A8): the port's 'auto' is its 'randomized', bit
+    for bit, and with JAX's test matrix it is JAX's 'auto' start
+    (1e-8 relative at float64)."""
+    x = sp.random(*shape, density=1e-3, random_state=0, format="csr")
     hy = tvb.Hyper(1.0, 1.0, 1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tvb.vb_init_svd(x, 3, hy, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tvb.vb_init_svd(x, 3, hy, method="randomized", device="cpu")
+    a = tvb.vb_init_svd(x, 3, hy, dtype=torch.float64, device="cpu")
+    b = tvb.vb_init_svd(x, 3, hy, dtype=torch.float64, method="randomized",
+                        device="cpu")
+    assert torch.equal(a.lw, b.lw) and torch.equal(a.lh, b.lh)
+    monkeypatch.setattr(trsvd, "_draw_omega", _jax_omega)
+    c = tvb.vb_init_svd(x, 3, hy, dtype=torch.float64, device="cpu")
+    j = jvb.vb_init_svd(x, 3, jvb.Hyper(1.0, 1.0, 1.0, 1.0),
+                        dtype=jnp.float64)
+    for f in ("lw", "lh"):
+        want = np.asarray(getattr(j, f))
+        np.testing.assert_allclose(getattr(c, f).numpy(), want, rtol=0,
+                                   atol=1e-8 * np.abs(want).max(),
+                                   err_msg=f)
 
 
 def test_ml_pallas_names_take_padded_x():

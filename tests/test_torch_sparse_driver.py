@@ -17,6 +17,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import jax
+
 import ccfindr_tpu as cf
 import ccfindr_tpu_torch as ct
 from ccfindr_tpu.drivers import ml_driver as jml_driver
@@ -182,12 +184,38 @@ def test_sparse_drivers_never_densify(monkeypatch):
 
 
 @pytest.mark.parametrize("driver", ["vb", "ml"])
+def test_sparse_mesh_matches_jax(small, jax_init, driver):
+    """backend='sparse' over a cell-sharded mesh raised before ROADMAP
+    A7b: S1/S2 a shard (their plain versions here) against the JAX
+    driver's mesh run (its tile kernel a shard, interpret mode), at the
+    tolerances of the one-device tests above."""
+    jmesh = cf.make_mesh(cells=2, devices=jax.devices()[:2])
+    tmesh = ct.make_mesh(cells=2, devices=["cpu"] * 2)
+    if driver == "vb":
+        kw = dict(ranks=[2, 3], initializer="svd2", backend="sparse",
+                  Itmax=300, verbose=0)
+        a = cf.vb_factorize(cf.SCSet(count=small), mesh=jmesh, **kw)
+        b = ct.vb_factorize(ct.SCSet(count=small), mesh=tmesh, device="cpu",
+                            **kw)
+        assert _sweeps(a) == _sweeps(b)
+        np.testing.assert_allclose(b.measure["lml"], a.measure["lml"],
+                                   rtol=1e-9)
+        for k in range(len(a.ranks)):
+            np.testing.assert_allclose(b.basis[k], a.basis[k], rtol=1e-7)
+    else:
+        kw = dict(ranks=[2, 3], nrun=2, Itmax=150, seed=2, verbose=0,
+                  backend="sparse")
+        a = cf.factorize(cf.SCSet(count=small), mesh=jmesh, **kw)
+        b = ct.factorize(ct.SCSet(count=small), mesh=tmesh, device="cpu",
+                         **kw)
+        _same_ml(a, b)
+
+
+@pytest.mark.parametrize("driver", ["vb", "ml"])
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(sparse_layout="ell"), NotImplementedError, "A6"),
     (dict(sparse_layout="csr5"), ValueError, "unknown sparse_layout"),
     (dict(storage_dtype="int8"), ValueError, "storage_dtype"),
-    (dict(mesh=ct.make_mesh(cells=2, devices=["cpu"] * 2)),
-     NotImplementedError, "A7b"),
 ])
 def test_sparse_option_errors(small, driver, kw, exc, match):
     fn = ct.vb_factorize if driver == "vb" else ct.factorize

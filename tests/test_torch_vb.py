@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from ccfindr_tpu.ops import vb as jvb
+from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.ops import vb as tvb
 
 torch.set_num_threads(2)
@@ -242,8 +243,19 @@ def test_vb_init_svd_matches_jax(variant):
                          method="exact", seed=0, device="cpu")
     for f in ("ew", "eh", "lw", "lh"):
         _close(getattr(st, f), getattr(sj, f), 1e-12, f)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tvb.vb_init_svd(x, 3, hy, method="randomized", device="cpu")
+    # method='randomized' (ROADMAP A8) with JAX's test matrix: JAX's start
+    # to 1e-10 (its QR and SVD steps take a few ulps more than 'exact')
+    rj = jvb.vb_init_svd(x, 3, hy, variant=variant, dtype=jnp.float64,
+                         method="randomized", seed=0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trsvd, "_draw_omega", lambda m, k, dtype, seed, device:
+                   torch.as_tensor(np.array(jax.random.normal(
+                       jax.random.PRNGKey(seed), (m, k), jnp.float64)),
+                       dtype=dtype, device=device))
+        rt = tvb.vb_init_svd(x, 3, hy, variant=variant, dtype=torch.float64,
+                             method="randomized", seed=0, device="cpu")
+    for f in ("ew", "eh", "lw", "lh"):
+        _close(getattr(rt, f), getattr(rj, f), 1e-10, f)
 
 
 def test_vb_init_random_generator():
