@@ -21,6 +21,8 @@ replicates x ``nrun`` restarts.
   subsampled cophenetic above ``cophenetic_max_cells``;
 * ``mesh`` lays X out a cell shard a device and runs the shard passes
   of :mod:`ccfindr_tpu_torch.parallel.sharded`;
+* ``distributed`` splits the restarts round-robin across processes
+  and all-gathers what the consensus needs (``parallel.schedule``);
 * ``checkpoint_every``/``compact_every`` run the loop in chunks of
   sweeps (:func:`_chunked_ml`, the twin of the VB driver's), and
   ``checkpoint_dir`` keeps each finished sample of a randomized scan.
@@ -40,9 +42,9 @@ from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, auto_storage_dtype, resolve_device
-from ..parallel import sharded
+from ..parallel import schedule, sharded
 from .vb_driver import (_cat_field, _check_sparse_options, _sparse_counts,
-                        check_processes, chunk_lanes)
+                        chunk_lanes, process_grid)
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -264,16 +266,26 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     cells; the port takes the two-pass loop, which stops at the same
     sweep.)
 
-    Options of the JAX package that the port does not carry yet raise
-    ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``distributed`` or ``_process_count`` over several processes (A7c)
-    and ``sparse_layout='ell'`` (A6).
+    ``distributed`` (as in ``vb_factorize``: a dict of
+    ``init_distributed``'s keywords, ``'auto'`` an initialised group)
+    runs the scan over several processes, as the JAX driver does: the
+    (sample, rank, restart) grid is split round-robin at restart
+    granularity (``((ismpl * nrank + k) * nrun + i) % nproc == pid``),
+    every restart's likelihood, sweep count and cluster ids are
+    all-gathered, every process computes the same consensus, and each
+    rank's best factors are broadcast from their owner, so every
+    process returns the single process's result, bit for bit, on the
+    CPU and on the card's kernel backends (not ``'dense'`` or
+    ``'dense_fused'`` on the card, as in ``vb_factorize``).
+    It needs the batched scan, and, as in the JAX package, refuses a
+    ``mesh``.  Checkpoint files carry the process: ``..._p{pid}.npz``.
+    ``sparse_layout='ell'`` raises ``NotImplementedError`` (ROADMAP A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
     errors r_se, d_se, c_se for randomized replicates) filled.
     """
-    check_processes(distributed, _process_count)
+    nproc, pid = process_grid(distributed, _process_count, _process_id)
     if backend not in ("dense", "dense_fused", "pallas", "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":
@@ -352,7 +364,15 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
 
     nrank = len(ranks)
     if batch_ranks == "auto":
-        batch_ranks = nrank > 1
+        batch_ranks = nrank > 1 or nproc > 1
+    if nproc > 1:
+        if not batch_ranks:
+            raise ValueError("factorize over several processes needs "
+                             "batch_ranks")
+        if mesh is not None:
+            raise ValueError("factorize over several processes partitions "
+                             "the restarts across them; a mesh is not "
+                             "combined with it")
     timings = Timings()
     coph_ses = []
     wdat, hdat = [None] * nrank, [None] * nrank
@@ -361,7 +381,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     cdat = [[] for _ in range(nrank)]
     conav_last = None
 
-    def consensus_stats(cids, lkhs, niters, label=""):
+    def consensus_stats(cids, lkhs, niters, label="", quiet=False):
         """Best-of-run selection + streaming consensus over restarts
         (reference R/factorize.R:214-226)."""
         acc = cons.ConsensusAccumulator(m)
@@ -371,7 +391,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             lk = float(lkhs[i])
             if (i == 0 or lk > rmax) and not np.isnan(lk):
                 rmax, imax = lk, i
-            if verbose >= 2:
+            if verbose >= 2 and not quiet:
                 print(f"Run #{i + 1}{label}: Nsteps = {int(niters[i])},"
                       f" likelihood = {lk:.6g}, "
                       f"dispersion = {acc.dispersion():.6g}")
@@ -450,20 +470,27 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                     mat[:, j] = rng_i.permutation(mat0[:, j])
         else:
             mat = mat0
-        with timings.phase("ml_setup", sample=ismpl):
-            if mesh is not None:
-                x = _ml_mesh_layout(mesh, backend, mat, x_dtype, dtype,
-                                    m_pad)
-            elif backend == "sparse":
-                x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
-            else:
-                x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
+        # this process's share: every restart of the grid, or, over
+        # several processes, its round-robin part of (sample, rank, run)
+        pairs = [(k, i) for k in range(nrank) for i in range(nrun)
+                 if ((ismpl * nrank + k) * nrun + i) % nproc == pid]
+        if pairs:
+            with timings.phase("ml_setup", sample=ismpl):
+                if mesh is not None:
+                    x = _ml_mesh_layout(mesh, backend, mat, x_dtype, dtype,
+                                        m_pad)
+                elif backend == "sparse":
+                    x = tile_ops.from_scipy_tile(mat, dtype=dtype,
+                                                 device=device)
+                else:
+                    x = torch.as_tensor(mat).to(device=device, dtype=x_dtype)
 
+        out = None
         if batch_ranks:
-            pairs = [(k, i) for k in range(nrank) for i in range(nrun)]
-            out = run(x, ismpl, pairs, max(ranks), "ml_rank_batch",
-                      f"ml_sweeps_s{ismpl}_p0.npz", ranks=list(ranks),
-                      nrun=nrun)
+            if pairs:
+                out = run(x, ismpl, pairs, max(ranks), "ml_rank_batch",
+                          f"ml_sweeps_s{ismpl}_p{pid}.npz",
+                          ranks=list(ranks), nrun=nrun)
             groups = [(k, ranks[k], list(range(k * nrun, (k + 1) * nrun)),
                        out) for k in range(nrank)]
         else:
@@ -471,10 +498,12 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
             for k, rank in enumerate(ranks):
                 if verbose > 0:
                     print(f"Rank {rank} [{k + 1}/{nrank}]")
-                out = run(x, ismpl, [(k, i) for i in range(nrun)], rank,
-                          "ml_rank", f"ml_sweeps_s{ismpl}_r{rank}_p0.npz",
-                          rank=rank, nrun=nrun)
-                groups.append((k, rank, list(range(nrun)), out))
+                o = run(x, ismpl, [(k, i) for i in range(nrun)], rank,
+                        "ml_rank", f"ml_sweeps_s{ismpl}_r{rank}_p{pid}.npz",
+                        rank=rank, nrun=nrun)
+                groups.append((k, rank, list(range(nrun)), o))
+        if nproc > 1:
+            return merge(ismpl, pairs, out)
 
         local = {}
         for k, rank, idxs, o in groups:
@@ -495,6 +524,52 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                       f"{disp:.6g}, cophenetic = {coph:.6g}")
         return local
 
+    def merge(ismpl, pairs, out):
+        """One sample's consensus over several processes (the JAX
+        driver's restart-granular merge): every restart's likelihood,
+        sweep count and cluster ids all-gathered, the same consensus on
+        every process, each rank's best factors from their owner."""
+        nonlocal conav_last
+        nit_all = nrank * nrun
+        loc_idx = np.asarray([k * nrun + i for k, i in pairs], np.int64)
+        if pairs:
+            lkh_loc = np.asarray(out.lkh, np.float64)
+            nit_loc = np.asarray(out.n_iter, np.float64)
+            cid_loc = np.asarray(out.cid)[:, :m]
+        else:
+            lkh_loc, nit_loc = np.zeros(0), np.zeros(0)
+            cid_loc = np.zeros((0, m), np.int32)
+        lkh_glob = schedule.gather_results(lkh_loc, loc_idx, nit_all,
+                                           process_count=nproc)
+        nit_glob = schedule.gather_results(nit_loc, loc_idx, nit_all,
+                                           fill=-1.0, process_count=nproc)
+        cid_glob = schedule.gather_rows(cid_loc, loc_idx, nit_all, m,
+                                        process_count=nproc)
+        local = {}
+        for k, rank in enumerate(ranks):
+            sl = slice(k * nrun, (k + 1) * nrun)
+            with timings.phase("ml_consensus", sample=ismpl, rank=rank):
+                imax, rmax, disp, coph, conav = consensus_stats(
+                    list(cid_glob[sl]), list(lkh_glob[sl]),
+                    list(nit_glob[sl]), f" rank {rank}", quiet=pid != 0)
+            owner = ((ismpl * nrank + k) * nrun + imax) % nproc
+            if owner == pid:
+                b = pairs.index((k, imax))
+                cand = dict(w=out.w[b][:, :rank], h=out.h[b][:rank, :m])
+            else:
+                cand = dict(w=np.zeros((n, rank), np_dtype),
+                            h=np.zeros((rank, m), np_dtype))
+            cand = schedule.exchange_winner(cand, owner == pid, owner,
+                                            process_count=nproc)
+            local[k] = dict(rmax=rmax, disp=disp, coph=coph,
+                            wmax=cand["w"], hmax=cand["h"])
+            conav_last = conav
+            if verbose >= 1 and pid == 0:
+                print(f"Sample# {ismpl + 1}: rank {rank}: "
+                      f"Max(likelihood) = {rmax:.6g}, dispersion = "
+                      f"{disp:.6g}, cophenetic = {coph:.6g}")
+        return local
+
     # sample-level progress: each finished sample's statistics and
     # winning factors, so a crashed multi-sample scan skips them on a
     # rerun (not under store_connectivity: the last sample's consensus
@@ -503,7 +578,8 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     progress = {}
     if checkpoint_dir is not None and not store_connectivity:
         os.makedirs(checkpoint_dir, exist_ok=True)
-        progress_file = os.path.join(checkpoint_dir, "ml_progress_p0.npz")
+        progress_file = os.path.join(checkpoint_dir,
+                                     f"ml_progress_p{pid}.npz")
         if os.path.exists(progress_file):
             z = np.load(progress_file)
             progress = {key: z[key] for key in z.files}

@@ -26,6 +26,10 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   gene-major, the fused X pass a block), ``'sparse'``,
   ``'pallas2pass'``, ``'dense'`` and ``'dense_fused'`` with the shard
   passes of ``parallel.sharded``;
+* ``distributed`` splits the batched (rank, run) grid round-robin
+  across processes (``parallel.schedule``) and exchanges the
+  evidences and the winners, so every process returns the single
+  process's result;
 * ``checkpoint_every``/``compact_every`` run the loop in chunks of
   sweeps (:func:`_chunked_vb`), with the carry saved between chunks and
   only the running lanes in the next chunk; ``checkpoint_dir`` alone
@@ -56,7 +60,7 @@ from ..ops.kernels import vb_kernels as vbk
 from ..ops.kernels.vb_kernels import (DEFAULT_BM, DEFAULT_BN,
                                       _fused_layout)
 from ..ops.vb import Hyper, VBRunResult, VBState
-from ..parallel import sharded
+from ..parallel import schedule, sharded
 from ..parallel.mesh import init_distributed
 from ..utils import Timings, auto_storage_dtype, resolve_device
 
@@ -118,22 +122,25 @@ def _stack(states):
     return type(states[0])(*(torch.stack(fs) for fs in zip(*states)))
 
 
-def check_processes(distributed, count):
-    """The JAX driver's process detection: a run over more than one
-    process (``distributed``, ``_process_count`` or an initialized
-    ``torch.distributed``) raises."""
+def process_grid(distributed, count=None, pid=None):
+    """The JAX driver's process detection: ``(nproc, pid)``.
+
+    ``distributed`` a dict joins the group first (``init_distributed``);
+    False or None is one process.  Otherwise ``count``/``pid`` (the
+    drivers' ``_process_count``/``_process_id``), or the initialised
+    ``torch.distributed`` group's size and rank, or one process."""
     if isinstance(distributed, dict):
         init_distributed(**distributed)
         distributed = "auto"
     if distributed in (False, None):
-        return
+        return 1, 0
+    dist = torch.distributed
+    live = dist.is_available() and dist.is_initialized()
     if count is None:
-        dist = torch.distributed
-        count = (dist.get_world_size() if dist.is_available()
-                 and dist.is_initialized() else 1)
-    if count > 1:
-        raise _not_ported("distributed runs over several processes",
-                          "A7c")
+        count = dist.get_world_size() if live else 1
+    if pid is None:
+        pid = dist.get_rank() if live else 0
+    return int(count), int(pid)
 
 
 # the run keywords that carry one entry a lane
@@ -147,7 +154,8 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
     ``dev``.  Every lane runs alone in its kernels' blocks and is frozen
     on its own, so its numbers do not depend on the grouping.  The rows
     run one after the other: on distinct devices the runs axis divides
-    the lanes, not the time (ROADMAP A7c)."""
+    the lanes, not the time (rows in threads of their own were measured
+    slower on one card, ROADMAP A13)."""
     nb = st.lw.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
@@ -325,6 +333,95 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
                        hyper_failed=hf, done=n_rec >= 0)
 
 
+def _record_multihost(out, my_idx, ranks, nrun, n, m, Tol, unif_stop,
+                      verbose, nproc, pid, rdat, results, run_alive,
+                      np_dtype):
+    """Merge this process's share of a batched run over several processes
+    into the (rdat, results) tables (the JAX driver's function).
+
+    The lanes' log evidences, sweep counts and degenerate-column counts
+    are all-gathered, so that every process makes the identical
+    rank-scan abort and best-of-run selection (R/bayesian.R:268-291,
+    368-378); only each rank's winner crosses, from its owner
+    (``schedule.exchange_winner``), in the run's dtype."""
+    nrank = len(ranks)
+    nb_all = nrank * nrun
+
+    # local degeneracy counts (uniform basis columns at the true rank)
+    nunif_loc = np.empty(len(my_idx))
+    for b, t in enumerate(np.asarray(my_idx)):
+        rank = ranks[int(t) // nrun]
+        ew = out.state.ew[b][:n, :rank]
+        nunif_loc[b] = int(
+            ((ew.max(axis=0) - ew.min(axis=0)) < float(Tol)).sum())
+    lml_loc = (np.asarray(out.lml, np.float64) if len(my_idx)
+               else np.zeros(0))
+    niter_loc = (np.asarray(out.n_iter, np.float64) if len(my_idx)
+                 else np.zeros(0))
+    lml_glob = schedule.gather_results(lml_loc, my_idx, nb_all,
+                                       process_count=nproc)
+    nunif_glob = schedule.gather_results(nunif_loc, my_idx, nb_all,
+                                         fill=-1.0, process_count=nproc)
+    niter_glob = schedule.gather_results(niter_loc, my_idx, nb_all,
+                                         fill=-1.0, process_count=nproc)
+
+    # the identical kill/record pass on every process
+    for k, rank in enumerate(ranks):
+        for i in range(nrun):
+            if not run_alive[i]:
+                continue
+            t = k * nrun + i
+            nunif_i = int(nunif_glob[t])
+            if nunif_i > 0:
+                if pid == 0:
+                    print(f"Warning: Rank {rank} has {nunif_i} "
+                          "constant column(s).")
+                if unif_stop:
+                    if pid == 0:
+                        print("Warning: Rank scan stopped for rank >= "
+                              f"{rank}")
+                    if k == 0:
+                        raise ValueError("Rerun with lower ranks")
+                    run_alive[i] = False
+                    continue
+            rdat[i, k] = lml_glob[t]
+
+    # each rank's winner, from its owner
+    local_pos = {int(t): b for b, t in enumerate(np.asarray(my_idx))}
+    for k, rank in enumerate(ranks):
+        if not np.isfinite(rdat[:, k]).any():
+            continue
+        imax = int(np.argmax(rdat[:, k]))
+        t = k * nrun + imax
+        owner = t % nproc                   # the round-robin partition
+        if owner == pid:
+            b = local_pos[t]
+            cand = dict(
+                ew=out.state.ew[b][:n, :rank], eh=out.state.eh[b][:rank, :m],
+                dw=out.state.dw[b][:n, :rank], dh=out.state.dh[b][:rank, :m],
+                hyper=np.asarray([out.hyper.aw[b], out.hyper.bw[b],
+                                  out.hyper.ah[b], out.hyper.bh[b]],
+                                 np.float64))
+        else:
+            cand = dict(ew=np.zeros((n, rank), np_dtype),
+                        eh=np.zeros((rank, m), np_dtype),
+                        dw=np.zeros((n, rank), np_dtype),
+                        dh=np.zeros((rank, m), np_dtype),
+                        hyper=np.zeros(4))
+        cand = schedule.exchange_winner(cand, owner == pid, owner,
+                                        process_count=nproc)
+        hy = cand["hyper"]
+        results[imax][k] = dict(
+            ew=cand["ew"], eh=cand["eh"], dw=cand["dw"], dh=cand["dh"],
+            hyper=dict(aw=float(hy[0]), bw=float(hy[1]),
+                       ah=float(hy[2]), bh=float(hy[3])),
+            n_iter=int(niter_glob[t]), nunif=int(nunif_glob[t]))
+        if verbose >= 2 and pid == 0:
+            print(f"Rank = {rank}: best log(evidence) = "
+                  f"{rdat[imax, k]:.6g} (run {imax + 1}, process "
+                  f"{owner})")
+
+
 def _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
                  overrides):
     """X laid out once on each runs row of ``mesh`` (the JAX driver's
@@ -436,10 +533,25 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     in int8/int16 compressed on the device (exact: the sweep converts
     them to the factor type in registers).
 
-    Options of the JAX package that the port does not carry yet raise
-    ``NotImplementedError`` naming the ROADMAP item that brings them:
-    ``distributed`` or ``_process_count`` over several processes (A7c)
-    and ``sparse_layout='ell'`` (A6).  ``svd_method`` (``'auto'``,
+    ``distributed`` runs the scan over several processes, as the JAX
+    package runs the reference's Rmpi restart farm (R/bayesian.R:260-263):
+    a dict joins the group (``init_distributed``'s keywords), ``'auto'``
+    takes an initialised ``torch.distributed`` group, False or None is
+    one process (``_process_count``/``_process_id`` stand in for the
+    group's size and rank).  Over N > 1 processes the (rank, run) grid
+    is one lane batch, split round-robin (``parallel.schedule``): every
+    process draws every lane's start in order and runs its own share
+    (with the chunks pinned for the whole grid), on its device or over
+    its own ``mesh``; the evidences are all-gathered, every process
+    makes the same selection, and each rank's winner is broadcast from
+    its owner, so every process returns the single process's result,
+    bit for bit, on the CPU and on the card's kernel backends (on the
+    card, ``'dense'`` and ``'dense_fused'`` round by the lane count,
+    so there a share's bits may differ from the full batch's).
+    Checkpoints of the chunked batch are ``vb_sweeps_batch_p{pid}.npz``.
+    ``sparse_layout='ell'`` raises ``NotImplementedError`` (ROADMAP A6:
+    ELL worked around the TPU's gathers, and the CSR kernels replace
+    it).  ``svd_method`` (``'auto'``,
     ``'exact'``, ``'randomized'``) is ``ops.vb.vb_init_svd``'s: above
     4096 on the short axis ``'auto'`` takes the randomized SVD on the
     device, whose start differs from JAX's only through its random test
@@ -448,7 +560,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     Returns a new :class:`SCSet` with ranks/basis/dbasis/coeff/dcoeff
     and the measure table (rank, lml, aw, bw, ah, bh, nunif) filled.
     """
-    check_processes(distributed, _process_count)
+    nproc, pid = process_grid(distributed, _process_count, _process_id)
+    if nproc > 1:
+        # the (rank, run) grid is partitioned across the processes
+        batch_ranks = True
     if backend not in ("dense", "dense_fused", "pallas", "pallas2pass",
                        "sparse"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -664,12 +779,14 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         kw.update(overrides)
         return kw
 
-    def run_lanes(states, hypers, name, rmask=None, rtrue=None):
+    def run_lanes(states, hypers, name, rmask=None, rtrue=None,
+                  nb_pin=None):
         """Run a lane batch (whole, or in chunks with checkpoints and
         compaction); returns the result on the host and the chunks'
-        lane-sweeps (None unchunked)."""
+        lane-sweeps (None unchunked).  ``nb_pin`` is the lane count the
+        chunks are pinned for (a process's share pins the whole grid's)."""
         nb = states.lw.shape[0]
-        kw = pinned(nb, states.lw.shape[-1])
+        kw = pinned(nb_pin or nb, states.lw.shape[-1])
 
         def call(st, hy, im, i0, l0, lanes):
             if rmask is not None:
@@ -771,35 +888,66 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                                           or checkpoint_every is not None)
     if batch_ranks:
         rmax_ = max(ranks)
-        nb = nrank * nrun
-        rank_arr = np.repeat(np.asarray(ranks, np.int64), nrun)
+        nb_all = nrank * nrun
+        rank_arr_all = np.repeat(np.asarray(ranks, np.int64), nrun)
+        # this process's share of the grid (all of it in one process)
+        my_idx = schedule.partition_items(nb_all, nproc, pid)
+        nb = len(my_idx)
+        owned = set(my_idx.tolist())
         if initializer == "random":
-            states = [init_state(rmax_) for _ in range(nb)]
+            # every process draws every lane's start in order and keeps
+            # its own, so that lane t starts as in one process
+            drawn = {}
+            for t in range(nb_all):
+                st = init_state(rmax_)
+                if t in owned:
+                    drawn[t] = st
+            states = [drawn[int(t)] for t in my_idx]
         else:
+            # deterministic starts, for the ranks of the owned lanes only
             per_rank = {r: _pad_state_rank(init_state(r), rmax_)
-                        for r in ranks}
-            states = [per_rank[int(r)] for r in rank_arr]
-        rmask = torch.as_tensor(
-            (np.arange(rmax_)[None, :] < rank_arr[:, None]
-             ).astype(np_dtype), device=device)
-        rtrue = torch.as_tensor(rank_arr.astype(np_dtype), device=device)
-        with timings.phase("vb_rank_batch", ranks=list(ranks), nrun=nrun):
-            out, chunked = run_lanes(_stack(states), hyper_batch(nb),
-                                     "vb_sweeps_batch.npz", rmask, rtrue)
-        timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
-        # a lane batch runs every lane until all stop, nb x the most
-        # sweeps; a chunked run counts what its chunks executed
-        timings.records[-1]["lane_sweeps_executed"] = (
-            chunked if chunked is not None
-            else nb * (int(np.max(out.n_iter)) + 1))
-        timings.records[-1]["n_iter"] = out.n_iter.tolist()
-        if out.hyper_failed.any():
-            print("Warning: hyperparameter update did not converge "
-                  "in some runs")
-        for k, rank in enumerate(ranks):
-            for i in range(nrun):
-                if run_alive[i]:
-                    _record(out, k * nrun + i, i, k, rank)
+                        for r in sorted({int(rank_arr_all[t])
+                                         for t in owned})}
+            states = [per_rank[int(rank_arr_all[t])] for t in my_idx]
+        out = None
+        if nb == 0:
+            # more processes than lanes: this one owns none, and joins
+            # every exchange with an empty share
+            if verbose >= 1:
+                print(f"process {pid}: idle ({nb_all} (rank, run) items "
+                      f"across {nproc} processes)")
+        else:
+            rank_arr = rank_arr_all[my_idx]
+            rmask = torch.as_tensor(
+                (np.arange(rmax_)[None, :] < rank_arr[:, None]
+                 ).astype(np_dtype), device=device)
+            rtrue = torch.as_tensor(rank_arr.astype(np_dtype), device=device)
+            ckname = ("vb_sweeps_batch.npz" if nproc == 1
+                      else f"vb_sweeps_batch_p{pid}.npz")
+            with timings.phase("vb_rank_batch", ranks=list(ranks),
+                               nrun=nrun):
+                out, chunked = run_lanes(_stack(states), hyper_batch(nb),
+                                         ckname, rmask, rtrue,
+                                         nb_pin=nb_all)
+            timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
+            # a lane batch runs every lane until all stop, nb x the most
+            # sweeps; a chunked run counts what its chunks executed
+            timings.records[-1]["lane_sweeps_executed"] = (
+                chunked if chunked is not None
+                else nb * (int(np.max(out.n_iter)) + 1))
+            timings.records[-1]["n_iter"] = out.n_iter.tolist()
+            if out.hyper_failed.any():
+                print("Warning: hyperparameter update did not converge "
+                      "in some runs")
+            if nproc == 1:
+                for k, rank in enumerate(ranks):
+                    for i in range(nrun):
+                        if run_alive[i]:
+                            _record(out, k * nrun + i, i, k, rank)
+        if nproc > 1:
+            _record_multihost(out, my_idx, ranks, nrun, n, m, Tol,
+                              unif_stop, verbose, nproc, pid, rdat,
+                              results, run_alive, np_dtype)
         ranks_iter = []
     else:
         ranks_iter = list(enumerate(ranks))

@@ -1,4 +1,4 @@
-"""Device grids for the cell-sharded runs, in one process.
+"""Device grids for the cell-sharded runs, and the process group.
 
 Counterpart of ``ccfindr_tpu/parallel/mesh.py``.  The JAX package lays
 a run out on a ``jax.sharding.Mesh`` and lets GSPMD insert the
@@ -9,6 +9,8 @@ shards' partials added in shard order on the row's first device, so a
 run is deterministic whatever the devices.  A device may be listed more
 than once: ``make_mesh(cells=4, devices=["cuda:0"] * 4)`` runs four
 cell shards on one card, and ``devices=["cpu"] * 4`` on the host.
+Over several processes (``init_distributed``) each process lays its
+share of the lanes over a mesh of its own.
 """
 
 from __future__ import annotations
@@ -96,10 +98,22 @@ def cell_sharding(mesh: Mesh, kind: str) -> tuple:
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """A no-op returning False for one process.  Several processes (the
-    JAX package's multi-host restart farm) are not ported yet."""
+    """Join a group of ``num_processes`` processes; returns True.
+
+    One process (``num_processes`` None or 1) is a no-op returning
+    False.  Otherwise the default ``torch.distributed`` group forms over
+    gloo at ``coordinator_address`` (``"host:port"``, process 0 serves
+    it), with this process as rank ``process_id``.  What the drivers
+    exchange (``parallel.schedule``) is host numpy, so the group is
+    gloo's, and several processes may share one card.  A group that
+    cannot form raises; the run never carries on as one process."""
     if num_processes is None or num_processes <= 1:
         return False
-    raise NotImplementedError(
-        "distributed runs over several processes are not ported to "
-        "ccfindr_tpu_torch yet (ROADMAP A7c)")
+    if coordinator_address is None or process_id is None:
+        raise ValueError(
+            f"a group of {num_processes} processes needs "
+            "coordinator_address ('host:port') and process_id")
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id))
+    return True

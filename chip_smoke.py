@@ -5,8 +5,9 @@ Drives the port's paths through their public entry points, the
 batched VB rank scan (``vb_factorize``, on both of its ``'pallas'``
 routes and on ``'pallas2pass'``) and the ML rank scan (``factorize``),
 on ``backend='pallas'`` and on ``backend='sparse'`` (also in bf16), and
-their checkpoint, resume and lane compaction, after checking each CUDA
-kernel of those paths against its plain PyTorch version on the card.
+their checkpoint, resume and lane compaction, their meshes and their
+runs over several processes, after checking each CUDA kernel of those
+paths against its plain PyTorch version on the card.
 Phases (each prints its result and seconds):
 
 1. device and build: requires a CUDA device, prints the card's name
@@ -235,7 +236,30 @@ Phases (each prints its result and seconds):
    x log wth summed by E1s) against the plain X pass at each E1 site,
    its time a launch (a CUDA graph of launches, the call by CUDA events
    beside) beside the same kernel on the one-device inputs, its bound
-   from the shard's bytes and operations.
+   from the shard's bytes and operations;
+20. several processes: python -m ccfindr_tpu_torch.parallel._mh_worker
+   started once a process, all sharing cuda:0 and joined in a gloo
+   group on a free localhost port, each running its round-robin share
+   of the (rank, run) grid (killed at MP_TIMEOUT): vb_factorize
+   (backend='pallas', float32) on phase 4's 10x matrix, ranks [8, 12,
+   16], nrun 2, Itmax 300, over 2 processes (the one-process run first,
+   then the group, so that both walls are the card's alone);
+   factorize(backend='pallas') at phase 7's 10x shape over 2 processes
+   (beside the one process); the bundled data's vb_factorize(ranks [4,
+   5], nrun 1) over 3 processes, one of them idle.  Gates: every
+   process's measure table, factors and its lanes' sweep counts equal
+   the one-process run (the same worker with --nproc 1) bit for bit;
+   the processes' lanes add up to the grid; each working process
+   launched K1-K4 (VB) or M1/M2 (ML) once a sweep of its own batch (its
+   counts exceed its lanes' most sweeps by what the one process's
+   exceed its own), the idle one none; a worker that fails, hangs or
+   imports JAX fails the phase.  Then the bundled VB scan over
+   make_mesh(runs=2, cells=1, devices=["cuda:0"] * 2), its two rows one
+   after the other, must equal runs=1 bit for bit, and each row must
+   launch K1s, K2, K3s and K4 once a sweep of its own lanes.
+   The walls of the 2-process and 1-process runs and of runs=2 against
+   runs=1 are printed beside the card's name and power limit, not
+   gated.
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -4312,11 +4336,201 @@ class Smoke:
                   flush=True)
         return ok
 
+    # -- 20 -----------------------------------------------------------
+    def multi_process(self):
+        import os
+        import tempfile
+
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import sol
+        from ccfindr_tpu_torch.ops.kernels import sol_sharded as ssh
+
+        x10 = self.x10 if self.x10 is not None else planted_10x()
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        print(f"  {self.smi}", flush=True)
+        torch.cuda.empty_cache()     # the workers share the card
+        ok = True
+        vb_k = ("sol_xpass", "sol_w_post", "sol_h_post", "sol_finish")
+        ml_k = ("ml_ml_hpass", "ml_ml_wpass")
+        with tempfile.TemporaryDirectory() as tmp:
+            x10f = os.path.join(tmp, "x10.npz")
+            np.savez(x10f, x=x10)
+            bundf = os.path.join(tmp, "bundled.npz")
+            np.savez(bundf, x=s.counts_dense(dtype=np.float64))
+            cases = [
+                # (label, processes, worker arguments, the kernels it runs,
+                #  one process first, then the group: walls comparable)
+                ("VB 10x", 2, dict(mode="vb", x=x10f, ranks="8,12,16",
+                                   nrun=2, itmax=300, backend="pallas",
+                                   dtype="float32"), vb_k, True),
+                ("ML 10x", 2, dict(mode="ml", x=x10f, ranks="8,12,16",
+                                   nrun=2, itmax=300, backend="pallas",
+                                   dtype="float32"), ml_k, False),
+                ("VB bundled, 2 lanes over 3 processes", 3,
+                 dict(mode="vb", x=bundf, ranks="4,5", nrun=1, itmax=3000,
+                      backend="pallas", dtype="float32"), vb_k, False),
+            ]
+            for label, nproc, kw, kern, apart in cases:
+                tag = label.split(",")[0].replace(" ", "_")
+                one_g = start_workers(tmp, f"{tag}_one", 1, **kw)
+                if apart:
+                    (one,), = finish_workers(one_g)
+                    (got,) = finish_workers(
+                        start_workers(tmp, f"{tag}_p", nproc, **kw))
+                else:
+                    (one,), got = finish_workers(
+                        one_g, start_workers(tmp, f"{tag}_p", nproc, **kw))
+                lanes = sorted(int(t) for g in got for t in g["lanes"])
+                good = lanes == list(range(len(one["n_iter"])))
+                # one launch of each kernel a sweep of its own batch: a
+                # process's counts exceed its lanes' most sweeps by what
+                # the single process's exceed its own
+                off = {k: int(one[f"launches_{k}"]) - int(one["n_iter"].max())
+                       for k in kern}
+                for pid, g in enumerate(got):
+                    bad = same_worker(one, g)
+                    cnt = {k: int(g[f"launches_{k}"]) for k in kern}
+                    if len(g["lanes"]):
+                        want = {k: int(g["n_iter"].max()) + off[k]
+                                for k in kern}
+                        good &= min(cnt.values()) > 0 and cnt == want
+                    else:
+                        good &= set(cnt.values()) == {0}
+                    good &= not bad
+                    print(f"  {label}: process {pid}/{nproc} lanes "
+                          f"{g['lanes'].tolist()}, wall {float(g['wall']):.3f}"
+                          f" s, launches {cnt}"
+                          + (f", differs from one process in {bad}"
+                             if bad else ", bit-identical to one process"),
+                          flush=True)
+                print(f"  {label}: one process wall "
+                      f"{float(one['wall']):.3f} s, launches "
+                      f"{ {k: int(one[f'launches_{k}']) for k in kern} }; "
+                      f"{nproc} processes' wall "
+                      f"{max(float(g['wall']) for g in got):.3f} s"
+                      + ("" if apart else " (run beside the one process)")
+                      + f"; lanes add up: {lanes == list(range(len(one['n_iter'])))}"
+                      f"; {'PASS' if good else 'FAIL'}", flush=True)
+                ok &= bool(good)
+
+        # the runs rows of a mesh on one card: runs=2 over cuda:0 twice
+        mods = (sol, ssh)
+
+        def scan(runs):
+            for mod in mods:
+                mod.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ct.vb_factorize(
+                s, ranks=list(range(2, 9)), nrun=3, verbose=0, Itmax=3000,
+                seed=0, backend="pallas", device="cuda",
+                mesh=ct.make_mesh(runs=runs, cells=1,
+                                  devices=["cuda:0"] * runs))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+            return out, secs, counts
+
+        # in turns (runs=1, runs=2, runs=2, runs=1), the walls of each
+        # kind printed in the order taken
+        a, sa, ca = scan(1)
+        b, sb, cb = scan(2)
+        walls = {"runs=1": [sa, None], "runs=2": [sb, scan(2)[1]]}
+        walls["runs=1"][1] = scan(1)[1]
+        used = ("xpass_shard", "w_post", "h_post_shard", "finish")
+        # each row launches each kernel once a sweep of its own batch
+        na = np.asarray(a.metadata["timings"][0]["n_iter"])
+        want = {k: sum(int(r.max()) + ca[k] - int(na.max())
+                       for r in np.array_split(na, 2)) for k in used}
+        good = (same_vb(a, b) and all(cb[k] == want[k] > 0 for k in used))
+        print(f"  bundled mesh scan, launches runs=1 "
+              f"{ {k: ca[k] for k in used} }, runs=2 (two rows of cuda:0) "
+              f"{ {k: cb[k] for k in used} }, each row's most sweeps plus "
+              f"runs=1's offset { {k: want[k] for k in used} }; "
+              f"bit-identical to runs=1: {same_vb(a, b)}; "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        print(f"  bundled mesh scan walls (s, in turns; {self.smi}): "
+              + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v)
+                          for k, v in walls.items()), flush=True)
+        return ok and bool(good)
+
+
+MP_TIMEOUT = 300             # seconds a group of phase 20's workers may take
+MP_RESULT = ("lml", "likelihood", "dispersion", "cophenetic", "aw", "bw",
+             "ah", "bh", "nunif", "ranks")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def start_workers(tmp, tag, nproc, **kw):
+    """Start the ``nproc`` processes of one group of
+    ``ccfindr_tpu_torch.parallel._mh_worker`` on the card (gloo on a free
+    localhost port); returns (processes, their .npz outputs)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    args = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+    port = free_port()
+    procs, outs = [], []
+    for pid in range(nproc):
+        out = os.path.join(tmp, f"{tag}{pid}.npz")
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "ccfindr_tpu_torch.parallel._mh_worker",
+             "--pid", str(pid), "--nproc", str(nproc), "--port", str(port),
+             "--out", out, "--device", "cuda"] + args, env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, outs
+
+
+def finish_workers(*groups):
+    """Wait for every worker of ``groups`` (killed at MP_TIMEOUT); a
+    worker that fails or hangs raises.  Returns each group's outputs."""
+    procs = [p for ps, _ in groups for p in ps]
+    logs = {}
+    try:
+        for p in procs:
+            logs[p] = p.communicate(timeout=MP_TIMEOUT)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [p for p in procs if p.returncode != 0]
+    if bad:
+        raise RuntimeError("worker failed:\n" + "\n".join(
+            f"--- rc {p.returncode}\n{logs[p][-4000:]}" for p in bad))
+    return [[dict(np.load(o)) for o in outs] for _, outs in groups]
+
+
+def same_worker(one, got):
+    """Every result array of a worker equals the single process's bit
+    for bit, its lanes' sweep counts too; returns the keys that differ."""
+    bad = [k for k in one if (k in MP_RESULT or k.startswith(("basis_",
+                                                              "coeff_")))
+           and not (np.array_equal(one[k], got[k])
+                    and one[k].dtype == got[k].dtype)]
+    if not np.array_equal(got["n_iter"], one["n_iter"][got["lanes"]]):
+        bad.append("n_iter")
+    return bad
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19")
+                            "19,20")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -4354,7 +4568,8 @@ def main(argv=None):
               "16": ("checkpoint-compaction", smoke.checkpointing),
               "17": ("cell-sharded-mesh", smoke.mesh),
               "18": ("randomized-svd+host", smoke.rsvd_host),
-              "19": ("mesh-backends", smoke.mesh_backends)}
+              "19": ("mesh-backends", smoke.mesh_backends),
+              "20": ("multi-process", smoke.multi_process)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

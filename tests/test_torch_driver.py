@@ -23,6 +23,9 @@ import ccfindr_tpu as cf
 import ccfindr_tpu_torch as ct
 from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.data import pbmc_sim_dir
+from ccfindr_tpu.parallel import schedule as jsched
+from ccfindr_tpu_torch.parallel import schedule as tsched
+from test_torch_schedule import threads_as_processes
 
 torch.set_num_threads(2)
 
@@ -208,6 +211,8 @@ def test_port_never_imports_jax():
             "    ct.ops.vb.Hyper(*(torch.ones(1).double(),) * 4),\n"
             "    itmax=5, layout='gm')\n"
             "ct.read_10x(pbmc_sim_dir())\n"
+            "from ccfindr_tpu_torch.parallel import schedule, _mh_worker\n"
+            "_mh_worker.build_problem(ct)\n"
             "assert len(s.measure) >= 1 and len(f.measure) == 2\n"
             "assert len(t.measure) == 1 and len(g.measure) == 1\n"
             "assert len(u.measure) == 1\n"
@@ -239,8 +244,33 @@ def test_dtype_follows_device(small):
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
 ])
 def test_options_not_ported_raise(small, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ct.vb_factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+    """``sparse_layout='ell'`` (ROADMAP A6) raises.  The A7c cases raised
+    until several processes were ported: a ``distributed`` dict whose
+    group cannot form (no coordinator address) raises and never runs as
+    one process, and ``_process_count=2`` splits the (rank, run) grid
+    over two processes (threads standing for them, both packages'
+    all-gather seams patched alike): each process returns the JAX
+    driver's two-process result at _assert_same_result's tolerances,
+    and the port's one-process run bit for bit."""
+    if item == "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            ct.vb_factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+        return
+    if "distributed" in kw:
+        with pytest.raises(ValueError, match="coordinator_address"):
+            ct.vb_factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+        return
+    run = dict(ranks=[2, 3, 4], initializer="svd2", backend="pallas",
+               Itmax=300, verbose=0, **kw)
+    want = threads_as_processes(2, lambda p: cf.vb_factorize(
+        cf.SCSet(count=small), _process_id=p, **run), jsched)
+    got = threads_as_processes(2, lambda p: ct.vb_factorize(
+        ct.SCSet(count=small), device="cpu", _process_id=p, **run), tsched)
+    one = ct.vb_factorize(ct.SCSet(count=small), device="cpu",
+                          **dict(run, _process_count=1))
+    for a, b in zip(want, got):
+        _assert_same_result(a, b)
+        _assert_same_result(one, b, mrtol=0, frtol=0)
 
 
 def _jax_omega(m, k, dtype, seed, device):

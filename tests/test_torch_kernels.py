@@ -1183,3 +1183,52 @@ def test_coo_api_on_the_card_is_bit_stable(dt):
     assert all(torch.equal(p, q) for p, q in zip(s1, s2))
     sh = rsvd.randomized_svd(host, 4, seed=2)
     assert _rel(s1[1].cpu(), sh[1]) <= tol
+
+
+# ---------------------------------------------------------------------
+# the mesh's runs rows on one card
+# ---------------------------------------------------------------------
+
+def _runs_scan(mode, runs, dt):
+    """The VB or ML scan over make_mesh(runs, cells=1) on one card, its
+    launch counts and its lanes' sweep counts beside it."""
+    import ccfindr_tpu_torch as ct
+    from ccfindr_tpu_torch.parallel.mesh import make_mesh
+
+    x = ct.simulate_whx(nrow=300, ncol=700, rank=4, seed=3)["x"]
+    mods = (sol, ssh, ml)
+    for mod in mods:
+        mod.reset_launches()
+    fn = ct.vb_factorize if mode == "vb" else ct.factorize
+    out = fn(x, ranks=[2, 3, 4], nrun=2, Itmax=120, seed=1, verbose=0,
+             backend="pallas", device="cuda", dtype=dt,
+             mesh=make_mesh(runs=runs, cells=1, devices=["cuda:0"] * runs))
+    torch.cuda.synchronize()
+    n_iter = [v for r in out.metadata["timings"] if "n_iter" in r
+              for v in r["n_iter"]]
+    return out, {k: v for mod in mods for k, v in mod.LAUNCHES.items()}, \
+        np.asarray(n_iter)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["vb", "ml"])
+def test_runs_rows_on_one_card(mode, dt):
+    """runs=2 on one card (two rows of cuda:0, one after the other)
+    equals runs=1 bit for bit: the measure table, every factor and the
+    sweep counts.  The launch counts are exact: each row launches each
+    kernel once a sweep of its own batch, so a kernel's count over the
+    rows is their most sweeps plus what runs=1's count exceeds its own
+    most sweeps by, once a row."""
+    _card()
+    a, la, na = _runs_scan(mode, 1, dt)
+    b, lb, nb = _runs_scan(mode, 2, dt)
+    np.testing.assert_array_equal(b.measure.values, a.measure.values)
+    for u, v in zip(b.basis + b.coeff, a.basis + a.coeff):
+        np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(nb, na)
+    used = ("xpass_shard", "w_post", "h_post_shard", "finish") \
+        if mode == "vb" else ("ml_hpass", "ml_wpass")
+    rows = np.array_split(na, 2)
+    for k in used:
+        off = la[k] - int(na.max())
+        assert lb[k] == sum(int(r.max()) + off for r in rows) > 0, k

@@ -109,11 +109,50 @@ def test_sharded_sweep_rejects_mixed_device_types():
               m_arr=m, m_live=m, r=rp)
 
 
+_GROUP_PEER = """
+import sys, numpy as np, ccfindr_tpu_torch as ct
+from ccfindr_tpu_torch.parallel import schedule
+assert ct.init_distributed(sys.argv[1], 2, int(sys.argv[2])) is True
+got = schedule._allgather(np.array([[int(sys.argv[2]) + 0.5]]))
+assert got.shape == (2, 1, 1) and got.dtype == np.float64, got
+print(got.ravel().tolist(), flush=True)
+import torch.distributed as dist
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
 def test_init_distributed():
+    """One process is a no-op returning False; a group of two needs an
+    address and this process's rank, or raises; two processes form a
+    gloo group (it raised before ROADMAP A7c) and all-gather through the
+    schedule's seam in rank order, bits and dtype unchanged."""
+    import socket
+    import subprocess
+    import sys
+
     assert ct.init_distributed() is False
     assert ct.init_distributed(num_processes=1) is False
-    with pytest.raises(NotImplementedError, match="A7c"):
-        ct.init_distributed("localhost:1234", 2, 0)
+    with pytest.raises(ValueError, match="coordinator_address"):
+        ct.init_distributed(None, 2, 0)
+    with pytest.raises(ValueError, match="coordinator_address"):
+        ct.init_distributed("127.0.0.1:1", 2)
+    assert not torch.distributed.is_initialized()
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GROUP_PEER, f"127.0.0.1:{port}", str(p)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for p in range(2)]
+    try:
+        logs = [pr.communicate(timeout=120)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            pr.kill()
+    for pr, log in zip(procs, logs):
+        assert pr.returncode == 0, log
+        assert "[0.5, 1.5]" in log, log
 
 
 # ---------------------------------------------------------------------
@@ -599,6 +638,53 @@ def test_runs_axis_is_bit_identical():
         np.testing.assert_array_equal(u, v)
 
 
+def test_runs_axis_is_bit_identical_ml():
+    """The ML twin: factorize over runs=2 (two lane groups) equals
+    runs=1, bit for bit."""
+    x = ct.simulate_whx(nrow=24, ncol=50, rank=3, seed=31)["x"]
+    kw = dict(ranks=[2, 3], nrun=3, verbose=0, Itmax=150, seed=2,
+              backend="pallas", device="cpu")
+    a = ct.factorize(x, mesh=_cpu_mesh(2), **kw)
+    b = ct.factorize(x, mesh=_cpu_mesh(2, runs=2), **kw)
+    np.testing.assert_array_equal(a.measure.values, b.measure.values)
+
+    def n_iter(s):
+        return [r["n_iter"] for r in s.metadata["timings"]
+                if r["name"] == "ml_rank_batch"]
+
+    assert n_iter(a) == n_iter(b) and len(n_iter(a)) == 1
+    for u, v in zip(a.basis + a.coeff, b.basis + b.coeff):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("mode", ["vb", "ml"])
+def test_runs_rows_run_one_after_the_other(monkeypatch, mode):
+    """The runs rows run in the caller's thread, one after the other in
+    row order, each on its contiguous group of lanes."""
+    import threading
+
+    from ccfindr_tpu_torch.ops import ml as tml
+
+    seen = []
+    mod, name = (tsol, "vb_run_sol") if mode == "vb" else (tml, "ml_run")
+    real = getattr(mod, name)
+
+    def spy(x, *a, **k):
+        out = real(x, *a, **k)
+        seen.append((threading.get_ident(), out.n_iter.shape[0]))
+        return out
+
+    monkeypatch.setattr(mod, name, spy)
+    x = ct.simulate_whx(nrow=24, ncol=50, rank=3, seed=31)["x"]
+    kw = dict(ranks=[2, 3], nrun=3, verbose=0, Itmax=40, seed=2,
+              backend="pallas", device="cpu", mesh=_cpu_mesh(2, runs=2))
+    if mode == "vb":
+        ct.vb_factorize(x, **kw)
+    else:
+        ct.factorize(x, **kw)
+    assert seen == [(threading.get_ident(), 3)] * 2
+
+
 def test_mesh_elbo_every_and_bf16():
     """tests/test_sol_sharded.py:123-139 on the port: elbo_every and
     precision='bf16' reach the mesh path; conservative stopping,
@@ -652,6 +738,42 @@ def test_mesh_options_match_jax(backend, cells, genes, override):
     (dict(_process_count=2), "A7c"),
 ])
 def test_mesh_options_still_to_port(kw, match):
-    x = ct.simulate_whx(nrow=12, ncol=20, rank=2, seed=1)["x"]
-    with pytest.raises(NotImplementedError, match=match):
-        ct.vb_factorize(x, ranks=[2], verbose=0, device="cpu", **kw)
+    """A mesh under several processes (ROADMAP A7c; it raised before):
+    vb_factorize lays each process's share over that process's own mesh,
+    as the JAX driver runs it (two threads standing for the processes,
+    each with its own cells=2 mesh, both packages' seams patched alike):
+    each equals JAX's two-process run within the driver tolerances of
+    this file and the port's one-process mesh run bit for bit.
+    factorize refuses the combination, as the JAX driver does."""
+    from ccfindr_tpu.parallel import schedule as jsched
+    from ccfindr_tpu_torch.parallel import schedule as tsched
+    from test_torch_schedule import threads_as_processes
+
+    x = ct.simulate_whx(nrow=24, ncol=50, rank=3, seed=31)["x"]
+    run = dict(ranks=[2, 3], nrun=2, verbose=0, Itmax=150, seed=2,
+               backend="pallas")
+    want = threads_as_processes(2, lambda p: cf.vb_factorize(
+        x, initializer="svd2", mesh=cf.make_mesh(
+            cells=2, devices=jax.devices()[2 * p:2 * p + 2]),
+        _process_id=p, **run, **kw), jsched)
+    got = threads_as_processes(2, lambda p: ct.vb_factorize(
+        x, initializer="svd2", mesh=_cpu_mesh(2), device="cpu",
+        _process_id=p, **run, **kw), tsched)
+    one = ct.vb_factorize(x, initializer="svd2", mesh=_cpu_mesh(2),
+                          device="cpu", **run)
+    for j, t in zip(want, got):
+        assert t.ranks == j.ranks == one.ranks
+        np.testing.assert_allclose(t.measure["lml"], j.measure["lml"],
+                                   rtol=1e-9)
+        np.testing.assert_array_equal(t.measure["lml"], one.measure["lml"])
+        for k in range(len(t.ranks)):
+            np.testing.assert_allclose(t.basis[k], j.basis[k], rtol=1e-7,
+                                       atol=1e-300)
+            np.testing.assert_array_equal(t.basis[k], one.basis[k])
+            np.testing.assert_array_equal(t.coeff[k], one.coeff[k])
+    with pytest.raises(ValueError, match="mesh"):
+        ct.factorize(x, ranks=[2], nrun=2, verbose=0, device="cpu",
+                     mesh=_cpu_mesh(2), **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        cf.factorize(x, ranks=[2], nrun=2, verbose=0,
+                     mesh=_jax_mesh(2), **kw)

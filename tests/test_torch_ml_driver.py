@@ -25,6 +25,9 @@ from ccfindr_tpu.ops import ml as jml
 from ccfindr_tpu_torch.data import pbmc_sim_dir
 from ccfindr_tpu_torch.drivers import ml_driver
 from ccfindr_tpu_torch.ops.ml import ml_state_from_numpy
+from ccfindr_tpu.parallel import schedule as jsched
+from ccfindr_tpu_torch.parallel import schedule as tsched
+from test_torch_schedule import threads_as_processes
 
 torch.set_num_threads(2)
 
@@ -265,9 +268,37 @@ def test_factorize_mesh_matches_jax(small, jax_init):
     (dict(_process_count=2), "A7c"),
     (dict(backend="sparse", sparse_layout="ell"), "A6"),
 ])
-def test_options_not_ported_raise(small, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ct.factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+def test_options_not_ported_raise(small, jax_init, kw, item):
+    """``sparse_layout='ell'`` (ROADMAP A6) raises.  The A7c cases raised
+    until several processes were ported: a ``distributed`` dict whose
+    group cannot form raises, and ``_process_count=2`` splits the
+    restarts over two processes (threads standing for them, both
+    packages' seams patched alike, JAX's draws handed to the port): each
+    process returns the JAX driver's two-process result at
+    _assert_same_result's tolerances, and the port's one-process run
+    bit for bit."""
+    if item == "A6":
+        with pytest.raises(NotImplementedError, match=item):
+            ct.factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+        return
+    if "distributed" in kw:
+        with pytest.raises(ValueError, match="coordinator_address"):
+            ct.factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+        return
+    run = dict(ranks=[2, 3], nrun=3, Itmax=150, seed=2, verbose=0,
+               backend="pallas", **kw)
+    want = threads_as_processes(2, lambda p: cf.factorize(
+        cf.SCSet(count=small), _process_id=p, **run), jsched)
+    got = threads_as_processes(2, lambda p: ct.factorize(
+        ct.SCSet(count=small), device="cpu", _process_id=p, **run), tsched)
+    one = ct.factorize(ct.SCSet(count=small), device="cpu",
+                       **dict(run, _process_count=1))
+    for a, b in zip(want, got):
+        _assert_same_result(a, b)
+        pd.testing.assert_frame_equal(b.measure, one.measure,
+                                      check_exact=True)
+        for u, v in zip(b.basis + b.coeff, one.basis + one.coeff):
+            np.testing.assert_array_equal(u, v)
 
 
 def test_bad_options_raise(small):

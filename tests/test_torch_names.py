@@ -21,6 +21,8 @@ from ccfindr_tpu.ops.pallas import epilogue as jep
 from ccfindr_tpu.ops.pallas import ml_kernels as jmlk
 from ccfindr_tpu.ops.pallas import sol as jsol
 from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
+from ccfindr_tpu.parallel import mesh as jmesh
+from ccfindr_tpu.parallel import schedule as jsched
 from ccfindr_tpu.parallel import sharded as jsh
 from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.ops import sparse as tsk
@@ -30,6 +32,8 @@ from ccfindr_tpu_torch.ops.kernels import epilogue as tep
 from ccfindr_tpu_torch.ops.kernels import ml as tmlk
 from ccfindr_tpu_torch.ops.kernels import sol as tsol
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvbk
+from ccfindr_tpu_torch.parallel import mesh as tmesh
+from ccfindr_tpu_torch.parallel import schedule as tsched
 from ccfindr_tpu_torch.parallel import sharded as tsh
 
 # the port's own additions to a JAX signature: the device it places on,
@@ -82,6 +86,13 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jsh.make_tile_fused_sharded, tsh.make_tile_fused_sharded),
     (jsh.make_tile_ml_sharded, tsh.make_tile_ml_sharded),
     (jsh.make_ml_sharded, tsh.make_ml_sharded),
+    (jsched.partition_items, tsched.partition_items),
+    (jsched.rank_run_grid, tsched.rank_run_grid),
+    (jsched.gather_results, tsched.gather_results),
+    (jsched.gather_rows, tsched.gather_rows),
+    (jsched.exchange_winner, tsched.exchange_winner),
+    (jsched._allgather, tsched._allgather),
+    (jmesh.init_distributed, tmesh.init_distributed),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same
