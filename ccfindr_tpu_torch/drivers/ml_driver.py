@@ -233,6 +233,10 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
       densified: CSR on the device and the CUDA kernels S1/S2
       (``csrc/sparse.cu``; ``sparse_layout='tile'``, the ``'auto'``
       default); ``randomize`` shuffles the nonzeros of each column.
+      ``sparse_layout='ell'`` (the JAX package's ELL phases,
+      ``ops.ell.ell_ml_h``/``ell_ml_w``, which are S1/S2 over a CSR view
+      of the same nonzeros) runs this layout too, and refuses
+      ``randomize`` and a ``mesh`` as the JAX driver does.
 
     ``batch_ranks='auto'`` batches all (rank, run) lanes when there are
     several ranks.  ``storage_dtype='auto'`` keeps integer counts that
@@ -275,11 +279,9 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     all-gathered, every process computes the same consensus, and each
     rank's best factors are broadcast from their owner, so every
     process returns the single process's result, bit for bit, on the
-    CPU and on the card's kernel backends (not ``'dense'`` or
-    ``'dense_fused'`` on the card, as in ``vb_factorize``).
+    CPU and on the card.
     It needs the batched scan, and, as in the JAX package, refuses a
     ``mesh``.  Checkpoint files carry the process: ``..._p{pid}.npz``.
-    ``sparse_layout='ell'`` raises ``NotImplementedError`` (ROADMAP A6).
 
     Returns a new :class:`SCSet` with ranks/basis/coeff and the measure
     table (rank, likelihood, dispersion, cophenetic; with the standard
@@ -290,7 +292,16 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":
         _check_sparse_options(sparse_layout, storage_dtype,
-                              ("auto", "tile"))
+                              ("auto", "tile", "ell"))
+        if sparse_layout == "ell":
+            # the JAX driver's refusals (ccfindr_tpu/drivers/
+            # ml_driver.py:260-266)
+            if randomize:
+                raise ValueError("randomize with backend='sparse' "
+                                 "needs sparse_layout='tile'")
+            if mesh is not None:
+                raise ValueError("the ELL ML layout is single-device; "
+                                 "use sparse_layout='tile' with a mesh")
     if criterion not in ("likelihood", "connectivity"):
         raise ValueError("Unknown stopping criterion.")
 

@@ -65,11 +65,6 @@ from ..parallel.mesh import init_distributed
 from ..utils import Timings, auto_storage_dtype, resolve_device
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to "
-                               f"ccfindr_tpu_torch yet (ROADMAP {item})")
-
-
 def _sparse_counts(obj):
     """The CSR of an SCSet, with the drivers' empty row/column guards
     taken on it: nothing is densified."""
@@ -84,10 +79,6 @@ def _sparse_counts(obj):
 
 
 def _check_sparse_options(sparse_layout, storage_dtype, layouts):
-    if sparse_layout == "ell":
-        raise _not_ported("sparse_layout='ell' (ELL worked around the "
-                          "TPU's slow XLA gathers; the CSR kernels "
-                          "replace it)", "A6")
     if sparse_layout not in layouts:
         raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
     if storage_dtype is not None and not (
@@ -484,11 +475,14 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       capacity path for atlas-scale matrices): CSR on the device and
       the CUDA kernels S1/S2 (ops/tile.py, ``csrc/sparse.cu``) on the
       card, their plain PyTorch version on the CPU.  ``sparse_layout``
-      ``'auto'``, ``'tile'`` and ``'coo'`` all take this layout: the
-      JAX package's COO pass (``ops.sparse.fused_coo``) is in the port
+      ``'auto'``, ``'tile'``, ``'coo'`` and ``'ell'`` all take this
+      layout: the JAX package's COO and ELL passes
+      (``ops.sparse.fused_coo``, ``ops.ell.fused_ell``) are in the port
       ``fused_tile`` over a CSR view of the same nonzeros, so ``'coo'``
-      builds the CSR layout at once and keeps ``elbo_every`` and
-      ``precision='bf16'``, which the JAX package's COO scan refuses.
+      and ``'ell'`` build the CSR layout at once, on one device and on a
+      mesh.  ``'coo'`` keeps ``elbo_every`` and ``precision='bf16'``,
+      which the JAX package's COO scan refuses; ``'ell'`` refuses them
+      as the JAX package's ELL scan does.
 
     ``suffstats``/``data_term`` (``(x, lw, lh)`` of a lane batch ->
     ``(sw, sh)`` and ``(B,)``) override the backend's passes; on
@@ -545,13 +539,11 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     its own ``mesh``; the evidences are all-gathered, every process
     makes the same selection, and each rank's winner is broadcast from
     its owner, so every process returns the single process's result,
-    bit for bit, on the CPU and on the card's kernel backends (on the
-    card, ``'dense'`` and ``'dense_fused'`` round by the lane count,
-    so there a share's bits may differ from the full batch's).
+    bit for bit, on the CPU and on the card (the dense routes' products
+    go in batches of a fixed lane count, ``utils.lane_matmul``, so a
+    share rounds as the full batch does).
     Checkpoints of the chunked batch are ``vb_sweeps_batch_p{pid}.npz``.
-    ``sparse_layout='ell'`` raises ``NotImplementedError`` (ROADMAP A6:
-    ELL worked around the TPU's gathers, and the CSR kernels replace
-    it).  ``svd_method`` (``'auto'``,
+    ``svd_method`` (``'auto'``,
     ``'exact'``, ``'randomized'``) is ``ops.vb.vb_init_svd``'s: above
     4096 on the short axis ``'auto'`` takes the randomized SVD on the
     device, whose start differs from JAX's only through its random test
@@ -569,9 +561,22 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "sparse":
         _check_sparse_options(sparse_layout, storage_dtype,
-                              ("auto", "tile", "coo"))
+                              ("auto", "tile", "coo", "ell"))
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}")
+    if backend == "sparse" and sparse_layout == "ell":
+        # the JAX driver's ELL scan has neither
+        # (ccfindr_tpu/drivers/vb_driver.py:803-815)
+        if elbo_every != 1:
+            raise ValueError(
+                "elbo_every is supported by backend='pallas' (single "
+                "device or cell-sharded mesh; cell-major shapes) and "
+                "the tile-sparse backend")
+        if precision == "bf16":
+            raise ValueError(
+                "precision='bf16' is supported by backend='pallas' and "
+                "the tile-sparse backend (single device or cell-sharded "
+                "mesh)")
     if precision == "bf16" and backend not in ("pallas", "sparse"):
         raise ValueError("precision='bf16' is supported by "
                          "backend='pallas' (cell-major shapes) and "

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import lane_colsum, lane_sum, resolve_device
+from ..utils import lane_colsum, lane_matmul, lane_sum, resolve_device
 
 
 def _mT(a):
@@ -43,12 +43,12 @@ def ml_sweep(x, w, h, eps, pn=0.0, pd=0.0, rank_mask=None):
     components at ``eps`` (a tensor in the factor dtype).
     """
     xf = x.to(w.dtype)
-    h = (h * (_mT(w) @ (xf / (w @ h))) + pn) \
+    h = (h * lane_matmul(_mT(w), xf / lane_matmul(w, h)) + pn) \
         / (lane_colsum(w)[..., :, None] + pd)
     h = torch.maximum(h, eps)
     if rank_mask is not None:
         h = torch.where(rank_mask[..., :, None] > 0, h, eps)
-    w = (w * ((xf / (w @ h)) @ _mT(h)) + pn) \
+    w = (w * lane_matmul(xf / lane_matmul(w, h), _mT(h)) + pn) \
         / (lane_sum(h)[..., None, :] + pd)
     w = torch.maximum(w, eps)
     if rank_mask is not None:
@@ -61,7 +61,7 @@ def likelihood(x, w, h, lgx_zero_term):
     R/factorize.R:40-49); ``lgx_zero_term`` = sum_{x>0}(-x log x + x).
     One value per lane."""
     xf = x.to(w.dtype)
-    wh = w @ h
+    wh = lane_matmul(w, h)
     val = lane_sum(xf * torch.log(wh) - wh, 2) + lgx_zero_term
     return val / (x.shape[-2] * x.shape[-1])
 
@@ -119,13 +119,13 @@ def ml_h_dense(x, w, h):
     """H-phase as matmuls: the H-update numerator w^T(x/wh) and the
     likelihood data term sum x*log(wh) for the same (w, h)."""
     xf = x.to(w.dtype)
-    wh = w @ h
-    return _mT(w) @ (xf / wh), lane_sum(xf * torch.log(wh), 2)
+    wh = lane_matmul(w, h)
+    return lane_matmul(_mT(w), xf / wh), lane_sum(xf * torch.log(wh), 2)
 
 
 def ml_w_dense(x, w, h):
     """W-phase as matmuls: the W-update numerator (x/wh) h^T."""
-    return (x.to(w.dtype) / (w @ h)) @ _mT(h)
+    return lane_matmul(x.to(w.dtype) / lane_matmul(w, h), _mT(h))
 
 
 # ---------------------------------------------------------------------

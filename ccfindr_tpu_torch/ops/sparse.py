@@ -158,10 +158,17 @@ def _csr_view(row, col, val, n, m):
     the CSR layout of :class:`~ccfindr_tpu_torch.ops.tile.TileCounts`,
     built on their device by sorts and searches: no scatter, no atomic.
     A repeated coordinate stays two nonzeros (they add in the passes)."""
+    keep = (row < n) & (val != 0)
+    return _sorted_csr(row[keep], col[keep], val[keep], n, m)
+
+
+def _sorted_csr(row, col, val, n, m):
+    """The nonzeros ``(row[p], col[p], val[p])`` (no dummies) as the CSR
+    layout of :class:`~ccfindr_tpu_torch.ops.tile.TileCounts`, on their
+    device, by sorts and searches."""
     from .tile import TileCounts
 
-    keep = (row < n) & (val != 0)
-    r, c, v = row[keep].long(), col[keep].long(), val[keep]
+    r, c, v = row.long(), col.long(), val
     order = torch.argsort(r * m + c, stable=True)
     r, c, v = r[order], c[order], v[order]
     perm = torch.argsort(c * n + r, stable=True)

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import lane_colsum, lane_sum, resolve_device
+from ..utils import lane_colsum, lane_matmul, lane_sum, resolve_device
 
 
 class Hyper(NamedTuple):
@@ -208,19 +208,19 @@ def _mT(a):
 def suffstats_dense(x, lw, lh):
     """sw = lw * ((x / (lw@lh)) @ lh^T),  sh = lh * (lw^T @ (x / (lw@lh)))."""
     xf = x.to(lw.dtype)
-    wth = lw @ lh
+    wth = lane_matmul(lw, lh)
     xw = xf / wth
-    return lw * (xw @ _mT(lh)), lh * (_mT(lw) @ xw)
+    return lw * lane_matmul(xw, _mT(lh)), lh * lane_matmul(_mT(lw), xw)
 
 
 def elbo_data_term(x, lw, lh):
     """-sum x*(S/wth - log wth), S = (lw log lw)@lh + lw@(lh log lh),
     in the folded form that shares the suffstat GEMMs."""
     xf = x.to(lw.dtype)
-    wth = lw @ lh
+    wth = lane_matmul(lw, lh)
     u = xf / wth
-    return (-lane_sum((u @ _mT(lh)) * (lw * torch.log(lw)), 2)
-            - lane_sum((_mT(lw) @ u) * (lh * torch.log(lh)), 2)
+    return (-lane_sum(lane_matmul(u, _mT(lh)) * (lw * torch.log(lw)), 2)
+            - lane_sum(lane_matmul(_mT(lw), u) * (lh * torch.log(lh)), 2)
             + lane_sum(xf * torch.log(wth), 2))
 
 
@@ -230,10 +230,10 @@ def fused_dense(x, lw, lh):
 
     Returns (swn, shn, dterm) with sw = lw*swn, sh = lh*shn."""
     xf = x.to(lw.dtype)
-    wth = lw @ lh
+    wth = lane_matmul(lw, lh)
     a = xf / wth
-    swn = a @ _mT(lh)
-    shn = _mT(lw) @ a
+    swn = lane_matmul(a, _mT(lh))
+    shn = lane_matmul(_mT(lw), a)
     dterm = (-(lane_sum(swn * (lw * torch.log(lw)), 2)
                + lane_sum(shn * (lh * torch.log(lh)), 2))
              + lane_sum(xf * torch.log(wth), 2))

@@ -58,6 +58,8 @@ def main(argv=None):
     p.add_argument("--mode", default="vb", choices=("vb", "ml"))
     p.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     p.add_argument("--backend", default="dense")
+    p.add_argument("--sparse-layout", default="auto",
+                   help="backend='sparse''s layout: auto, tile, coo or ell")
     p.add_argument("--dtype", choices=("float32", "float64"))
     p.add_argument("--x", help="an .npz whose 'x' is the count matrix")
     p.add_argument("--initializer", default="random")
@@ -86,6 +88,7 @@ def main(argv=None):
     ranks = [int(r) for r in a.ranks.split(",")]
     kw = dict(ranks=ranks, nrun=a.nrun, verbose=0, Itmax=a.itmax,
               seed=a.seed, backend=a.backend, dtype=dtype, device=a.device,
+              sparse_layout=a.sparse_layout,
               checkpoint_every=a.checkpoint_every,
               checkpoint_dir=a.checkpoint_dir)
     if a.cells:

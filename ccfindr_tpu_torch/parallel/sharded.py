@@ -7,7 +7,8 @@ passes.  Here :class:`ShardedCounts` holds X as its (gene shard, cell
 shard) blocks, each on its device of one runs row of the mesh, and
 :func:`fused_sharded`, :func:`suffstats_sharded` and
 :func:`data_term_sharded` (the hooks of ``ops.vb.vb_run``) compute each
-block's products on the block's device with plain ``torch.matmul``,
+block's products on the block's device in batches of a fixed lane
+count (``utils.lane_matmul``),
 then add the block partials on the row's first device in shard order:
 ``swn`` over cell shards, ``shn`` over gene shards.  With one block
 they compute what ``ops.vb.fused_dense``, ``suffstats_dense`` and
@@ -26,9 +27,10 @@ leaves open):
   over cell shards, ``shn`` over gene shards, the data term folded a
   block and added over both (the gene-sharded or gene-major ``'pallas'``
   mesh);
-* :func:`make_tile_fused_sharded`, :func:`make_sparse_fused_sharded` —
-  S1/S2 (``ops.tile.fused_tile``, ``ops.sparse.fused_coo``) on each
-  cell shard of a :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout;
+* :func:`make_tile_fused_sharded`, :func:`make_sparse_fused_sharded`,
+  :func:`make_ell_fused_sharded` — S1/S2 (``ops.tile.fused_tile``,
+  ``ops.sparse.fused_coo``, ``ops.ell.fused_ell``) on each cell shard
+  of a :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout;
 * :func:`make_ml_sharded` (M1/M2) and :func:`make_tile_ml_sharded`
   (S1/S2): the ML phases, the H numerator cell-local, ``x log wh`` and
   the W numerator added over shards;
@@ -46,7 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import lane_sum, lgamma_sum
+from ..utils import lane_matmul, lane_sum, lgamma_sum
 
 
 def _bounds(extent, parts):
@@ -135,10 +137,10 @@ def _xpass(x: ShardedCounts, lw, lh, with_xlog=True):
             lwg = lw[..., g0:g1, :].to(d)
             lhc = lh[..., c0:c1].to(d)
             xf = xb.to(lw.dtype)
-            wth = lwg @ lhc
+            wth = lane_matmul(lwg, lhc)
             u = xf / wth
-            sw = (u @ _mT(lhc)).to(dev)
-            sh = (_mT(lwg) @ u).to(dev)
+            sw = lane_matmul(u, _mT(lhc)).to(dev)
+            sh = lane_matmul(_mT(lwg), u).to(dev)
             swn[g] = sw if c == 0 else swn[g] + sw
             shn[c] = sh if g == 0 else shn[c] + sh
             if with_xlog:
@@ -309,12 +311,19 @@ def make_sparse_fused_sharded(mesh, chunk: int = 1 << 16):
 
 
 def make_ell_fused_sharded(mesh):
-    """The JAX package's ELL mesh backend: not ported (ROADMAP A6; the
-    CSR kernels S1/S2 replace the ELL layout)."""
-    raise NotImplementedError(
-        "sparse_layout='ell' (ELL worked around the TPU's slow XLA "
-        "gathers; the CSR kernels replace it) is not ported to "
-        "ccfindr_tpu_torch yet (ROADMAP A6)")
+    """Fused function for ``ops.vb.vb_run(fused=...)`` over a
+    cell-sharded mesh: ``ops.ell.fused_ell`` (S1/S2 over each shard's
+    CSR view) on each shard of ``from_scipy_ell_sharded``'s layout;
+    ``swn`` and the data term added in shard order, ``shn``
+    cell-local."""
+    from ..ops import ell as ek
+
+    def fused(x, lw, lh):
+        _grid(mesh, x)
+        return _sparse_fused(x, lw, lh, _cell_shards(
+            x, lambda ec, lh_c, lw_d: ek.fused_ell(ec, lw_d, lh_c), lh, lw))
+
+    return fused
 
 
 def make_tile_fused_sharded(mesh, mxu_bf16: bool = False):

@@ -53,6 +53,72 @@ def lane_sum(t, ndim=1, dtype=None):
             return v[..., 0]
 
 
+# lanes a product of lane_matmul: 4 had the least mean sweep time of the
+# forms timed by tools/bench_lane_matmul.py (1 to 4 lanes, bundled and
+# 10x shapes, both dense routes, VB and ML) on an H100
+LANE_MATMUL_CHUNK = 4
+# the boundary every operand and output of lane_matmul's products starts
+# on, so that the library picks one algorithm for every window of lanes
+# (cuBLAS and MKL choose kernels by the operands' alignment as well as
+# their shape)
+_LANE_ALIGN = {"cuda": 256, "cpu": 64}
+
+
+def _aligned(t, align):
+    """``t`` itself when its data starts on an ``align``-byte boundary,
+    else a contiguous copy (a fresh allocation is aligned)."""
+    if t.data_ptr() % align == 0:
+        return t
+    return t.clone()
+
+
+def lane_matmul(a, b):
+    """``a @ b`` for ``a (..., p, q)`` and ``b (..., q, s)``, whose
+    lanes (the leading axes, broadcast) each get the same bits in a
+    batch of any size.
+
+    A batched ``torch.matmul`` leaves the algorithm to the library,
+    which picks it on the card by the batch count as well as the shape:
+    a lane's product could change its last bits when the batch does
+    (lane compaction, a process's share of the grid).  Here every
+    product is a batch of exactly :data:`LANE_MATMUL_CHUNK` lanes:
+    windows of consecutive lanes, the last one ending at the last lane
+    (it may repeat lanes of the one before, which get the same bits),
+    or, with fewer lanes, one batch padded with copies of the last
+    lane.  The operands are made
+    contiguous and every window starts on a :data:`_LANE_ALIGN`
+    boundary, so that every product has the same shape, strides and
+    alignment whatever the lane count.  Two 2-D operands are one
+    product."""
+    if a.dim() == 2 and b.dim() == 2:
+        return a @ b
+    chunk = LANE_MATMUL_CHUNK
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    p, s = a.shape[-2], b.shape[-1]
+    a = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    a, b = a.contiguous(), b.contiguous()
+    nl = a.shape[0]
+    if nl < chunk:
+        pad = chunk - nl
+        o = torch.matmul(torch.cat([a, a[-1:].expand(pad, -1, -1)]),
+                         torch.cat([b, b[-1:].expand(pad, -1, -1)]))
+        return o[:nl].view(*lead, p, s)
+    out = torch.empty(nl, p, s, dtype=torch.promote_types(a.dtype, b.dtype),
+                      device=a.device)
+    align = _LANE_ALIGN.get(a.device.type, 64)
+    for i0 in range(0, nl, chunk):
+        i = min(i0, nl - chunk)
+        ai = _aligned(a[i:i + chunk], align)
+        bi = _aligned(b[i:i + chunk], align)
+        oi = out[i:i + chunk]
+        if oi.data_ptr() % align == 0:
+            torch.matmul(ai, bi, out=oi)
+        else:
+            oi.copy_(torch.matmul(ai, bi))
+    return out.view(*lead, p, s)
+
+
 def lgamma_sum(x, device=None):
     """``sum lgamma(x + 1)`` of a dense X in float64 on ``device``
     (default: X's), a block of rows at a time, so that no float64 copy

@@ -4,7 +4,8 @@
 Drives the port's paths through their public entry points, the
 batched VB rank scan (``vb_factorize``, on both of its ``'pallas'``
 routes and on ``'pallas2pass'``) and the ML rank scan (``factorize``),
-on ``backend='pallas'`` and on ``backend='sparse'`` (also in bf16), and
+on ``backend='pallas'`` and on ``backend='sparse'`` (also in bf16 and
+on the ELL layout), and
 their checkpoint, resume and lane compaction, their meshes and their
 runs over several processes, after checking each CUDA kernel of those
 paths against its plain PyTorch version on the card.
@@ -218,8 +219,9 @@ Phases (each prints its result and seconds):
 19. the mesh backends of parallel/sharded.py, each on one card against
    the same call on one device (float32: factors to 2e-4 of their
    largest entry, per-element lml or likelihood to 1e-5 relative, the
-   same ropt for VB; Tol 0, so that both run Itmax = 150 sweeps, 500 on
-   the bundled data), its launches counted on the mesh run (every count
+   same ropt for VB; Tol 0, so that both run Itmax = 100 sweeps, 300 on
+   the bundled data: cut from 150 and 500 to pay for phase 21), its
+   launches counted on the mesh run (every count
    set to 0 just before it): sparse VB at the 10x-10% shape over
    cells=4 (S1/S2 a shard) in float32 and in bf16 with elbo_every=5,
    sparse_layout='coo' over cells=2 (the CSR shards of 'tile'; the
@@ -228,7 +230,8 @@ Phases (each prints its result and seconds):
    cells=2 (E1 'cm' + E1s a block; K1 not launched), the gene-major
    100,000 x 4,096 X over cells=2 (E1 'gm' a shard; Itmax 30, where
    phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
-   and 'sparse' (S1/S2) at 10x over cells=4, and 'pallas2pass' on the
+   and 'sparse' (S1/S2) at 10x over cells=4 (their consensus on a
+   1,000-cell subsample, for time), and 'pallas2pass' on the
    bundled data over cells=2 (P1 + E1s and P2 a block).  Each site's
    kernel against its plain version on a shard's own inputs at phase 2's
    float32 tolerances, a second launch and lanes alone bit-identical,
@@ -259,7 +262,29 @@ Phases (each prints its result and seconds):
    launch K1s, K2, K3s and K4 once a sweep of its own lanes.
    The walls of the 2-process and 1-process runs and of runs=2 against
    runs=1 are printed beside the card's name and power limit, not
-   gated.
+   gated;
+21. sparse_layout='ell' (ops/ell.py: the JAX package's ELL layout, its
+   passes S1/S2 over the CSR view EllCounts.csr): on phase 8's 10x-10%
+   matrix at the 0.98 quantile and on phase 8's skewed 300 x 5000 CSR
+   at 0.5 (tails by gene), the widths, tail lengths and bytes printed,
+   the view equal to from_scipy_tile's arrays, and fused_ell, ell_ml_h
+   and ell_ml_w (6 lanes, r 16) equal to fused_tile, tile_ml_h and
+   tile_ml_w bit for bit, against their plain versions on CPU copies
+   (three lanes) at phase 8's tolerances in float32 and float64, two
+   launches and lanes 1 and 4 alone bit-identical; S1/S2 at the ELL
+   site timed beside plain, bound and S2's library call; then the
+   drivers: vb_factorize(backend='sparse', sparse_layout='ell') on the
+   10x-10% matrix (ranks [8, 12, 16], nrun 2, Itmax 100, float32) equal
+   to 'tile' bit for bit, S1 and S2 launched once a sweep of the batch
+   (every count set to 0 just before, read just after: the ELL site's
+   launches); the bundled factorize with 'ell' equal to 'tile'; the
+   10x-10% scan over cells=4 on one card with 'ell' equal to the tile
+   mesh run (Itmax 60), and make_ell_fused_sharded against fused_ell on
+   one device; the four refusals (elbo_every, bf16, ML randomize, ML
+   mesh) raise; and the dense routes' passes (fused_dense,
+   suffstats_dense, elbo_data_term, ml_h_dense, ml_w_dense, likelihood;
+   their products by utils.lane_matmul) at 10x, 6 lanes, r 16: lanes 1
+   and 4 alone and as a pair give the batch's bits.
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -362,6 +387,10 @@ MESH_KERNELS = {"xpass_shard": ("sol_xpass_shard", f"{_SSH}:80"),
                 "h_post_shard": ("sol_h_post_shard", f"{_SSH}:149"),
                 "finish_mesh": ("sol_finish_gathered", f"{_SSH}:220")}
 MESH_CELLS = 4                    # phase 17's shards, all on cuda:0
+# phase 21's ELL site (ops/ell.py: S1/S2 over EllCounts.csr): key -> the
+# JAX function it replaces, an XLA gather pass with no Pallas kernel
+ELL_SITES = {"sp_rowpass_ell": "ccfindr_tpu/ops/ell.py:313",
+             "sp_colpass_ell": "ccfindr_tpu/ops/ell.py:313"}
 # phase 19's mesh sites of kernels already ported (a shard's or a
 # block's launch on a path that sharded X): key -> (the launch counter,
 # its name in the kernels line, source, the JAX function it replaces)
@@ -1706,6 +1735,10 @@ class Smoke:
                                      replaces=rep)
                              for k, (_, name, src, rep)
                              in MESH_SITES.items()})
+        self.kernels.update({k: dict(name=f"{k[:-4]} at the ELL site",
+                                     route="cuda", source=SP_SOURCE,
+                                     replaces=rep)
+                             for k, rep in ELL_SITES.items()})
         for k, what in TAILS.items():
             self.kernels[k]["tail"] = (f"its last block of a lane adds "
                                        f"{what} (M3 folded in)")
@@ -4032,7 +4065,7 @@ class Smoke:
         # comparison sees the shards' rounding and not a stopping test
         # near Tol that the rounding flips (a lane stopped one sweep
         # apart differs by that sweep's update, ~1e-3 at 10x)
-        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=150, Tol=0.0,
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=100, Tol=0.0,
                     device="cuda", verbose=0, seed=0)
 
         # sparse VB at the 10x-10% shape over cells=4 (float32; bf16 with
@@ -4232,8 +4265,11 @@ class Smoke:
 
         # the ML mesh at 10x over cells=4: M1/M2 ('pallas') and S1/S2
         # ('sparse') a shard
-        kwm = dict(ranks=[8, 12, 16], nrun=2, Itmax=150, Tol=0.0,
-                   device="cuda", verbose=0, seed=0)
+        # (the consensus, host work that compares nothing here, on a
+        # 1,000-cell subsample: ~15 s a run at the 10x shape otherwise)
+        kwm = dict(ranks=[8, 12, 16], nrun=2, Itmax=100, Tol=0.0,
+                   device="cuda", verbose=0, seed=0,
+                   cophenetic_max_cells=1000, cophenetic_nsub=1)
         for backend, xin in (("pallas", x10), ("sparse", csr10)):
             one, got, secs, counts = drive(ct.factorize, xin,
                                            backend=backend, mesh=mesh(4),
@@ -4279,7 +4315,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
         # 'pallas2pass' on the bundled data over cells=2
-        kwp = dict(ranks=[4, 5, 6], nrun=2, Itmax=500, Tol=0.0,
+        kwp = dict(ranks=[4, 5, 6], nrun=2, Itmax=300, Tol=0.0,
                    device="cuda", verbose=0, seed=0)
         one, got, secs, counts = drive(ct.vb_factorize, s,
                                        backend="pallas2pass",
@@ -4458,6 +4494,244 @@ class Smoke:
         return ok and bool(good)
 
 
+    # -- 21 -----------------------------------------------------------
+    def ell(self):
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import ell, tile
+        from ccfindr_tpu_torch.ops import ml as ml_ops
+        from ccfindr_tpu_torch.ops import vb as vb_ops
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+        from ccfindr_tpu_torch.parallel import sharded as tsh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        x10 = self.x10 if self.x10 is not None else planted_10x()
+        if self.x10m is None:
+            self.x10m = masked_10x(x10)
+        _, csr10 = self.x10m
+        s = self.filtered if self.filtered is not None \
+            else bundled_filtered()
+        ok = True
+        passes = {"fused_ell": (ell.fused_ell, tile.fused_tile),
+                  "ell_ml_h": (ell.ell_ml_h, tile.tile_ml_h),
+                  "ell_ml_w": (ell.ell_ml_w, tile.tile_ml_w)}
+
+        def outs(t):
+            return t if isinstance(t, tuple) else (t,)
+
+        def plain_ok(got, want, dt, nm):
+            """Each output against its plain version on CPU copies:
+            float64 1e-10; float32 2e-4 on the numerators and 1e-5 on
+            the per-element scalar term (phases 8 and 10)."""
+            errs = []
+            for g, w in zip(got, want):
+                w = w.to(g.device)
+                errs.append(rel_err(g / nm, w / nm) if g.dim() == 1
+                            else rel_err(g, w))
+            tol = [F64_TOL if dt == torch.float64 else
+                   (F32_ELBO_TOL if g.dim() == 1 else F32_FACTOR_TOL)
+                   for g in got]
+            return all(e <= t for e, t in zip(errs, tol)), errs
+
+        # the layout and its passes: the 10x-10% matrix at the default
+        # quantile and the skewed CSR of phase 8 at a quantile that
+        # leaves tails
+        ranks6 = [8, 8, 12, 12, 16, 16]
+        for label, csr, q in (("10x-10%", csr10, 0.98),
+                              ("skewed 300 x 5000", skewed_csr(300, 5000, 1),
+                               0.5)):
+            n, m = csr.shape
+            t0 = time.perf_counter()
+            ec = ell.from_scipy_ell(csr, dtype=torch.float32, quantile=q,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            tc = tile.from_scipy_tile(csr, dtype=torch.float32,
+                                      device="cuda")
+            same = all(getattr(ec.csr, f).dtype == getattr(tc, f).dtype
+                       and torch.equal(getattr(ec.csr, f), getattr(tc, f))
+                       for f in ("indptr", "col", "val", "colptr", "row",
+                                 "perm"))
+            print(f"  {label} (nnz {csr.nnz}, quantile {q}): widths Kg "
+                  f"{ec.gcol.shape[1]}, Kc {ec.crow.shape[1]}; tails "
+                  f"{ec.gtval.numel()} by gene, {ec.ctval.numel()} by "
+                  f"cell; slots and tails "
+                  f"{nbytes(*(getattr(ec, f) for f in ell._FIELDS)) / 1e6:.1f}"
+                  f" MB, CSR view {nbytes(ec.csr.indptr, ec.csr.col, ec.csr.val, ec.csr.colptr, ec.csr.row, ec.csr.perm) / 1e6:.1f} MB;"  # noqa: E501
+                  f" built in {secs:.2f} s; view == from_scipy_tile {same}",
+                  flush=True)
+            ok = ok and same
+            for dt in (torch.float32, torch.float64):
+                tcd, lw, lh = sparse_inputs(csr, ranks6, 16, dt,
+                                            torch.int16, 9, dev)
+                ecd = ell.from_scipy_ell(csr, dtype=dt, quantile=q,
+                                         device="cuda")
+                host = ecd.to("cpu")
+                for name, (fe, ft) in passes.items():
+                    got = outs(fe(ecd, lw, lh))
+                    bits = all(torch.equal(u, v) for u, v in
+                               zip(got, outs(ft(tcd, lw, lh))))
+                    det = all(torch.equal(u, v) for u, v in
+                              zip(got, outs(fe(ecd, lw, lh))))
+                    alone = lanes_alone(lambda w, h: outs(fe(ecd, w, h)),
+                                        (lw, lh))
+                    # the plain versions on the CPU, three lanes
+                    sub = slice(0, 6, 2)
+                    plain = outs(fe(host, lw[sub].cpu(), lh[sub].cpu()))
+                    good, errs = plain_ok([g[sub] for g in got], plain, dt,
+                                          n * m)
+                    print(f"  {label} {str(dt)[6:]} {name}: == tile "
+                          f"{bits}, vs plain (CPU) rel "
+                          f"{[f'{e:.3g}' for e in errs]}, deterministic "
+                          f"{det}, lanes alone {alone}", flush=True)
+                    ok = ok and bits and det and alone and good
+                    if (dt == torch.float32 and label == "10x-10%"
+                            and name == "fused_ell"):
+                        # S1's output swn, S2's shn
+                        for k, g, p in zip(ELL_SITES, got, plain):
+                            self.kernels[k]["max_abs_err"] = float(
+                                (g[sub] - p.to(dev)).abs().max())
+                del tcd, lw, lh, ecd, host
+            if label == "10x-10%":
+                # S1/S2 at the ELL site: their times on the view, beside
+                # their plain versions, bounds and S2's library call
+                _, lw, lh = sparse_inputs(csr, ranks6, 16, torch.float32,
+                                          torch.int16, 9, dev)
+                v = ec.csr
+                lht = lh.transpose(-1, -2).contiguous()
+                s1 = spk.sp_rowpass(v, lw, lht)
+                a = s1[1]
+                s2 = spk.sp_colpass(v, a, lw)
+                for k, kern, plain in (
+                        ("sp_rowpass_ell", lambda: spk.sp_rowpass(v, lw, lht),
+                         lambda: spk.rowpass_plain(v, lw, lht)),
+                        ("sp_colpass_ell", lambda: spk.sp_colpass(v, a, lw),
+                         lambda: spk.colpass_plain(v, a, lw))):
+                    self.kernels[k]["ms"] = cuda_ms(kern, 20)
+                    self.kernels[k]["plain_ms"] = cuda_ms(plain, 5)
+                nnz = v.nnz
+                self.set_bound("sp_rowpass_ell", nbytes(
+                    v.indptr, v.col, v.val, lw, lht, s1[:3]),
+                    4 * 16 * nnz * len(ranks6))
+                self.set_bound("sp_colpass_ell", nbytes(
+                    v.colptr, v.row, v.perm, a, lw, s2),
+                    2 * 16 * nnz * len(ranks6),
+                    library_ms=cuda_ms(s2_library(v, a, lw), 20))
+                for k in ("sp_rowpass_ell", "sp_colpass_ell"):
+                    kd = self.kernels[k]
+                    print(f"  {kd['name']}: {kd['ms']:.4f} ms, plain "
+                          f"{kd['plain_ms']:.4f} ms, bound "
+                          f"{kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
+                          f"library {kd['library_ms']}", flush=True)
+                del lw, lh, lht, s1, a, s2, v
+            del ec, tc
+            torch.cuda.empty_cache()
+
+        def same_scan(a, b):
+            return (a.measure.equals(b.measure)
+                    and all(np.array_equal(u, v) for u, v in
+                            zip(a.basis + a.coeff, b.basis + b.coeff)))
+
+        def counted(fn, *args, **kw):
+            spk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, dict(spk.LAUNCHES)
+
+        # the drivers: 'ell' runs the CSR layout of 'tile', bit for bit
+        kw = dict(ranks=[8, 12, 16], nrun=2, Itmax=100, device="cuda",
+                  verbose=0, seed=0, backend="sparse")
+        got, secs, counts = counted(ct.vb_factorize, csr10,
+                                    sparse_layout="ell", **kw)
+        rec = got.metadata["timings"][0]
+        sweeps = rec["lane_sweeps_executed"] // len(rec["n_iter"])
+        for k in SP_KERNELS:
+            self.kernels[f"{k}_ell"]["launches"] = counts[k]
+        ref, secs_t, _ = counted(ct.vb_factorize, csr10,
+                                 sparse_layout="tile", **kw)
+        bits = same_scan(got, ref)
+        launches_ok = counts["sp_rowpass"] == counts["sp_colpass"] == sweeps
+        print(f"  vb_factorize 10x-10% 'ell' (ranks [8, 12, 16], nrun 2, "
+              f"Itmax 100, float32): {secs:.2f} s ('tile' {secs_t:.2f} s), "
+              f"== 'tile' {bits}; launches {counts}, the batch's sweeps "
+              f"{sweeps} (lane-sweeps {rec['lane_sweeps_executed']})",
+              flush=True)
+        ok = ok and bits and launches_ok
+        kwm = dict(ranks=[4, 5, 6], nrun=4, Itmax=400, Tol=1e-4,
+                   device="cuda", verbose=0, seed=0, backend="sparse")
+        got, secs, counts = counted(ct.factorize, s, sparse_layout="ell",
+                                    **kwm)
+        ref = ct.factorize(s, sparse_layout="tile", **kwm)
+        bits = same_scan(got, ref)
+        print(f"  factorize bundled 'ell' (ranks [4, 5, 6], nrun 4): "
+              f"{secs:.2f} s, == 'tile' {bits}; launches {counts}",
+              flush=True)
+        ok = ok and bits and min(counts.values()) > 0
+        mesh4 = ct.make_mesh(cells=4, devices=[dev] * 4)
+        kwc = dict(kw, Itmax=60, mesh=mesh4)
+        got, secs, counts = counted(ct.vb_factorize, csr10,
+                                    sparse_layout="ell", **kwc)
+        ref = ct.vb_factorize(csr10, sparse_layout="tile", **kwc)
+        bits = same_scan(got, ref)
+        print(f"  vb_factorize 10x-10% 'ell' over cells=4 (Itmax 60): "
+              f"{secs:.2f} s, == the tile mesh run {bits}; launches "
+              f"{counts}", flush=True)
+        ok = ok and bits and min(counts.values()) > 0
+        # the JAX package's ELL mesh builder: fused_ell a shard against
+        # fused_ell on one device
+        _, lw, lh = sparse_inputs(csr10, ranks6, 16, torch.float32,
+                                  torch.int16, 9, dev)
+        one = ell.fused_ell(ell.from_scipy_ell(csr10, device="cuda"), lw, lh)
+        msh = tsh.make_ell_fused_sharded(mesh4)(
+            ell.from_scipy_ell_sharded(csr10, 4, device="cuda"), lw, lh)
+        errs = [rel_err(g, w) for g, w in zip(msh, one)]
+        mesh_ok = max(errs[:2]) <= F32_FACTOR_TOL and errs[2] <= F32_ELBO_TOL
+        print(f"  make_ell_fused_sharded cells=4 vs fused_ell on one "
+              f"device: rel (swn, shn, dterm) {[f'{e:.3g}' for e in errs]}",
+              flush=True)
+        ok = ok and mesh_ok
+        del lw, lh, one, msh
+        # the JAX drivers' refusals
+        refused = []
+        for fn, extra in ((ct.vb_factorize, dict(elbo_every=2)),
+                          (ct.vb_factorize, dict(precision="bf16")),
+                          (ct.factorize, dict(randomize=True)),
+                          (ct.factorize, dict(mesh=ct.make_mesh(
+                              cells=2, devices=[dev] * 2)))):
+            try:
+                fn(s, ranks=[2], verbose=0, backend="sparse",
+                   sparse_layout="ell", device="cuda", Itmax=5, **extra)
+                refused.append(False)
+            except ValueError:
+                refused.append(True)
+        print(f"  refusals (elbo_every, bf16, randomize, ML mesh): "
+              f"{refused}", flush=True)
+        ok = ok and all(refused)
+
+        # the dense routes' products (utils.lane_matmul): each lane's
+        # bits whatever the lane count, at 10x (6 lanes, r 16, float32)
+        x = torch.as_tensor(x10, device=dev)
+        gen = torch.Generator().manual_seed(5)
+        lw = (torch.rand(6, *x.shape[:1], 16, generator=gen) + 0.1).to(dev)
+        lh = (torch.rand(6, 16, x.shape[1], generator=gen) + 0.1).to(dev)
+        dense = {"fused_dense": vb_ops.fused_dense,
+                 "suffstats_dense": vb_ops.suffstats_dense,
+                 "elbo_data_term": vb_ops.elbo_data_term,
+                 "ml_h_dense": ml_ops.ml_h_dense,
+                 "ml_w_dense": ml_ops.ml_w_dense,
+                 "likelihood": lambda *a: ml_ops.likelihood(*a, 0.0)}
+        alone = {k: lanes_alone(lambda w, h, f=f: outs(f(x, w, h)),
+                                (lw, lh)) for k, f in dense.items()}
+        print(f"  dense passes at 10x, lanes 1 and 4 of six alone: {alone}",
+              flush=True)
+        ok = ok and all(alone.values())
+        return ok
+
+
 MP_TIMEOUT = 300             # seconds a group of phase 20's workers may take
 MP_RESULT = ("lml", "likelihood", "dispersion", "cophenetic", "aw", "bw",
              "ah", "bh", "nunif", "ranks")
@@ -4530,7 +4804,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20")
+                            "19,20,21")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -4569,7 +4843,8 @@ def main(argv=None):
               "17": ("cell-sharded-mesh", smoke.mesh),
               "18": ("randomized-svd+host", smoke.rsvd_host),
               "19": ("mesh-backends", smoke.mesh_backends),
-              "20": ("multi-process", smoke.multi_process)}
+              "20": ("multi-process", smoke.multi_process),
+              "21": ("ell", smoke.ell)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

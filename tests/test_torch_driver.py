@@ -241,20 +241,28 @@ def test_dtype_follows_device(small):
 @pytest.mark.parametrize("kw,item", [
     (dict(distributed=dict(num_processes=2)), "A7c"),
     (dict(_process_count=2), "A7c"),
-    (dict(backend="sparse", sparse_layout="ell"), "A6"),
+    (dict(backend="sparse", sparse_layout="ell"), "ell"),
 ])
 def test_options_not_ported_raise(small, kw, item):
-    """``sparse_layout='ell'`` (ROADMAP A6) raises.  The A7c cases raised
-    until several processes were ported: a ``distributed`` dict whose
+    """Options that raised before their port.  ``sparse_layout='ell'``
+    runs the CSR layout of ``'tile'`` (S1/S2) and returns the JAX
+    driver's ELL result at _assert_same_result's tolerances, and the
+    port's ``'tile'`` run bit for bit.  The A7c cases raised until
+    several processes were ported: a ``distributed`` dict whose
     group cannot form (no coordinator address) raises and never runs as
     one process, and ``_process_count=2`` splits the (rank, run) grid
     over two processes (threads standing for them, both packages'
     all-gather seams patched alike): each process returns the JAX
     driver's two-process result at _assert_same_result's tolerances,
     and the port's one-process run bit for bit."""
-    if item == "A6":
-        with pytest.raises(NotImplementedError, match=item):
-            ct.vb_factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+    if item == "ell":
+        run = dict(ranks=[2, 3, 4], initializer="svd2", Itmax=300,
+                   verbose=0, **kw)
+        got = ct.vb_factorize(small, device="cpu", **run)
+        _assert_same_result(cf.vb_factorize(small, **run), got)
+        tile = ct.vb_factorize(small, device="cpu",
+                               **dict(run, sparse_layout="tile"))
+        _assert_same_result(tile, got, mrtol=0, frtol=0)
         return
     if "distributed" in kw:
         with pytest.raises(ValueError, match="coordinator_address"):

@@ -1185,6 +1185,84 @@ def test_coo_api_on_the_card_is_bit_stable(dt):
     assert _rel(s1[1].cpu(), sh[1]) <= tol
 
 
+@pytest.mark.parametrize("quantile", [0.98, 0.5])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_ell_passes_on_the_card_are_the_tile_passes(dt, quantile):
+    """The ELL API on CUDA tensors: EllCounts.csr, built on the card from
+    the slots and tails, holds from_scipy_tile's arrays exactly; fused_ell,
+    ell_ml_h and ell_ml_w launch S1/S2 once each as fused_tile, tile_ml_h
+    and tile_ml_w do and equal them bit for bit, and match their plain
+    versions on the CPU."""
+    from ccfindr_tpu_torch.ops import ell
+
+    _card()
+    rng = np.random.default_rng(4)
+    x = (rng.random((500, 800)) < 0.08) * rng.poisson(3.0, (500, 800))
+    x[:4] = rng.poisson(2.0, (4, 800))         # rows past the width
+    x[x.sum(1) == 0, 0] += 1
+    csr = sp.csr_matrix(x.astype(np.float64))
+    lw = torch.tensor(rng.gamma(1.0, 1.0, (3, 500, 6)), dtype=dt)
+    lh = torch.tensor(rng.gamma(1.0, 1.0, (3, 6, 800)), dtype=dt)
+    tol, tol_s = (1e-10, 1e-10) if dt == torch.float64 else (2e-4, 1e-5)
+    ec = ell.from_scipy_ell(csr, dtype=dt, quantile=quantile, lane=16,
+                            device="cuda")
+    if quantile < 0.9:
+        assert ec.gtval.numel() > 0
+    tc = tile.from_scipy_tile(csr, dtype=dt, device="cuda")
+    for f in ("indptr", "col", "val", "colptr", "row", "perm"):
+        u, v = getattr(ec.csr, f), getattr(tc, f)
+        assert u.dtype == v.dtype and torch.equal(u, v), f
+    host = ell.from_scipy_ell(csr, dtype=dt, quantile=quantile, lane=16,
+                              device="cpu")
+    w, h = lw.cuda(), lh.cuda()
+    for got_fn, tile_fn, plain_fn, n_launch in (
+            (ell.fused_ell, tile.fused_tile, ell.fused_ell, (1, 1)),
+            (ell.ell_ml_h, tile.tile_ml_h, ell.ell_ml_h, (1, 1)),
+            (ell.ell_ml_w, tile.tile_ml_w, ell.ell_ml_w, (1, 0))):
+        spk.reset_launches()
+        got = got_fn(ec, w, h)
+        assert spk.LAUNCHES == dict(zip(("sp_rowpass", "sp_colpass"),
+                                        n_launch))
+        got = got if isinstance(got, tuple) else (got,)
+        want = tile_fn(tc, w, h)
+        want = want if isinstance(want, tuple) else (want,)
+        plain = plain_fn(host, lw, lh)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        for u, v, p in zip(got, want, plain):
+            assert torch.equal(u, v)
+            assert _rel(u.cpu(), p) <= (tol if u.dim() > 1 else tol_s)
+
+
+def test_dense_products_give_each_lane_its_bits():
+    """The dense routes' passes (their products by utils.lane_matmul) at
+    a 10x-like shape in float32: lanes 1 and 4 of six, alone and as a
+    pair, give the batch's bits."""
+    from ccfindr_tpu_torch.ops import ml as ml_ops
+    from ccfindr_tpu_torch.ops import vb as vb_ops
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    n, m, r = 1024, 2048, 16
+    x = torch.tensor(rng.poisson(2.0, (n, m)), dtype=torch.float32,
+                     device=dev)
+    lw = torch.tensor(rng.gamma(1.0, 1.0, (6, n, r)), dtype=torch.float32,
+                      device=dev)
+    lh = torch.tensor(rng.gamma(1.0, 1.0, (6, r, m)), dtype=torch.float32,
+                      device=dev)
+    fns = (vb_ops.fused_dense, vb_ops.suffstats_dense,
+           vb_ops.elbo_data_term, ml_ops.ml_h_dense, ml_ops.ml_w_dense,
+           lambda *a: ml_ops.likelihood(*a, 0.0))
+    for fn in fns:
+        full = fn(x, lw, lh)
+        full = full if isinstance(full, tuple) else (full,)
+        for lanes in ([1], [4], [1, 4]):
+            sel = torch.tensor(lanes, device=dev)
+            part = fn(x, lw[sel], lh[sel])
+            part = part if isinstance(part, tuple) else (part,)
+            for u, v in zip(part, full):
+                assert torch.equal(u, v[sel])
+
+
 # ---------------------------------------------------------------------
 # the mesh's runs rows on one card
 # ---------------------------------------------------------------------

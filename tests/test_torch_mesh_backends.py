@@ -1,7 +1,7 @@
 """The mesh backends ported with ROADMAP A7b against the JAX package's.
 
 ``parallel/sharded.py``'s make_*_sharded functions (make_fused_sharded,
-make_sparse_fused_sharded, make_tile_fused_sharded,
+make_sparse_fused_sharded, make_ell_fused_sharded, make_tile_fused_sharded,
 make_tile_ml_sharded, make_ml_sharded, and the port's
 make_pass2_sharded) run a kernel wrapper on every shard and add the
 partials in shard order; JAX runs the same passes under ``shard_map`` on
@@ -30,11 +30,13 @@ import jax.numpy as jnp
 
 import ccfindr_tpu as cf
 import ccfindr_tpu_torch as ct
+from ccfindr_tpu.ops import ell as jek
 from ccfindr_tpu.ops import sparse as jsk
 from ccfindr_tpu.ops import tile as jtile
 from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
 from ccfindr_tpu.parallel import sharded as jsh
 from ccfindr_tpu_torch.drivers import ml_driver, vb_driver
+from ccfindr_tpu_torch.ops import ell as tek
 from ccfindr_tpu_torch.ops import sparse as tsk
 from ccfindr_tpu_torch.ops import tile as ttile
 from ccfindr_tpu_torch.ops.kernels import vb_kernels as tvbk
@@ -147,6 +149,25 @@ def test_make_sparse_fused_sharded_matches_jax():
         _close(got[0], want, what, scale=sc)
 
 
+def test_make_ell_fused_sharded_matches_jax():
+    """The ELL mesh builder (fused_ell, S1/S2 over each shard's CSR view)
+    against JAX's under shard_map, with overflow tails (quantile 0.5)."""
+    n, m, r = 18, 40, 3
+    csr = sp.csr_matrix(_counts(n, m, 6))
+    lw, lh = _factors(n, m, r, 7)
+    j = jsh.make_ell_fused_sharded(_jax_mesh(4))(
+        jek.from_scipy_ell_sharded(csr, 4, dtype=jnp.float64, quantile=0.5,
+                                   lane=8),
+        jnp.asarray(lw), jnp.asarray(lh))
+    x = tek.from_scipy_ell_sharded(csr, 4, dtype=F64, quantile=0.5, lane=8,
+                                   device="cpu")
+    assert any(s.gtval.numel() for s in x)
+    t = tsh.make_ell_fused_sharded(_cpu_mesh(4))(x, _one(lw), _one(lh))
+    for got, want, what, sc in zip(t, j, ("swn", "shn", "dterm"),
+                                   (None, None, float(csr.sum()) * 10)):
+        _close(got[0], want, what, scale=sc)
+
+
 @pytest.mark.parametrize("do_elbo", [None, 0.0])
 def test_make_tile_fused_sharded_matches_jax(do_elbo):
     n, m, r = 16, 40, 4
@@ -222,8 +243,10 @@ def test_sharded_passes_check_the_layout():
     one = torch.ones(1, 4, 2, dtype=F64), torch.ones(1, 2, 8, dtype=F64)
     with pytest.raises(ValueError, match="mesh has"):
         tsh.make_fused_sharded(_cpu_mesh(4))(x, *one)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tsh.make_ell_fused_sharded(_cpu_mesh(2))
+    ex = tek.from_scipy_ell_sharded(sp.csr_matrix(np.ones((4, 8))), 4,
+                                    dtype=F64, device="cpu")
+    with pytest.raises(ValueError, match="mesh has"):
+        tsh.make_ell_fused_sharded(_cpu_mesh(2))(ex, *one)
 
 
 # ---------------------------------------------------------------------

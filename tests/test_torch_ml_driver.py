@@ -266,20 +266,31 @@ def test_factorize_mesh_matches_jax(small, jax_init):
 @pytest.mark.parametrize("kw,item", [
     (dict(distributed=dict(num_processes=2)), "A7c"),
     (dict(_process_count=2), "A7c"),
-    (dict(backend="sparse", sparse_layout="ell"), "A6"),
+    (dict(backend="sparse", sparse_layout="ell"), "ell"),
 ])
 def test_options_not_ported_raise(small, jax_init, kw, item):
-    """``sparse_layout='ell'`` (ROADMAP A6) raises.  The A7c cases raised
-    until several processes were ported: a ``distributed`` dict whose
+    """Options that raised before their port.  ``sparse_layout='ell'``
+    runs the CSR layout of ``'tile'`` (S1/S2) and returns the JAX
+    driver's ELL result at _assert_same_result's tolerances (JAX's draws
+    handed to the port), and the port's ``'tile'`` run bit for bit.  The
+    A7c cases raised until several processes were ported: a
+    ``distributed`` dict whose
     group cannot form raises, and ``_process_count=2`` splits the
     restarts over two processes (threads standing for them, both
     packages' seams patched alike, JAX's draws handed to the port): each
     process returns the JAX driver's two-process result at
     _assert_same_result's tolerances, and the port's one-process run
     bit for bit."""
-    if item == "A6":
-        with pytest.raises(NotImplementedError, match=item):
-            ct.factorize(small, ranks=[2], verbose=0, device="cpu", **kw)
+    if item == "ell":
+        run = dict(ranks=[2, 3], nrun=3, Itmax=150, seed=2, verbose=0, **kw)
+        got = ct.factorize(small, device="cpu", **run)
+        _assert_same_result(cf.factorize(small, **run), got)
+        tile = ct.factorize(small, device="cpu",
+                            **dict(run, sparse_layout="tile"))
+        pd.testing.assert_frame_equal(got.measure, tile.measure,
+                                      check_exact=True)
+        for u, v in zip(got.basis + got.coeff, tile.basis + tile.coeff):
+            np.testing.assert_array_equal(u, v)
         return
     if "distributed" in kw:
         with pytest.raises(ValueError, match="coordinator_address"):

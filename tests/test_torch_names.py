@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 import jax
 
+from ccfindr_tpu.ops import ell as jek
 from ccfindr_tpu.ops import rsvd as jrsvd
 from ccfindr_tpu.ops import sparse as jsk
 from ccfindr_tpu.ops import tile as jtile
@@ -24,6 +25,7 @@ from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
 from ccfindr_tpu.parallel import mesh as jmesh
 from ccfindr_tpu.parallel import schedule as jsched
 from ccfindr_tpu.parallel import sharded as jsh
+from ccfindr_tpu_torch.ops import ell as tek
 from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.ops import sparse as tsk
 from ccfindr_tpu_torch.ops import tile as ttile
@@ -93,6 +95,15 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jsched.exchange_winner, tsched.exchange_winner),
     (jsched._allgather, tsched._allgather),
     (jmesh.init_distributed, tmesh.init_distributed),
+    (jek.EllCounts, tek.EllCounts),
+    (jek.from_scipy_ell, tek.from_scipy_ell),
+    (jek.from_dense_ell, tek.from_dense_ell),
+    (jek.from_scipy_ell_sharded, tek.from_scipy_ell_sharded),
+    (jek.fused_ell, tek.fused_ell),
+    (jek.make_ell_fused, tek.make_ell_fused),
+    (jek.ell_ml_h, tek.ell_ml_h),
+    (jek.ell_ml_w, tek.ell_ml_w),
+    (jek.make_ell_ml_backend, tek.make_ell_ml_backend),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same

@@ -213,15 +213,19 @@ def test_sparse_mesh_matches_jax(small, jax_init, driver):
 
 @pytest.mark.parametrize("driver", ["vb", "ml"])
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(sparse_layout="ell"), NotImplementedError, "A6"),
+    (dict(sparse_layout="ell", storage_dtype="int16"), ValueError,
+     "storage_dtype"),
     (dict(sparse_layout="csr5"), ValueError, "unknown sparse_layout"),
     (dict(storage_dtype="int8"), ValueError, "storage_dtype"),
 ])
 def test_sparse_option_errors(small, driver, kw, exc, match):
-    fn = ct.vb_factorize if driver == "vb" else ct.factorize
-    with pytest.raises(exc, match=match):
-        fn(small, ranks=[2], verbose=0, device="cpu", backend="sparse",
-           **kw)
+    """Each option raises the JAX driver's error in both packages (the
+    ELL layout, ported, refuses a storage type as the others do)."""
+    for pkg, extra in ((ct, dict(device="cpu")), (cf, {})):
+        fn = pkg.vb_factorize if driver == "vb" else pkg.factorize
+        with pytest.raises(exc, match=match):
+            fn(small, ranks=[2], verbose=0, backend="sparse", **kw,
+               **extra)
 
 
 @pytest.mark.parametrize("kw,exc,match", [

@@ -6,7 +6,9 @@ Each case runs ``python -m ccfindr_tpu_torch.parallel._mh_worker`` alone
 (``--nproc 1``) and as a group whose processes share ``cuda:0``, one of
 them owning a single lane of a larger grid: ranks 8, 12, 16 with nrun 1
 over 2 processes at phase 4's 10x shape (process 1 runs a batch of one
-lane where the single process ran three), for every VB and ML backend;
+lane where the single process ran three), for every VB and ML backend
+(the dense routes too, whose products go in batches of a fixed lane
+count, and ``sparse_layout='ell'``);
 and the bundled data's ranks 4, 5 over 3 processes (two lanes of one,
 one process idle).  Prints, a case a line, whether every process's
 measure table, factors and sweep counts equal the one process's bit for
@@ -28,11 +30,13 @@ from chip_smoke import (bundled_filtered, finish_workers, planted_10x,  # noqa: 
                         same_worker, start_workers)
 
 GRID = dict(ranks="8,12,16", nrun=1, itmax=300)
-CASES = ([("vb", b, "float32") for b in ("pallas", "pallas2pass", "sparse",
-                                         "dense", "dense_fused")]
-         + [("vb", "pallas", "float64")]
-         + [("ml", b, "float32") for b in ("pallas", "sparse", "dense",
-                                           "dense_fused")])
+CASES = ([("vb", b, "float32", {}) for b in ("pallas", "pallas2pass",
+                                             "sparse", "dense",
+                                             "dense_fused")]
+         + [("vb", "sparse", "float32", {"sparse-layout": "ell"}),
+            ("vb", "pallas", "float64", {})]
+         + [("ml", b, "float32", {}) for b in ("pallas", "sparse", "dense",
+                                               "dense_fused")])
 
 
 def main():
@@ -53,9 +57,10 @@ def main():
         np.savez(x10f, x=planted_10x())
         bundf = os.path.join(tmp, "bundled.npz")
         np.savez(bundf, x=bundled_filtered().counts_dense(dtype=np.float64))
-        runs = [(f"{mode} {be} {dt} 10x, 3 lanes over 2 processes", 2,
-                 dict(mode=mode, x=x10f, backend=be, dtype=dt, **GRID))
-                for mode, be, dt in CASES]
+        runs = [(f"{mode} {be}{''.join(f' {v}' for v in ex.values())} "
+                 f"{dt} 10x, 3 lanes over 2 processes", 2,
+                 dict(mode=mode, x=x10f, backend=be, dtype=dt, **ex, **GRID))
+                for mode, be, dt, ex in CASES]
         runs.append(("vb pallas float32 bundled, 2 lanes over 3 processes",
                      3, dict(mode="vb", x=bundf, ranks="4,5", nrun=1,
                              itmax=3000, backend="pallas",
