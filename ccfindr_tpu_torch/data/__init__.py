@@ -1,26 +1,22 @@
-"""Bundled example data: the synthetic PBMC-like 10x trio shipped with
-the reference package ``ccfindr_tpu`` (five planted immune cell types).
+"""Bundled example data (synthetic PBMC-like 10x trio).
 
-The files are not copied: they are located through the import
-machinery's package spec, which finds ``ccfindr_tpu`` without
-executing its ``__init__`` (that would import JAX).
+The reference bundles a real 10x PBMC subsample as its fixture; this
+package bundles a deterministic synthetic analog with five planted
+immune cell types (see :mod:`ccfindr_tpu_torch.data.generate`), so
+tests and examples run without any external data mount.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import os
 
 
 def pbmc_sim_dir() -> str:
-    """Directory of the bundled synthetic PBMC-like 10x trio."""
-    spec = importlib.util.find_spec("ccfindr_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise FileNotFoundError(
-            "the bundled pbmc_sim data ships with the ccfindr_tpu "
-            "package, which is not installed")
-    for loc in spec.submodule_search_locations:
-        d = os.path.join(loc, "data", "pbmc_sim")
-        if os.path.isfile(os.path.join(d, "matrix.mtx")):
-            return d
-    raise FileNotFoundError("ccfindr_tpu/data/pbmc_sim is missing")
+    """Directory of the bundled synthetic PBMC-like 10x trio (written
+    by :func:`~ccfindr_tpu_torch.data.generate.write` if missing)."""
+    d = os.path.join(os.path.dirname(__file__), "pbmc_sim")
+    if not os.path.isdir(d):
+        from .generate import write
+
+        d = write()
+    return d

@@ -41,10 +41,11 @@ from ..ops import consensus as cons
 from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
-from ..utils import Timings, auto_storage_dtype, resolve_device
+from ..utils import Timings, resolve_device
 from ..parallel import schedule, sharded
-from .vb_driver import (_cat_field, _check_sparse_options, _sparse_counts,
-                        chunk_lanes, process_grid)
+from .vb_driver import (_cat_field, _check_sparse_options, _dense_counts,
+                        _sparse_counts, _storage_dtype, chunk_lanes,
+                        process_grid)
 
 
 def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
@@ -318,31 +319,13 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
     if backend == "sparse":
         mat0 = _sparse_counts(obj)        # nothing is densified
     else:
-        mat0 = obj.counts_dense(dtype=np_dtype)
-        if (mat0.sum(axis=1) == 0).any():
-            raise ValueError("Input matrix contains empty rows")
-        if (mat0.sum(axis=0) == 0).any():
-            raise ValueError("Input matrix contains empty columns")
+        mat0, vals = _dense_counts(obj, np_dtype)
     n, m = mat0.shape
 
     # compressed integer X storage (exact; see utils.auto_storage_dtype)
     x_dtype = dtype
-    if backend == "sparse":
-        storage_dtype = None
-    elif isinstance(storage_dtype, str) and storage_dtype == "auto":
-        storage_dtype = auto_storage_dtype(mat0)
-    if storage_dtype is not None:
-        sd = np.dtype(storage_dtype)
-        if sd.kind not in "iu":
-            raise ValueError("storage_dtype must be an integer dtype")
-        if np.any(mat0 != np.round(mat0)):
-            raise ValueError(
-                "storage_dtype requires integer counts (normalized "
-                "matrices are float — factorize raw counts instead)")
-        if float(mat0.max()) > np.iinfo(sd).max:
-            raise ValueError(
-                f"counts up to {mat0.max():.0f} overflow "
-                f"storage_dtype {sd.name}; use a wider type")
+    sd = None if backend == "sparse" else _storage_dtype(vals, storage_dtype)
+    if sd is not None:
         x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
 
     pn = float(gamma_a) - 1.0 if prior else 0.0

@@ -78,6 +78,54 @@ def _sparse_counts(obj):
     return mat
 
 
+def _dense_counts(obj, np_dtype):
+    """The dense layouts' X in ``np_dtype``, with the drivers' empty
+    row/column guards, and the values the storage checks read: X's
+    stored values in ``np_dtype`` (its zeros change none of their
+    answers once no row or column is empty).  Guards and values are
+    taken on the sparse counts, at the cost of X's nonzeros; for counts
+    (nonnegative) they give the dense X's answers, and where a sum could
+    cancel the dense X's sums decide."""
+    import scipy.sparse as sp
+
+    c = obj.counts
+    if not c.has_canonical_format:       # duplicates add, as in the dense X
+        c = c.copy()
+        c.sum_duplicates()
+    c = sp.csr_matrix(c, dtype=np_dtype)
+    mat = _as_counts_matrix(obj, np_dtype)
+    vals = c.data
+    on = mat if vals.size and vals.min() < 0 else c
+    if (np.asarray(on.sum(axis=1)).ravel() == 0).any():
+        raise ValueError("Input matrix contains empty rows")
+    if (np.asarray(on.sum(axis=0)).ravel() == 0).any():
+        raise ValueError("Input matrix contains empty columns")
+    return mat, vals
+
+
+def _storage_dtype(vals, storage_dtype):
+    """The integer dtype X is stored in on the card (None: the factor
+    dtype), from the values :func:`_dense_counts` returns:
+    ``storage_dtype='auto'`` picks one (:func:`auto_storage_dtype`); a
+    given one must be an integer dtype that holds every count."""
+    if isinstance(storage_dtype, str) and storage_dtype == "auto":
+        storage_dtype = auto_storage_dtype(vals)
+    if storage_dtype is None:
+        return None
+    sd = np.dtype(storage_dtype)
+    if sd.kind not in "iu":
+        raise ValueError("storage_dtype must be an integer dtype")
+    if np.any(vals != np.round(vals)):
+        raise ValueError(
+            "storage_dtype requires integer counts (normalized "
+            "matrices are float — factorize raw counts instead)")
+    if float(vals.max()) > np.iinfo(sd).max:
+        raise ValueError(
+            f"counts up to {vals.max():.0f} overflow "
+            f"storage_dtype {sd.name}; use a wider type")
+    return sd
+
+
 def _check_sparse_options(sparse_layout, storage_dtype, layouts):
     if sparse_layout not in layouts:
         raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
@@ -618,11 +666,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         # layout all come from the CSR
         mat = _sparse_counts(obj)
     else:
-        mat = _as_counts_matrix(obj, np_dtype)
-        if (mat.sum(axis=1) == 0).any():
-            raise ValueError("Input matrix contains empty rows")
-        if (mat.sum(axis=0) == 0).any():
-            raise ValueError("Input matrix contains empty columns")
+        mat, vals = _dense_counts(obj, np_dtype)
     n, m = mat.shape
     ranks = [r for r in ranks if r <= m]
     for r in ranks:
@@ -671,24 +715,9 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     # compressed integer X storage (exact; see utils.auto_storage_dtype);
     # validated on 'pallas2pass' too, whose X stays in the factor dtype
     x_dtype = dtype
-    if backend == "sparse":
-        storage_dtype = None
-    elif isinstance(storage_dtype, str) and storage_dtype == "auto":
-        storage_dtype = auto_storage_dtype(mat)
-    if storage_dtype is not None:
-        sd = np.dtype(storage_dtype)
-        if sd.kind not in "iu":
-            raise ValueError("storage_dtype must be an integer dtype")
-        if np.any(mat != np.round(mat)):
-            raise ValueError(
-                "storage_dtype requires integer counts (normalized "
-                "matrices are float — factorize raw counts instead)")
-        if float(mat.max()) > np.iinfo(sd).max:
-            raise ValueError(
-                f"counts up to {mat.max():.0f} overflow "
-                f"storage_dtype {sd.name}; use a wider type")
-        if backend != "pallas2pass":
-            x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
+    sd = None if backend == "sparse" else _storage_dtype(vals, storage_dtype)
+    if sd is not None and backend != "pallas2pass":
+        x_dtype = torch.from_numpy(np.zeros(0, sd)).dtype
 
     run_kwargs = dict(tol=float(Tol), fudge=fudge, hyper_mask=hyper_mask,
                       n0=int(hyper_update_n0), dn=int(hyper_update_dn),

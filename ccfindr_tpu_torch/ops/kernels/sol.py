@@ -66,6 +66,18 @@ CHUNK = (256, 256)
 POST_COLS = 32
 MAX_RP = 128
 
+# K1's partials grow with X and the lane count: at the atlas shape
+# (20,480 x 100,352, 392 cell chunks x 80 gene chunks, rp 24) they take
+# 1.54 GB a lane, 58.6 GB for a batch of 38 lanes, which did not fit
+# beside the carry on an 80 GB card once the allocator had split its
+# cached blocks.  :func:`sol_sweep` launches K1-K3 over consecutive
+# groups of lanes whose partials take at most LANE_GROUP_BYTES
+# (:func:`lane_groups`), then K4 once on all lanes.  A lane's partials
+# depend on CHUNK and POST_COLS alone, never on the lanes beside it, so
+# grouping keeps every lane's bits; the 10x batch (6 lanes, 16.8 MB of
+# partials a lane) is one group.
+LANE_GROUP_BYTES = 16 << 30
+
 # the convergence loop asks the device whether any lane is still
 # running every HOST_CHECK_EVERY sweeps (one device->host sync each);
 # stopped lanes are frozen, so any value gives the same result
@@ -436,6 +448,40 @@ def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
     return scal
 
 
+def lane_part_bytes(np_, mp_, rp_, itemsize):
+    """Bytes of K1's swn and shn partials for one lane of an (np_, mp_)
+    X at padded rank ``rp_``."""
+    gch, cch = CHUNK
+    return (-(-mp_ // cch) * np_ + -(-np_ // gch) * mp_) * rp_ * itemsize
+
+
+def lane_groups(nb, lane_bytes):
+    """Consecutive lane slices, as few as keep each group's partials
+    (``lane_bytes`` a lane) within :data:`LANE_GROUP_BYTES` and of sizes
+    that differ by one at most (a group of one lane where a lane alone
+    exceeds it)."""
+    per = max(1, int(LANE_GROUP_BYTES // max(1, lane_bytes)))
+    ng = -(-nb // per)
+    bounds = [nb * g // ng for g in range(ng + 1)]
+    return [slice(a, b) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def xpass_post(x, lwt, lh, eh, sc, *, n, m_live, m, r, mxu_bf16=False):
+    """K1, then K2 and K3 on its partials, for one group of lanes:
+    (ewt, lwtn, dwt, ehn, lhn, dhn, xlog_part, csum_part, wscal_part,
+    rsum_part, hscal_part), the partials K4 reads."""
+    swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc,
+                                                    mxu_bf16)
+    ewt, lwtn, dwt, csum_part, wscal_part = w_post(swn_part, lwt,
+                                                   ehs_part, sc, r, n)
+    del swn_part
+    ehn, lhn, dhn, rsum_part, hscal_part = h_post(shn_part, lh,
+                                                  csum_part, sc, r, m_live,
+                                                  m)
+    return (ewt, lwtn, dwt, ehn, lhn, dhn, xlog_part, csum_part,
+            wscal_part, rsum_part, hscal_part)
+
+
 def sol_sweep(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
               bn=DEFAULT_BN, bm=DEFAULT_BM, hyper_mask=(True,) * 4,
               newton_niter=100, newton_tol=1e-4, mxu_bf16=False):
@@ -445,7 +491,9 @@ def sol_sweep(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
     ``m_arr`` the state's cell extent (cells past it are padding) and
     ``m_live`` its live cells (those in ``[m_live, m_arr)`` pinned at
     ``fudge``); ``bn``/``bm`` are accepted and unused (the kernels tile
-    X themselves).  Returns (ewt, lwtn, dwt, eh, lhn, dh, scal)."""
+    X themselves).  K1-K3 run over the lane groups of
+    :func:`lane_groups`, K4 once.  Returns (ewt, lwtn, dwt, eh, lhn, dh,
+    scal)."""
     x, lwt, lh, eh, m = x_pad, lwt_p, lh_p, eh_p, m_arr
     _check(x, lwt, lh, eh, sc, n, m, r)
     if x.device.type == "cpu":
@@ -453,18 +501,27 @@ def sol_sweep(x_pad, lwt_p, lh_p, eh_p, sc, *, n, m_arr, m_live, r,
                                m_live=m_live, r=r, hyper_mask=hyper_mask,
                                newton_niter=newton_niter,
                                newton_tol=newton_tol, mxu_bf16=mxu_bf16)
-    swn_part, shn_part, xlog_part, ehs_part = xpass(x, lwt, lh, eh, sc,
-                                                    mxu_bf16)
-    ewt, lwtn, dwt, csum_part, wscal_part = w_post(swn_part, lwt,
-                                                   ehs_part, sc, r, n)
-    ehn, lhn, dhn, rsum_part, hscal_part = h_post(shn_part, lh,
-                                                  csum_part, sc, r, m_live,
-                                                  m)
-    scal = finish(sc, xlog_part, csum_part, wscal_part, rsum_part,
-                  hscal_part, n=n, m=m_live, dt=lwt.dtype,
+    return sweep_kernels(x, lwt, lh, eh, sc, n=n, m_live=m_live, m=m, r=r,
+                         hyper_mask=hyper_mask, newton_niter=newton_niter,
+                         newton_tol=newton_tol, mxu_bf16=mxu_bf16)
+
+
+def sweep_kernels(x, lwt, lh, eh, sc, *, n, m_live, m, r, hyper_mask,
+                  newton_niter, newton_tol, mxu_bf16):
+    """The kernel sweep of :func:`sol_sweep`: :func:`xpass_post` on each
+    lane group of :func:`lane_groups`, the groups' outputs joined on the
+    lane axis, then K4 once on all lanes."""
+    nb, rp_, np_ = lwt.shape
+    groups = lane_groups(nb, lane_part_bytes(np_, x.shape[1], rp_,
+                                             lwt.element_size()))
+    outs = [xpass_post(x, lwt[g], lh[g], eh[g], sc[g], n=n, m_live=m_live,
+                       m=m, r=r, mxu_bf16=mxu_bf16) for g in groups]
+    out = outs[0] if len(outs) == 1 else [torch.cat(t) for t in zip(*outs)]
+    del outs
+    scal = finish(sc, *out[6:], n=n, m=m_live, dt=lwt.dtype,
                   hyper_mask=hyper_mask, newton_niter=newton_niter,
                   newton_tol=newton_tol)
-    return ewt, lwtn, dwt, ehn, lhn, dhn, scal
+    return (*out[:6], scal)
 
 
 # ---------------------------------------------------------------------

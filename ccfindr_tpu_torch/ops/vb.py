@@ -526,8 +526,7 @@ def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
         sparse_in = True
     else:
         sparse_in = sp.issparse(x)
-        x = (sp.csr_matrix(x).astype(np.float64) if sparse_in
-             else np.asarray(x, dtype=np.float64))
+        x = sp.csr_matrix(x).astype(np.float64) if sparse_in else np.asarray(x)
         n, m = x.shape
     if method == "auto":
         method = ("randomized" if min(n, m) > 4096
@@ -541,23 +540,30 @@ def vb_init_svd(x, rank, hyper: Hyper, variant: str = "svd2",
         elif sparse_in:
             x = from_scipy(x, dtype=dtype, device=device)
         else:
-            x = torch.as_tensor(x, dtype=dtype, device=device)
+            # X's own values to the device, converted there: the values
+            # of a float64 copy on the host, without its 8 bytes an
+            # element (16 GB at the atlas shape, made again a rank)
+            x = torch.as_tensor(np.ascontiguousarray(x),
+                                device=device).to(dtype)
         u, s, vt = (t.cpu().numpy().astype(np.float64)
                     for t in rsvd.randomized_svd(x, rank, seed=seed))
     elif method != "exact":
         raise ValueError(f"unknown svd method {method!r}")
-    elif min(n, m) / 2 > rank:
-        import scipy.sparse.linalg as spla
-
-        # seeded start vector: svds defaults to a RANDOM v0
-        v0 = np.random.default_rng(seed).standard_normal(min(n, m))
-        u, s, vt = spla.svds(x, k=rank, v0=v0)
-        order = np.argsort(-s)
-        u, s, vt = u[:, order], s[order], vt[order]
     else:
-        xd = x.toarray() if sparse_in else x
-        u, s, vt = np.linalg.svd(xd, full_matrices=False)
-        u, s, vt = u[:, :rank], s[:rank], vt[:rank]
+        if not sparse_in:
+            x = np.asarray(x, dtype=np.float64)
+        if min(n, m) / 2 > rank:
+            import scipy.sparse.linalg as spla
+
+            # seeded start vector: svds defaults to a RANDOM v0
+            v0 = np.random.default_rng(seed).standard_normal(min(n, m))
+            u, s, vt = spla.svds(x, k=rank, v0=v0)
+            order = np.argsort(-s)
+            u, s, vt = u[:, order], s[order], vt[order]
+        else:
+            xd = x.toarray() if sparse_in else x
+            u, s, vt = np.linalg.svd(xd, full_matrices=False)
+            u, s, vt = u[:, :rank], s[:rank], vt[:rank]
 
     if variant == "svd":
         w = np.zeros((n, rank))

@@ -147,17 +147,18 @@ def auto_storage_dtype(mat):
     fits, else ``None`` (normalized/float matrices and counts beyond
     int16 keep the full-precision stream).
 
-    The integrality scan runs in bounded chunks so the atlas-scale
-    matrix (2e9 elements) never allocates a full-size temporary.
+    The integrality scan runs in bounded chunks of the flattened array
+    so the atlas-scale matrix (2e9 elements) never allocates a
+    full-size temporary.
     """
     if mat.size == 0:
         return None
     mx = float(mat.max())
     if mx > _np.iinfo(_np.int16).max or float(mat.min()) < 0:
         return None
-    rows = max(1, (1 << 24) // max(1, int(mat.shape[-1])))
-    for i0 in range(0, mat.shape[0], rows):
-        blk = mat[i0:i0 + rows]
+    flat = _np.ravel(mat)
+    for i0 in range(0, flat.size, 1 << 24):
+        blk = flat[i0:i0 + (1 << 24)]
         if not _np.array_equal(blk, _np.round(blk)):
             return None
     return _np.int8 if mx <= _np.iinfo(_np.int8).max else _np.int16

@@ -36,8 +36,9 @@ Phases (each prints its result and seconds):
    be 5 for seed 0 (seeds 1 and 2 printed);
 4. VB at 10x scale: vb_factorize on the 4096 x 8192 planted matrix
    (int8), ranks [8, 12, 16], nrun 2, Itmax 300: wall time and
-   lane-sweeps per second (CUDA events, synchronised), the same loop on
-   the plain version beside it, per-kernel times, and the peak device
+   lane-sweeps per second (CUDA events, synchronised), the loop alone
+   (vb_run_sol, Itmax 100) on the kernels and on the plain version in
+   turns, per-kernel times, and the peak device
    memory; the same scan with ``precision='bf16'`` beside it; K1's
    TFLOP/s of dense work at its chunks (sol.CHUNK) and its ptxas
    registers and spills (float32 factors, int8 X); K2's, K3's and K4's
@@ -173,7 +174,7 @@ Phases (each prints its result and seconds):
    S2 on its (phase 8's skewed CSC) at the float32 tolerances; the
    bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
    1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
-   the 10x sparse VB scan in bf16 beside float32;
+   the 10x sparse VB scan in bf16 beside float32 (Itmax 100);
 16. checkpoint and compaction: the bundled VB scan on backend='pallas'
    and on backend='sparse', and the bundled factorize(ranks [4, 5, 6],
    nrun 4, Itmax 400, Tol 1e-4, backend='pallas'), each interrupted
@@ -285,6 +286,34 @@ Phases (each prints its result and seconds):
    suffstats_dense, elbo_data_term, ml_h_dense, ml_w_dense, likelihood;
    their products by utils.lane_matmul) at 10x, 6 lanes, r 16: lanes 1
    and 4 alone and as a pair give the batch's bits.
+22. the atlas workflow's scan at full width (examples/atlas_demo_torch.py's
+   simulate_atlas, 20,480 x 100,352 int8, no QC): (a) vb_factorize(ranks
+   2..20, nrun 2 = 38 lanes of rp 24, Itmax 4, Tol 0, backend='pallas')
+   with every count set to 0 just before: its wall, set-up, loop, ms a
+   sweep and peak device memory beside the card; gated on every lane's
+   lml finite (the lanes as vb_run_sol returns them), no lane's hyper
+   update failed, all 19 ranks in the measure table, K1-K3 launched
+   once a lane group a sweep (sol.lane_groups: 58.6 GB of K1 partials
+   a sweep in groups of at most sol.LANE_GROUP_BYTES) and K4 once a
+   sweep; (b) initializer='svd2' (the randomized SVD start on the dense
+   X), ranks 8..20 (ATLAS_LONE_RANKS: a start a rank), nrun 1, Itmax 3:
+   its last lane (rank 20, lane 12, in the second of two lane groups)
+   equal to rank 20 run alone bit for bit (lml, basis, coeff, sweeps);
+   (c) K1-K4 against their plain versions at phase 2's float32
+   tolerances on a window of ATLAS_WINDOW cells at the full gene width
+   (38 lanes, rp 24), K1 also partial by partial; K1-K3 on 19 lanes of
+   the full shape in one launch, whose last lane's partials start past
+   element 2**31, against that lane alone bit for bit, and that lane's
+   K1 partials (392 cell and 80 gene chunks), K2 and K3 against their
+   plain versions at the full shape; then each kernel timed at the full
+   shape as the main path launches it (K1-K3 on a lane group, K4 on all
+   38 lanes in a CUDA graph) with its bound, K2/K3/K4 beside their
+   partials' bytes, and K2/K3 of that group (392 and 80 partials an
+   entry) and K4 on all 38 lanes against their plain versions on the
+   same partials at phase 2's float32 tolerances: the kernels line
+   gains the four `*_atlas` rows (ms and bound at the full shape,
+   launches from (a), plain_ms and window_ms on the window, max_abs_err
+   the larger of the window's and the full shape's);
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -359,7 +388,7 @@ POST_PTXAS = ("post_kernel float", "post_kernel double",
               "finish_kernel float", "finish_kernel double")
 # the kernels timed from a CUDA graph of their launches (Smoke.time_kernel)
 GRAPH_TIMED = ("w_post", "h_post", "epi_h_post", "w_post_mesh",
-               "h_post_shard", "finish", "finish_mesh")
+               "h_post_shard", "finish", "finish_mesh", "finish_atlas")
 # the ranks on both sides of S1's dispatch by r (a thread a nonzero up
 # to 32, the group walk above) and of P2's rank slabs (32)
 R_CASES = (1, 17, 32, 33, 128)
@@ -433,6 +462,18 @@ INSTR_RATE = FP32_FLOPS / 2
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 ATLAS = (20480, 100352, 20, 0.02)   # bench.py:696 shape, bench.py:330 density
+# phase 22: the atlas workflow's scan at full width (the port's
+# simulate_atlas, 20,480 x 100,352 int8, ranks 2..20 x 2 restarts = 38
+# lanes of rp 24), the last lane against itself alone, K1-K4 at the shape
+ATLAS_DEMO = "examples/atlas_demo_torch.py"
+ATLAS_RANKS = tuple(range(2, 21))
+ATLAS_ITMAX = 4          # (a)'s sweeps at Tol 0 (the demo runs up to 300)
+ATLAS_LONE_ITMAX = 3     # (b)'s
+# (b)'s ranks: each takes its own randomized SVD start over the dense X
+# (~1.2 s a rank on the card, PR 16), so (b) scans 8..20, whose last
+# lane (index 12) still sits in the second of two lane groups
+ATLAS_LONE_RANKS = tuple(range(8, 21))
+ATLAS_WINDOW = 2048      # (c)'s cells, where the plain sweep fits the card
 MARKERS = {                      # tests/test_integration_workflow.py:81-87
     "B cell": ["CD74", "IG", "HLA", "MS4A1", "CD79A"],
     "CD8+ T": ["CD8A", "CD8B", "GZMK", "CCR7", "LTB"],
@@ -1059,6 +1100,75 @@ def compare_k1(args, dt, bf16):
           and all(g.shape == w.shape for g, w in zip(got, want))
           and all(bool(torch.isfinite(g).all()) for g in got))
     return dict(ok=ok, part=part, xlog=xlog, ehs=ehs)
+
+
+def hold_k1(got, x, lwt, lh, eh, sc):
+    """K1's partials ``got`` (one lane or a few) against
+    ``sol.xpass_partials_plain`` on the same inputs, partial by partial,
+    as :func:`compare_k1` holds them: (ok, swn/shn relative error, the
+    per-element x*log(wth) error, the ehs error, the largest absolute
+    error of the swn/shn partials)."""
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    want = sol.xpass_partials_plain(x, lwt, lh, eh, sc)
+    part = max(rel_err(g, w) for g, w in zip(got[:2], want[:2]))
+    xlog = float((got[2] - want[2]).abs().max()) / (x.shape[0] * x.shape[1])
+    ehs = rel_err(got[3], want[3])
+    ab = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    ok = (part <= F32_FACTOR_TOL and xlog <= F32_ELBO_TOL and ehs <= 1e-12
+          and all(g.shape == w.shape for g, w in zip(got, want)))
+    return ok, part, xlog, ehs, ab
+
+
+def hold_post(got, sfx_part, lf, denom_part, sc, ab, r, ncol, nm):
+    """K2 (``ab`` 0) or K3 (``ab`` 2) outputs ``got`` against post_plain
+    on the same partials, which it adds in float64 as the kernel does (a
+    lane at a time, so that no float64 copy of all lanes' partials is
+    formed): e, ln, d and the rank sums at phase 2's factor tolerance,
+    the four scalar sums per element of X (``nm``) at its ELBO
+    tolerance.  Returns (ok, factor error, rank-sum error, scalar error,
+    largest absolute error of e, ln, d)."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    dt = lf.dtype
+    sfx = torch.stack([p.sum(0, dtype=torch.float64)
+                       for p in sfx_part]).to(dt)
+    a = [sc[:, q].to(dt) for q in range(6)]
+    want = sol.post_plain(sfx, lf, denom_part.sum(1), a[ab], a[ab + 1],
+                          a[4], a[5], r, ncol)
+    fac = max(rel_err(g, w) for g, w in zip(got[:3], want[:3]))
+    rs = rel_err(got[3].sum(1), want[3])
+    scal = float((got[4].sum(1) - want[4]).abs().max()) / nm
+    absd = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+    ok = (fac <= F32_FACTOR_TOL and rs <= F32_FACTOR_TOL
+          and scal <= F32_ELBO_TOL
+          and all(bool(torch.isfinite(t).all()) for t in got))
+    return ok, fac, rs, scal, absd
+
+
+def hold_finish(k4, sc, parts, n, m, dt):
+    """K4's ``k4`` against finish_plain on the summed partials, as
+    :func:`compare_finish_masks` holds it (every hyper updated, niter
+    100): (ok, hyper error, per-element ELBO error, largest absolute
+    error of the hypers and the per-element ELBO)."""
+    import torch
+
+    from ccfindr_tpu_torch.ops.kernels import sol
+
+    want = sol.finish_plain(sc, *(p.sum(1) for p in parts), n, m, dt,
+                            (True,) * 4, 100, 1e-4)
+    hyp = [sol.AW, sol.BW, sol.AH, sol.BH]
+    err = rel_err(k4[:, hyp], want[:, hyp])
+    ge = (k4[:, sol.PEND] + k4[:, sol.DTERM]) / (n * m)
+    we = (want[:, sol.PEND] + want[:, sol.DTERM]) / (n * m)
+    elbo = rel_err(ge, we)
+    ab = max(float((k4[:, hyp] - want[:, hyp]).abs().max()),
+             float((ge - we).abs().max()))
+    ok = (err <= F32_FACTOR_TOL and elbo <= F32_ELBO_TOL
+          and torch.equal(k4[:, sol.HFAIL], want[:, sol.HFAIL]))
+    return ok, err, elbo, ab
 
 
 def epi_inputs(x_np, ranks, r, dt, xdt, seed, dev):
@@ -1739,6 +1849,9 @@ class Smoke:
                                      route="cuda", source=SP_SOURCE,
                                      replaces=rep)
                              for k, rep in ELL_SITES.items()})
+        self.kernels.update({f"{k}_atlas": dict(
+            name=f"sol_{k} at the atlas shape", route="cuda", source=SOURCE,
+            replaces=REPLACES) for k in KERNELS})
         for k, what in TAILS.items():
             self.kernels[k]["tail"] = (f"its last block of a lane adds "
                                        f"{what} (M3 folded in)")
@@ -2048,7 +2161,7 @@ class Smoke:
             fn = sol.sol_sweep_plain if which == "plain" else None
             torch.cuda.synchronize()
             start.record()
-            out = sol.vb_run_sol(x, st, hy, itmax=itmax, rank_mask=rmask,
+            out = sol.vb_run_sol(x, st, hy, itmax=100, rank_mask=rmask,
                                  r_true=rtrue, sweep_fn=fn)
             end.record()
             end.synchronize()
@@ -3360,7 +3473,7 @@ class Smoke:
                     spk.LAUNCHES.values()) > 0
 
         # the 10x sparse VB scan, bf16 beside float32
-        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=300, device="cuda",
+        kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=100, device="cuda",
                     verbose=0, seed=0, backend="sparse")
         for prec in ("bf16", "f32"):
             torch.cuda.synchronize()
@@ -4732,6 +4845,346 @@ class Smoke:
         return ok
 
 
+    # -- 22 -----------------------------------------------------------
+    def atlas_workflow(self):
+        import importlib.util
+        import os
+
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import sol
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            ATLAS_DEMO)
+        spec = importlib.util.spec_from_file_location("atlas_demo_torch",
+                                                      path)
+        demo = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(demo)
+        t0 = time.perf_counter()
+        x_np, _ = demo.simulate_atlas(base_cells=2048)
+        n, m = x_np.shape
+        print(f"  atlas X {n} x {m} int8 ({x_np.nbytes / 1e9:.3f} GB), "
+              f"built on the host in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        s = ct.SCSet(count=x_np, remove_zeros=False)   # once, for (a), (b)
+        print(f"  SCSet: {s.counts.nnz} nonzeros ({s.counts.nnz / (n * m):.4f}"
+              f" of X) in {time.perf_counter() - t0:.1f} s", flush=True)
+        ranks = list(ATLAS_RANKS)
+        lane_ranks = [r for r in ranks for _ in range(2)]
+        nb, r = len(lane_ranks), max(ranks)
+        rp = sol.round_up(r, 8)
+        gch, cch = sol.CHUNK
+        ncc, ngc = -(-m // cch), -(-n // gch)
+        part_gb = nb * rp * (ncc * n + ngc * m) * 4 / 1e9
+        ngroups = len(sol.lane_groups(nb, sol.lane_part_bytes(n, m, rp, 4)))
+        print(f"  {nb} lanes of rp {rp}: K1's partials {ncc} cell chunks x "
+              f"{ngc} gene chunks, {part_gb:.1f} GB a sweep, launched in "
+              f"{ngroups} lane groups of at most "
+              f"{sol.LANE_GROUP_BYTES / 2 ** 30:g} GiB", flush=True)
+
+        # (a) the full batch through vb_factorize, its lanes observed as
+        # vb_run_sol returns them (every count set to 0 just before)
+        lanes = []
+        orig = sol.vb_run_sol
+
+        def observed(*a, **k):
+            out = orig(*a, **k)
+            lanes.append((out.lml.cpu(), out.hyper_failed.cpu()))
+            return out
+
+        kw = dict(Tol=0, backend="pallas", device="cuda", verbose=0, seed=0)
+        sol.vb_run_sol = observed
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            sol.reset_launches()
+            t0 = time.perf_counter()
+            f = ct.vb_factorize(s, ranks=ranks, nrun=2, Itmax=ATLAS_ITMAX,
+                                **kw)
+            wall = time.perf_counter() - t0
+            launches = dict(sol.LAUNCHES)
+        finally:
+            sol.vb_run_sol = orig
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec = f.metadata["timings"][0]
+        sweeps = rec["lane_sweeps_executed"] // nb
+        lml, hfail = lanes[0]
+        print(f"  (a) vb_factorize ranks 2..{r} x 2 = {nb} lanes, Itmax "
+              f"{ATLAS_ITMAX}, Tol 0: wall {wall:.3f} s, set-up and "
+              f"selection {wall - rec['seconds']:.3f} s, loop "
+              f"{rec['seconds']:.3f} s, {sweeps} sweeps -> "
+              f"{rec['seconds'] / sweeps * 1e3:.1f} ms a sweep, "
+              f"{rec['lane_sweeps_executed'] / rec['seconds']:.2f} "
+              f"lane-sweeps/s; peak device memory {peak:.2f} GiB; launches "
+              f"{launches}; lanes' lml finite "
+              f"{bool(torch.isfinite(lml).all())}, hyper failed "
+              f"{int(hfail.sum())}; {self.smi}", flush=True)
+        ok_a = (len(lanes) == 1 and lml.numel() == nb
+                and bool(torch.isfinite(lml).all()) and not bool(hfail.any())
+                and list(f.measure["rank"]) == ranks
+                and bool(np.isfinite(f.measure["lml"]).all())
+                and launches["finish"] == sweeps > 0
+                and all(launches[k] == ngroups * sweeps
+                        for k in ("xpass", "w_post", "h_post")))
+        del f
+        torch.cuda.empty_cache()
+
+        # (b) the last lane of an svd2 scan (seeded by rank), launched in
+        # a lane group, against its rank alone, bit for bit
+        kb = dict(kw, nrun=1, initializer="svd2", Itmax=ATLAS_LONE_ITMAX)
+        lone = list(ATLAS_LONE_RANKS)
+        t0 = time.perf_counter()
+        fb = ct.vb_factorize(s, ranks=lone, **kb)
+        tb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fl = ct.vb_factorize(s, ranks=[r], **kb)
+        tl = time.perf_counter() - t0
+        k = fb.ranks.index(r) if r in fb.ranks else None
+        same = k is not None and (
+            fb.measure["lml"].iloc[k] == fl.measure["lml"].iloc[0]
+            and np.array_equal(fb.basis[k], fl.basis[0])
+            and np.array_equal(fb.coeff[k], fl.coeff[0])
+            and fb.metadata["timings"][0]["n_iter"][k]
+            == fl.metadata["timings"][0]["n_iter"][0])
+        print(f"  (b) svd2 scan ranks {lone[0]}..{r} ({len(lone)} lanes, "
+              f"lane groups "
+              f"{sol.lane_groups(len(lone), sol.lane_part_bytes(n, m, rp, 4))}"
+              f") {tb:.1f} s (loop {fb.metadata['timings'][0]['seconds']:.3f}"
+              f" s), rank {r} alone {tl:.1f} s (loop "
+              f"{fl.metadata['timings'][0]['seconds']:.3f} s): lane "
+              f"{len(lone) - 1} equal to the lone lane bit for bit: "
+              f"{same}; lml {fb.measure['lml'].iloc[-1]!r} vs "
+              f"{fl.measure['lml'].iloc[0]!r}", flush=True)
+        ok_b = same
+        del fb, fl
+        torch.cuda.empty_cache()
+
+        # (c) K1-K4 against their plain versions on a window of cells at
+        # the full gene width (38 lanes, rp 24), then each kernel timed at
+        # the full shape with its bound
+        tc = time.perf_counter()
+        args = sweep_inputs(np.ascontiguousarray(x_np[:, :ATLAS_WINDOW]),
+                            lane_ranks, r, torch.float32, torch.int8, 1.0, 22,
+                            dev)
+        res = compare_sweep(args, torch.float32)
+        k1c = compare_k1(args, torch.float32, False)
+        worst = max(res["err"].items(), key=lambda kv: kv[1])
+        print(f"  (c) K1-K4 vs plain on {n} x {ATLAS_WINDOW} ({nb} lanes, rp "
+              f"{rp}, float32): {'ok' if res['ok'] else 'MISMATCH'} worst "
+              f"{worst[0]}={worst[1]:.3g} elbo={res['err']['elbo']:.3g}; K1 "
+              f"partial by partial {'ok' if k1c['ok'] else 'MISMATCH'} "
+              f"({k1c['part']:.3g}, xlog {k1c['xlog']:.3g}, ehs "
+              f"{k1c['ehs']:.3g}) [{time.perf_counter() - tc:.1f} s]",
+              flush=True)
+        if not res["ok"]:
+            print(f"    errors: {res['err']}", flush=True)
+        ok_c = res["ok"] and k1c["ok"]
+        xw, lwt, lh, eh, sc, wkw = args
+        dt = torch.float32
+        a = [sc[:, q].to(dt) for q in range(6)]
+        fin = dict(n=n, m=ATLAS_WINDOW, dt=dt, hyper_mask=(True,) * 4,
+                   newton_niter=100, newton_tol=1e-4)
+        w1 = sol.xpass(xw, lwt, lh, eh, sc)
+        w2 = sol.w_post(w1[0], lwt, w1[3], sc, r, n)
+        w3 = sol.h_post(w1[1], lh, w2[3], sc, r, ATLAS_WINDOW)
+        p1 = sol.xpass_plain(xw, lwt, lh, eh, sc)
+        p2 = sol.post_plain(p1[0], lwt, p1[3], a[0], a[1], a[4], a[5], r, n)
+        p3 = sol.post_plain(p1[1], lh, p2[3], a[2], a[3], a[4], a[5], r,
+                            ATLAS_WINDOW)
+        window = {
+            "xpass": (lambda: sol.xpass(xw, lwt, lh, eh, sc),
+                      lambda: sol.xpass_plain(xw, lwt, lh, eh, sc)),
+            "w_post": (lambda: sol.w_post(w1[0], lwt, w1[3], sc, r, n),
+                       lambda: sol.post_plain(p1[0], lwt, p1[3], a[0], a[1],
+                                              a[4], a[5], r, n)),
+            "h_post": (lambda: sol.h_post(w1[1], lh, w2[3], sc, r,
+                                          ATLAS_WINDOW),
+                       lambda: sol.post_plain(p1[1], lh, p2[3], a[2], a[3],
+                                              a[4], a[5], r, ATLAS_WINDOW)),
+            "finish": (lambda: sol.finish(sc, w1[2], w2[3], w2[4], w3[3],
+                                          w3[4], **fin),
+                       lambda: sol.finish_plain(sc, p1[2], p2[3], p2[4],
+                                                p3[3], p3[4], n, ATLAS_WINDOW,
+                                                dt, (True,) * 4, 100, 1e-4)),
+        }
+        for key, (kern, plain) in window.items():
+            kd = self.kernels[f"{key}_atlas"]
+            kd.update(launches=launches[key],
+                      max_abs_err=res["abs_err"][key],
+                      plain_ms=cuda_ms(plain, 2),
+                      window_ms=(kernel_ms(kern) if key == "finish"
+                                 else cuda_ms(kern, 3)),
+                      plain_shape=f"{n} x {ATLAS_WINDOW}, {nb} lanes")
+        del args, xw, lwt, lh, eh, sc, w1, w2, w3, p1, p2, p3, window
+        torch.cuda.empty_cache()
+
+        # the full shape: X on the card, factors drawn there
+        x = torch.as_tensor(x_np, device=dev)
+        nnz = int(torch.count_nonzero(x))
+        gen = torch.Generator(device=dev).manual_seed(22)
+        fudge = float(torch.finfo(dt).eps)
+        rows = torch.arange(rp, device=dev)[None, :, None]
+        live = rows < torch.as_tensor(lane_ranks, device=dev)[:, None, None]
+
+        def factor(cols):
+            v = torch.rand(nb, rp, cols, generator=gen, device=dev) + 0.5
+            return torch.where(live, v, torch.where(rows < r, fudge, 0.0))
+
+        lwt, lh = factor(n), factor(m)
+        eh = lh * (0.8 + 0.4 * torch.rand(lh.shape, generator=gen,
+                                          device=dev))
+        sc = torch.zeros(nb, 8, dtype=torch.float64, device=dev)
+        sc[:, :4] = 0.5 + torch.rand(nb, 4, generator=gen, device=dev,
+                                     dtype=torch.float64)
+        sc[:, 4] = fudge
+        sc[:, 5] = torch.as_tensor(lane_ranks, dtype=torch.float64)
+        sc[:, 7] = 1.0
+
+        # offsets past 2**31 elements: K1-K3 on the last len(ranks) lanes
+        # in one launch (beyond the group budget, so called directly):
+        # the last lane, whose partials start past element 2**31, against
+        # that lane launched alone, bit for bit
+        tail, last = slice(nb - len(ranks), nb), slice(nb - 1, nb)
+        got, alone = [], []
+        for sl, keep in ((tail, got), (last, alone)):
+            p = sol.xpass(x, lwt[sl], lh[sl], eh[sl], sc[sl])
+            pw = sol.w_post(p[0], lwt[sl], p[3], sc[sl], r, n)
+            ph = sol.h_post(p[1], lh[sl], pw[3], sc[sl], r, m)
+            keep.extend(t[-1:].clone() for t in (*p, *pw, *ph))
+            del p, pw, ph
+            torch.cuda.empty_cache()
+        start = (len(ranks) - 1) * ncc * rp * n
+        same = all(torch.equal(u, v) for u, v in zip(got, alone))
+        del alone
+        torch.cuda.empty_cache()
+        tl = time.perf_counter() - tc
+        # that lane's K1 partials, K2 and K3 against their plain versions
+        # at the full shape (its 392 swn and 80 shn partials)
+        held = {}
+        gl = (x, lwt[last], lh[last], eh[last], sc[last])
+        ok1, part, xlog, ehs, held["xpass"] = hold_k1(got[:4], *gl)
+        ok2, f2, rs2, s2, held["w_post"] = hold_post(
+            got[4:9], got[0], gl[1], got[3], gl[4], 0, r, n, n * m)
+        ok3, f3, rs3, s3, held["h_post"] = hold_post(
+            got[9:], got[1], gl[2], got[7], gl[4], 2, r, m, n * m)
+        print(f"  K1-K3 on {len(ranks)} lanes in one launch "
+              f"({part_gb * len(ranks) / nb:.1f} GB of partials): the last "
+              f"lane (its swn partials from element {start}, its shn from "
+              f"{(len(ranks) - 1) * ngc * rp * m}; 2**31 = {2 ** 31}) equal "
+              f"to the lane alone bit for bit: {same}; against plain at "
+              f"{n} x {m}: K1 partial by partial {'ok' if ok1 else 'MISMATCH'}"
+              f" ({part:.3g}, xlog {xlog:.3g}, ehs {ehs:.3g}), K2 "
+              f"{'ok' if ok2 else 'MISMATCH'} (e/ln/d {f2:.3g}, rank sums "
+              f"{rs2:.3g}, scalars {s2:.3g}), K3 {'ok' if ok3 else 'MISMATCH'}"
+              f" (e/ln/d {f3:.3g}, rank sums {rs3:.3g}, scalars {s3:.3g}) "
+              f"[the launches {tl:.1f} s, the plain versions "
+              f"{time.perf_counter() - tc - tl:.1f} s]", flush=True)
+        ok_c = ok_c and same and start > 2 ** 31 and ok1 and ok2 and ok3
+        del got, gl
+        torch.cuda.empty_cache()
+
+        # each kernel timed as the main path launches it: K1-K3 a lane
+        # group (sol.lane_groups, the first), K4 once on all 38 lanes
+        tc = time.perf_counter()
+        groups = sol.lane_groups(nb, sol.lane_part_bytes(n, m, rp, 4))
+        outs = [sol.xpass_post(x, lwt[g], lh[g], eh[g], sc[g], n=n,
+                               m_live=m, m=m, r=r)[6:] for g in groups]
+        k4in = [torch.cat(t) for t in zip(*outs)]
+        del outs
+        torch.cuda.empty_cache()
+        fkw = dict(fin, m=m)
+        k4 = sol.finish(sc, *k4in, **fkw)
+        self.time_kernel("finish_atlas", lambda: sol.finish(sc, *k4in, **fkw),
+                         20)
+        g0 = groups[0]
+        nb0 = g0.stop - g0.start
+        gx = (x, lwt[g0], lh[g0], eh[g0], sc[g0])
+        kx = self.kernels["xpass_atlas"]
+        kx["ms"] = cuda_ms(lambda: sol.xpass(*gx), 2)
+        k1 = sol.xpass(*gx)
+        k2 = sol.w_post(k1[0], gx[1], k1[3], gx[4], r, n)
+        k3 = sol.h_post(k1[1], gx[2], k2[3], gx[4], r, m)
+        self.kernels["w_post_atlas"]["ms"] = cuda_ms(
+            lambda: sol.w_post(k1[0], gx[1], k1[3], gx[4], r, n), 3)
+        self.kernels["h_post_atlas"]["ms"] = cuda_ms(
+            lambda: sol.h_post(k1[1], gx[2], k2[3], gx[4], r, m), 3)
+        # bounds: the function's bytes (each input read once, the reduced
+        # outputs written once) and the operations this run's data needs:
+        # K1's products at X's nonzeros, 6 flops a live rank a lane
+        f4, f8 = 4, 8
+        swnt_b, shn_b = nb0 * rp * n * f4, nb0 * rp * m * f4
+        self.set_bound("xpass_atlas",
+                       nbytes(*gx) + swnt_b + shn_b + nb0 * f8
+                       + nb0 * rp * f8,
+                       6 * nnz * sum(lane_ranks[g0]))
+        a0 = [gx[4][:, q].to(dt) for q in range(6)]
+        sfx = k1[0].sum(1)
+        self.set_bound("w_post_atlas",
+                       swnt_b + nbytes(gx[1], gx[4]) + nb0 * rp * f8
+                       + 3 * swnt_b + nb0 * (rp + 4) * f8,
+                       self.post_need(sfx, gx[1], a0[0], a0[5], n, 1),
+                       peak=INSTR_RATE)
+        sfx = k1[1].sum(1)
+        self.set_bound("h_post_atlas",
+                       shn_b + nbytes(gx[2], gx[4]) + nb0 * rp * f8
+                       + 3 * shn_b + nb0 * (rp + 4) * f8,
+                       self.post_need(sfx, gx[2], a0[2], a0[5], m, 1),
+                       peak=INSTR_RATE)
+        del sfx
+        self.set_bound("finish_atlas", nbytes(sc, k4) + nb * (1 + 2 * rp + 8)
+                       * f8, 0)
+        self.post_floor("w_post_atlas", k1[0], gx[1], k1[3], gx[4], k2)
+        self.post_floor("h_post_atlas", k1[1], gx[2], k2[3], gx[4], k3)
+        self.post_floor("finish_atlas", sc, *k4in, k4)
+        # K2 and K3 of the first group (392 and 80 partials an entry) and
+        # K4 on all lanes (the 4 groups' partials) against their plain
+        # versions on the same partials at the full shape
+        tl = time.perf_counter() - tc
+        ok2, f2, rs2, s2, ab2 = hold_post(k2, k1[0], gx[1], k1[3], gx[4], 0,
+                                          r, n, n * m)
+        ok3, f3, rs3, s3, ab3 = hold_post(k3, k1[1], gx[2], k2[3], gx[4], 2,
+                                          r, m, n * m)
+        ok4, e4, el4, ab4 = hold_finish(k4, sc, k4in, n, m, dt)
+        held["w_post"] = max(held["w_post"], ab2)
+        held["h_post"] = max(held["h_post"], ab3)
+        held["finish"] = ab4
+        print(f"  against plain at {n} x {m} on the same partials: K2 on "
+              f"{nb0} lanes {'ok' if ok2 else 'MISMATCH'} (e/ln/d {f2:.3g}, "
+              f"rank sums {rs2:.3g}, scalars {s2:.3g}), K3 on {nb0} lanes "
+              f"{'ok' if ok3 else 'MISMATCH'} (e/ln/d {f3:.3g}, rank sums "
+              f"{rs3:.3g}, scalars {s3:.3g}), K4 on {nb} lanes "
+              f"{'ok' if ok4 else 'MISMATCH'} (hypers {e4:.3g}, elbo "
+              f"{el4:.3g}) [the timing {tl:.1f} s, the plain versions "
+              f"{time.perf_counter() - tc - tl:.1f} s]", flush=True)
+        ok_c = ok_c and ok2 and ok3 and ok4
+        dense = 6 * rp * n * m * nb0
+        for key in KERNELS:
+            kd = self.kernels[f"{key}_atlas"]
+            kd["shape"] = (f"{n} x {m} int8, rp {rp}, "
+                           f"{nb if key == 'finish' else nb0} lanes a launch "
+                           f"({len(groups)} groups of {nb})")
+            kd["full_max_abs_err"] = held[key]
+            kd["max_abs_err"] = max(kd["max_abs_err"], held[key])
+            print(f"  {kd['name']}: {kd['ms']:.4f} ms a launch ({kd['shape']}"
+                  f"; {kd['launches']} launches in (a)'s {sweeps} sweeps); "
+                  f"bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}); on the "
+                  f"{ATLAS_WINDOW}-cell window (all {nb} lanes) "
+                  f"{kd['window_ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms; "
+                  f"max abs err {kd['max_abs_err']:.3g} (at the full shape "
+                  f"{held[key]:.3g})", flush=True)
+        print(f"  K1 at the atlas shape: {dense / kx['ms'] / 1e9:.2f} TFLOP/s"
+              f" of dense work ({dense / 1e12:.2f} TFLOP a launch of {nb0} "
+              f"lanes, X {nnz} nonzeros); {self.smi}", flush=True)
+        del x, lwt, lh, eh, sc, k1, k2, k3, k4, k4in, gx
+        torch.cuda.empty_cache()
+        print(f"  gates: (a) {ok_a}, (b) {ok_b}, (c) {ok_c}", flush=True)
+        return ok_a and ok_b and ok_c
+
+
 MP_TIMEOUT = 300             # seconds a group of phase 20's workers may take
 MP_RESULT = ("lml", "likelihood", "dispersion", "cophenetic", "aw", "bw",
              "ah", "bh", "nunif", "ranks")
@@ -4804,7 +5257,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20,21")
+                            "19,20,21,22")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     args = ap.parse_args(argv)
@@ -4844,7 +5297,8 @@ def main(argv=None):
               "18": ("randomized-svd+host", smoke.rsvd_host),
               "19": ("mesh-backends", smoke.mesh_backends),
               "20": ("multi-process", smoke.multi_process),
-              "21": ("ell", smoke.ell)}
+              "21": ("ell", smoke.ell),
+              "22": ("atlas", smoke.atlas_workflow)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

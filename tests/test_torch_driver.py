@@ -79,6 +79,83 @@ def test_storage_dtype_auto_is_exact(small):
     np.testing.assert_array_equal(a.basis[0], b.basis[0])
 
 
+def _dense_guard_answer(mat, storage_dtype):
+    """The JAX driver's guards on its dense X, in order: the empty rows
+    and columns, then ``storage_dtype`` (JAX's ``auto_storage_dtype``,
+    the integer and range checks)."""
+    from ccfindr_tpu.utils import auto_storage_dtype
+
+    if (mat.sum(axis=1) == 0).any():
+        return "empty rows"
+    if (mat.sum(axis=0) == 0).any():
+        return "empty columns"
+    if isinstance(storage_dtype, str):
+        storage_dtype = auto_storage_dtype(mat)
+    if storage_dtype is None:
+        return None
+    sd = np.dtype(storage_dtype)
+    if sd.kind not in "iu":
+        return "an integer dtype"
+    if np.any(mat != np.round(mat)):
+        return "integer counts"
+    if float(mat.max()) > np.iinfo(sd).max:
+        return f"counts up to {mat.max():.0f} overflow"
+    return sd
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_dense_guards_match_the_dense_checks(seed):
+    """The dense layouts' guards, taken on the sparse counts
+    (``_dense_counts``, ``_storage_dtype``), give the dense X's answer
+    and error on random small counts: scaled past int8/int16, fractional,
+    tiny values that round to zero in float32, negative entries,
+    explicit zeros and duplicate entries of a non-canonical CSR."""
+    import scipy.sparse as sp
+
+    from ccfindr_tpu_torch.drivers.vb_driver import (_dense_counts,
+                                                     _storage_dtype)
+
+    rng = np.random.default_rng(seed)
+    # a row whose float32 sum is 0 in stored order, not in numpy's
+    # pairwise order: the dense sums decide where values are negative
+    cancel = (np.array([-1e8, -3.0, 5.0, 1e8]), [4, 6, 11, 15])
+    for case in range(150):
+        n, m = rng.integers(1, 6, 2)
+        ptr, ind, val = [0], [], []
+        for _ in range(n):
+            k = int(rng.integers(0, 2 * m))
+            ind += list(rng.integers(0, m, k))
+            val += list(rng.poisson(1.5, k).astype(float))
+            ptr.append(len(ind))
+        val = np.asarray(val) * rng.choice([1.0, 60.0, 400.0])
+        kind = rng.integers(4)
+        if case == 0:
+            n, m, ptr, ind, val = 1, 16, [0, 4], cancel[1], cancel[0]
+            kind = 0
+        if kind == 1 and val.size:
+            val[rng.uniform(size=val.size) < 0.2] += 0.5
+        elif kind == 2 and val.size:
+            val[rng.uniform(size=val.size) < 0.3] = 1e-50
+        elif kind == 3 and val.size:
+            val -= rng.poisson(1.0, val.size)
+        s = ct.SCSet(count=np.ones((n, m)), remove_zeros=False)
+        s.counts = sp.csr_matrix((val, np.asarray(ind, np.int32),
+                                  np.asarray(ptr, np.int32)), shape=(n, m))
+        npd = np.dtype(rng.choice([np.float32, np.float64]))
+        sdt = ["auto", None, np.int8, np.int16, np.float32][rng.integers(5)]
+        want = _dense_guard_answer(
+            np.asarray(s.counts.todense(), dtype=npd), sdt)
+        try:
+            mat, vals = _dense_counts(s, npd)
+            np.testing.assert_array_equal(
+                mat, np.asarray(s.counts.todense(), dtype=npd))
+            got = _storage_dtype(vals, sdt)
+        except ValueError as e:
+            assert isinstance(want, str) and want in str(e), (want, e)
+        else:
+            assert got == want
+
+
 def test_random_init_is_seeded(small):
     kw = dict(ranks=[2, 3], nrun=2, Itmax=60, backend="pallas",
               verbose=0, device="cpu")
@@ -125,9 +202,15 @@ def test_pbmc_evidence_profile(pbmc):
 
 
 def test_pbmc_sim_dir_is_the_reference_data():
+    """The port ships its own copy of the bundled data (written by its
+    own generator): the JAX package's files, byte for byte."""
     from ccfindr_tpu.data import pbmc_sim_dir as jdir
 
-    assert os.path.samefile(pbmc_sim_dir(), jdir())
+    assert not os.path.samefile(pbmc_sim_dir(), jdir())
+    for f in ("matrix.mtx", "genes.tsv", "barcodes.tsv", "labels.tsv"):
+        with open(os.path.join(pbmc_sim_dir(), f), "rb") as a, \
+                open(os.path.join(jdir(), f), "rb") as b:
+            assert a.read() == b.read(), f
 
 
 @pytest.fixture(scope="module")
@@ -184,6 +267,8 @@ def test_selection_and_tree_match_jax(pbmc):
 def test_port_never_imports_jax():
     code = ("import sys, numpy as np, ccfindr_tpu_torch as ct\n"
             "from ccfindr_tpu_torch.data import pbmc_sim_dir\n"
+            "from ccfindr_tpu_torch.data import generate\n"
+            "assert generate.build(3)[0].shape == (737, 450)\n"
             "x = np.random.default_rng(0).poisson(3.0, (12, 15))\n"
             "s = ct.vb_factorize(x, ranks=[2, 3], Itmax=20, verbose=0,\n"
             "                    backend='pallas', device='cpu')\n"

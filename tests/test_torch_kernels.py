@@ -113,6 +113,27 @@ def test_kernel_sweep_is_deterministic():
         assert torch.equal(u, v)
 
 
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_lane_groups_give_each_lane_its_bits(monkeypatch, dt):
+    """K1-K3 over lane groups (a budget of 2.5 lanes' partials: groups
+    of 2 of 7 lanes) and K4 once give the bits of one launch of all
+    lanes, and launch K1-K3 once a group."""
+    dev = _card()
+    lanes = [6, 3, 4, 6, 5, 2, 6]
+    x, lwt, lh, eh, sc = _inputs(600, 1100, 6, lanes, dt, torch.int8, dev,
+                                 seed=5)
+    kw = dict(n=600, m_arr=1100, m_live=1100, r=6)
+    one = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+    monkeypatch.setattr(sol, "LANE_GROUP_BYTES", int(
+        2.5 * sol.lane_part_bytes(600, 1100, 8, lwt.element_size())))
+    sol.reset_launches()
+    got = sol.sol_sweep(x, lwt, lh, eh, sc, **kw)
+    assert sol.LAUNCHES == {"xpass": 4, "w_post": 4, "h_post": 4,
+                            "finish": 1}
+    for u, v in zip(got, one):
+        assert torch.equal(u, v)
+
+
 def test_cuda_wrapper_rejects_mixed_devices():
     dev = _card()
     x, lwt, lh, eh, sc = _inputs(50, 60, 4, [4], torch.float64, torch.int8,

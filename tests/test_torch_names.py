@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 import jax
 
+from ccfindr_tpu.data import generate as jgen
 from ccfindr_tpu.ops import ell as jek
 from ccfindr_tpu.ops import rsvd as jrsvd
 from ccfindr_tpu.ops import sparse as jsk
@@ -25,6 +26,7 @@ from ccfindr_tpu.ops.pallas import vb_kernels as jvbk
 from ccfindr_tpu.parallel import mesh as jmesh
 from ccfindr_tpu.parallel import schedule as jsched
 from ccfindr_tpu.parallel import sharded as jsh
+from ccfindr_tpu_torch.data import generate as tgen
 from ccfindr_tpu_torch.ops import ell as tek
 from ccfindr_tpu_torch.ops import rsvd as trsvd
 from ccfindr_tpu_torch.ops import sparse as tsk
@@ -104,6 +106,8 @@ FRAMEWORK_DEFAULTS = {"dtype"}
     (jek.ell_ml_h, tek.ell_ml_h),
     (jek.ell_ml_w, tek.ell_ml_w),
     (jek.make_ell_ml_backend, tek.make_ell_ml_backend),
+    (jgen.build, tgen.build),
+    (jgen.write, tgen.write),
 ], ids=lambda f: f.__module__.split(".")[0] + "." + f.__name__)
 def test_signature_matches_jax(jfn, tfn):
     """Every JAX parameter is the port's, of the same kind, in the same

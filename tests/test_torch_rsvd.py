@@ -140,3 +140,22 @@ def test_vb_init_svd_rejects_unknown_method():
         tvb.vb_init_svd(_counts(10, 12, 0.5, 0), 2,
                         tvb.Hyper(1.0, 1.0, 1.0, 1.0), method="lanczos",
                         device="cpu")
+
+
+@pytest.mark.parametrize("method,dtype", [("randomized", torch.float32),
+                                          ("randomized", torch.float64),
+                                          ("exact", torch.float32)])
+def test_vb_init_svd_start_does_not_depend_on_x_dtype(method, dtype):
+    """The SVD start reads X's values whatever X's type: integer counts
+    as int8, float32 or float64 give the same start bit for bit (the
+    randomized route converts X on the device, the exact route on the
+    host in float64)."""
+    rng = np.random.default_rng(4)
+    x = rng.poisson(2.0, (90, 130)).astype(np.int8)
+    hy = tvb.Hyper(1.0, 1.0, 1.0, 1.0)
+    starts = [tvb.vb_init_svd(x.astype(xt), 5, hy, dtype=dtype,
+                              device="cpu", method=method)
+              for xt in (np.int8, np.float32, np.float64)]
+    for st in starts[1:]:
+        for a, b in zip(starts[0], st):
+            assert torch.equal(a, b)

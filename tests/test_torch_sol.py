@@ -395,3 +395,100 @@ def test_post_block_is_a_constant_of_post_cuh(monkeypatch, ext, rp):
         assert out[4].shape == (nb, nblk, 4)
         assert all(t.shape == lh.shape for t in out[:3])
     assert len(launched) == 3
+
+
+@pytest.mark.parametrize("nb,lane_bytes,budget,sizes", [
+    (6, 16.8e6, None, [6]),                 # the 10x batch: one launch
+    (38, 1.54e9, None, [9, 10, 9, 10]),     # the atlas: 11 lanes fit
+    (38, 1.44e9, None, [9, 10, 9, 10]),     # the atlas after QC
+    (5, 10, 3, [1] * 5),                    # a lane above the budget
+    (7, 10, 30, [2, 2, 3]),
+])
+def test_lane_groups_split_by_partial_bytes(monkeypatch, nb, lane_bytes,
+                                           budget, sizes):
+    """K1-K3's lane groups: consecutive, covering every lane once, as
+    few as keep a group's partials within the budget, their sizes
+    within one of each other."""
+    if budget is not None:
+        monkeypatch.setattr(tsol, "LANE_GROUP_BYTES", budget)
+    groups = tsol.lane_groups(nb, lane_bytes)
+    assert [g.stop - g.start for g in groups] == sizes
+    assert groups[0].start == 0 and groups[-1].stop == nb
+    assert all(a.stop == b.start for a, b in zip(groups, groups[1:]))
+    cap = tsol.LANE_GROUP_BYTES if budget is None else budget
+    assert all((g.stop - g.start) * lane_bytes <= cap
+               for g in groups if g.stop - g.start > 1)
+    assert tsol.lane_part_bytes(20480, 100352, 24, 4) == \
+        (392 * 20480 + 80 * 100352) * 24 * 4
+
+
+def test_grouped_sweep_gives_each_lane_its_bits(monkeypatch):
+    """sweep_kernels over lane groups (K1-K3 a group, K4 once) gives the
+    bits of one group, lane by lane; run here with the four wrappers
+    replaced by plain versions that treat each lane alone, counting
+    their launches as the wrappers do."""
+    launched = {k: 0 for k in tsol.LAUNCHES}
+
+    def lanewise(fn):
+        def run(*args):
+            lanes = [fn(*(a[b:b + 1] if torch.is_tensor(a) and a.dim()
+                          and a.shape[0] == args[0].shape[0] else a
+                          for a in args))
+                     for b in range(args[0].shape[0])]
+            return tuple(torch.cat(t) for t in zip(*lanes))
+        return run
+
+    def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
+        launched["xpass"] += 1
+        return lanewise(lambda lwt, lh, eh, sc: tsol.xpass_partials_plain(
+            x, lwt, lh, eh, sc))(lwt, lh, eh, sc)
+
+    def post(ab):
+        def run(sfx, lf, denom, sc, r, n_live, n_pin=None):
+            dt = lf.dtype
+            a, b, fud, rl = (sc[:, q].to(dt) for q in (ab, ab + 1, 4, 5))
+            e, ln, d, rs, scal = tsol.post_plain(
+                sfx.sum(1), lf, denom.sum(1), a, b, fud, rl, r, n_live,
+                npin=n_pin)
+            return e, ln, d, rs[:, None], scal[:, None]
+        return run
+
+    def w_post(swn, lwt, ehs, sc, r, n):
+        launched["w_post"] += 1
+        return lanewise(lambda *a: post(0)(*a, r, n))(swn, lwt, ehs, sc)
+
+    def h_post(shn, lh, csum, sc, r, m_live, m=None):
+        launched["h_post"] += 1
+        return lanewise(lambda *a: post(2)(*a, r, m_live, m))(shn, lh, csum,
+                                                              sc)
+
+    def finish(sc, xl, cs, ws, rs, hs, *, n, m, dt, hyper_mask,
+               newton_niter, newton_tol):
+        launched["finish"] += 1
+        return lanewise(lambda *a: (tsol.finish_plain(
+            *a[:1], *(t.sum(1) for t in a[1:]), n, m, dt,
+            tuple(hyper_mask), newton_niter, newton_tol),))(
+                sc, xl, cs, ws, rs, hs)[0]
+
+    for name, fn in (("xpass", xpass), ("w_post", w_post),
+                     ("h_post", h_post), ("finish", finish)):
+        monkeypatch.setattr(tsol, name, fn)
+    lanes = [5, 3, 4, 5, 2, 4, 3]
+    x, lwt, lh, eh, sc = _k1_case(300, 530, 5, lanes, torch.int8)
+    kw = dict(n=300, m_live=530, m=530, r=5, hyper_mask=(True,) * 4,
+              newton_niter=100, newton_tol=1e-4, mxu_bf16=False)
+    one = tsol.sweep_kernels(x, lwt, lh, eh, sc, **kw)
+    assert launched == {"xpass": 1, "w_post": 1, "h_post": 1, "finish": 1}
+    monkeypatch.setattr(tsol, "LANE_GROUP_BYTES",
+                        2.5 * tsol.lane_part_bytes(300, 530, 8, 8))
+    got = tsol.sweep_kernels(x, lwt, lh, eh, sc, **kw)
+    # 7 lanes, 2 a group: 4 groups, K4 once
+    assert launched == {"xpass": 5, "w_post": 5, "h_post": 5, "finish": 2}
+    for a, b in zip(got, one):
+        assert a.shape == b.shape
+        assert torch.equal(a, b)
+    # and the sweep they give is the plain sweep's
+    want = tsol.sol_sweep_plain(x, lwt, lh, eh, sc, n=300, m_arr=530,
+                                m_live=530, r=5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-300)
