@@ -182,7 +182,8 @@ def _ml_rows(rows, w, h, c0, z0, l0, kw, dev):
     """The mesh's ``runs`` axis for ``ml_run``: the lane batch split into
     contiguous groups, one a runs row (``rows``, X laid out on each), each
     run on its row's first device, the results joined in lane order on
-    ``dev``.  A lane's numbers do not depend on the grouping."""
+    ``dev``.  A lane's numbers do not depend on the grouping.  The rows
+    run one after the other, as ``vb_driver._run_rows``'s do."""
     nb = w.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),

@@ -192,9 +192,10 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
     on its row's first device; the results joined in lane order on
     ``dev``.  Every lane runs alone in its kernels' blocks and is frozen
     on its own, so its numbers do not depend on the grouping.  The rows
-    run one after the other: on distinct devices the runs axis divides
-    the lanes, not the time (rows in threads of their own were measured
-    slower on one card, ROADMAP A13)."""
+    run one after the other, on one card or on distinct cards: the runs
+    axis divides the lanes, not the time (rows in threads of their own,
+    at once, were measured slower on one card and on four, ROADMAP
+    A13)."""
     nb = st.lw.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),

@@ -148,9 +148,24 @@ TCODE = {torch.float32: 0, torch.float64: 1}
 XCODE = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.float64: 3}
 
 
-def stream() -> int:
-    """PyTorch's current CUDA stream, as the C entry points take it."""
-    return torch.cuda.current_stream().cuda_stream
+def launch(entry, *args):
+    """Launch a kernel: the one way into the C entry points.
+
+    ``entry`` is a name of the package's library (:data:`_SIGNATURES`)
+    or a ctypes function of another build with the same convention
+    (the benchmarks' variants).  ``args`` are its arguments but the
+    last: tensors go as their data pointers, None as NULL.  Every tensor
+    must lie on one CUDA device (:func:`require_cuda`); that device is
+    entered for the call and its current stream passed last.  So a
+    kernel runs on the card that holds its tensors, after the work
+    queued there, whatever the caller's current device."""
+    dev = require_cuda(*(a for a in args if isinstance(a, torch.Tensor)))
+    fn = getattr(library(), entry) if isinstance(entry, str) else entry
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with torch.cuda.device(dev):
+        rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(getattr(fn, "__name__", entry), rc)
 
 
 def check_launch(name, rc):
@@ -169,6 +184,8 @@ def tickets(nb, device):
     counter back to 0.  Allocated zeroed once for each device and stream
     and cached (reallocated only when ``nb`` outgrows it), so a sweep
     pays no memset."""
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < nb:
@@ -178,7 +195,14 @@ def tickets(nb, device):
 
 
 def require_cuda(*ts):
-    for t in ts:
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernels take CUDA tensors, got "
-                             f"{t.device}")
+    """The one CUDA device that holds the tensors ``ts``; raises where
+    one is not a CUDA tensor or they lie on more than one device (a
+    kernel reads its tensors where they are: nothing is copied)."""
+    devs = {t.device for t in ts}
+    for d in devs:
+        if d.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got {d}")
+    if len(devs) != 1:
+        raise ValueError("a kernel's tensors must lie on one CUDA device, "
+                         f"got {sorted(map(str, devs)) or 'none'}")
+    return devs.pop()

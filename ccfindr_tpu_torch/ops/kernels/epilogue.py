@@ -2,7 +2,8 @@
 epilogues as hand-written CUDA, and its convergence loop.
 
 Counterpart of ``ccfindr_tpu/ops/pallas/epilogue.py``, under its names.
-A sweep (:func:`epi_sweep`) is five launches on the current stream: E1
+A sweep (:func:`epi_sweep`) is five launches on the current stream of
+the tensors' card: E1
 ``fused_xpass`` + E1s ``fused_sum`` (:mod:`.vb_kernels`), E2
 ``epi_w_post`` (W gamma posterior, replaces ``_w_epilogue_kernel``), E3
 ``epi_h_post`` (H, replaces ``_h_epilogue_kernel``) and K4
@@ -28,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import sol
-from .build import TCODE, check_launch, library, require_cuda, stream
+from .build import TCODE, launch
 from .sol import DEFAULT_BM, DEFAULT_BN
 from .vb_kernels import (fused_chunk, fused_pallas_raw,
                          fused_xpass_plain)
@@ -63,16 +64,12 @@ def epi_w_post(swn, lw, ehs_part, sc, r, n):
     rp)`` the partials of rowSums(eh): ``(ew, lwn, dw, csum_part (B,
     nblk, rp), wscal_part (B, nblk, 4))``, one partial a block of
     :data:`E2_COLS` genes, in K4's layout."""
-    require_cuda(swn, lw, ehs_part, sc)
     nb, np_, rp_ = lw.shape
     ew, lwn, dw = (torch.empty_like(lw) for _ in range(3))
     csum_part, wscal_part = _partials(nb, np_, rp_, lw.device, E2_COLS)
-    rc = library().epi_w_post(
-        TCODE[lw.dtype], swn.data_ptr(), lw.data_ptr(), ehs_part.data_ptr(),
-        ehs_part.shape[1], sc.data_ptr(), nb, np_, rp_, r, n, ew.data_ptr(),
-        lwn.data_ptr(), dw.data_ptr(), csum_part.data_ptr(),
-        wscal_part.data_ptr(), stream())
-    check_launch("epi_w_post", rc)
+    launch("epi_w_post", TCODE[lw.dtype], swn, lw, ehs_part,
+           ehs_part.shape[1], sc, nb, np_, rp_, r, n, ew, lwn, dw, csum_part,
+           wscal_part)
     LAUNCHES["epi_w_post"] += 1
     return ew, lwn, dw, csum_part, wscal_part
 
@@ -80,17 +77,13 @@ def epi_w_post(swn, lw, ehs_part, sc, r, n):
 def epi_h_post(shn, lh, csum_part, sc, r, m_live, m):
     """Launch E3 on ``shn``/``lh (B, rp, mp)`` with E2's ``csum_part``:
     ``(eh, lhn, dh, rsum_part, hscal_part)``."""
-    require_cuda(shn, lh, csum_part, sc)
     nb, rp_, mp_ = lh.shape
     eh, lhn, dh = (torch.empty_like(lh) for _ in range(3))
     rsum_part, hscal_part = _partials(nb, mp_, rp_, lh.device,
                                       sol.POST_COLS)
-    rc = library().epi_h_post(
-        TCODE[lh.dtype], shn.data_ptr(), lh.data_ptr(), csum_part.data_ptr(),
-        csum_part.shape[1], sc.data_ptr(), nb, mp_, rp_, r, m_live, m,
-        eh.data_ptr(), lhn.data_ptr(), dh.data_ptr(), rsum_part.data_ptr(),
-        hscal_part.data_ptr(), stream())
-    check_launch("epi_h_post", rc)
+    launch("epi_h_post", TCODE[lh.dtype], shn, lh, csum_part,
+           csum_part.shape[1], sc, nb, mp_, rp_, r, m_live, m, eh, lhn, dh,
+           rsum_part, hscal_part)
     LAUNCHES["epi_h_post"] += 1
     return eh, lhn, dh, rsum_part, hscal_part
 

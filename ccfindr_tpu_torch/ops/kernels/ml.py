@@ -23,8 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import (TCODE, XCODE, check_launch, library, require_cuda,
-                    stream, tickets)
+from .build import TCODE, XCODE, launch, tickets
 from .vb_kernels import DEFAULT_BM, DEFAULT_BN, pad_matrix  # noqa: F401
 
 # cells an M1 block owns and genes an M2 block owns: csrc/ml.cu's
@@ -103,33 +102,25 @@ def ml_hpass(x, w, h):
     """Launch M1.  Returns (hn (B, r, m), xlog (B,) float64, the
     per-block partials xlog_part (B, ceil(m / H_CHUNK)) float64 that
     xlog adds in block order)."""
-    require_cuda(x, w, h)
     nb, n, r = w.shape
     m = x.shape[1]
     hn = torch.empty(nb, r, m, dtype=w.dtype, device=w.device)
     part = torch.empty(nb, xlog_part_width(m), dtype=torch.float64,
                        device=w.device)
     xlog = torch.empty(nb, dtype=torch.float64, device=w.device)
-    rc = library().ml_hpass(TCODE[w.dtype], XCODE[x.dtype], x.data_ptr(),
-                            w.data_ptr(), h.data_ptr(), nb, n, m, r,
-                            hn.data_ptr(), part.data_ptr(),
-                            tickets(nb, w.device).data_ptr(),
-                            xlog.data_ptr(), stream())
-    check_launch("ml_hpass", rc)
+    launch("ml_hpass", TCODE[w.dtype], XCODE[x.dtype], x, w, h, nb, n, m, r,
+           hn, part, tickets(nb, w.device), xlog)
     LAUNCHES["ml_hpass"] += 1
     return hn, xlog, part
 
 
 def ml_wpass(x, w, h):
     """Launch M2: wn (B, n, r)."""
-    require_cuda(x, w, h)
     nb, n, r = w.shape
     m = x.shape[1]
     wn = torch.empty_like(w)
-    rc = library().ml_wpass(TCODE[w.dtype], XCODE[x.dtype], x.data_ptr(),
-                            w.data_ptr(), h.data_ptr(), nb, n, m, r,
-                            wn.data_ptr(), stream())
-    check_launch("ml_wpass", rc)
+    launch("ml_wpass", TCODE[w.dtype], XCODE[x.dtype], x, w, h, nb, n, m, r,
+           wn)
     LAUNCHES["ml_wpass"] += 1
     return wn
 

@@ -1,8 +1,8 @@
 """The VB sweep as hand-written CUDA, with its plain PyTorch version.
 
 Counterpart of ``ccfindr_tpu/ops/pallas/sol.py``.  One sweep is four
-CUDA kernels launched in order on the current stream
-(``csrc/sol.cu``): K1 ``xpass`` (suffstats, ``x*log(wth)``,
+CUDA kernels launched in order on the current stream of the card that
+holds the tensors (``csrc/sol.cu``): K1 ``xpass`` (suffstats, ``x*log(wth)``,
 ``rowSums(eh)``), K2 ``w_post`` (W gamma posterior), K3 ``h_post`` (H
 gamma posterior) and K4 ``finish`` (ELBO pieces and the damped hyper
 Newton).  :func:`sol_sweep_plain` is the same sweep in plain PyTorch
@@ -32,8 +32,7 @@ import functools
 
 import torch
 
-from .build import (TCODE, XCODE, check_launch, library, require_cuda,
-                    stream)
+from .build import TCODE, XCODE, launch
 from ...parallel.sharded import ShardedCounts
 from ...utils import lgamma_sum
 from ..vb import (VBRunResult, VBState, digamma_approx,
@@ -352,7 +351,6 @@ def launch_xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
     f64) with ncc/ngc the cell/gene chunks (:data:`CHUNK`) of X.  The
     wrappers :func:`xpass` and ``sol_sharded.xpass_shard`` count the
     launch."""
-    require_cuda(x, lwt, lh, eh, sc)
     if x.stride(1) != 1:
         raise ValueError("X's columns must be contiguous")
     nb, rp_, np_ = lwt.shape
@@ -367,13 +365,10 @@ def launch_xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
                             device=x.device)
     ehs_part = torch.empty(nb, ncc, rp_, dtype=torch.float64,
                            device=x.device)
-    rc = library().sol_xpass(
-        TCODE[lwt.dtype], XCODE[x.dtype], int(bool(mxu_bf16)),
-        x.data_ptr(), lwt.data_ptr(),
-        lh.data_ptr(), eh.data_ptr(), sc.data_ptr(), nb, np_, mp_,
-        x.stride(0), rp_, gch, cch, swn_part.data_ptr(), shn_part.data_ptr(),
-        xlog_part.data_ptr(), ehs_part.data_ptr(), stream())
-    check_launch("sol_xpass", rc)
+    launch("sol_xpass", TCODE[lwt.dtype], XCODE[x.dtype],
+           int(bool(mxu_bf16)), x, lwt, lh, eh, sc, nb, np_, mp_,
+           x.stride(0), rp_, gch, cch, swn_part, shn_part, xlog_part,
+           ehs_part)
     return swn_part, shn_part, xlog_part, ehs_part
 
 
@@ -385,7 +380,6 @@ def xpass(x, lwt, lh, eh, sc, mxu_bf16=False):
 
 
 def _post(name, sfx_part, lf, denom_part, sc, r, *extents):
-    require_cuda(sfx_part, lf, denom_part, sc)
     nb, rp_, ext = lf.shape
     nblk = -(-ext // POST_COLS)
     e = torch.empty_like(lf)
@@ -395,13 +389,9 @@ def _post(name, sfx_part, lf, denom_part, sc, r, *extents):
                             device=lf.device)
     scal_part = torch.empty(nb, nblk, 4, dtype=torch.float64,
                             device=lf.device)
-    fn = getattr(library(), name)
-    rc = fn(TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
-            lf.data_ptr(), denom_part.data_ptr(), denom_part.shape[1],
-            sc.data_ptr(), nb, ext, rp_, r, *extents, e.data_ptr(),
-            ln.data_ptr(), d.data_ptr(), rsum_part.data_ptr(),
-            scal_part.data_ptr(), stream())
-    check_launch(name, rc)
+    launch(name, TCODE[lf.dtype], sfx_part, sfx_part.shape[1], lf,
+           denom_part, denom_part.shape[1], sc, nb, ext, rp_, r, *extents,
+           e, ln, d, rsum_part, scal_part)
     return e, ln, d, rsum_part, scal_part
 
 
@@ -433,17 +423,13 @@ def h_post(shn_part, lh, csum_part, sc, r, m_live, m=None):
 def finish(sc, xlog_part, csum_part, wscal_part, rsum_part, hscal_part,
            *, n, m, dt, hyper_mask, newton_niter, newton_tol):
     """Launch K4: scal (B, 16) float64."""
-    require_cuda(sc, xlog_part, csum_part, rsum_part)
     nb, _, rp_ = csum_part.shape
     scal = torch.empty(nb, NSCAL, dtype=torch.float64, device=sc.device)
     mask = sum(1 << i for i, v in enumerate(hyper_mask) if v)
-    rc = library().sol_finish(
-        TCODE[dt], sc.data_ptr(), xlog_part.data_ptr(),
-        xlog_part.shape[1], csum_part.data_ptr(), wscal_part.data_ptr(),
-        csum_part.shape[1], rsum_part.data_ptr(), hscal_part.data_ptr(),
-        rsum_part.shape[1], nb, rp_, n, m, mask, int(newton_niter),
-        float(newton_tol), scal.data_ptr(), stream())
-    check_launch("sol_finish", rc)
+    launch("sol_finish", TCODE[dt], sc, xlog_part, xlog_part.shape[1],
+           csum_part, wscal_part, csum_part.shape[1], rsum_part, hscal_part,
+           rsum_part.shape[1], nb, rp_, n, m, mask, int(newton_niter),
+           float(newton_tol), scal)
     LAUNCHES["finish"] += 1
     return scal
 

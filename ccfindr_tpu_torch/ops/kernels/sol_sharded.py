@@ -12,8 +12,8 @@ kernels of :mod:`.sol` (``csrc/sol.cu``):
    window of a larger X is read in place, with its row stride), with
    the shard's ``lh``/``eh``;
 2. the gather: the shards' ``swn``, ``ehs`` and ``x log wth`` partials
-   are taken to the reduce device (the row's first) by ``.to`` and
-   joined in shard order;
+   are copied to the reduce device (the row's first), each into its
+   place, joined in shard order;
 3. **K2** once on the reduce device, on the gathered partials.  JAX
    computes the W posterior on every shard, since W is replicated
    there; here the next sweep takes ``lwt`` to each shard device where
@@ -26,14 +26,21 @@ kernels of :mod:`.sol` (``csrc/sol.cu``):
    on the reduce device, fed what it reads on one device.
 
 One code path serves equal and distinct devices: ``.to`` of a tensor to
-its own device is the tensor itself.  Every cross-shard sum is the
-shards' partials in shard order, added by the next kernel in its fixed
-order, as every cross-block sum of the port is; with shard extents that
-are multiples of K1's cell chunk (``sol.CHUNK[1]``, 256) and of K3's
-``sol.POST_COLS`` (32), both of which divide 512, the gathered partials
-are the single-device launch's, element for element, so the sweep gives
-the single-device bits: shards of a multiple of 512 cells always do.  With
-one shard it always does.
+its own device is the tensor itself.  Each kernel runs on the card that
+holds its shard (``build.launch``), and the shards' launches are issued
+back to back, with no host sync between them, so that distinct cards
+run their K1s and K3s at once.  A copy between cards runs on its
+source's stream, ordered after the work queued there (PyTorch's
+``copy_``): so the lanes and ``csum`` are copied to every shard before
+any kernel is queued behind them on the reduce device.
+
+Every cross-shard sum is the shards' partials in shard order, added by
+the next kernel in its fixed order, as every cross-block sum of the port
+is; with shard extents that are multiples of K1's cell chunk
+(``sol.CHUNK[1]``, 256) and of K3's ``sol.POST_COLS`` (32), both of
+which divide 512, the gathered partials are the single-device launch's,
+element for element, so the sweep gives the single-device bits: shards
+of a multiple of 512 cells always do.  With one shard it always does.
 
 The plain PyTorch version of each step (``xpass_shard_plain``,
 :func:`h_post_shard_plain`, and :func:`shard_sum` feeding
@@ -45,7 +52,6 @@ no path between the two: a mesh holds devices of one type.  With one shard the p
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import operator
 
@@ -64,12 +70,6 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _on(dev):
-    """Launch on ``dev``: its CUDA context and current stream."""
-    return (torch.cuda.device(dev) if dev.type == "cuda"
-            else contextlib.nullcontext())
-
-
 def shard_extents(m_live, m_arr, base, mp_loc):
     """JAX's ``ax_live``/``ax_true`` (sol_sharded.py:449-454): the live
     and the pinned cell extents of the shard whose columns start at
@@ -86,8 +86,25 @@ def shard_sum(parts):
 
 def gather(parts, dim, dev):
     """The shards' partials taken to ``dev`` and joined in shard order
-    along ``dim``."""
-    return torch.cat([p.to(dev) for p in parts], dim)
+    along ``dim``.  Partials of other cards are copied each into its
+    place, so that no copy of them is held beside the joined ones."""
+    dev = torch.device(dev)
+    if all(p.device == dev for p in parts):
+        return torch.cat(parts, dim)
+    shape = list(parts[0].shape)
+    shape[dim] = sum(p.shape[dim] for p in parts)
+    out = torch.empty(shape, dtype=parts[0].dtype, device=dev)
+    at = 0
+    for p in parts:
+        out.narrow(dim, at, p.shape[dim]).copy_(p)
+        at += p.shape[dim]
+    return out
+
+
+def spread(t, devs):
+    """``t`` on each of ``devs`` (itself where it lies there), every copy
+    queued before the caller launches anything behind it."""
+    return [t.to(d) for d in devs]
 
 
 # ---------------------------------------------------------------------
@@ -166,8 +183,7 @@ def sharded_sweep_plain(x, lwt, lh, eh, sc, *, n, m_arr, m_live, r,
 def xpass_shard(x, lwt, lh, eh, sc, mxu_bf16=False):
     """Launch K1s on one shard's window ``x`` of X (read in place) on
     its device: the partials of ``sol.launch_xpass``."""
-    with _on(x.device):
-        out = sol.launch_xpass(x, lwt, lh, eh, sc, mxu_bf16)
+    out = sol.launch_xpass(x, lwt, lh, eh, sc, mxu_bf16)
     LAUNCHES["xpass_shard"] += 1
     return out
 
@@ -175,9 +191,8 @@ def xpass_shard(x, lwt, lh, eh, sc, mxu_bf16=False):
 def h_post_shard(shn_part, lh, csum_part, sc, r, ax_live, ax_true):
     """Launch K3s on one shard's ``shn`` partials and ``lh`` with its
     shard-relative extents: (eh, lh, dh, rsum_part, hscal_part)."""
-    with _on(lh.device):
-        out = sol.launch_h_post(shn_part, lh, csum_part, sc, r, ax_live,
-                                ax_true)
+    out = sol.launch_h_post(shn_part, lh, csum_part, sc, r, ax_live,
+                            ax_true)
     LAUNCHES["h_post_shard"] += 1
     return out
 
@@ -193,8 +208,10 @@ def sharded_sweep_kernels(x, lwt, lh, eh, sc, *, n, m_arr, m_live, r,
     dev, dt = lwt.device, lwt.dtype
     nb = lwt.shape[0]
     devs = [b.device for b in x.blocks[0]]
-    xs = [xpass_shard(xb, lwt.to(d), lhk, ehk, sc.to(d), mxu_bf16)
-          for xb, d, lhk, ehk in zip(x.blocks[0], devs, lh, eh)]
+    scs = spread(sc, devs)
+    xs = [xpass_shard(xb, lwk, lhk, ehk, sck, mxu_bf16)
+          for xb, lwk, lhk, ehk, sck in zip(x.blocks[0], spread(lwt, devs),
+                                            lh, eh, scs)]
     swn_part = gather([p[0] for p in xs], 1, dev)
     # K1's x log(wth) partials run over (gene chunk, cell chunk): the
     # shards' cell chunks join inside each gene chunk
@@ -202,18 +219,22 @@ def sharded_sweep_kernels(x, lwt, lh, eh, sc, *, n, m_arr, m_live, r,
     xlog_part = gather([p[2].view(nb, ngc, -1) for p in xs], 2,
                        dev).view(nb, -1)
     ehs_part = gather([p[3] for p in xs], 1, dev)
-    with _on(dev):
-        ewt, lwtn, dwt, csum_part, wscal_part = sol.w_post(
-            swn_part, lwt, ehs_part, sc, r, n)
-    hs = [h_post_shard(p[1], lhk, csum_part.to(d), sc.to(d), r, *e)
-          for p, lhk, d, e in zip(xs, lh, devs, ext)]
+    shn_parts = [p[1] for p in xs]
+    del xs          # the shards' swn partials: K2 reads the gathered ones
+    ewt, lwtn, dwt, csum_part, wscal_part = sol.w_post(
+        swn_part, lwt, ehs_part, sc, r, n)
+    del swn_part
+    hs = [h_post_shard(shn, lhk, csk, sck, r, *e)
+          for shn, lhk, csk, sck, e in zip(shn_parts, lh,
+                                           spread(csum_part, devs), scs,
+                                           ext)]
+    del shn_parts
     rsum_part = gather([h[3] for h in hs], 1, dev)
     hscal_part = gather([h[4] for h in hs], 1, dev)
-    with _on(dev):
-        scal = sol.finish(sc, xlog_part, csum_part, wscal_part, rsum_part,
-                          hscal_part, n=n, m=m_live, dt=dt,
-                          hyper_mask=hyper_mask, newton_niter=newton_niter,
-                          newton_tol=newton_tol)
+    scal = sol.finish(sc, xlog_part, csum_part, wscal_part, rsum_part,
+                      hscal_part, n=n, m=m_live, dt=dt,
+                      hyper_mask=hyper_mask, newton_niter=newton_niter,
+                      newton_tol=newton_tol)
     return (ewt, lwtn, dwt) + tuple(tuple(h[q] for h in hs)
                                     for q in range(3)) + (scal,)
 

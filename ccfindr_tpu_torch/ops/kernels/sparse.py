@@ -29,8 +29,7 @@ from __future__ import annotations
 import torch
 
 from .. import sparse
-from .build import TCODE, XCODE, check_launch, library, require_cuda, \
-    stream, tickets
+from .build import TCODE, XCODE, launch, tickets
 
 # gene rows (S1) or cells (S2) one block of csrc/sparse.cu owns
 ROWS = 8
@@ -136,7 +135,6 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
     float64, xlog_part (B, ceil(n/8)) float64)``, None where not wanted:
     ``xlog`` is the sum of the per-block partials ``xlog_part``, added in
     block order by each lane's last block."""
-    require_cuda(tc.val, lw, lht)
     nb, n, r = lw.shape
     dev = lw.device
     swn = torch.empty_like(lw) if want_swn else None
@@ -147,18 +145,10 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
                    torch.empty(nb, dtype=torch.float64, device=dev))
                   if want_xlog else (None, None))
     flags = _flags(do_elbo, nb, dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = library().sp_rowpass(
-        TCODE[lw.dtype], XCODE[tc.val.dtype], int(bool(mxu_bf16)),
-        tc.indptr.data_ptr(),
-        tc.col.data_ptr(), tc.val.data_ptr(), lw.data_ptr(), lht.data_ptr(),
-        flags.data_ptr(), nb, n, tc.m, r, tc.nnz, ptr(swn), ptr(a),
-        ptr(part), ptr(tickets(nb, dev) if want_xlog else None), ptr(xlog),
-        stream())
-    check_launch("sp_rowpass", rc)
+    launch("sp_rowpass", TCODE[lw.dtype], XCODE[tc.val.dtype],
+           int(bool(mxu_bf16)), tc.indptr, tc.col, tc.val, lw, lht, flags,
+           nb, n, tc.m, r, tc.nnz, swn, a, part,
+           tickets(nb, dev) if want_xlog else None, xlog)
     LAUNCHES["sp_rowpass"] += 1
     return swn, a, xlog, part
 
@@ -167,17 +157,12 @@ def sp_colpass(tc, a, lw, mxu_bf16=False):
     """Launch S2: ``shn (B, r, m)``.  ``lw`` goes to the kernel 16-byte
     aligned (copied where it is not), so that its instantiation, and the
     order of each sum, depend on ``r`` and the dtype alone."""
-    require_cuda(tc.val, a, lw)
     if lw.data_ptr() % 16:
         lw = lw.clone()
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
-    rc = library().sp_colpass(
-        TCODE[lw.dtype], int(bool(mxu_bf16)), tc.colptr.data_ptr(),
-        tc.row.data_ptr(),
-        tc.perm.data_ptr(), a.data_ptr(), lw.data_ptr(), nb, n, tc.m, r,
-        tc.nnz, shn.data_ptr(), stream())
-    check_launch("sp_colpass", rc)
+    launch("sp_colpass", TCODE[lw.dtype], int(bool(mxu_bf16)), tc.colptr,
+           tc.row, tc.perm, a, lw, nb, n, tc.m, r, tc.nnz, shn)
     LAUNCHES["sp_colpass"] += 1
     return shn
 

@@ -49,8 +49,7 @@ from __future__ import annotations
 import torch
 
 from ..sparse import fold_dterm  # noqa: F401  (the JAX module's name)
-from .build import (TCODE, XCODE, check_launch, library, require_cuda,
-                    stream, tickets)
+from .build import TCODE, XCODE, launch, tickets
 from .sol import DEFAULT_BM, DEFAULT_BN, MAX_RP, bf16_round
 
 # E1's chunk of its outer axis starts here and doubles until the
@@ -171,7 +170,6 @@ def fused_xpass(x, lw, lh, *, layout, mxu_bf16=False, chunk=None):
     ``shn (B, rp, mp)``, the swn partials ``(B, ncc, np, rp)``; and the
     per-chunk ``sum x log wth`` ``(B, nchunk)`` float64.  ``chunk``
     (default :func:`fused_chunk` of this batch) pins the chunk."""
-    require_cuda(x, lw, lh)
     np_, mp_ = x.shape
     nb, _, rp_ = lw.shape
     if chunk is None:
@@ -185,12 +183,9 @@ def fused_xpass(x, lw, lh, *, layout, mxu_bf16=False, chunk=None):
                        dtype=lw.dtype, device=x.device)
     xlog_part = torch.empty(nb, nchunk, dtype=torch.float64,
                             device=x.device)
-    rc = library().fused_xpass(
-        TCODE[lw.dtype], XCODE[x.dtype], int(gm), int(bool(mxu_bf16)),
-        x.data_ptr(), lw.data_ptr(), lh.data_ptr(), nb, np_, mp_, rp_,
-        chunk, full.data_ptr(), part.data_ptr(), xlog_part.data_ptr(),
-        stream())
-    check_launch("fused_xpass", rc)
+    launch("fused_xpass", TCODE[lw.dtype], XCODE[x.dtype], int(gm),
+           int(bool(mxu_bf16)), x, lw, lh, nb, np_, mp_, rp_, chunk, full,
+           part, xlog_part)
     LAUNCHES[f"fused_xpass_{layout}"] += 1
     return full, part, xlog_part
 
@@ -198,16 +193,12 @@ def fused_xpass(x, lw, lh, *, layout, mxu_bf16=False, chunk=None):
 def fused_sum(part, xlog_part):
     """Launch E1s: ``(part.sum(1) in the factor dtype, xlog_part.sum(1))``,
     each summed in float64 in chunk order."""
-    require_cuda(part, xlog_part)
     nb, nchunk = part.shape[:2]
     out = torch.empty(nb, *part.shape[2:], dtype=part.dtype,
                       device=part.device)
     xlog = torch.empty(nb, dtype=torch.float64, device=part.device)
-    rc = library().fused_sum(
-        TCODE[part.dtype], part.data_ptr(), nchunk, out[0].numel(),
-        xlog_part.data_ptr(), xlog_part.shape[1], nb, out.data_ptr(),
-        xlog.data_ptr(), stream())
-    check_launch("fused_sum", rc)
+    launch("fused_sum", TCODE[part.dtype], part, nchunk, out[0].numel(),
+           xlog_part, xlog_part.shape[1], nb, out, xlog)
     LAUNCHES["fused_sum"] += 1
     return out, xlog
 
@@ -394,7 +385,6 @@ def ss_xpass(x, lw, lh, *, chunk=None):
     Returns ``(swn (B, n, r), shn_part (B, ngc, r, m))``, the shn
     partials of ``ngc`` gene chunks; ``chunk`` (default
     :func:`pass2_chunk` of this batch) pins the chunk."""
-    require_cuda(x, lw, lh)
     nb, n, r = lw.shape
     m = lh.shape[-1]
     if chunk is None:
@@ -402,11 +392,8 @@ def ss_xpass(x, lw, lh, *, chunk=None):
     swn = torch.empty_like(lw)
     part = torch.empty(nb, -(-n // chunk), r, m, dtype=lw.dtype,
                        device=x.device)
-    rc = library().ss_xpass(
-        TCODE[lw.dtype], XCODE[x.dtype], x.data_ptr(), x.shape[1],
-        lw.data_ptr(), lh.data_ptr(), nb, n, m, r, chunk, swn.data_ptr(),
-        part.data_ptr(), stream())
-    check_launch("ss_xpass", rc)
+    launch("ss_xpass", TCODE[lw.dtype], XCODE[x.dtype], x, x.shape[1], lw,
+           lh, nb, n, m, r, chunk, swn, part)
     LAUNCHES["ss_xpass"] += 1
     return swn, part
 
@@ -423,18 +410,13 @@ def elbo_xpass(x, lw, lwl, lh, lhl):
     (B,) float64, and the per-strip partials ``(B, elbo_part_width(n,
     m))`` float64 that it adds in strip order (gene band major);
     ``lwl``/``lhl`` are :func:`xlogx` of ``lw``/``lh``."""
-    require_cuda(x, lw, lwl, lh, lhl)
     nb, n, r = lw.shape
     m = lh.shape[-1]
     part = torch.empty(nb, elbo_part_width(n, m), dtype=torch.float64,
                        device=x.device)
     out = torch.empty(nb, dtype=torch.float64, device=x.device)
-    rc = library().elbo_xpass(
-        TCODE[lw.dtype], XCODE[x.dtype], x.data_ptr(), x.shape[1],
-        lw.data_ptr(), lwl.data_ptr(), lh.data_ptr(), lhl.data_ptr(), nb,
-        n, m, r, part.data_ptr(), tickets(nb, x.device).data_ptr(),
-        out.data_ptr(), stream())
-    check_launch("elbo_xpass", rc)
+    launch("elbo_xpass", TCODE[lw.dtype], XCODE[x.dtype], x, x.shape[1], lw,
+           lwl, lh, lhl, nb, n, m, r, part, tickets(nb, x.device), out)
     LAUNCHES["elbo_xpass"] += 1
     return out, part
 

@@ -15,13 +15,17 @@ held against.  The reference's Rmpi restart farm (R/bayesian.R:260-263)
 across real process boundaries.
 
 Without ``--x`` the problem is :func:`build_problem`'s toy matrix; with
-it, the ``x`` array of an ``.npz`` the caller wrote.  Processes may
-share one card (``--device cuda``): the exchanges are host arrays.
+it, the ``x`` array of an ``.npz`` the caller wrote.  ``--device`` is
+``cpu``, ``cuda`` or a card ``cuda:N``: processes may share one card
+(``--device cuda``; the exchanges are host arrays) or each take its
+own (``--device cuda:I`` for process I), and ``--cells K`` lays a mesh
+of K cell shards over that device.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 import time
 
@@ -43,7 +47,16 @@ def _kernel_modules():
                 vb_kernels=vb_kernels, sol_sharded=sol_sharded)
 
 
-def main(argv=None):
+def _device(s):
+    """``--device``: ``cpu``, ``cuda`` or ``cuda:N``."""
+    if re.fullmatch(r"cpu|cuda(:\d+)?", s) is None:
+        raise argparse.ArgumentTypeError(
+            f"--device takes cpu, cuda or cuda:N, not {s!r}")
+    return s
+
+
+def parse(argv=None):
+    """The worker's arguments."""
     p = argparse.ArgumentParser()
     p.add_argument("--pid", type=int, required=True)
     p.add_argument("--nproc", type=int, default=2)
@@ -56,7 +69,8 @@ def main(argv=None):
     p.add_argument("--nrun", type=int, default=3)
     p.add_argument("--seed", type=int, default=5)
     p.add_argument("--mode", default="vb", choices=("vb", "ml"))
-    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    p.add_argument("--device", default="cuda", type=_device,
+                   help="cpu, cuda or a card cuda:N")
     p.add_argument("--backend", default="dense")
     p.add_argument("--sparse-layout", default="auto",
                    help="backend='sparse''s layout: auto, tile, coo or ell")
@@ -68,7 +82,21 @@ def main(argv=None):
                         "--device")
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument("--checkpoint-dir")
-    a = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def worker_mesh(a):
+    """The mesh of ``--cells`` cell shards, all on ``--device`` (None
+    without ``--cells``)."""
+    if not a.cells:
+        return None
+    from .mesh import make_mesh
+
+    return make_mesh(cells=a.cells, devices=[a.device] * a.cells)
+
+
+def main(argv=None):
+    a = parse(argv)
 
     import torch
 
@@ -92,13 +120,12 @@ def main(argv=None):
               checkpoint_every=a.checkpoint_every,
               checkpoint_dir=a.checkpoint_dir)
     if a.cells:
-        kw["mesh"] = ct.make_mesh(cells=a.cells,
-                                  devices=[a.device] * a.cells)
+        kw["mesh"] = worker_mesh(a)
     mods = _kernel_modules()
     for mod in mods.values():
         mod.reset_launches()
-    if a.device == "cuda":
-        torch.cuda.synchronize()
+    if a.device != "cpu":
+        torch.cuda.synchronize(a.device)
     t0 = time.perf_counter()
     if a.mode == "ml":
         out = ct.factorize(s, **kw)

@@ -4,13 +4,21 @@ Counterpart of ``ccfindr_tpu/parallel/mesh.py``.  The JAX package lays
 a run out on a ``jax.sharding.Mesh`` and lets GSPMD insert the
 cross-device sums.  Here a mesh is a (runs, genes, cells) grid of
 ``torch.device``s that one process drives: the drivers give each
-(gene, cell) block of X to its device, and every cross-shard sum is the
-shards' partials added in shard order on the row's first device, so a
-run is deterministic whatever the devices.  A device may be listed more
-than once: ``make_mesh(cells=4, devices=["cuda:0"] * 4)`` runs four
-cell shards on one card, and ``devices=["cpu"] * 4`` on the host.
-Over several processes (``init_distributed``) each process lays its
-share of the lanes over a mesh of its own.
+(gene, cell) block of X to its device, every kernel runs on the card
+that holds its tensors (``ops.kernels.build.launch``), and every
+cross-shard sum is the shards' partials added in shard order on the
+row's first device, so a run gives the same bits whatever the devices.
+``make_mesh()`` lays the grid over every visible card, one shard a
+card; the shards of a row are issued back to back, so distinct cards
+run them at once.  The runs rows run one after the other, also on
+distinct cards (rows at once, a host thread a row, were measured
+slower on one card and on four).  A device may also be listed more
+than once:
+``make_mesh(cells=4, devices=["cuda:0"] * 4)`` runs four cell shards
+one after the other on one card, and ``devices=["cpu"] * 4`` on the
+host.  Over several processes (``init_distributed``) each process lays
+its share of the lanes over a mesh of its own, on its own card where
+it is given one.
 """
 
 from __future__ import annotations
@@ -58,8 +66,8 @@ def make_mesh(runs: int = 1, cells: int | None = None, genes: int = 1,
     groups, ``cells`` the cell axis of X and H, ``genes`` the gene axis
     of X and W.  Defaults: genes=1, the remaining devices on cells.
     The counts must multiply to the number of devices, as in the JAX
-    package; a device may appear several times, and all must be of one
-    type."""
+    package; a device may appear several times (its shards then run one
+    after the other on it), and all must be of one type."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

@@ -38,9 +38,17 @@ leaves open):
   block: ``backend='pallas2pass'`` on a mesh.
 
 A shard's lanes cross to its device and its outputs back; where every
-shard is on the lanes' device nothing crosses.  The kernels that add a
-lane's partials through a ticket counter (M1, S1, P2) launch one shard
-after the other on one stream, which the counters need.
+shard is on the lanes' device nothing crosses.  Each kernel runs on the
+card that holds its shard (``ops.kernels.build.launch``).  A pass over
+the shards goes in three stages: the lanes are copied to every shard's
+device, then every shard's work is issued, then the outputs come back.
+A copy between cards runs on its source's stream, after the work queued
+there, so a copy issued after a shard's launch on the lanes' device
+would hold the next card back until that launch ended; staged, the
+cards run their shards at once, with no host sync between them.  The
+kernels that add a lane's partials through a ticket counter (M1, S1,
+P2) launch one shard after the other on a device's stream, which the
+counters need.
 """
 
 from __future__ import annotations
@@ -126,27 +134,15 @@ def _mT(a):
 def _xpass(x: ShardedCounts, lw, lh, with_xlog=True):
     """The dense X pass block by block: (swn, shn, sum x log(wth) or
     None), the block partials added in shard order on lw's device."""
-    dev = lw.device
-    swn = [None] * len(x.rows)
-    shn = [None] * len(x.cols)
-    xlog = None
-    for g, (g0, g1) in enumerate(x.rows):
-        for c, (c0, c1) in enumerate(x.cols):
-            xb = x.blocks[g][c]
-            d = xb.device
-            lwg = lw[..., g0:g1, :].to(d)
-            lhc = lh[..., c0:c1].to(d)
-            xf = xb.to(lw.dtype)
-            wth = lane_matmul(lwg, lhc)
-            u = xf / wth
-            sw = lane_matmul(u, _mT(lhc)).to(dev)
-            sh = lane_matmul(_mT(lwg), u).to(dev)
-            swn[g] = sw if c == 0 else swn[g] + sw
-            shn[c] = sh if g == 0 else shn[c] + sh
-            if with_xlog:
-                xl = lane_sum(xf * torch.log(wth), 2).to(dev)
-                xlog = xl if xlog is None else xlog + xl
-    return torch.cat(swn, -2), torch.cat(shn, -1), xlog
+    def block(xb, lwg, lhc):
+        xf = xb.to(lw.dtype)
+        wth = lane_matmul(lwg, lhc)
+        u = xf / wth
+        return (lane_matmul(u, _mT(lhc)), lane_matmul(_mT(lwg), u),
+                lane_sum(xf * torch.log(wth), 2) if with_xlog else None)
+
+    return _fold_blocks(_blocks(x, block, lw, lh, x.blocks), len(x.rows),
+                        len(x.cols))
 
 
 def fused_sharded(x: ShardedCounts, lw, lh):
@@ -192,24 +188,24 @@ def _to(t, dev):
     return None if t is None else t.to(dev)
 
 
-def _blocks(x: ShardedCounts, fn, lw, lh):
+def _blocks(x: ShardedCounts, fn, lw, lh, blocks=None):
     """``fn(block, lw_g, lh_c)`` on every (gene, cell) block in order,
     genes then cells: a list of (g, c, outputs) with the outputs moved to
     ``lw``'s device.  ``lw_g``/``lh_c`` are the lanes' gene rows and cell
     columns of the block, contiguous on its device; ``fn`` returns a
-    tuple."""
+    tuple.  ``blocks`` (default :meth:`ShardedCounts.packed`) are the
+    blocks ``fn`` reads.  In three stages (the module docstring): every
+    block's lanes cross first, then every ``fn`` is issued, then the
+    outputs come back."""
     dev = lw.device
-    blocks = x.packed()
-    out = []
-    for g, (g0, g1) in enumerate(x.rows):
-        lw_g = lw[..., g0:g1, :]
-        for c, (c0, c1) in enumerate(x.cols):
-            xb = blocks[g][c]
-            d = xb.device
-            res = fn(xb, lw_g.to(d).contiguous(),
-                     lh[..., c0:c1].to(d).contiguous())
-            out.append((g, c, tuple(_to(t, dev) for t in res)))
-    return out
+    blocks = x.packed() if blocks is None else blocks
+    work = [(g, c, blocks[g][c], lw[..., g0:g1, :].to(b.device).contiguous(),
+             lh[..., c0:c1].to(b.device).contiguous())
+            for g, (g0, g1) in enumerate(x.rows)
+            for c, ((c0, c1), b) in enumerate(zip(x.cols, blocks[g]))]
+    res = [(g, c, fn(xb, lw_g, lh_c)) for g, c, xb, lw_g, lh_c in work]
+    del work
+    return [(g, c, tuple(_to(t, dev) for t in r)) for g, c, r in res]
 
 
 def _fold_blocks(parts, ng, nc):
@@ -272,15 +268,14 @@ def _cell_shards(x, fn, lh, *rest):
     """``fn(shard, lh_c, *rest)`` on every cell shard of a sparse
     :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout in order, the
     lanes (``rest``: factors replicated over the shards, or None) moved to
-    the shard's device; the outputs come back to ``lh``'s device."""
+    the shard's device; the outputs come back to ``lh``'s device.  In
+    :func:`_blocks`'s three stages."""
     dev = lh.device
-    out = []
-    for c, tc in enumerate(x):
-        d = tc.device
-        res = fn(tc, lh[..., c * x.m:(c + 1) * x.m].to(d).contiguous(),
-                 *(None if t is None else t.to(d) for t in rest))
-        out.append(tuple(t.to(dev) for t in res))
-    return out
+    work = [(tc, lh[..., c * x.m:(c + 1) * x.m].to(tc.device).contiguous(),
+             [_to(t, tc.device) for t in rest]) for c, tc in enumerate(x)]
+    res = [fn(tc, lh_c, *rest_c) for tc, lh_c, rest_c in work]
+    del work
+    return [tuple(t.to(dev) for t in r) for r in res]
 
 
 def _sparse_fused(x, lw, lh, local):

@@ -27,6 +27,6 @@ def profile_trace(log_dir: str):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -84,6 +84,23 @@ def concordance(types, cid, rank=PLANT_RANK):
                           if t in remap]))
 
 
+def qc(x, types):
+    """The workflow's QC (filter_cells, filter_genes) of the simulated
+    X: the SCSet kept and the planted types of its cells."""
+    import ccfindr_tpu_torch as ct
+
+    s = ct.SCSet(count=x)
+    ncells0 = s.n_cells
+    s = ct.filter_cells(s, umi_min=1, plot=False)
+    s = ct.filter_genes(s, vmr_min=1.05, min_cells_expressed=50,
+                        plot=False, verbose=False)
+    if s.n_cells != ncells0:
+        # default colnames are original column indices: map the planted
+        # types through the surviving cells
+        types = types[np.asarray(s.colnames, dtype=np.int64)]
+    return s, types
+
+
 def run(x, types, ranks, nrun, itmax, device, initializer="random"):
     """The workflow after the simulation, on ccfindr_tpu_torch: QC, the
     batched VB rank scan on ``backend='pallas'`` on ``device``,
@@ -96,15 +113,7 @@ def run(x, types, ranks, nrun, itmax, device, initializer="random"):
 
     phases = {}
     t0 = time.perf_counter()
-    s = ct.SCSet(count=x)
-    ncells0 = s.n_cells
-    s = ct.filter_cells(s, umi_min=1, plot=False)
-    s = ct.filter_genes(s, vmr_min=1.05, min_cells_expressed=50,
-                        plot=False, verbose=False)
-    if s.n_cells != ncells0:
-        # default colnames are original column indices: map the planted
-        # types through the surviving cells
-        types = types[np.asarray(s.colnames, dtype=np.int64)]
+    s, types = qc(x, types)
     phases["qc"] = time.perf_counter() - t0
     print(f"QC: {s.n_genes} genes x {s.n_cells} cells kept "
           f"[{phases['qc']:.1f}s]", flush=True)

@@ -477,9 +477,7 @@ def test_x_pass_division_is_the_division():
     for x in (torch.randint(0, 128, (n,), device=dev, generator=gen).float(),
               -floats(), floats()):
         out = torch.empty(n, dtype=torch.uint8, device=dev)
-        rc = build.library().div_rn_check(x.data_ptr(), floats().data_ptr(),
-                                          n, out.data_ptr(), build.stream())
-        assert rc == 0
+        build.launch("div_rn_check", x, floats(), n, out)
         assert int((out == 2).sum()) == 0 and int((out == 1).sum()) > n // 2
 
 
@@ -1331,3 +1329,32 @@ def test_runs_rows_on_one_card(mode, dt):
     for k in used:
         off = la[k] - int(na.max())
         assert lb[k] == sum(int(r.max()) + off for r in rows) > 0, k
+
+
+# every kernel's wrapper of tools/check_cards.py, by the name it keeps
+CARD_KERNELS = ("K1", "K2", "K3", "K4", "K1s", "K3s", "E1 gm", "E1 cm",
+                "E1s", "E2", "E3", "P1", "P2", "M1", "M2", "S1", "S2")
+_ON_CARD_1 = {}
+
+
+@pytest.mark.parametrize("kernel", CARD_KERNELS)
+def test_wrapper_runs_on_its_tensors_card(kernel):
+    """Each wrapper given tensors on cuda:1, the current device left at
+    cuda:0, runs on cuda:1 (``build.launch`` enters the tensors' card and
+    takes its stream): every output the same bits as the same call on
+    cuda:0 (``tools/check_cards.py``, a K1-K4, E1-E3, P1-P2, M1-M2,
+    S1-S2 chain at 300 x 768, 4 lanes of rp 8)."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    if not _ON_CARD_1:
+        import importlib.util
+        from pathlib import Path
+
+        spec = importlib.util.spec_from_file_location(
+            "check_cards",
+            Path(__file__).resolve().parents[1] / "tools" / "check_cards.py")
+        cc = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cc)
+        _ON_CARD_1.update(cc.compare("cuda:1"))
+    assert _ON_CARD_1[kernel]

@@ -376,14 +376,11 @@ def test_post_block_is_a_constant_of_post_cuh(monkeypatch, ext, rp):
 
     launched = []
 
-    class _Lib:
-        def sol_h_post(self, *args):
-            launched.append(args)
-            return 0
+    def launch(entry, *args):
+        assert entry == "sol_h_post"
+        launched.append(args)
 
-    monkeypatch.setattr(tsol, "require_cuda", lambda *ts: None)
-    monkeypatch.setattr(tsol, "library", lambda: _Lib())
-    monkeypatch.setattr(tsol, "stream", lambda: 0)
+    monkeypatch.setattr(tsol, "launch", launch)
     nblk = -(-ext // tsol.POST_COLS)
     for nb in (1, 3, 6):
         lh = torch.ones(nb, rp, ext)

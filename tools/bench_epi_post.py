@@ -280,11 +280,9 @@ def e2(lib, swn, lw, ehs, sc, r, n, cols=epi.E2_COLS):
     nblk = -(-np_ // cols)
     cs = torch.empty(nb, nblk, rp, dtype=torch.float64, device=lw.device)
     ws = torch.empty(nb, nblk, 4, dtype=torch.float64, device=lw.device)
-    build.check_launch("e2", lib.e2(
-        build.TCODE[lw.dtype], swn.data_ptr(), lw.data_ptr(), ehs.data_ptr(),
-        ehs.shape[1], sc.data_ptr(), nb, np_, rp, r, n, ew.data_ptr(),
-        lwn.data_ptr(), dw.data_ptr(), cs.data_ptr(), ws.data_ptr(),
-        build.stream()))
+    build.launch(
+        lib.e2, build.TCODE[lw.dtype], swn, lw, ehs, ehs.shape[1], sc, nb, np_,
+        rp, r, n, ew, lwn, dw, cs, ws)
     return ew, lwn, dw, cs, ws
 
 
@@ -307,11 +305,9 @@ def e3(lib, csum_part, sc, r, shn, lh, cols=sol.POST_COLS):
     nblk = -(-m // cols)
     rs = torch.empty(nb, nblk, rp, dtype=torch.float64, device=lh.device)
     hs = torch.empty(nb, nblk, 4, dtype=torch.float64, device=lh.device)
-    build.check_launch("e3", lib.e3(
-        build.TCODE[dt], shn.data_ptr(), lh.data_ptr(), csum_part.data_ptr(),
-        nbw, sc.data_ptr(), nb, m, rp, r, m, m, out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(), rs.data_ptr(), hs.data_ptr(),
-        build.stream()))
+    build.launch(
+        lib.e3, build.TCODE[dt], shn, lh, csum_part, nbw, sc, nb, m, rp, r, m,
+        m, out[0], out[1], out[2], rs, hs)
     return (*out, rs, hs)
 
 

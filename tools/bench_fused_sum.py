@@ -119,10 +119,8 @@ def main():
 
         def launch(name):
             o, xl = outs[name]
-            rc = getattr(lib, name)(part.data_ptr(), P, L, xpart.data_ptr(),
-                                    P, nb, o.data_ptr(), xl.data_ptr(),
-                                    build.stream())
-            build.check_launch(name, rc)
+            build.launch(getattr(lib, name), part, P, L, xpart, P, nb, o,
+                         xl)
 
         for k in VARIANTS:
             launch(k)

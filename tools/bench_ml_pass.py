@@ -186,17 +186,15 @@ def main():
             part = torch.empty(nb, -(-m // chunk), device=dev,
                                dtype=torch.float64)
             xl = torch.empty(nb, device=dev, dtype=torch.float64)
-            build.check_launch("m1", lib.bench_h(
-                xc, x.data_ptr(), w.data_ptr(), h.data_ptr(), nb, n, m, r,
-                chunk, hn.data_ptr(), part.data_ptr(), tick.data_ptr(),
-                xl.data_ptr(), build.stream()))
+            build.launch(
+                lib.bench_h, xc, x, w, h, nb, n, m, r, chunk, hn, part, tick,
+                xl)
             return hn, xl
 
         def m2(lib, chunk):
             wn = torch.empty_like(w)
-            build.check_launch("m2", lib.bench_w(
-                xc, x.data_ptr(), w.data_ptr(), h.data_ptr(), nb, n, m, r,
-                chunk, wn.data_ptr(), build.stream()))
+            build.launch(
+                lib.bench_w, xc, x, w, h, nb, n, m, r, chunk, wn)
             return wn
 
         def base_m1(lib):
@@ -204,17 +202,14 @@ def main():
             part = torch.empty(nb, -(-m // 64), device=dev,
                                dtype=torch.float64)
             xl = torch.empty(nb, device=dev, dtype=torch.float64)
-            build.check_launch("baseline m1", lib.ml_hpass(
-                0, xc, x.data_ptr(), w.data_ptr(), h.data_ptr(), nb, n, m,
-                r, hn.data_ptr(), part.data_ptr(), tick.data_ptr(),
-                xl.data_ptr(), build.stream()))
+            build.launch(
+                lib.ml_hpass, 0, xc, x, w, h, nb, n, m, r, hn, part, tick, xl)
             return hn, xl
 
         def base_m2(lib):
             wn = torch.empty_like(w)
-            build.check_launch("baseline m2", lib.ml_wpass(
-                0, xc, x.data_ptr(), w.data_ptr(), h.data_ptr(), nb, n, m,
-                r, wn.data_ptr(), build.stream()))
+            build.launch(
+                lib.ml_wpass, 0, xc, x, w, h, nb, n, m, r, wn)
             return wn
 
         hn_p, xl_p = mlk.ml_h_plain(x, w, h)

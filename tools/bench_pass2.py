@@ -254,22 +254,19 @@ def main():
             part = torch.empty(nb, -(-n // vbk.P2_BAND) * -(-m // chunk),
                                dtype=torch.float64, device=dev)
             out = torch.empty(nb, dtype=torch.float64, device=dev)
-            build.check_launch("p2", lib.bench_elbo(
-                mma, build.XCODE[x.dtype], x.data_ptr(), m, lw.data_ptr(), lwl.data_ptr(),
-                lh.data_ptr(), lhl.data_ptr(), nb, n, m, r, chunk,
-                part.data_ptr(), tick.data_ptr(), out.data_ptr(),
-                build.stream()))
+            build.launch(
+                lib.bench_elbo, mma, build.XCODE[x.dtype], x, m, lw, lwl, lh,
+                lhl, nb, n, m, r, chunk, part, tick, out)
             return out
 
         def base():
             part = torch.empty(nb, -(-m // 64) * -(-n // 64),
                                dtype=torch.float64, device=dev)
             out = torch.empty(nb, dtype=torch.float64, device=dev)
-            build.check_launch("baseline p2", libs["baseline"].elbo_xpass(
-                build.TCODE[lw.dtype], build.XCODE[x.dtype], x.data_ptr(),
-                m, lw.data_ptr(), lwl.data_ptr(), lh.data_ptr(),
-                lhl.data_ptr(), nb, n, m, r, part.data_ptr(),
-                tick.data_ptr(), out.data_ptr(), build.stream()))
+            build.launch(
+                libs["baseline"].elbo_xpass, build.TCODE[lw.dtype],
+                build.XCODE[x.dtype], x, m, lw, lwl, lh, lhl, nb, n, m, r,
+                part, tick, out)
             return out
 
         d_p = vbk.elbo_data_plain(x, lw, lh)

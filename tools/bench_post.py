@@ -195,12 +195,10 @@ def post(ver, sfx_part, lf, denom_part, sc, ab, r, n_live, n_pin):
     e, ln, d = (torch.empty_like(lf) for _ in range(3))
     rs = torch.empty(nb, nblk, rp, dtype=torch.float64, device=lf.device)
     ss = torch.empty(nb, nblk, 4, dtype=torch.float64, device=lf.device)
-    build.check_launch("post", lib.post(
-        build.TCODE[lf.dtype], sfx_part.data_ptr(), sfx_part.shape[1],
-        lf.data_ptr(), denom_part.data_ptr(), denom_part.shape[1],
-        sc.data_ptr(), ab, nb, ext, rp, r, n_live, n_pin, e.data_ptr(),
-        ln.data_ptr(), d.data_ptr(), rs.data_ptr(), ss.data_ptr(),
-        build.stream()))
+    build.launch(
+        lib.post, build.TCODE[lf.dtype], sfx_part, sfx_part.shape[1], lf,
+        denom_part, denom_part.shape[1], sc, ab, nb, ext, rp, r, n_live, n_pin,
+        e, ln, d, rs, ss)
     return e, ln, d, rs, ss
 
 
@@ -211,11 +209,10 @@ def finish(ver, sc, xlog_part, w, h, n, m, mask=15, niter=100):
     nb = sc.shape[0]
     rp = w[3].shape[2]
     out = torch.empty(nb, sol.NSCAL, dtype=torch.float64, device=sc.device)
-    build.check_launch("finish", lib.sol_finish(
-        0, sc.data_ptr(), xlog_part.data_ptr(), xlog_part.shape[1],
-        w[3].data_ptr(), w[4].data_ptr(), w[3].shape[1], h[3].data_ptr(),
-        h[4].data_ptr(), h[3].shape[1], nb, rp, n, m, mask, niter, 1e-4,
-        out.data_ptr(), build.stream()))
+    build.launch(
+        lib.sol_finish, 0, sc, xlog_part, xlog_part.shape[1], w[3], w[4],
+        w[3].shape[1], h[3], h[4], h[3].shape[1], nb, rp, n, m, mask, niter,
+        1e-4, out)
     return out
 
 

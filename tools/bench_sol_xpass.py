@@ -54,12 +54,9 @@ def k1_launch(entry, x, lwt, lh, eh, sc, chunk, takes_chunk=True):
     shn = torch.empty(nb, ngc, rp, mp, device=dev, dtype=lwt.dtype)
     xl = torch.empty(nb, ngc * ncc, device=dev, dtype=torch.float64)
     ehs = torch.empty(nb, ncc, rp, device=dev, dtype=torch.float64)
-    rc = entry(build.TCODE[lwt.dtype], build.XCODE[x.dtype], 0, x.data_ptr(),
-               lwt.data_ptr(), lh.data_ptr(), eh.data_ptr(), sc.data_ptr(),
-               nb, np_, mp, x.stride(0), rp,
-               *(chunk if takes_chunk else ()), swn.data_ptr(),
-               shn.data_ptr(), xl.data_ptr(), ehs.data_ptr(), build.stream())
-    build.check_launch("sol_xpass", rc)
+    build.launch(entry, build.TCODE[lwt.dtype], build.XCODE[x.dtype], 0, x,
+                 lwt, lh, eh, sc, nb, np_, mp, x.stride(0), rp,
+                 *(chunk if takes_chunk else ()), swn, shn, xl, ehs)
     return swn, shn, xl, ehs
 
 

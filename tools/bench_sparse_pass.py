@@ -173,16 +173,10 @@ def rowpass(lib, tc, lw, lht, mode):
             else None)
     flags = torch.ones(nb, dtype=torch.float64, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    build.check_launch("sp_rowpass", lib.sp_rowpass(
-        build.TCODE[lw.dtype], build.XCODE[tc.val.dtype], 0,
-        tc.indptr.data_ptr(), tc.col.data_ptr(), tc.val.data_ptr(),
-        lw.data_ptr(), lht.data_ptr(), flags.data_ptr(), nb, n, tc.m, r,
-        tc.nnz, ptr(swn), ptr(a), ptr(part),
-        ptr(build.tickets(nb, dev) if want_xlog else None), ptr(xlog),
-        build.stream()))
+    build.launch(
+        lib.sp_rowpass, build.TCODE[lw.dtype], build.XCODE[tc.val.dtype], 0,
+        tc.indptr, tc.col, tc.val, lw, lht, flags, nb, n, tc.m, r, tc.nnz, swn,
+        a, part, build.tickets(nb, dev) if want_xlog else None, xlog)
     return swn, a, xlog
 
 
@@ -190,10 +184,9 @@ def colpass(lib, tc, a, lw, bf16):
     """One S2 launch of ``lib``: shn (B, r, m)."""
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
-    build.check_launch("sp_colpass", lib.sp_colpass(
-        build.TCODE[lw.dtype], int(bf16), tc.colptr.data_ptr(),
-        tc.row.data_ptr(), tc.perm.data_ptr(), a.data_ptr(), lw.data_ptr(),
-        nb, n, tc.m, r, tc.nnz, shn.data_ptr(), build.stream()))
+    build.launch(
+        lib.sp_colpass, build.TCODE[lw.dtype], int(bf16), tc.colptr, tc.row,
+        tc.perm, a, lw, nb, n, tc.m, r, tc.nnz, shn)
     return shn
 
 

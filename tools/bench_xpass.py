@@ -115,10 +115,8 @@ def main():
         full = torch.empty(nb, n, r, device=dev)
         part = torch.empty(nb, nc, r, m, device=dev)
         xp = torch.empty(nb, nc, dtype=torch.float64, device=dev)
-        rc = lib.e1(x.data_ptr(), lw.data_ptr(), lh.data_ptr(), nb, n, m, r,
-                    chunk, full.data_ptr(), part.data_ptr(), xp.data_ptr(),
-                    xlog, build.stream())
-        build.check_launch("e1", rc)
+        build.launch(lib.e1, x, lw, lh, nb, n, m, r, chunk, full, part, xp,
+                     xlog)
         return full, part, xp
 
     def ms(lib, chunk, xlog, reps=5):
