@@ -157,7 +157,7 @@ class SCSet:
         j = _norm_index(j, self.n_cells)
 
         out = SCSet.__new__(SCSet)
-        out._counts = self._counts[i][:, j]
+        out._counts = _take(self._counts, i, j)
         out.row_data = self.row_data.iloc[i]
         out.col_data = self.col_data.iloc[j]
         out.ranks = list(self.ranks)
@@ -212,6 +212,19 @@ class SCSet:
         if show:
             plt.show()
         return axes
+
+
+def _take(mat, i, j):
+    """``mat[i][:, j]``, a selector of every row or column in order taken
+    as a copy: the same arrays.  The drivers copy the whole SCSet for
+    their result, which at 279 M nonzeros took ~6 s by fancy indexing."""
+    def every(idx, size):
+        return len(idx) == size and bool((idx == np.arange(size)).all())
+
+    out = mat if every(i, mat.shape[0]) else mat[i]
+    if not every(j, mat.shape[1]):
+        out = out[:, j]
+    return out.copy() if out is mat else out
 
 
 def _norm_index(idx, size):

@@ -33,4 +33,13 @@ __device__ __forceinline__ T operand(T v) {
   return v;
 }
 
+// The same at a nonzero that ``keep`` may exempt: the sparse passes
+// leave the operands of the JAX tile layout's overflow tail unrounded,
+// as its bf16 mode does (ccfindr_tpu/ops/tile.py:611-621).
+template <bool kBf16, typename T>
+__device__ __forceinline__ T operand(T v, bool keep) {
+  if constexpr (kBf16) return keep ? v : round_bf16(v);
+  return v;
+}
+
 }  // namespace ccfindr

@@ -29,6 +29,7 @@
 #include <cstdint>
 
 #include "epi_w.cuh"
+#include "epi_xpass.cuh"
 #include "fused.cuh"
 #include "post.cuh"
 #include "reduce.cuh"
@@ -52,26 +53,10 @@ __global__ void div_rn_check_kernel(const float* __restrict__ x,
   }
 }
 
-// ---------------------------------------------------------------------
-// Launchers
-// ---------------------------------------------------------------------
-template <typename T, typename XT>
-cudaError_t fused_xpass_x(int gm, int bf16, const void* x, const void* lw,
-                          const void* lh, int B, int np, int mp, int rp,
-                          int chunk, void* full, void* part,
-                          double* xlog_part, cudaStream_t s) {
-#define E1(GM, BF)                                                       \
-  return launch_fused_xpass<T, XT, GM, BF>(x, (size_t)mp, lw, lh, B, np, mp, \
-                                           rp, chunk, full, part, xlog_part, \
-                                           s)
-  if (gm) {
-    if (bf16) E1(true, true);
-    E1(true, false);
-  }
-  if (bf16) E1(false, true);
-  E1(false, false);
-#undef E1
-}
+// E1's instantiations with double factors are compiled in epi_f64.cu:
+// its 32 instantiations made this file the build's long pole (the kernels
+// build one nvcc a source, all at once)
+E1_EXTERN(extern, double)
 
 }  // namespace ccfindr
 

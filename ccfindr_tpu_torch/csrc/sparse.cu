@@ -53,7 +53,11 @@
 // bf16 before forming wth and rounds a = x/wth after the division (the
 // rounded a is what it sums and stores); S2 sums the rounded a against
 // the rounded lw row.  Sums and log(wth) stay in the factor type
-// (bf16.cuh).
+// (bf16.cuh).  tail (nnz) uint8, CSR order, may be null: under kBf16
+// the nonzeros it flags keep every operand unrounded (wth, a, and the
+// rows each sum takes), as the JAX kernel's COO overflow tail does
+// (ccfindr_tpu/ops/tile.py:611-621, ops/ell.py _tail_scan); without
+// kBf16 it is not read.
 
 #include <cuda_runtime.h>
 
@@ -123,7 +127,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // spans whole 16-byte chunks, else one element at a time.
 template <int RK, bool kBf16, typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ p, int r,
-                                         bool vec, T (&v)[RK]) {
+                                         bool vec, T (&v)[RK],
+                                         bool keep = false) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   bool loaded = false;
   if constexpr (RK % V == 0) {
@@ -151,7 +156,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, int r,
     for (int k = 0; k < RK; ++k) v[k] = k < r ? p[k] : T(0);
   }
 #pragma unroll
-  for (int k = 0; k < RK; ++k) v[k] = operand<kBf16>(v[k]);
+  for (int k = 0; k < RK; ++k) v[k] = operand<kBf16>(v[k], keep);
 }
 
 // One step of warp_reduce_scatter and the steps after it: a lane keeps
@@ -192,6 +197,7 @@ __global__ void __launch_bounds__(kSpThreads, sizeof(T) * RK <= 32    ? 4
                                                                       : 1)
 sp_rowpass_kernel(const int64_t* __restrict__ indptr,
                   const int* __restrict__ col, const XT* __restrict__ val,
+                  const uint8_t* __restrict__ tail,
                   const T* __restrict__ lw, const T* __restrict__ lht,
                   const double* __restrict__ do_elbo, int n, int m, int r,
                   int64_t nnz, bool vec, T* __restrict__ swn,
@@ -208,8 +214,9 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
 
   if (g < n) {  // warp-uniform
     const T* lh_b = lht + (size_t)b * m * r;
+    const T* lw_g = lw + ((size_t)b * n + g) * r;
     T w[RK], acc[RK];
-    load_row<RK, kBf16>(lw + ((size_t)b * n + g) * r, r, vec, w);
+    load_row<RK, kBf16>(lw_g, r, vec, w);
 #pragma unroll
     for (int k = 0; k < RK; ++k) acc[k] = T(0);
     const int64_t p_beg = indptr[g], p_end = indptr[g + 1];
@@ -218,13 +225,22 @@ sp_rowpass_kernel(const int64_t* __restrict__ indptr,
       if (p < p_end) {
         const int c = col[p];
         const T xv = static_cast<T>(val[p]);
+        const bool keep = kBf16 && tail != nullptr && tail[p] != 0;
         T h[RK];
-        load_row<RK, kBf16>(lh_b + (size_t)c * r, r, vec, h);
+        load_row<RK, kBf16>(lh_b + (size_t)c * r, r, vec, h, keep);
         T s = T(0);
+        if (keep) {
+          // a tail nonzero (rare): the row's lw unrounded, read again
+          // (cached) rather than held beside the rounded copy
 #pragma unroll
-        for (int k = 0; k < RK; ++k) s = fma(w[k], h[k], s);
+          for (int k = 0; k < RK; ++k)
+            if (k < r) s = fma(lw_g[k], h[k], s);
+        } else {
+#pragma unroll
+          for (int k = 0; k < RK; ++k) s = fma(w[k], h[k], s);
+        }
         const T wth = s > T(0) ? s : T(1);
-        const T a = operand<kBf16>(div_ieee(xv, wth));
+        const T a = operand<kBf16>(div_ieee(xv, wth), keep);
 #pragma unroll
         for (int k = 0; k < RK; ++k) acc[k] = fma(a, h[k], acc[k]);
         if (abuf != nullptr) abuf[(size_t)b * nnz + p] = a;
@@ -250,7 +266,9 @@ template <typename T, typename XT, bool kBf16>
 __global__ void __launch_bounds__(kSpThreads)
 sp_rowpass_group_kernel(const int64_t* __restrict__ indptr,
                         const int* __restrict__ col,
-                        const XT* __restrict__ val, const T* __restrict__ lw,
+                        const XT* __restrict__ val,
+                        const uint8_t* __restrict__ tail,
+                        const T* __restrict__ lw,
                         const T* __restrict__ lht,
                         const double* __restrict__ do_elbo, int n, int m,
                         int r, int64_t nnz, T* __restrict__ swn,
@@ -282,24 +300,29 @@ sp_rowpass_group_kernel(const int64_t* __restrict__ indptr,
       const bool mine = pl < p_end;
       const int c_l = mine ? col[pl] : 0;
       const T x_l = mine ? static_cast<T>(val[pl]) : T(0);
+      const int k_l = kBf16 && mine && tail != nullptr && tail[pl] != 0;
       const int cnt = static_cast<int>(p_end - p0 < 32 ? p_end - p0 : 32);
       T a_mine = T(0);
 #pragma unroll 4
       for (int t = 0; t < cnt; ++t) {
         const int c = __shfl_sync(kFull, c_l, t);
         const T xv = __shfl_sync(kFull, x_l, t);
+        const bool keep = kBf16 && __shfl_sync(kFull, k_l, t) != 0;
         T lh[KP];
         T s = T(0);
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
           const int k = lane + 32 * j;
-          lh[j] = k < r ? operand<kBf16>(lh_b[(size_t)c * r + k]) : T(0);
-          s = fma(w[j], lh[j], s);
+          lh[j] = k < r ? operand<kBf16>(lh_b[(size_t)c * r + k], keep)
+                        : T(0);
+          // a tail nonzero (rare, warp-uniform): the row's lw unrounded,
+          // read again (cached) rather than held beside the rounded copy
+          s = fma(keep && k < r ? lw_g[k] : w[j], lh[j], s);
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
         const T wth = s > T(0) ? s : T(1);
-        const T a = operand<kBf16>(div_ieee(xv, wth));
+        const T a = operand<kBf16>(div_ieee(xv, wth), keep);
 #pragma unroll
         for (int j = 0; j < KP; ++j) acc[j] = fma(a, lh[j], acc[j]);
         if (xlog && lane == 0) xl += static_cast<double>(xv * log(wth));
@@ -374,6 +397,7 @@ template <typename T, int RK, int V, bool kBf16>
 __global__ void __launch_bounds__(kSpThreads)
 sp_colpass_kernel(const int64_t* __restrict__ colptr,
                   const int* __restrict__ rowc, const int* __restrict__ perm,
+                  const uint8_t* __restrict__ tail,
                   const T* __restrict__ abuf, const T* __restrict__ lw, int n,
                   int m, int r, int64_t nnz, bool vec, T* __restrict__ shn) {
   static_assert(RK >= 4 && RK <= 32 && (RK & (RK - 1)) == 0, "RK");
@@ -397,9 +421,11 @@ sp_colpass_kernel(const int64_t* __restrict__ colptr,
     for (int64_t q = q_beg + slot; q - slot < q_end; q += kNps) {
       if (q < q_end) {
         const int g = rowc[q];
-        const T a = a_b[perm[q]];
+        const int p = perm[q];
+        const T a = a_b[p];
+        const bool keep = kBf16 && tail != nullptr && tail[p] != 0;
         T w[V];
-        load_row<V, kBf16>(lw_b + (size_t)g * r, r - k0, vec, w);
+        load_row<V, kBf16>(lw_b + (size_t)g * r, r - k0, vec, w, keep);
 #pragma unroll
         for (int j = 0; j < V; ++j) acc[j] = fma(a, w[j], acc[j]);
       }
@@ -429,6 +455,7 @@ __global__ void __launch_bounds__(kSpThreads)
 sp_colpass_group_kernel(const int64_t* __restrict__ colptr,
                         const int* __restrict__ rowc,
                         const int* __restrict__ perm,
+                        const uint8_t* __restrict__ tail,
                         const T* __restrict__ abuf, const T* __restrict__ lw,
                         int n, int m, int r, int64_t nnz,
                         T* __restrict__ shn) {
@@ -450,17 +477,21 @@ sp_colpass_group_kernel(const int64_t* __restrict__ colptr,
       const int64_t ql = q0 + lane;
       const bool mine = ql < q_end;
       const int g_l = mine ? rowc[ql] : 0;
-      const T a_l = mine ? a_b[perm[ql]] : T(0);
+      const int p_l = mine ? perm[ql] : 0;
+      const T a_l = mine ? a_b[p_l] : T(0);
+      const int k_l = kBf16 && mine && tail != nullptr && tail[p_l] != 0;
       const int cnt = static_cast<int>(q_end - q0 < 32 ? q_end - q0 : 32);
 #pragma unroll 4
       for (int t = 0; t < cnt; ++t) {
         const int g = __shfl_sync(kFull, g_l, t);
         const T a = __shfl_sync(kFull, a_l, t);
+        const bool keep = kBf16 && __shfl_sync(kFull, k_l, t) != 0;
 #pragma unroll
         for (int j = 0; j < KP; ++j) {
           const int k = lane + 32 * j;
           if (k < r)
-            acc[j] = fma(a, operand<kBf16>(lw_b[(size_t)g * r + k]), acc[j]);
+            acc[j] = fma(a, operand<kBf16>(lw_b[(size_t)g * r + k], keep),
+                         acc[j]);
         }
       }
     }
@@ -483,7 +514,8 @@ sp_colpass_group_kernel(const int64_t* __restrict__ colptr,
 // ---------------------------------------------------------------------
 template <typename T, typename XT, int RK, bool kBf16>
 cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
-                           const void* val, const void* lw, const void* lht,
+                           const void* val, const uint8_t* tail,
+                           const void* lw, const void* lht,
                            const double* do_elbo, int B, int n, int m, int r,
                            int64_t nnz, void* swn, void* abuf, double* part,
                            unsigned* tickets, double* xlog,
@@ -494,13 +526,15 @@ cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
   };
   if constexpr (RK > 32) {
     sp_rowpass_group_kernel<T, XT, kBf16><<<grid, kSpThreads, 0, stream>>>(
-        indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
+        indptr, col, static_cast<const XT*>(val), tail,
+        static_cast<const T*>(lw),
         static_cast<const T*>(lht), do_elbo, n, m, r, nnz,
         static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
   } else {
     const bool vec = (r * sizeof(T)) % 16 == 0 && aligned(lw) && aligned(lht);
     sp_rowpass_kernel<T, XT, RK, kBf16><<<grid, kSpThreads, 0, stream>>>(
-        indptr, col, static_cast<const XT*>(val), static_cast<const T*>(lw),
+        indptr, col, static_cast<const XT*>(val), tail,
+        static_cast<const T*>(lw),
         static_cast<const T*>(lht), do_elbo, n, m, r, nnz, vec,
         static_cast<T*>(swn), static_cast<T*>(abuf), part, tickets, xlog);
   }
@@ -511,12 +545,13 @@ cudaError_t launch_rowpass(const int64_t* indptr, const int* col,
 // or 32 components, the group walk above 32
 template <typename T, typename XT, bool kBf16>
 cudaError_t rowpass_any_r(const int64_t* indptr, const int* col,
-                          const void* val, const void* lw, const void* lht,
+                          const void* val, const uint8_t* tail,
+                          const void* lw, const void* lht,
                           const double* do_elbo, int B, int n, int m, int r,
                           int64_t nnz, void* swn, void* abuf, double* part,
                           unsigned* tickets, double* xlog, cudaStream_t s) {
 #define S1R(RK)                                                           \
-  return launch_rowpass<T, XT, RK, kBf16>(indptr, col, val, lw, lht,      \
+  return launch_rowpass<T, XT, RK, kBf16>(indptr, col, val, tail, lw, lht,\
                                           do_elbo, B, n, m, r, nnz, swn,  \
                                           abuf, part, tickets, xlog, s)
   if (r <= 4) S1R(4);
@@ -529,13 +564,14 @@ cudaError_t rowpass_any_r(const int64_t* indptr, const int* col,
 
 template <typename T, int RK, bool kBf16>
 cudaError_t launch_colpass(const int64_t* colptr, const int* rowc,
-                           const int* perm, const void* abuf, const void* lw,
+                           const int* perm, const uint8_t* tail,
+                           const void* abuf, const void* lw,
                            int B, int n, int m, int r, int64_t nnz, void* shn,
                            cudaStream_t stream) {
   const dim3 grid(ceil_div(m, kSpWarps), B);
   if constexpr (RK > 32) {
     sp_colpass_group_kernel<T, kBf16><<<grid, kSpThreads, 0, stream>>>(
-        colptr, rowc, perm, static_cast<const T*>(abuf),
+        colptr, rowc, perm, tail, static_cast<const T*>(abuf),
         static_cast<const T*>(lw), n, m, r, nnz, static_cast<T*>(shn));
   } else if ((r * sizeof(T)) % 16 == 0) {
     // 16-byte rows; the caller passes lw 16-byte aligned (this launch
@@ -545,11 +581,11 @@ cudaError_t launch_colpass(const int64_t* colptr, const int* rowc,
       return cudaErrorMisalignedAddress;
     constexpr int kVec = 16 / static_cast<int>(sizeof(T));
     sp_colpass_kernel<T, RK, kVec, kBf16><<<grid, kSpThreads, 0, stream>>>(
-        colptr, rowc, perm, static_cast<const T*>(abuf),
+        colptr, rowc, perm, tail, static_cast<const T*>(abuf),
         static_cast<const T*>(lw), n, m, r, nnz, true, static_cast<T*>(shn));
   } else {
     sp_colpass_kernel<T, RK, RK, kBf16><<<grid, kSpThreads, 0, stream>>>(
-        colptr, rowc, perm, static_cast<const T*>(abuf),
+        colptr, rowc, perm, tail, static_cast<const T*>(abuf),
         static_cast<const T*>(lw), n, m, r, nnz, false,
         static_cast<T*>(shn));
   }
@@ -560,12 +596,13 @@ cudaError_t launch_colpass(const int64_t* colptr, const int* rowc,
 // row, in 16-byte slices where rows are aligned, the group walk above 32
 template <typename T, bool kBf16>
 cudaError_t colpass_any_r(const int64_t* colptr, const int* rowc,
-                          const int* perm, const void* abuf, const void* lw,
+                          const int* perm, const uint8_t* tail,
+                          const void* abuf, const void* lw,
                           int B, int n, int m, int r, int64_t nnz, void* shn,
                           cudaStream_t s) {
 #define S2R(RK)                                                              \
-  return launch_colpass<T, RK, kBf16>(colptr, rowc, perm, abuf, lw, B, n, m, \
-                                      r, nnz, shn, s)
+  return launch_colpass<T, RK, kBf16>(colptr, rowc, perm, tail, abuf, lw, B, \
+                                      n, m, r, nnz, shn, s)
   if (r <= 4) S2R(4);
   if (r <= 8) S2R(8);
   if (r <= 16) S2R(16);
@@ -581,14 +618,16 @@ using namespace ccfindr;
 // C interface, bound with ctypes by ccfindr_tpu_torch/ops/kernels/sparse.py.
 // tcode: factor type 0 float, 1 double.  xcode: value type 1 int16,
 // 2 float, 3 double (the codes of ml.cu; int8 is not taken).  bf16: 1
-// for the mxu_bf16 rounding.  swn, abuf and part may each be null, which
+// for the mxu_bf16 rounding, tail (may be null) its exempt nonzeros.
+// swn, abuf and part may each be null, which
 // skips that output; with part, tickets (B, 0 before and after) and xlog
 // (B, each lane's sum of the partials) are taken too.  Each returns
 // cudaGetLastError() after its launch.
 extern "C" {
 
 int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
-               const int* col, const void* val, const void* lw,
+               const int* col, const void* val, const uint8_t* tail,
+               const void* lw,
                const void* lht, const double* do_elbo, int B, int n, int m,
                int r, int64_t nnz, void* swn, void* abuf, double* part,
                unsigned* tickets, double* xlog, void* stream) {
@@ -596,12 +635,12 @@ int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SP_ROW(T, XT)                                                       \
   return static_cast<int>(                                                 \
-      bf16 ? rowpass_any_r<T, XT, true>(indptr, col, val, lw, lht, do_elbo, \
-                                        B, n, m, r, nnz, swn, abuf, part,   \
-                                        tickets, xlog, s)                   \
-           : rowpass_any_r<T, XT, false>(indptr, col, val, lw, lht,         \
-                                         do_elbo, B, n, m, r, nnz, swn,     \
-                                         abuf, part, tickets, xlog, s))
+      bf16 ? rowpass_any_r<T, XT, true>(indptr, col, val, tail, lw, lht,    \
+                                        do_elbo, B, n, m, r, nnz, swn,      \
+                                        abuf, part, tickets, xlog, s)       \
+           : rowpass_any_r<T, XT, false>(indptr, col, val, nullptr, lw,     \
+                                         lht, do_elbo, B, n, m, r, nnz,     \
+                                         swn, abuf, part, tickets, xlog, s))
   switch (tcode * 4 + xcode) {
     case 1: SP_ROW(float, int16_t);
     case 2: SP_ROW(float, float);
@@ -615,16 +654,17 @@ int sp_rowpass(int tcode, int xcode, int bf16, const int64_t* indptr,
 }
 
 int sp_colpass(int tcode, int bf16, const int64_t* colptr, const int* rowc,
-               const int* perm, const void* abuf, const void* lw, int B,
+               const int* perm, const uint8_t* tail, const void* abuf,
+               const void* lw, int B,
                int n, int m, int r, int64_t nnz, void* shn, void* stream) {
   if (r < 1 || r > kSpMaxR) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SP_COL(T)                                                          \
   return static_cast<int>(                                                \
-      bf16 ? colpass_any_r<T, true>(colptr, rowc, perm, abuf, lw, B, n, m, \
-                                    r, nnz, shn, s)                        \
-           : colpass_any_r<T, false>(colptr, rowc, perm, abuf, lw, B, n, m, \
-                                     r, nnz, shn, s))
+      bf16 ? colpass_any_r<T, true>(colptr, rowc, perm, tail, abuf, lw, B, \
+                                    n, m, r, nnz, shn, s)                  \
+           : colpass_any_r<T, false>(colptr, rowc, perm, nullptr, abuf, lw, \
+                                     B, n, m, r, nnz, shn, s))
   switch (tcode) {
     case 0: SP_COL(float);
     case 1: SP_COL(double);

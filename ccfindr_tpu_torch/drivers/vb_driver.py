@@ -71,9 +71,14 @@ def _sparse_counts(obj):
     import scipy.sparse as sp
 
     mat = sp.csr_matrix(obj.counts)
-    if (np.asarray(mat.sum(axis=1)).ravel() == 0).any():
+    if not mat.data.all():
+        mat = mat.copy()
+        mat.eliminate_zeros()
+    # a row or column of counts sums to 0 (the JAX driver's test) exactly
+    # when it stores no nonzero; at 279 M nonzeros the sums took ~4 s
+    if (np.diff(mat.indptr) == 0).any():
         raise ValueError("Input matrix contains empty rows")
-    if (np.asarray(mat.sum(axis=0)).ravel() == 0).any():
+    if (np.bincount(mat.indices, minlength=mat.shape[1]) == 0).any():
         raise ValueError("Input matrix contains empty columns")
     return mat
 
@@ -463,7 +468,7 @@ def _record_multihost(out, my_idx, ranks, nrun, n, m, Tol, unif_stop,
 
 
 def _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
-                 overrides):
+                 overrides, mxu_bf16=False):
     """X laid out once on each runs row of ``mesh`` (the JAX driver's
     ``_place_sharded``), zero-padded to the mesh: the sparse layout a
     cell shard (``from_scipy_tile_sharded``), the dense ones a (gene,
@@ -476,6 +481,8 @@ def _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
     if backend == "sparse":
         base = tile_ops.from_scipy_tile_sharded(mat, ncells, m_pad=m_pad,
                                                 dtype=dtype, device="cpu")
+        if mxu_bf16:
+            tile_ops._flag_bf16_tail(base)
         return [base.to(row[0]) for row in mesh.devices]
     n, m = mat.shape
     x = torch.as_tensor(mat).to(dtype=dtype if backend == "pallas2pass"
@@ -529,9 +536,13 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
       (``ops.sparse.fused_coo``, ``ops.ell.fused_ell``) are in the port
       ``fused_tile`` over a CSR view of the same nonzeros, so ``'coo'``
       and ``'ell'`` build the CSR layout at once, on one device and on a
-      mesh.  ``'coo'`` keeps ``elbo_every`` and ``precision='bf16'``,
-      which the JAX package's COO scan refuses; ``'ell'`` refuses them
-      as the JAX package's ELL scan does.
+      mesh.  ``'coo'`` keeps ``elbo_every``, which the JAX package's COO
+      scan refuses, and refuses ``precision='bf16'`` as it does; ``'ell'``
+      refuses both as the JAX package's ELL scan does.  Under
+      ``precision='bf16'`` the layout flags the nonzeros of the JAX tile
+      layout's overflow tail at its default slot width
+      (``TileCounts.tail``), whose operands S1/S2 leave
+      unrounded as JAX's pass does.
 
     ``suffstats``/``data_term`` (``(x, lw, lh)`` of a lane batch ->
     ``(sw, sh)`` and ``(B,)``) override the backend's passes; on
@@ -613,6 +624,12 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                               ("auto", "tile", "coo", "ell"))
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}")
+    if backend == "sparse" and sparse_layout == "coo" and precision == "bf16":
+        # the JAX driver's COO scan has no bf16 mode
+        # (ccfindr_tpu/drivers/vb_driver.py:735-741, 808-815)
+        raise ValueError(
+            "precision='bf16' is supported by backend='pallas' and the "
+            "tile-sparse backend (single device or cell-sharded mesh)")
     if backend == "sparse" and sparse_layout == "ell":
         # the JAX driver's ELL scan has neither
         # (ccfindr_tpu/drivers/vb_driver.py:803-815)
@@ -730,7 +747,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     rows = None
     if mesh is not None:
         rows = _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
-                            overrides)
+                            overrides, mxu_bf16=precision == "bf16")
         if backend == "sparse":
             run_kwargs.update(fused=sharded.make_tile_fused_sharded(
                 mesh, mxu_bf16=precision == "bf16"),
@@ -759,6 +776,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                               data_term=sharded.data_term_sharded)
     elif backend == "sparse":
         x = tile_ops.from_scipy_tile(mat, dtype=dtype, device=device)
+        if precision == "bf16":
+            tile_ops._flag_bf16_tail(x)
         run_kwargs.update(fused=tile_ops.make_tile_fused(
             mxu_bf16=precision == "bf16"), elbo_every=int(elbo_every))
     elif backend == "pallas2pass" or (backend == "pallas" and overrides):
@@ -959,9 +978,14 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             rtrue = torch.as_tensor(rank_arr.astype(np_dtype), device=device)
             ckname = ("vb_sweeps_batch.npz" if nproc == 1
                       else f"vb_sweeps_batch_p{pid}.npz")
+            # the lanes' starts stacked, the per-lane copies dropped (a
+            # scan of 38 lanes at the oversize configuration holds 6.8
+            # GB of them)
+            states = _stack(states)
+            drawn = per_rank = None
             with timings.phase("vb_rank_batch", ranks=list(ranks),
                                nrun=nrun):
-                out, chunked = run_lanes(_stack(states), hyper_batch(nb),
+                out, chunked = run_lanes(states, hyper_batch(nb),
                                          ckname, rmask, rtrue,
                                          nb_pin=nb_all)
             timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())

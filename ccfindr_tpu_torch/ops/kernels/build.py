@@ -111,9 +111,10 @@ _SIGNATURES = {
                    _I, _I, _I, _I, _D, _P, _P],
     "ml_hpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ml_wpass": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "sp_rowpass": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _L, _P, _P, _P, _P, _P, _P],
-    "sp_colpass": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    "sp_rowpass": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                   _I, _L, _P, _P, _P, _P, _P, _P],
+    "sp_colpass": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P,
+                   _P],
     "fused_xpass": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P],
     "fused_sum": [_I, _P, _I, _I, _P, _I, _I, _P, _P, _P],

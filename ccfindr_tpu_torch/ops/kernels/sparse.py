@@ -21,7 +21,8 @@ Factors carry a leading lane axis B: ``lw (B, n, r)``, ``lht (B, m, r)``
 is ``(B, nnz)`` in the factor dtype.  ``mxu_bf16`` (``precision=
 'bf16'``, the tile kernel's mode) rounds the factor rows each pass
 gathers and ``a`` to bf16 (``csrc/bf16.cuh``), the sums staying in the
-factor dtype.
+factor dtype, but at the nonzeros of the layout's ``tail`` (the JAX
+layout's overflow tail, which its bf16 pass takes unrounded).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import sparse
+from . import sol
 from .build import TCODE, XCODE, launch, tickets
 
 # gene rows (S1) or cells (S2) one block of csrc/sparse.cu owns
@@ -44,6 +46,18 @@ LAUNCHES = {"sp_rowpass": 0, "sp_colpass": 0}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def lane_groups(nb, nnz, itemsize):
+    """The lane groups a VB pass runs S1 and S2 over: S1 stores ``a =
+    x/wth`` at every nonzero of every lane for S2 to read, ``(B, nnz)``
+    in the factor dtype, 1.12 GB a lane of float32 at the JAX package's
+    oversize shape (279 M nonzeros), 42.4 GB for a scan of 38 lanes.
+    ``ops.tile.fused_tile`` runs S1 then S2 on consecutive groups whose
+    ``a`` takes at most ``sol.LANE_GROUP_BYTES`` (``sol.lane_groups``),
+    so that one group's ``a`` lives at a time.  A block of either kernel
+    is one lane's, so a lane's bits do not depend on its group."""
+    return sol.lane_groups(nb, nnz * itemsize)
 
 
 def _check_factor(tc, f, rows, name):
@@ -69,8 +83,11 @@ def _check_layout(tc):
                            ("col", torch.int32, tc.nnz),
                            ("colptr", torch.int64, tc.m + 1),
                            ("row", torch.int32, tc.nnz),
-                           ("perm", torch.int32, tc.nnz)):
+                           ("perm", torch.int32, tc.nnz),
+                           ("tail", torch.uint8, tc.nnz)):
         t = getattr(tc, name)
+        if t is None and name == "tail":
+            continue
         if (t.dtype != dt or t.shape != (size,) or not t.is_contiguous()
                 or t.device != tc.device):
             raise ValueError(f"layout field {name} must be a contiguous "
@@ -115,14 +132,14 @@ def rowpass_plain(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
     swn, _, a, xlog = sparse.coo_pass(
         tc.csr_rows(), tc.col, tc.val, lw, lht, m=tc.m, want_swn=want_swn,
         want_shn=False, want_a=want_a, want_xlog=want_xlog, do_elbo=do_elbo,
-        mxu_bf16=mxu_bf16)
+        mxu_bf16=mxu_bf16, tail=tc.tail)
     return swn, a, xlog
 
 
 def colpass_plain(tc, a, lw, mxu_bf16=False):
     """S2's function: ``shn (B, r, m)``."""
     return sparse.coo_colpass(tc.csr_rows(), tc.col, a, lw, tc.m,
-                              mxu_bf16).transpose(-1, -2)
+                              mxu_bf16, tc.tail).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------
@@ -146,7 +163,8 @@ def sp_rowpass(tc, lw, lht, do_elbo=None, want_swn=True, want_a=True,
                   if want_xlog else (None, None))
     flags = _flags(do_elbo, nb, dev)
     launch("sp_rowpass", TCODE[lw.dtype], XCODE[tc.val.dtype],
-           int(bool(mxu_bf16)), tc.indptr, tc.col, tc.val, lw, lht, flags,
+           int(bool(mxu_bf16)), tc.indptr, tc.col, tc.val,
+           tc.tail if mxu_bf16 else None, lw, lht, flags,
            nb, n, tc.m, r, tc.nnz, swn, a, part,
            tickets(nb, dev) if want_xlog else None, xlog)
     LAUNCHES["sp_rowpass"] += 1
@@ -162,7 +180,8 @@ def sp_colpass(tc, a, lw, mxu_bf16=False):
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
     launch("sp_colpass", TCODE[lw.dtype], int(bool(mxu_bf16)), tc.colptr,
-           tc.row, tc.perm, a, lw, nb, n, tc.m, r, tc.nnz, shn)
+           tc.row, tc.perm, tc.tail if mxu_bf16 else None, a, lw, nb, n,
+           tc.m, r, tc.nnz, shn)
     LAUNCHES["sp_colpass"] += 1
     return shn
 

@@ -41,7 +41,8 @@ CHUNK = 1 << 16
 
 
 def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
-             want_a=False, want_xlog=True, do_elbo=None, mxu_bf16=False):
+             want_a=False, want_xlog=True, do_elbo=None, mxu_bf16=False,
+             tail=None):
     """One pass over the nonzeros ``(row[p], col[p], val[p])`` for a
     lane batch ``lw (B, n, r)``, ``lht (B, m, r)`` (lh transposed).
 
@@ -55,7 +56,8 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
     ``mxu_bf16`` (``precision='bf16'``) rounds the gathered factor rows
     to bf16 before ``wth`` and ``a`` after the division; ``a`` is
     returned rounded, and the sums and ``log(wth)`` stay in the factor
-    dtype.
+    dtype.  ``tail`` (nnz,) flags the nonzeros that keep their operands
+    unrounded under ``mxu_bf16`` (``ops.tile.TileCounts.tail``).
     """
     nb, n, r = lw.shape
     dt, dev = lw.dtype, lw.device
@@ -72,14 +74,15 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
         lw_g = lw[:, rr]                          # (B, chunk, r)
         lh_g = lht[:, cc]
         if mxu_bf16:
-            lw_g, lh_g = bf16_round(lw_g), bf16_round(lh_g)
+            keep = _keep(tail, p0, len(rr))
+            lw_g, lh_g = _operand(lw_g, keep), _operand(lh_g, keep)
             wth = _s1_dot(lw_g, lh_g)
         else:
             wth = (lw_g * lh_g).sum(-1)
         safe = torch.where(wth > 0, wth, 1.0)
         a = vv / safe                             # (B, chunk)
         if mxu_bf16:
-            a = bf16_round(a)
+            a = _operand(a, None if keep is None else keep[..., 0])
         if want_swn:
             swn.index_add_(1, rr, a[..., None] * lh_g)
         if want_shn:
@@ -93,6 +96,22 @@ def coo_pass(row, col, val, lw, lht, *, m, want_swn=True, want_shn=True,
     elif do_elbo is not None:
         xlog = torch.where(do_elbo > 0, xlog, 0.0)
     return swn, shn_t, a_all, xlog
+
+
+def _keep(tail, p0, size):
+    """The tail flags of nonzeros ``p0 .. p0 + size`` as a (size, 1)
+    bool, None without a tail."""
+    if tail is None:
+        return None
+    return tail[p0:p0 + size].bool()[:, None]
+
+
+def _operand(t, keep):
+    """``t`` rounded to bf16 but where ``keep`` (broadcast against its
+    trailing axes)."""
+    if keep is None:
+        return bf16_round(t)
+    return torch.where(keep, t, bf16_round(t))
 
 
 def _s1_dot(u, v):
@@ -122,18 +141,21 @@ def _s1_dot(u, v):
     return s[..., 0]
 
 
-def coo_colpass(row, col, a, lw, m, mxu_bf16=False):
+def coo_colpass(row, col, a, lw, m, mxu_bf16=False, tail=None):
     """``shn_t (B, m, r)``: ``a[:, p] lw[:, row[p]]`` summed into
     ``col[p]`` over the nonzeros (``mxu_bf16``: the rows of ``lw``
-    rounded to bf16)."""
+    rounded to bf16, but at the nonzeros that ``tail`` flags)."""
     nb, _, r = lw.shape
-    if mxu_bf16:
-        lw = bf16_round(lw)
+    if mxu_bf16 and tail is None:
+        lw, mxu_bf16 = bf16_round(lw), False
     shn_t = torch.zeros(nb, m, r, dtype=lw.dtype, device=lw.device)
     for p0 in range(0, col.shape[0], CHUNK):
         rr = row[p0:p0 + CHUNK].long()
         cc = col[p0:p0 + CHUNK].long()
-        shn_t.index_add_(1, cc, a[:, p0:p0 + CHUNK, None] * lw[:, rr])
+        lw_g = lw[:, rr]
+        if mxu_bf16:
+            lw_g = _operand(lw_g, _keep(tail, p0, len(rr)))
+        shn_t.index_add_(1, cc, a[:, p0:p0 + CHUNK, None] * lw_g)
     return shn_t
 
 
@@ -165,20 +187,17 @@ def _csr_view(row, col, val, n, m):
 def _sorted_csr(row, col, val, n, m):
     """The nonzeros ``(row[p], col[p], val[p])`` (no dummies) as the CSR
     layout of :class:`~ccfindr_tpu_torch.ops.tile.TileCounts`, on their
-    device, by sorts and searches."""
-    from .tile import TileCounts
+    device, by sorts and searches (the CSC order
+    :func:`~ccfindr_tpu_torch.ops.tile._csc_order`'s)."""
+    from .tile import TileCounts, _csc_order
 
     r, c, v = row.long(), col.long(), val
     order = torch.argsort(r * m + c, stable=True)
-    r, c, v = r[order], c[order], v[order]
-    perm = torch.argsort(c * n + r, stable=True)
-    dev = row.device
-    indptr = torch.searchsorted(r, torch.arange(n + 1, device=dev))
-    colptr = torch.searchsorted(c[perm], torch.arange(m + 1, device=dev))
-    return TileCounts(indptr=indptr, col=c.to(torch.int32).contiguous(),
-                      val=v.contiguous(), colptr=colptr,
-                      row=r[perm].to(torch.int32).contiguous(),
-                      perm=perm.to(torch.int32).contiguous(), n=n, m=m)
+    r, c, v = r[order], c.to(torch.int32)[order], v[order]
+    indptr = torch.searchsorted(r, torch.arange(n + 1, device=row.device))
+    colptr, rowc, perm = _csc_order(indptr, c, n, m)
+    return TileCounts(indptr=indptr, col=c, val=v.contiguous(),
+                      colptr=colptr, row=rowc, perm=perm, n=n, m=m)
 
 
 class SparseCounts:

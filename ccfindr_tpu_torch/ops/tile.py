@@ -45,12 +45,21 @@ class TileCounts:
     * ``colptr (m+1,)`` int64, ``row (nnz,)`` int32: the CSC's column
       pointers and row indices; ``perm (nnz,)`` int32: the CSR position
       of each CSC position.
+    * ``tail (nnz,)`` uint8 or None: 1 at the nonzeros that the JAX
+      package's slot layout sends to its COO overflow tail, whose
+      operands its bf16 mode leaves unrounded (:func:`_flag_bf16_tail`,
+      for ``precision='bf16'`` only); None where no nonzero is flagged,
+      and in the float layouts.
+    * ``slots``: the constructor's ``(bm, quantile, kt_cap)``, the JAX
+      slot layout whose tail that is.
     """
 
-    def __init__(self, indptr, col, val, colptr, row, perm, n, m):
+    def __init__(self, indptr, col, val, colptr, row, perm, n, m,
+                 tail=None, slots=(None, 0.99, 64)):
         self.indptr, self.col, self.val = indptr, col, val
         self.colptr, self.row, self.perm = colptr, row, perm
         self.n, self.m = int(n), int(m)
+        self.tail, self.slots = tail, slots
         self._csr_rows = None
 
     @property
@@ -74,7 +83,8 @@ class TileCounts:
         """The same layout on ``device``."""
         return TileCounts(*(getattr(self, f).to(device) for f in (
             "indptr", "col", "val", "colptr", "row", "perm")), self.n,
-            self.m)
+            self.m, tail=None if self.tail is None else self.tail.to(device),
+            slots=self.slots)
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -91,17 +101,95 @@ def from_scipy_tile(mat, dtype=torch.float32, bn: int | None = None,
                     device="cuda") -> TileCounts:
     """The layout of a scipy sparse (or dense) matrix, on ``device``
     (the card unless the caller asks for the CPU).
-    Built once a factorization on the host, in O(nnz).
+    Built once a factorization, in O(nnz) on the host and a sort on
+    ``device``.
 
     Integer counts in [0, 32767] are stored as int16 (the kernels
     convert them in registers, exactly); any other values in ``dtype``.
     ``bn``, ``bm``, ``quantile``, ``kt_cap`` and ``pack`` shape the JAX
-    package's TPU slot layout; the CSR layout has no slots, so they are
-    accepted and not used.
+    package's TPU slot layout, which the CSR layout does not hold; the
+    layout keeps ``bm``, ``quantile`` and ``kt_cap`` (:attr:`TileCounts.
+    slots`), from which :func:`_flag_bf16_tail` flags that layout's
+    overflow tail, which JAX's bf16 pass takes unrounded.
     """
     device = resolve_device(device)
     csr = _clean_csr(mat)
-    return _layout(csr, _values(csr.data, dtype), device)
+    return _layout(csr, _values(csr.data, dtype), device,
+                   (bm, quantile, kt_cap))
+
+
+# ---------------------------------------------------------------------
+# The JAX package's overflow tail (ccfindr_tpu/ops/tile.py:127-182),
+# computed on the host from the CSR: its blocks and slot width, and the
+# slot each nonzero takes in ``_build_slots``'s order
+# ---------------------------------------------------------------------
+
+def _round_up(v: int, mult: int) -> int:
+    return -(-v // mult) * mult
+
+
+def _pick_bm(m, bm):
+    """The JAX layout's cell block (``_pick_blocks``'s ``bm``; its gene
+    block does not change the tail)."""
+    return min(128, _round_up(m, 128)) if bm is None else bm
+
+
+def _pick_width(cnts, quantile, kt_cap):
+    """The JAX layout's slot width from the nonempty per-(gene, cell
+    block) counts: ``_pick_width``."""
+    if len(cnts) == 0:
+        return 8
+    w = (int(np.quantile(cnts, quantile)) if quantile < 1.0
+         else int(cnts.max()))
+    return int(min(_round_up(kt_cap, 8), max(8, _round_up(w, 8))))
+
+
+def _slot_positions(indptr, indices, bm):
+    """``(pos, cnts)`` of a CSR without duplicates: each nonzero's slot
+    in its (gene, ``bm``-cell block) group, counted in CSR order
+    (columns ascending within a gene, as ``_build_slots`` takes them),
+    and the nonzero count of every nonempty group in that order."""
+    nnz = len(indices)
+    if nnz == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    tj = indices // bm
+    change = np.empty(nnz, bool)
+    change[0] = True
+    np.not_equal(tj[1:], tj[:-1], out=change[1:])
+    del tj
+    change[indptr[:-1][np.diff(indptr) > 0]] = True
+    starts = np.flatnonzero(change)
+    del change
+    cnts = np.diff(np.append(starts, nnz))
+    pos = np.arange(nnz, dtype=np.int64)
+    pos -= np.repeat(starts, cnts)
+    return pos, cnts
+
+
+def _flag_bf16_tail(layout):
+    """Set :attr:`TileCounts.tail` of ``layout`` (a :class:`TileCounts`,
+    or the :class:`Shards` of :func:`from_scipy_tile_sharded`) to the
+    nonzeros that ``ccfindr_tpu.ops.tile.from_scipy_tile`` (or its
+    ``_sharded``) with the constructor's keywords
+    (:attr:`TileCounts.slots`) puts in its COO overflow tail: past the
+    slot width of their (gene, ``bm``-cell block) group, the width the
+    ``quantile`` of the group sizes rounded up to 8, at most ``kt_cap``.
+    Shards take their blocks from the local cells and one width from all
+    shards' groups, as JAX's do.  Computed on the host from the layout's
+    CSR, for ``precision='bf16'`` only (the constructors keep JAX's
+    signatures, and the float layouts have no tail); returns
+    ``layout``."""
+    shards = list(layout) if isinstance(layout, Shards) else [layout]
+    bm, quantile, kt_cap = shards[0].slots
+    slots = [_slot_positions(tc.indptr.cpu().numpy(), tc.col.cpu().numpy(),
+                             _pick_bm(tc.m, bm)) for tc in shards]
+    kt = _pick_width(np.concatenate([c for _, c in slots]), quantile,
+                     kt_cap)
+    for tc, (pos, _) in zip(shards, slots):
+        flags = pos >= kt
+        tc.tail = (torch.as_tensor(flags.view(np.uint8), device=tc.device)
+                   if flags.any() else None)
+    return layout
 
 
 def _clean_csr(mat):
@@ -118,33 +206,47 @@ def _values(data, dtype):
     (exact), else ``dtype``."""
     if len(data) == 0 or (data.min() >= 0
                           and data.max() <= np.iinfo(np.int16).max
-                          and np.array_equal(data, np.round(data))):
+                          and (np.issubdtype(data.dtype, np.integer)
+                               or np.array_equal(data, np.round(data)))):
         return data.astype(np.int16)
     return data.astype(torch.empty((), dtype=dtype).numpy().dtype)
 
 
-def _layout(csr, vals, device) -> TileCounts:
-    """The layout of a cleaned CSR with its stored values ``vals``."""
-    import scipy.sparse as sp
-
+def _layout(csr, vals, device, slots) -> TileCounts:
+    """The layout of a cleaned CSR with its stored values ``vals`` and
+    the JAX slot keywords ``slots``."""
     n, m = csr.shape
     nnz = csr.nnz
     if nnz >= 2 ** 31:
         raise ValueError(f"{nnz} nonzeros: the layout's int32 positions "
                          "take fewer than 2**31")
-    # the CSC order: a CSC conversion of the positions 0..nnz-1
-    pos = sp.csr_matrix((np.arange(nnz, dtype=np.int64), csr.indices,
-                         csr.indptr), shape=(n, m)).tocsc()
 
     def t(a, d):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=d),
                                device=device)
 
-    return TileCounts(indptr=t(csr.indptr, np.int64),
-                      col=t(csr.indices, np.int32), val=t(vals, vals.dtype),
-                      colptr=t(pos.indptr, np.int64),
-                      row=t(pos.indices, np.int32),
-                      perm=t(pos.data, np.int32), n=n, m=m)
+    indptr, col = t(csr.indptr, np.int64), t(csr.indices, np.int32)
+    colptr, row, perm = _csc_order(indptr, col, n, m)
+    return TileCounts(indptr=indptr, col=col, val=t(vals, vals.dtype),
+                      colptr=colptr, row=row, perm=perm, n=n, m=m,
+                      slots=slots)
+
+
+def _csc_order(indptr, col, n, m):
+    """``(colptr, row, perm)`` of a CSR's ``indptr``/``col`` on their
+    device: a stable sort of the column indices, so that rows ascend
+    within a column (scipy's CSC order; on the card it replaced a host
+    conversion that took ~8 s of a ~20 s layout build at the oversize
+    configuration's 279 M nonzeros)."""
+    dev = col.device
+    perm = torch.argsort(col, stable=True)
+    colptr = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    colptr[1:] = torch.cumsum(torch.bincount(col, minlength=m), 0)
+    rows = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev), indptr.diff())
+    row = rows[perm]
+    del rows
+    return colptr, row, perm.to(torch.int32)
 
 
 def from_dense_tile(x, dtype=torch.float32, device="cuda",
@@ -172,7 +274,9 @@ def from_scipy_tile_sharded(mat, n_shards: int, m_pad: int | None = None,
     layout hold the same values; ``Shards.val`` is the one-device
     layout's ``val``.  All shards lie on ``device`` (``Shards.to``
     spreads them over a mesh).  The TPU slot keywords (``bn``, ``bm``,
-    ``quantile``, ``kt_cap``, ``pack``) are accepted and not used."""
+    ``quantile``, ``kt_cap``, ``pack``) shape no array; each shard keeps
+    ``bm``, ``quantile`` and ``kt_cap`` for :func:`_flag_bf16_tail`, as
+    :func:`from_scipy_tile`."""
     device = resolve_device(device)
     csr = _clean_csr(mat)
     n, m = csr.shape
@@ -189,7 +293,8 @@ def from_scipy_tile_sharded(mat, n_shards: int, m_pad: int | None = None,
         blk = _clean_csr(csc[:, j0:max(j1, j0)])
         if j1 - j0 < m_loc:
             blk.resize(n, m_loc)
-        shards.append(_layout(blk, blk.data.astype(vals.dtype), device))
+        shards.append(_layout(blk, blk.data.astype(vals.dtype), device,
+                              (bm, quantile, kt_cap)))
     return Shards(shards, n, m_loc, torch.as_tensor(vals))
 
 
@@ -202,12 +307,34 @@ def fused_tile(tc: TileCounts, lw, lh, do_elbo=None, mxu_bf16=False):
     it is 0 (the ``elbo_every`` cadence); their ``dterm`` is then
     meaningless and must not be read (``ops.vb._vb_run_fused`` guards
     this).  ``mxu_bf16`` (``precision='bf16'``) rounds S1/S2's gathered
-    factor rows and ``a = x/wth`` to bf16.  The JAX tile kernel rounds
-    the same operands, but not those of its COO overflow tail
-    (``ccfindr_tpu/ops/tile.py:611-621``); this layout has no tail."""
-    swn, a, xlog = spk.rowpass(tc, lw, lh.transpose(-1, -2).contiguous(),
-                               do_elbo=do_elbo, mxu_bf16=mxu_bf16)
-    shn = spk.colpass(tc, a, lw, mxu_bf16=mxu_bf16)
+    factor rows and ``a = x/wth`` to bf16, as the JAX tile kernel rounds
+    its operands, except at the nonzeros of :attr:`TileCounts.tail`,
+    which JAX's COO overflow tail takes unrounded
+    (``ccfindr_tpu/ops/tile.py:611-621``; :func:`_flag_bf16_tail` sets
+    it).  S1 and S2 run over lane groups of bounded ``a`` bytes
+    (``kernels.sparse.lane_groups``), each lane's bits those of the
+    whole batch."""
+    nb = lw.shape[0]
+    groups = spk.lane_groups(nb, tc.nnz, lw.element_size())
+    if len(groups) == 1:
+        swn, a, xlog = spk.rowpass(tc, lw, lh.transpose(-1, -2).contiguous(),
+                                   do_elbo=do_elbo, mxu_bf16=mxu_bf16)
+        shn = spk.colpass(tc, a, lw, mxu_bf16=mxu_bf16)
+        del a
+        return swn, shn, fold_dterm(swn, shn, lw, lh, xlog)
+    # S1 and S2 a lane group at a time (spk.lane_groups): one group's
+    # a = x/wth lives at a time
+    if do_elbo is not None:
+        do_elbo = torch.as_tensor(do_elbo, device=lw.device).expand(nb)
+    swn, shn = torch.empty_like(lw), torch.empty_like(lh)
+    xlog = torch.empty(nb, dtype=torch.float64, device=lw.device)
+    for g in groups:
+        swn[g], a, xlog[g] = spk.rowpass(
+            tc, lw[g], lh[g].transpose(-1, -2).contiguous(),
+            do_elbo=None if do_elbo is None else do_elbo[g],
+            mxu_bf16=mxu_bf16)
+        shn[g] = spk.colpass(tc, a, lw[g], mxu_bf16=mxu_bf16)
+        del a
     return swn, shn, fold_dterm(swn, shn, lw, lh, xlog)
 
 

@@ -783,13 +783,18 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
         do_sweep = (~stop) & (it <= itmax)
         new_state, new_pending = posterior_update(
             state.lw * swn, state.lh * shn, st, hyper, fudge, lgx, **masks)
+        # each (B, r, m) array is 3.4 GB at 38 lanes of the oversize
+        # configuration: drop every one as soon as it is read
+        del swn, shn
         do_hyper = do_sweep & (it > n0) & (it % dn == 0)
         new_hyper, failed = hyper_update(hyper_mask, new_state, hyper,
                                          **masks)
         st = _select(do_sweep, new_state, st)
+        del new_state
         hyper = _select(active & do_hyper, new_hyper, hyper)
         hfail = hfail | (active & do_hyper & failed)
         state = _select(active, st, state)
+        del st
         pending = torch.where(active & do_sweep, new_pending, pending)
         lk0 = torch.where(active, lk0_n, lk0)
         done = torch.where(active, stop, done)

@@ -115,13 +115,8 @@ Phases (each prints its result and seconds):
    sparse and, beside it, on pallas over the same matrix: wall time,
    loop time, lane-sweeps per second, peak device memory, and the loop
    ratio sparse/pallas of each driver; S1/S2 against plain and their
-   GB/s of gathered factor rows.
-   Then the atlas leg: the JAX bench's atlas shape 20480 x 100352
-   masked to 2% density (built on the host without the dense matrix),
-   vb_factorize(backend='sparse', ranks [16], nrun 2, Itmax 20): its
-   lane-sweeps per second and peak device memory beside the dense int8
-   image it does not allocate; gated on a finite lml and the launch
-   counts;
+   GB/s of gathered factor rows (the atlas-2% leg that stood here is
+   phase 24's oversize configuration now);
 11. gene-major kernels vs plain: E1's inlined division against x / w bit
    for bit on 768 M samples; E1 fused_xpass in both layouts with
    bf16 off and on (+ E1s fused_sum), E2 epi_w_post and E3 epi_h_post
@@ -170,7 +165,10 @@ Phases (each prints its result and seconds):
    Itmax 300) beside backend='pallas': wall, loop, lane-sweeps per
    second, device launches a sweep, peak device memory;
 15. bf16 on the sparse backend: S1/S2 with mxu_bf16 against their bf16
-   plain versions on phase 8's two cases, S1 on its skewed r cases and
+   plain versions on phase 8's two cases, S1 on its skewed r cases, S1
+   and S2 at r 16 and 33 on the skewed CSR with the JAX layout's
+   overflow tail flagged (quantile 0.5: those nonzeros' operands left
+   unrounded on both sides), and
    S2 on its (phase 8's skewed CSC) at the float32 tolerances; the
    bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
    1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
@@ -341,7 +339,36 @@ Phases (each prints its result and seconds):
    same sweeps on one card (lml, basis, coeff, sweeps), traced as in
    (c); then the converged scan over the k cards: ropt, the concordance
    at the planted rank, loop and set-up seconds, sweeps and each card's
-   peak device memory, gated on a finite lml for every rank;
+   peak device memory, gated on a finite lml for every rank; (g) phase
+   24's oversize matrix over make_mesh(cells=k) in the tile and ELL
+   layouts (6 lanes, Itmax MC_OVERSIZE_ITMAX, Tol 0) against one card
+   at phase 19's tolerances, the walls in turns, each card's peak
+   memory, busy share and S1/S2 launches from card_trace
+   (``--parts g`` runs (g) alone);
+24. the JAX package's sparse capacity configuration at its full shape,
+   examples/oversize_sparse_torch.py's copy of bench.py's oversize
+   matrix (16,384 x 1,114,112 at 2%, ~279 M nonzeros, int16, never
+   dense): (a) bench.py's sweep body (the fused pass, posterior_update,
+   hyper_update) on one lane of rank 16 over from_scipy_tile's and
+   from_scipy_ell's layouts, OVERSIZE_SWEEPS sweeps each: sweeps/s and
+   the bytes each layout keeps on the card, gated on a finite, rising
+   lkh and a launch of S1 and S2 a sweep; (d) S1/S2 on 6 lanes (r 16)
+   of the tile layout against their plain versions at phase 8's
+   float32 tolerances, each timed by CUDA events beside its plain
+   version, its bound (bytes over 3.35 TB/s) and, for S2, one
+   torch.sparse.mm on an int32 block-diagonal CSR; (b) vb_factorize(
+   backend='sparse', ranks [8, 12, 16], nrun 2, Itmax OVERSIZE_ITMAX,
+   Tol 0) on 'tile', 'ell' and 'coo' in float32 ('ell' and 'coo'
+   bit-identical to 'tile'), and 'tile' with precision='bf16' (the JAX
+   layout's overflow tail flagged) and with elbo_every=4: set-up and
+   loop seconds, lane-sweeps/s, peak device memory, S1/S2 launched
+   once a lane group a pass (every count set to 0 just before); (c)
+   ranks 2..20 x 2 = 38 lanes of rp 20 on 'tile' (S1's a = x/wth 42.4
+   GB a pass, run in lane groups of at most sol.LANE_GROUP_BYTES), Itmax
+   OVERSIZE_WIDE_ITMAX at Tol 0: its peak device memory beside the
+   card; then its last lane's start, hypers and masks, as the driver
+   handed them to the loop, run alone through the same loop on the same
+   layout, bit for bit (lml, sweeps, factors, hypers);
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -357,8 +384,9 @@ the same function where there is one.
 The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.  Run from the root of the repository:
-``python3 chip_smoke.py`` (phases 1-22; ``--phases 1,5`` runs a subset,
-``--phases 1,23`` the several-card phase); it prints its total time.
+``python3 chip_smoke.py`` (phases 1-22 and 24; ``--phases 1,5`` runs a
+subset, ``--phases 1,23`` the several-card phase); it prints its total
+time.
 """
 
 from __future__ import annotations
@@ -506,7 +534,18 @@ MC_CARDS = 4             # phase 23's cards: min(MC_CARDS, the visible count)
 MC_ITMAX = 100           # (d)'s sweeps at Tol 0, as phase 19's
 MC_ATLAS = dict(base_cells=2048)   # (f)'s simulate_atlas: the full width
 MC_ATLAS_ITMAX = 20      # (f)'s sweeps held to one card's bits
+MC_OVERSIZE_ITMAX = 20   # (g)'s sweeps at Tol 0 over cells=k
 CHECK_CARDS = "tools/check_cards.py"
+# phase 24: the JAX package's sparse capacity configuration
+# (bench.py:330-397 bench_sparse_oversize on bench.py:242-274's matrix,
+# ~279 M nonzeros), examples/oversize_sparse_torch.py's copy of it
+OVERSIZE_DEMO = "examples/oversize_sparse_torch.py"
+OVERSIZE = dict(n=16384, m=1114112, r=16, density=0.02, tile=128)
+OVERSIZE_SWEEPS = 3      # (a)'s sweeps of bench.py's body a layout
+OVERSIZE_RANKS = (8, 12, 16)    # (b): phase 10's scan, 6 lanes of rp 16
+OVERSIZE_ITMAX = 8       # (b)'s sweeps at Tol 0
+OVERSIZE_ELBO_EVERY = 4  # (b)'s elbo_every lever
+OVERSIZE_WIDE_ITMAX = 4  # (c)'s sweeps at Tol 0: ranks 2..20 x 2 = 38 lanes
 MARKERS = {                      # tests/test_integration_workflow.py:81-87
     "B cell": ["CD74", "IG", "HLA", "MS4A1", "CD79A"],
     "CD8+ T": ["CD8A", "CD8B", "GZMK", "CCR7", "LTB"],
@@ -543,17 +582,34 @@ def planted_10x():
 
 def planted_gm():
     """Phase 11's and phase 12's X: planted 100,000 x 4,096 rank 16 int8
-    (0.41 GB), empty rows and columns dropped; prints its host build
-    time."""
+    (0.41 GB), empty rows and columns dropped; prints its build time.
+    :func:`planted`'s factors, its Poisson counts drawn on the card
+    (torch.poisson, a seeded generator): numpy's draws of its 410 M
+    entries took 33-39 s of the host."""
+    import torch
+
     t0 = time.perf_counter()
-    x_np = planted(*GM_SHAPE, seed=0)
+    n, m, r = GM_SHAPE
+    rng = np.random.default_rng(0)
+    wf = rng.gamma(0.5, 1.0, (n, r)).astype(np.float32)
+    hf = rng.gamma(0.5, 1.0, (r, m)).astype(np.float32)
+    scale = 2.0 * n * m / float(wf.sum(axis=0) @ hf.sum(axis=1))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w, h = (torch.as_tensor(a, device="cuda") for a in (wf, hf))
+    x = torch.empty((n, m), dtype=torch.int8, device="cuda")
+    for i0 in range(0, n, 8192):
+        mu = (w[i0:i0 + 8192] @ h) * scale
+        x[i0:i0 + 8192] = torch.poisson(mu, generator=gen).clamp_(
+            max=127).to(torch.int8)
+    x_np = x.cpu().numpy()
+    del w, h, x, mu
     keep_r = x_np.sum(axis=1) > 0
     keep_c = x_np.sum(axis=0) > 0
     x_np = np.ascontiguousarray(x_np[keep_r][:, keep_c])
     print(f"  gene-major X {x_np.shape[0]} x {x_np.shape[1]} int8 (empty "
           f"rows/cols dropped: {int((~keep_r).sum())}/"
-          f"{int((~keep_c).sum())}), {x_np.nbytes / 1e9:.3f} GB, built on "
-          f"the host in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{int((~keep_c).sum())}), {x_np.nbytes / 1e9:.3f} GB, drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
     return x_np
 
 
@@ -653,13 +709,26 @@ def concordance(s, cid):
 
 def rel_err(got, want):
     """Largest elementwise relative error (denominator floored at the
-    dtype's smallest normal, so exact zeros must match exactly)."""
+    dtype's smallest normal, so exact zeros must match exactly).  Taken
+    lane by lane on arrays of more than 2**27 entries, whose float64
+    copies (S1's a at the oversize shape: 12.5 GiB for 6 lanes) would
+    not fit beside them."""
     import torch
 
+    if got.dim() > 1 and got.numel() > 1 << 27:
+        return max(rel_err(g, w) for g, w in zip(got, want))
     got = got.double()
     want = want.double()
     tiny = torch.finfo(torch.float32).tiny
     return float(((got - want).abs() / want.abs().clamp_min(tiny)).max())
+
+
+def max_abs_diff(got, want):
+    """Largest elementwise absolute difference, lane by lane as
+    :func:`rel_err` takes large arrays."""
+    if got.dim() > 1 and got.numel() > 1 << 27:
+        return max(max_abs_diff(g, w) for g, w in zip(got, want))
+    return float((got - want).abs().max())
 
 
 def m3_order_sum(part):
@@ -1398,12 +1467,13 @@ def compare_lanes(x, w, h):
     return hn, xlw, part, mlk.ml_wpass(x, w, h)
 
 
-def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
+def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev, **layout_kw):
     """The layout of ``csr`` and lane-batched factors lw (B, n, r), lh
     (B, r, m): lane b has live rank ranks[b], its components [ranks[b],
     r) at fudge as a batched rank scan pins them.  ``vdt`` int16 keeps
     the integer counts (stored as int16); ``vdt`` == ``dt`` adds 0.25
-    to each, so that the layout keeps them in ``dt``."""
+    to each, so that the layout keeps them in ``dt``.  ``layout_kw``
+    go to ``from_scipy_tile``."""
     import torch
 
     from ccfindr_tpu_torch.ops import tile
@@ -1420,7 +1490,7 @@ def sparse_inputs(csr, ranks, r, dt, vdt, seed, dev):
     if vdt != torch.int16:
         csr = csr.copy()
         csr.data = csr.data + 0.25
-    tc = tile.from_scipy_tile(csr, dtype=dt, device=dev)
+    tc = tile.from_scipy_tile(csr, dtype=dt, device=dev, **layout_kw)
     assert tc.val.dtype == vdt, tc.val.dtype
     t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
     return tc, t(lw), t(lh)
@@ -1462,7 +1532,7 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
         err["dterm"] = float(((d.double() - d_p.double()).abs()
                               / scale).max())
     _, _, s1_xlog, s1_part = spk.sp_rowpass(tc, lw, lht, do_elbo=flags,
-                                            mxu_bf16=bf16)
+                                            want_a=False, mxu_bf16=bf16)
     tail_ok, tail_err, tail_bits = tail_check(s1_xlog, s1_part)
     if dt == torch.float64 and not bf16:
         err["xlog"] = rel_err(xlog, xlog_p)
@@ -1475,9 +1545,9 @@ def compare_sparse(tc, lw, lh, do_elbo, dt, bf16=False):
     again = launch()
     det = all(torch.equal(u, v) for u, v in zip((swn, a, xlog, shn), again))
     finite = all(bool(torch.isfinite(t).all()) for t in (swn, a, shn, d))
-    abs_err = {"sp_rowpass": max(float((swn - swn_p).abs().max()),
-                                 float((a - a_p).abs().max())),
-               "sp_colpass": float((shn - shn_p).abs().max())}
+    abs_err = {"sp_rowpass": max(max_abs_diff(swn, swn_p),
+                                 max_abs_diff(a, a_p)),
+               "sp_colpass": max_abs_diff(shn, shn_p)}
     return dict(ok=ok and det and finite, err=err, abs_err=abs_err,
                 deterministic=det, finite=finite)
 
@@ -1593,6 +1663,79 @@ def s2_library(tc, a, lw):
         a.reshape(-1), (nbl * m, nbl * n)).coalesce().to_sparse_csr()
     lw_flat = lw.reshape(nbl * n, r)
     return lambda: torch.sparse.mm(blk, lw_flat)
+
+
+def s2_library_csr(tc, a, lw):
+    """S2's function as one torch.sparse.mm call at a size where the
+    COO build of :func:`s2_library` does not fit: the block-diagonal CSR
+    (rows lane x cells, columns lane x genes, lane b's block X^T holding
+    its a) laid out from the layout's CSC with int32 indices, times the
+    lanes' lw rows.  Returns the call."""
+    import torch
+
+    nbl, nnz = a.shape
+    n, m, r = tc.n, tc.m, lw.shape[-1]
+    i32 = torch.int32
+    crow = torch.cat([(tc.colptr[:-1] + b * nnz).to(i32) for b in range(nbl)]
+                     + [torch.tensor([nbl * nnz], dtype=i32,
+                                     device=a.device)])
+    col = torch.cat([tc.row + b * n for b in range(nbl)])
+    perm = tc.perm.long()
+    val = torch.cat([a[b, perm] for b in range(nbl)])
+    del perm
+    blk = torch.sparse_csr_tensor(crow, col, val, (nbl * m, nbl * n))
+    lw_flat = lw.reshape(nbl * n, r)
+    return lambda: torch.sparse.mm(blk, lw_flat)
+
+
+class host_timers:
+    """Seconds the VB driver spends in its random starts
+    (``vb_init_random``) and in the tile layout (``from_scipy_tile``),
+    summed while entered; str() gives both."""
+
+    def __init__(self):
+        self.secs = {}
+
+    def clear(self):
+        self.secs = {}
+
+    def __enter__(self):
+        from ccfindr_tpu_torch.drivers import vb_driver
+
+        self.saved = []
+        for mod, name in ((vb_driver.vb_ops, "vb_init_random"),
+                          (vb_driver.tile_ops, "from_scipy_tile")):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.secs[name] = (self.secs.get(name, 0.0)
+                                   + time.perf_counter() - t0)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def __str__(self):
+        return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+
+
+def _lane_of(out, lane):
+    """A VBRunResult's lane slice as a tuple of tensors: lml, n_iter,
+    the state's factors, the hypers, hyper_failed."""
+    st = out.state
+    return (out.lml[lane], out.n_iter[lane], st.ew[lane], st.eh[lane],
+            st.lw[lane], st.lh[lane], st.dw[lane], st.dh[lane],
+            *(h[lane] for h in out.hyper), out.hyper_failed[lane])
 
 
 def nbytes(*ts):
@@ -1878,7 +2021,8 @@ def card_trace(fn):
             n, t = by.get(e.name, (0, 0.0))
             by[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
         cards[d] = dict(
-            launches=len(kern), busy_ms=busy / 1e3, share=busy / span,
+            launches=len(kern), names=sorted(by), busy_ms=busy / 1e3,
+            share=busy / span,
             p2p=len(copies),
             p2p_ms=sum(e.time_range.elapsed_us() for e in copies) / 1e3,
             top=sorted(by.items(), key=lambda kv: -kv[1][1])[:5])
@@ -2040,6 +2184,9 @@ class Smoke:
         self.kernels.update({f"{k}_atlas": dict(
             name=f"sol_{k} at the atlas shape", route="cuda", source=SOURCE,
             replaces=REPLACES) for k in KERNELS})
+        self.kernels.update({f"{k}_oversize": dict(
+            name=f"{k} at the oversize shape", route="cuda",
+            source=SP_SOURCE, replaces=SP_REPLACES) for k in SP_KERNELS})
         for k, what in TAILS.items():
             self.kernels[k]["tail"] = (f"its last block of a lane adds "
                                        f"{what} (M3 folded in)")
@@ -2049,7 +2196,9 @@ class Smoke:
         self.x10 = None          # the planted 10x matrix (phase 4)
         self.x10m = None         # it masked to 10% density (phase 8)
         self.xgm = None          # phase 12's gene-major X (phase 11)
-        self.atlas = None        # phase 10's atlas CSR (phase 18)
+        self.atlas = None        # the atlas CSR (phase 18)
+        self._oversize_x = None  # the oversize CSR (phases 23 and 24)
+        self.mc_parts = ""       # phase 23's parts to run ("": all)
         self.sass = {}           # post_need's SASS counts
 
     def post_need(self, sfx, lf, a, r_live, n_live, rank_axis):
@@ -3005,28 +3154,9 @@ class Smoke:
         del tc, lw, lh, lht, a, part, s1, s2, blk, lib
         torch.cuda.empty_cache()
 
-        # the atlas leg: capacity, not speed
-        an, am_, ar, dens = ATLAS
-        t0 = time.perf_counter()
-        big = self.atlas = atlas_csr(an, am_, ar, dens)
-        print(f"  atlas X {big.shape[0]} x {big.shape[1]} (from {an} x "
-              f"{am_}, planted rank {ar}, mask {dens}), nnz {big.nnz}, "
-              f"built on the host in {time.perf_counter() - t0:.1f} s; "
-              f"its dense int8 image would be {an * am_ / 1e9:.2f} GB")
-        spk.reset_launches()
-        f, secs, peak = timed(ct.vb_factorize, big, ranks=[16], nrun=2,
-                              Itmax=20, backend="sparse", device="cuda",
-                              verbose=0, seed=0)
-        rec = f.metadata["timings"][0]
-        counts = dict(spk.LAUNCHES)
-        ls = rec["total_sweeps"]
-        print(f"  atlas vb_factorize sparse (ranks [16], nrun 2, Itmax 20): "
-              f"{secs:.3f} s, loop record {rec['seconds']:.3f} s for {ls} "
-              f"lane-sweeps -> {ls / rec['seconds']:.2f} lane-sweeps/s, "
-              f"peak device memory {peak:.3f} GiB, launches {counts}, "
-              f"lml {f.measure['lml'].tolist()}", flush=True)
-        return (ok and bool(np.isfinite(f.measure["lml"]).all())
-                and min(counts.values()) > 0)
+        # capacity at scale is phase 24's (the JAX package's oversize
+        # configuration, which replaced the atlas-2% leg that stood here)
+        return ok
 
     # -- 11 -----------------------------------------------------------
     def epi_kernel_vs_plain(self):
@@ -3578,6 +3708,7 @@ class Smoke:
         import torch
 
         import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import tile
         from ccfindr_tpu_torch.ops.kernels import sparse as spk
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3620,6 +3751,24 @@ class Smoke:
                       + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
                       + f" deterministic={res['deterministic']}", flush=True)
                 ok_all = ok_all and res["ok"]
+                del tc, lw, lh
+        # the JAX layout's overflow tail, which its bf16 pass leaves
+        # unrounded: the skewed CSR's long rows past the slot width at
+        # quantile 0.5, through both of S1's walks and S2's
+        for r in (16, 33):
+            for dt in (torch.float64, torch.float32):
+                tc, lw, lh = sparse_inputs(skew, [r, max(1, r - 5), r], r,
+                                           dt, torch.int16, 14, dev,
+                                           quantile=0.5)
+                tile._flag_bf16_tail(tc)
+                res = compare_sparse(tc, lw, lh, 1, dt, bf16=True)
+                ntail = 0 if tc.tail is None else int(tc.tail.sum())
+                print(f"  skewed r={r} {str(dt)[6:]} bf16, {ntail} of "
+                      f"{tc.nnz} nonzeros in the tail: "
+                      f"{'ok' if res['ok'] else 'MISMATCH'} "
+                      + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
+                      + f" deterministic={res['deterministic']}", flush=True)
+                ok_all = ok_all and res["ok"] and ntail > 0
                 del tc, lw, lh
         # S2 in bf16 at each of its register widths and on the group
         # walk, on phase 8's skewed CSC
@@ -5366,7 +5515,10 @@ class Smoke:
         ok = {}
         for part, fn in (("a", self.mc_kernels), ("b", self.mc_device),
                          ("c", self.mc_10x), ("d", self.mc_routes),
-                         ("e", self.mc_processes), ("f", self.mc_atlas)):
+                         ("e", self.mc_processes), ("f", self.mc_atlas),
+                         ("g", self.mc_oversize)):
+            if self.mc_parts and part not in self.mc_parts:
+                continue
             t0 = time.perf_counter()
             try:
                 ok[part] = bool(fn())
@@ -5744,7 +5896,376 @@ class Smoke:
                 and c["w_post"] == c["finish"] and c["xpass"] == 0)
 
 
-DEFAULT_PHASES = tuple(str(p) for p in range(1, 23))   # phase 23 when asked
+    def mc_oversize(self):
+        """(g) the oversize configuration over make_mesh(cells=k) on k
+        cards, 'tile' and 'ell' (6 lanes, Itmax MC_OVERSIZE_ITMAX, Tol 0),
+        each against the same scan on one card at phase 19's tolerances,
+        the walls in turns, each card's peak memory, S1/S2 launched on
+        every card (card_trace) and each card's busy share."""
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        k, cards = len(self.cards), self.cards
+        demo = self.oversize_demo()
+        x = self.oversize_x()
+        mesh = ct.make_mesh(cells=k, devices=cards)
+        kw = dict(ranks=OVERSIZE_RANKS, nrun=2, itmax=MC_OVERSIZE_ITMAX,
+                  tol=0.0, device="cuda:0", dtype=torch.float32)
+        ok = True
+        for layout in ("tile", "ell"):
+            spk.reset_launches()
+            one, s1 = demo.run(x, layout=layout, **kw)
+            torch.cuda.empty_cache()
+            spk.reset_launches()
+            (got, sk), tr = card_trace(
+                lambda: demo.run(x, layout=layout, mesh=mesh, **kw))
+            counts = {c: v for c, v in spk.LAUNCHES.items() if v}
+            for d in range(k):
+                torch.cuda.empty_cache()
+            print(f"  (g) oversize {layout}: one card wall {s1['wall_s']:.2f} "
+                  f"s (set-up {s1['setup_s']:.2f}, loop {s1['loop_s']:.3f}), "
+                  f"cells={k} on {k} cards wall {sk['wall_s']:.2f} s (set-up "
+                  f"{sk['setup_s']:.2f}, loop {sk['loop_s']:.3f}); peak GiB "
+                  f"one card {[round(p, 2) for p in s1['peak_device_gib'] or []]}, "
+                  f"by card {[round(p, 2) for p in sk['peak_device_gib'] or []]}",
+                  flush=True)
+            if tr is not None:
+                self.print_trace(f"(g) oversize {layout} cells={k}", tr,
+                                 sk["sweeps"] + 1)
+            launched = tr is not None and len(tr["cards"]) >= k and all(
+                any(kn in name for name in c["names"])
+                for c in tr["cards"].values()
+                for kn in ("sp_rowpass", "sp_colpass"))
+            good = close_to_one(one, got, f"(g) oversize {layout} cells={k}",
+                                sk["wall_s"], counts)
+            print(f"  (g) oversize {layout}: S1 and S2 on each of the {k} "
+                  f"cards {launched}", flush=True)
+            ok = ok and good and launched and s1["lml_finite"] \
+                and sk["lml_finite"]
+            del one, got
+            torch.cuda.empty_cache()
+        return ok
+
+    # -- 24 -----------------------------------------------------------
+    def oversize(self):
+        """The JAX package's sparse capacity configuration at its full
+        shape (bench.py's oversize matrix, examples/oversize_sparse_torch.py):
+        (a) bench.py's sweep body on 'tile' and 'ell', (b) the driver's
+        scan in every layout and with its two levers, (c) the atlas
+        demo's scan width, its last lane against itself alone, (d) S1/S2
+        against their plain versions at the full shape."""
+        import torch
+
+        from ccfindr_tpu_torch.ops import ell as ell_ops
+        from ccfindr_tpu_torch.ops import tile
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        demo = self.oversize_demo()
+        x = self.oversize_x()
+        n, m = x.shape
+        print(f"  its dense int8 image would be {n * m / 1e9:.2f} GB; the "
+              f"card holds {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} GiB; "
+              f"{self.smi}", flush=True)
+        ok = {}
+
+        # (a) bench.py's sweep body (bench.py:383-393), one lane of rank 16
+        lgx = demo.lgamma_sum(x)
+        tc = None
+        ok["a"] = True
+        for layout in ("tile", "ell"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if layout == "tile":
+                lay, fused = (tile.from_scipy_tile(x, device=dev),
+                              tile.make_tile_fused())
+            else:
+                lay, fused = (ell_ops.from_scipy_ell(x, device=dev),
+                              ell_ops.make_ell_fused())
+            torch.cuda.synchronize()
+            built = time.perf_counter() - t0
+            st, hy = demo.initial_state(n, m, OVERSIZE["r"], torch.float32,
+                                        dev)
+            # a first sweep loads the kernels' module: run it untimed
+            demo.sweeps(fused, lay, st, hy, lgx, 1, n, m)
+            spk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, lkh = demo.sweeps(fused, lay, st, hy, lgx, OVERSIZE_SWEEPS,
+                                    n, m)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(spk.LAUNCHES)
+            res = demo.layout_bytes(lay)
+            good = (all(np.isfinite(lkh)) and lkh[-1] > lkh[0]
+                    and counts["sp_rowpass"] == counts["sp_colpass"]
+                    == OVERSIZE_SWEEPS)
+            print(f"  (a) {layout}: layout built and on the card in "
+                  f"{built:.1f} s, {res / 2 ** 30:.3f} GiB resident; "
+                  f"{OVERSIZE_SWEEPS} sweeps in {secs:.3f} s = "
+                  f"{OVERSIZE_SWEEPS / secs:.3f} sweeps/s; lkh {lkh}; "
+                  f"launches {counts}: {'ok' if good else 'FAIL'}",
+                  flush=True)
+            ok["a"] = ok["a"] and good
+            if layout == "tile":
+                tc = lay
+            del lay, st, hy
+            torch.cuda.empty_cache()
+
+        # (d) S1 and S2 at the full shape against their plain versions,
+        # timed, with their bounds and S2's library call
+        ok["d"] = self.oversize_kernels(tc)
+        nnz = tc.nnz
+        tile._flag_bf16_tail(tc)
+        ntail = 0 if tc.tail is None else int(tc.tail.sum())
+        del tc
+        torch.cuda.empty_cache()
+
+        # (b) the driver's rank scan: phase 10's 6 lanes of rp 16 at Tol 0
+        kw = dict(ranks=OVERSIZE_RANKS, nrun=2, itmax=OVERSIZE_ITMAX,
+                  tol=0.0, device="cuda", dtype=torch.float32)
+        groups = spk.lane_groups(2 * len(OVERSIZE_RANKS), nnz, 4)
+        print(f"  (b) bf16: the JAX layout's overflow tail at quantile 0.99 "
+              f"holds {ntail} nonzeros ({ntail / nnz:.2e} of them), left "
+              f"unrounded", flush=True)
+        results = {}
+        ok["b"] = True
+        host = host_timers()
+        for label, extra in (
+                ("tile", dict(layout="tile")),
+                ("ell", dict(layout="ell")),
+                ("coo", dict(layout="coo")),
+                ("tile bf16", dict(layout="tile", precision="bf16")),
+                (f"tile elbo_every={OVERSIZE_ELBO_EVERY}",
+                 dict(layout="tile", elbo_every=OVERSIZE_ELBO_EVERY))):
+            spk.reset_launches()
+            host.clear()
+            with host:
+                f, sm = demo.run(x, **kw, **extra)
+            counts = dict(spk.LAUNCHES)
+            results[label] = f
+            rate = sm["lane_sweeps"] / sm["loop_s"]
+            good = (sm["lml_finite"] and counts["sp_rowpass"]
+                    == counts["sp_colpass"]
+                    == (sm["sweeps"] + 1) * len(groups))
+            print(f"  (b) {label}: set-up {sm['setup_s']:.2f} s, loop "
+                  f"{sm['loop_s']:.3f} s for {sm['sweeps']} sweeps "
+                  f"({sm['loop_s'] / (sm['sweeps'] + 1) * 1e3:.1f} ms a "
+                  f"pass; of the set-up {host}), {rate:.2f} lane-sweeps/s, "
+                  f"peak device memory "
+                  f"{(sm['peak_device_gib'] or [np.nan])[0]:.2f} GiB, launches {counts}, "
+                  f"lml {f.measure['lml'].tolist()}: "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            if label == "tile":
+                for k in SP_KERNELS:
+                    self.kernels[f"{k}_oversize"]["launches"] = counts[k]
+            ok["b"] = ok["b"] and good
+            torch.cuda.empty_cache()
+        for label in ("ell", "coo"):
+            same = same_vb(results["tile"], results[label])
+            print(f"  (b) {label} bit-identical to tile (lml, basis, coeff, "
+                  f"n_iter): {same}", flush=True)
+            ok["b"] = ok["b"] and same
+        del results, f
+        torch.cuda.empty_cache()
+
+        # (c) the atlas demo's scan width: 38 lanes of rp 20, the last
+        # lane then run alone through the same loop from the same start
+        ok["c"] = self.oversize_wide(demo, x)
+        torch.cuda.empty_cache()
+        print(f"  gates: {ok}", flush=True)
+        return all(ok.values())
+
+    def oversize_demo(self):
+        """examples/oversize_sparse_torch.py as a module."""
+        import importlib.util
+        import os
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            OVERSIZE_DEMO)
+        spec = importlib.util.spec_from_file_location(
+            "oversize_sparse_torch", path)
+        demo = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(demo)
+        return demo
+
+    def oversize_x(self):
+        """The oversize CSR on the host, built once a run."""
+        if self._oversize_x is None:
+            self._oversize_x = self.oversize_demo().oversize_matrix(
+                **OVERSIZE)
+        return self._oversize_x
+
+    def oversize_wide(self, demo, x):
+        """(c) ranks 2..20 x 2 = 38 lanes of rp 20 on 'tile' in float32,
+        Itmax OVERSIZE_WIDE_ITMAX at Tol 0: its peak device memory beside
+        the card, S1/S2 launched once a lane group a pass; then the last
+        lane's start, hypers and masks as the driver handed them to the
+        loop, run alone through the same loop on the same layout: the
+        same bits (lml, sweeps, every factor, the hypers)."""
+        import torch
+
+        from ccfindr_tpu_torch.ops import vb as vb_ops
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        ranks = list(range(2, 21))
+        nb = 2 * len(ranks)
+        groups = spk.lane_groups(nb, x.nnz, 4)
+        a_gb = nb * x.nnz * 4 / 1e9
+        print(f"  (c) {nb} lanes: S1's a {a_gb:.1f} GB a pass in "
+              f"{len(groups)} lane groups "
+              f"{[g.stop - g.start for g in groups]} of at most "
+              f"{spk.sol.LANE_GROUP_BYTES / 2 ** 30:g} GiB; an H-side array "
+              f"(B, r, m) {nb * 20 * x.shape[1] * 4 / 1e9:.2f} GB",
+              flush=True)
+        seen = {}
+        orig = vb_ops.vb_run
+
+        def observed(x_, st0, hy0, **kw):
+            last = st0.lw.shape[0] - 1
+            if "st0" not in seen:
+                lane = slice(last, last + 1)
+                seen.update(
+                    x=x_, st0=type(st0)(*(f[lane].clone() for f in st0)),
+                    hy0=type(hy0)(*(f[lane].clone() for f in hy0)),
+                    kw=dict(kw, rank_mask=kw["rank_mask"][lane].clone(),
+                            r_true=kw["r_true"][lane].clone()))
+            out = orig(x_, st0, hy0, **kw)
+            if "out" not in seen:
+                lane = slice(last, last + 1)
+                seen["out"] = _lane_of(out, lane)
+            return out
+
+        vb_ops.vb_run = observed
+        host = host_timers()
+        try:
+            spk.reset_launches()
+            with host:
+                f, sm = demo.run(x, ranks=ranks, nrun=2,
+                                 itmax=OVERSIZE_WIDE_ITMAX, tol=0.0,
+                                 device="cuda", dtype=torch.float32)
+            counts = dict(spk.LAUNCHES)
+        except torch.cuda.OutOfMemoryError as exc:
+            print(f"  (c) out of device memory: {str(exc)[:300]}; peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+                  flush=True)
+            return False
+        finally:
+            vb_ops.vb_run = orig
+        good = (sm["lml_finite"] and len(f.measure) == len(ranks)
+                and counts["sp_rowpass"] == counts["sp_colpass"]
+                == (sm["sweeps"] + 1) * len(groups))
+        print(f"  (c) vb_factorize ranks 2..20 x 2 ({sm['lanes']} lanes), "
+              f"Itmax {OVERSIZE_WIDE_ITMAX}, Tol 0: wall {sm['wall_s']:.2f} "
+              f"s, set-up {sm['setup_s']:.2f} s, loop {sm['loop_s']:.3f} s "
+              f"for {sm['sweeps']} sweeps "
+              f"({sm['loop_s'] / (sm['sweeps'] + 1):.3f} s a pass), "
+              f"{sm['lane_sweeps'] / sm['loop_s']:.2f} lane-sweeps/s (of the "
+              f"set-up {host}); peak "
+              f"device memory {(sm['peak_device_gib'] or [np.nan])[0]:.2f} GiB of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+              f"; launches {counts}; ropt {sm['ropt']}: "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        del f
+        torch.cuda.empty_cache()
+        spk.reset_launches()
+        t0 = time.perf_counter()
+        alone = _lane_of(orig(seen["x"], seen["st0"], seen["hy0"],
+                              **seen["kw"]), slice(0, 1))
+        secs = time.perf_counter() - t0
+        want = seen["out"]
+        same = all(torch.equal(u, v) for u, v in zip(alone, want))
+        print(f"  (c) lane {nb - 1} (rank 20, run 2) alone through the same "
+              f"loop: {secs:.2f} s, launches {dict(spk.LAUNCHES)}; bit-"
+              f"identical to the batch (lml, sweeps, factors, hypers): "
+              f"{same}; lml {float(alone[0][0])!r} vs {float(want[0][0])!r}",
+              flush=True)
+        seen.clear()
+        return good and same
+
+    def oversize_kernels(self, tc):
+        """(d) S1 and S2 at the full shape, 6 lanes (ranks 8, 8, 12, 12,
+        16, 16 of r 16), against their plain versions at phase 8's
+        float32 tolerances, each timed by CUDA events beside its plain
+        version, its bound (bytes over the HBM rate) and, for S2,
+        torch.sparse.mm on a block-diagonal CSR."""
+        import torch
+
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        dev = tc.device
+        rng = np.random.default_rng(24)
+        ranks, r = [8, 8, 12, 12, 16, 16], 16
+        nb = len(ranks)
+        fudge = float(torch.finfo(torch.float32).eps)
+        lw = torch.as_tensor(rng.gamma(1.0, 1.0, (nb, tc.n, r)),
+                             dtype=torch.float32, device=dev)
+        lh = torch.as_tensor(rng.gamma(1.0, 1.0, (nb, r, tc.m)),
+                             dtype=torch.float32, device=dev)
+        for b, rk in enumerate(ranks):
+            lw[b, :, rk:] = fudge
+            lh[b, rk:] = fudge
+        t0 = time.perf_counter()
+        res = compare_sparse(tc, lw, lh, 1, torch.float32)
+        print(f"  (d) S1/S2 vs plain at {tc.n} x {tc.m}, {tc.nnz} nonzeros, "
+              f"{nb} lanes: {'ok' if res['ok'] else 'MISMATCH'} "
+              + " ".join(f"{k}={v:.3g}" for k, v in res["err"].items())
+              + f" deterministic={res['deterministic']} "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+        lht = lh.transpose(-1, -2).contiguous()
+        _, a, _, _ = spk.sp_rowpass(tc, lw, lht)
+        timed = {
+            "sp_rowpass": (lambda: spk.sp_rowpass(tc, lw, lht),
+                           lambda: spk.rowpass_plain(tc, lw, lht)),
+            "sp_colpass": (lambda: spk.sp_colpass(tc, a, lw),
+                           lambda: spk.colpass_plain(tc, a, lw)),
+        }
+        for k, (kern, plain) in timed.items():
+            kd = self.kernels[f"{k}_oversize"]
+            kd["ms"] = cuda_ms(kern, 5)
+            kd["plain_ms"] = cuda_ms(plain, 1)
+            kd["max_abs_err"] = res["abs_err"][k]
+        s1 = spk.sp_rowpass(tc, lw, lht)[:3]
+        s2 = spk.sp_colpass(tc, a, lw)
+        self.set_bound("sp_rowpass_oversize",
+                       nbytes(tc.indptr, tc.col, tc.val, lw, lht, s1),
+                       4 * r * tc.nnz * nb)
+        lib_ms, lib_note = None, ""
+        try:
+            lib = s2_library_csr(tc, a, lw)
+            out = lib()
+            lib_err = float((out.view(nb, tc.m, r).transpose(-1, -2)
+                             - s2).abs().max())
+            del out
+            lib_ms = cuda_ms(lib, 3)
+            lib_note = (f"torch.sparse.mm (int32 block-diagonal CSR, {nb} "
+                        f"lanes) {lib_ms:.3f} ms, agrees with S2 to "
+                        f"{lib_err:.3g} absolute")
+            del lib
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+            lib_note = f"torch.sparse.mm failed: {str(exc)[:200]}"
+        torch.cuda.empty_cache()
+        self.set_bound("sp_colpass_oversize",
+                       nbytes(tc.colptr, tc.row, tc.perm, a, lw, s2),
+                       2 * r * tc.nnz * nb, library_ms=lib_ms)
+        gathered = a.numel() * r * 4
+        for k in SP_KERNELS:
+            kd = self.kernels[f"{k}_oversize"]
+            print(f"  (d) {k}: {kd['ms']:.3f} ms a launch, plain "
+                  f"{kd['plain_ms']:.1f} ms, bound {kd['bound_ms']:.3f} ms "
+                  f"({kd['bound_by']}), {gathered / kd['ms'] / 1e6:.1f} GB/s "
+                  f"of gathered factor rows; {self.smi}", flush=True)
+        print(f"  (d) {lib_note}", flush=True)
+        del lw, lh, lht, a, s1, s2
+        return res["ok"]
+
+
+# phase 23 (several cards) only when asked
+DEFAULT_PHASES = tuple(str(p) for p in (*range(1, 23), 24))
 MP_TIMEOUT = 300             # seconds a group of phase 20's workers may take
 MP_RESULT = ("lml", "likelihood", "dispersion", "cophenetic", "aw", "bw",
              "ah", "bh", "nunif", "ranks")
@@ -5818,10 +6339,13 @@ def same_worker(one, got):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
-                    help="phases to run, comma-separated (default 1-22; "
-                         "phase 23, on two cards or more, only when asked)")
+                    help="phases to run, comma-separated (default 1-22 "
+                         "and 24; phase 23, on two cards or more, only when "
+                         "asked)")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
+    ap.add_argument("--parts", default="",
+                    help="phase 23's parts to run, e.g. 'g' (default: all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -5837,6 +6361,7 @@ def main(argv=None):
         return 1
 
     smoke = Smoke(args.verbose)
+    smoke.mc_parts = args.parts
     phases = {"1": ("device+build", smoke.device_and_build),
               "2": ("kernel-vs-plain", smoke.kernel_vs_plain),
               "3": ("slice", smoke.slice),
@@ -5861,7 +6386,8 @@ def main(argv=None):
               "20": ("multi-process", smoke.multi_process),
               "21": ("ell", smoke.ell),
               "22": ("atlas", smoke.atlas_workflow),
-              "23": ("multi-card", smoke.multi_card)}
+              "23": ("multi-card", smoke.multi_card),
+              "24": ("oversize-sparse", smoke.oversize)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted

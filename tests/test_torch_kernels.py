@@ -833,6 +833,48 @@ def test_sparse_kernels_bf16_match_plain(n, m, r, nb, dt):
     assert not torch.equal(plain, swn)     # the mode took effect
 
 
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,r,nb", [(300, 700, 6, 4), (257, 1100, 40, 2)])
+def test_sparse_kernels_bf16_tail_match_plain(n, m, r, nb, dt):
+    """S1/S2 with mxu_bf16 on a layout whose JAX overflow tail is flagged
+    (quantile 0.5, bm 64: a long group tail) against their plain
+    versions, which leave the tail's operands unrounded as S1/S2 must;
+    without the flags S1 rounds those nonzeros' a too."""
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(n, m, r, nb, dt, torch.int16, dev)
+    untailed = spk.rowpass(tc, lw, lht, mxu_bf16=True)[1]
+    tc = tile._flag_bf16_tail(tile.from_scipy_tile(
+        tc.to_scipy(), dtype=dt, bm=64, quantile=0.5, device=dev))
+    assert tc.tail is not None and int(tc.tail.sum()) > 0
+    swn, a, xlog = spk.rowpass(tc, lw, lht, mxu_bf16=True)
+    shn = spk.colpass(tc, a, lw, mxu_bf16=True)
+    torch.cuda.synchronize()
+    swn_p, a_p, xlog_p = spk.rowpass_plain(tc, lw, lht, mxu_bf16=True)
+    shn_p = spk.colpass_plain(tc, a_p, lw, mxu_bf16=True)
+    for got, want in ((swn, swn_p), (a, a_p), (shn, shn_p)):
+        assert _rel(got, want) <= 2e-4
+    assert _rel(xlog / (n * m), xlog_p / (n * m)) <= 1e-5
+    keep = tc.tail.bool()
+    assert torch.equal(a[:, ~keep], untailed[:, ~keep])
+    assert not torch.equal(a[:, keep], untailed[:, keep])
+
+
+def test_sparse_lane_groups_keep_each_lanes_bits(monkeypatch):
+    """fused_tile over lane groups (a cap of two lanes' a) gives the
+    ungrouped batch's bits on the card, a pass a group."""
+    dev = _card()
+    tc, lw, lht = _sparse_inputs(400, 900, 16, 5, torch.float32,
+                                 torch.int16, dev, seed=3)
+    lh = lht.transpose(-1, -2).contiguous()
+    whole = tile.fused_tile(tc, lw, lh)
+    monkeypatch.setattr(sol, "LANE_GROUP_BYTES", 2 * tc.nnz * 4)
+    spk.reset_launches()
+    grouped = tile.fused_tile(tc, lw, lh)
+    torch.cuda.synchronize()
+    assert spk.LAUNCHES == {"sp_rowpass": 3, "sp_colpass": 3}
+    assert all(torch.equal(u, v) for u, v in zip(whole, grouped))
+
+
 @pytest.mark.parametrize("which", ["gm", "cm", "p1"])
 def test_lane_subset_with_pinned_chunk_is_bit_identical(which):
     """E1 (both layouts) and P1 on three of twelve lanes, with the

@@ -47,8 +47,9 @@ ptxas's registers and spills of S1's and S2's float instantiations,
 every reading, the GB/s of gathered factor rows (nonzeros x lanes x r x
 4 bytes) and each variant's results against the plain version.  Run
 from the repository root: ``python3 tools/bench_sparse_pass.py
-[--baseline DIR]`` (DIR: a csrc
-directory, e.g. a ``git archive`` of an older tree under ``.archive/``).
+[--baseline DIR [--baseline-without-tail]]`` (DIR: a csrc
+directory, e.g. a ``git archive`` of an older tree under ``.archive/``;
+the flag for a tree whose S1/S2 take no tail pointer).
 """
 import argparse
 import ctypes
@@ -97,9 +98,10 @@ def smi():
                           text=True).stdout.strip()
 
 
-def build_variants(baseline):
+def build_variants(baseline, baseline_tail=True):
     """Compile sparse.cu of every variant (and of the baseline) at once;
-    returns {name: ctypes library}."""
+    returns {name: ctypes library}.  ``baseline_tail`` False: the
+    baseline's C interface takes no tail pointer."""
     dirs = {}
     for name, edits in EDITS.items():
         d = OUT / name
@@ -139,8 +141,13 @@ def build_variants(baseline):
                       f"{regs.group(1) if regs else '?'} registers, spills "
                       f"{spill.groups() if spill else '?'}", flush=True)
         lib = ctypes.CDLL(str(dirs[name] / "lib.so"))
-        for fn in ("sp_rowpass", "sp_colpass"):
-            getattr(lib, fn).argtypes = build._SIGNATURES[fn]
+        # the tail pointer follows the values (S1) or perm (S2)
+        lib.has_tail = name != "baseline" or baseline_tail
+        for fn, at in (("sp_rowpass", 6), ("sp_colpass", 5)):
+            sig = list(build._SIGNATURES[fn])
+            if not lib.has_tail:
+                del sig[at]
+            getattr(lib, fn).argtypes = sig
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -173,10 +180,12 @@ def rowpass(lib, tc, lw, lht, mode):
             else None)
     flags = torch.ones(nb, dtype=torch.float64, device=dev)
 
+    tail = (None,) if lib.has_tail else ()
     build.launch(
         lib.sp_rowpass, build.TCODE[lw.dtype], build.XCODE[tc.val.dtype], 0,
-        tc.indptr, tc.col, tc.val, lw, lht, flags, nb, n, tc.m, r, tc.nnz, swn,
-        a, part, build.tickets(nb, dev) if want_xlog else None, xlog)
+        tc.indptr, tc.col, tc.val, *tail, lw, lht, flags, nb, n, tc.m, r,
+        tc.nnz, swn, a, part, build.tickets(nb, dev) if want_xlog else None,
+        xlog)
     return swn, a, xlog
 
 
@@ -184,9 +193,10 @@ def colpass(lib, tc, a, lw, bf16):
     """One S2 launch of ``lib``: shn (B, r, m)."""
     nb, n, r = lw.shape
     shn = torch.empty(nb, r, tc.m, dtype=lw.dtype, device=lw.device)
+    tail = (None,) if lib.has_tail else ()
     build.launch(
         lib.sp_colpass, build.TCODE[lw.dtype], int(bf16), tc.colptr, tc.row,
-        tc.perm, a, lw, nb, n, tc.m, r, tc.nnz, shn)
+        tc.perm, *tail, a, lw, nb, n, tc.m, r, tc.nnz, shn)
     return shn
 
 
@@ -195,11 +205,15 @@ def main():
     ap.add_argument("--baseline", default=None,
                     help="a csrc directory whose sparse.cu (S1 and S2) is "
                     "timed beside")
+    ap.add_argument("--baseline-without-tail", action="store_true",
+                    help="the baseline's sp_rowpass/sp_colpass take no "
+                    "tail pointer (a sparse.cu from before the bf16 "
+                    "overflow tail)")
     args = ap.parse_args()
     print(smi(), flush=True)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    libs = build_variants(args.baseline)
+    libs = build_variants(args.baseline, not args.baseline_without_tail)
     print(f"  built {len(libs)} libraries in {time.perf_counter() - t0:.1f} "
           f"s", flush=True)
     for sname, (tc, lw, lh) in shapes(dev).items():
