@@ -42,7 +42,8 @@ from ..ops import ml as ml_ops
 from ..ops import tile as tile_ops
 from ..ops.kernels import ml as ml_kernels
 from ..utils import Timings, resolve_device
-from ..parallel import schedule, sharded
+from ..parallel import hshards, schedule, sharded
+from ..parallel.hshards import HShards
 from .vb_driver import (_cat_field, _check_sparse_options, _dense_counts,
                         _sparse_counts, _storage_dtype, chunk_lanes,
                         process_grid)
@@ -69,7 +70,7 @@ def initial_factors(seed, ismpl, pairs, nrank, nrun, n, m, rank, dtype,
     return torch.stack(ws), torch.stack(hs)
 
 
-def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
+def _chunked_ml(call, w0, h0, nb, itmax, every, ckpt_file, verbose):
     """Run a lane batch of ``ml_run`` in chunks of ``every`` sweeps,
     with the carry checkpointed between chunks and converged lanes
     compacted out: the ML twin of ``vb_driver._chunked_vb``.
@@ -80,7 +81,10 @@ def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
     (factors, likelihoods, the connectivity streaks and assignments,
     the absolute sweep index) stays on the device and is saved to
     ``ckpt_file`` when given; a later call resumes it.  The result is
-    the uninterrupted run's, bit for bit.
+    the uninterrupted run's, bit for bit.  ``h`` and the assignments
+    carried as cell shards stay so (lanes taken and written shard by
+    shard, the shards joined on the host for a checkpoint and laid out
+    as ``h0`` on resume).
     """
     dev, ref_t = w0.device, w0.dtype
     it0 = 1
@@ -95,9 +99,10 @@ def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
             return torch.as_tensor(a, device=dev)
 
         g = ml_ops.MLRunResult(
-            w=dev_t(z["w"]), h=dev_t(z["h"]), lkh=dev_t(z["lk0"]),
+            w=dev_t(z["w"]), h=hshards.like(z["h"], h0),
+            lkh=dev_t(z["lk0"]),
             n_iter=dev_t(np.where(n_rec >= 0, n_rec, 0)),
-            cid=dev_t(z["cid"]), zstep=dev_t(z["zstep"]),
+            cid=hshards.like(z["cid"], h0), zstep=dev_t(z["zstep"]),
             done=dev_t(n_rec >= 0))
         if verbose >= 1:
             print(f"Resumed ML sweep checkpoint at iteration {it0}")
@@ -106,8 +111,7 @@ def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
         end = min(it0 - 1 + every, itmax)
         if g is None:
             lanes, nreal = np.arange(nb), nb
-            out = call(w0, h0,
-                       torch.zeros(nb, m, dtype=torch.int32, device=dev),
+            out = call(w0, h0, None,
                        torch.zeros(nb, dtype=torch.int32, device=dev),
                        torch.full((nb,), -np.inf, dtype=ref_t, device=dev),
                        end, it0, lanes)
@@ -117,11 +121,12 @@ def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
             if nreal == 0:
                 break
             sel = torch.as_tensor(lanes, device=dev)
-            out = call(g.w[sel], g.h[sel], g.cid[sel], g.zstep[sel],
+            out = call(g.w[sel], hshards.take(g.h, sel),
+                       hshards.take(g.cid, sel), g.zstep[sel],
                        g.lkh[sel], end, it0, lanes)
             real = sel[:nreal]
             for gf, of in zip(g, out):
-                gf[real] = of[:nreal]
+                hshards.put(gf, real, hshards.lanes(of, slice(0, nreal)))
         o_niter = out.n_iter[:nreal].cpu().numpy()
         loc = out.done[:nreal].cpu().numpy() | (o_niter < end)
         sel_n = loc & (n_rec[lanes[:nreal]] < 0)
@@ -131,8 +136,9 @@ def _chunked_ml(call, w0, h0, nb, m, itmax, every, ckpt_file, verbose):
         it0 = end + 1
         if ckpt_file is not None:
             np.savez(ckpt_file, it0=it0, lk0=g.lkh.cpu().numpy(),
-                     cid=g.cid.cpu().numpy(), zstep=g.zstep.cpu().numpy(),
-                     n_rec=n_rec, w=g.w.cpu().numpy(), h=g.h.cpu().numpy())
+                     cid=hshards.to_numpy(g.cid),
+                     zstep=g.zstep.cpu().numpy(), n_rec=n_rec,
+                     w=g.w.cpu().numpy(), h=hshards.to_numpy(g.h))
         if verbose >= 2:
             print(f"ML checkpointed at sweep {end}: "
                   f"{int((n_rec >= 0).sum())}/{nb} converged")
@@ -182,8 +188,10 @@ def _ml_rows(rows, w, h, c0, z0, l0, kw, dev):
     """The mesh's ``runs`` axis for ``ml_run``: the lane batch split into
     contiguous groups, one a runs row (``rows``, X laid out on each), each
     run on its row's first device, the results joined in lane order on
-    ``dev``.  A lane's numbers do not depend on the grouping.  The rows
-    run one after the other, as ``vb_driver._run_rows``'s do."""
+    ``dev``; ``h`` and the ids as cell shards go to each row's shard
+    devices, as ``vb_driver._run_rows`` moves them.  A lane's numbers do
+    not depend on the grouping.  The rows run one after the other, as
+    ``vb_driver._run_rows``'s do."""
     nb = w.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
@@ -192,8 +200,11 @@ def _ml_rows(rows, w, h, c0, z0, l0, kw, dev):
             continue
         sel = slice(int(lanes[0]), int(lanes[-1]) + 1)
         d = x_row.device
+        devs = [dv for _, dv in hshards.cell_layout(x_row)]
 
         def part(t):
+            if isinstance(t, HShards):
+                return hshards.move(hshards.lanes(t, sel), devs)
             return None if t is None else t[sel].to(d)
 
         kw_g = dict(kw)
@@ -409,8 +420,14 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
         """One lane batch of rank ``r`` to convergence (in chunks under
         ``checkpoint_every``/``compact_every``); the batched scan masks
         each lane's rank rows past its own rank."""
+        # on a mesh h0 is drawn on the host and laid out as the cell
+        # shards of the first runs row (the JAX driver's P(runs, None,
+        # cells)), each on its shard's device
         w0, h0 = initial_factors(seed, ismpl, pairs, nrank, nrun, n, m_pad,
-                                 r, dtype, device)
+                                 r, dtype, "cpu" if mesh is not None
+                                 else device)
+        if mesh is not None:
+            w0, h0 = w0.to(device), hshards.shard_h(h0, x[0])
         kw = dict(run_kwargs)
         rmask = None
         if batch_ranks:
@@ -435,7 +452,7 @@ def factorize(object, ranks=2, nrun=20, randomize=False, nsmpl=1,
                 if checkpoint_every and checkpoint_dir is not None:
                     os.makedirs(checkpoint_dir, exist_ok=True)
                     ckf = os.path.join(checkpoint_dir, ckname)
-                res = _chunked_ml(call, w0, h0, len(pairs), m_pad, itmax,
+                res = _chunked_ml(call, w0, h0, len(pairs), itmax,
                                   int(every), ckf, verbose)
             else:
                 res = call(w0, h0, None, None, None, itmax, 1,

@@ -25,7 +25,10 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   :mod:`ccfindr_tpu_torch.ops.kernels.sol_sharded` (or, gene-sharded or
   gene-major, the fused X pass a block), ``'sparse'``,
   ``'pallas2pass'``, ``'dense'`` and ``'dense_fused'`` with the shard
-  passes of ``parallel.sharded``;
+  passes of ``parallel.sharded`` in the eager loops of ``ops.vb``, whose
+  H family is laid out as the JAX driver's ``_place_sharded`` lays it
+  (:func:`_place_sharded`: each cell shard on its shard's device, the W
+  family and the hypers on the row's first device);
 * ``distributed`` splits the batched (rank, run) grid round-robin
   across processes (``parallel.schedule``) and exchanges the
   evidences and the winners, so every process returns the single
@@ -60,7 +63,8 @@ from ..ops.kernels import vb_kernels as vbk
 from ..ops.kernels.vb_kernels import (DEFAULT_BM, DEFAULT_BN,
                                       _fused_layout)
 from ..ops.vb import Hyper, VBRunResult, VBState
-from ..parallel import schedule, sharded
+from ..parallel import hshards, schedule, sharded
+from ..parallel.hshards import HShards
 from ..parallel.mesh import init_distributed
 from ..utils import Timings, auto_storage_dtype, resolve_device
 
@@ -195,12 +199,16 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
     """The mesh's ``runs`` axis: the lane batch split into contiguous
     groups, one a runs row (``rows``, X laid out on each), each group run
     on its row's first device; the results joined in lane order on
-    ``dev``.  Every lane runs alone in its kernels' blocks and is frozen
-    on its own, so its numbers do not depend on the grouping.  The rows
-    run one after the other, on one card or on distinct cards: the runs
-    axis divides the lanes, not the time (rows in threads of their own,
-    at once, were measured slower on one card and on four, ROADMAP
-    A13)."""
+    ``dev``.  An H family carried as cell shards (:func:`_place_sharded`,
+    on the first row's shard devices) goes to each row's own shard
+    devices, shard by shard, and comes back so (``cell_mask`` is laid out
+    like it); a row's lanes are a view where they lie on the row's
+    devices already.  Every lane runs alone in its kernels' blocks and
+    is frozen on its own, so its numbers do not depend on the grouping.
+    The rows run one after the other, on one card or on distinct cards:
+    the runs axis divides the lanes, not the time (rows in threads of
+    their own, at once, were measured slower on one card and on four,
+    ROADMAP A13)."""
     nb = st.lw.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
@@ -209,20 +217,29 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
             continue
         sel = slice(int(lanes[0]), int(lanes[-1]) + 1)
         d = x_row.device
+        devs = [dv for _, dv in hshards.cell_layout(x_row)] \
+            if isinstance(st.eh, HShards) else None
 
         def part(t):
+            if isinstance(t, HShards):
+                return hshards.move(hshards.lanes(t, sel), devs)
             return t[sel].to(d)
 
         kw_g = {k: ((v[sel] if k in _LANE_KW else v).to(d)
                     if isinstance(v, torch.Tensor) else v)
                 for k, v in kw.items()}
+        if devs is not None and kw.get("cell_mask") is not None:
+            kw_g["cell_mask"] = hshards.shard_h(kw["cell_mask"], x_row)
         outs.append(run_fn(x_row, type(st)(*map(part, st)),
                            type(hy)(*map(part, hy)), **kw_g))
     return _cat_field(outs, dev)
 
 
 def _cat_field(parts, dev):
-    """Results of the lane groups joined field by field on ``dev``."""
+    """Results of the lane groups joined field by field on ``dev``, cell
+    shards shard by shard on the first group's shard devices."""
+    if isinstance(parts[0], HShards):
+        return hshards.cat_lanes(parts, parts[0].devices)
     if isinstance(parts[0], tuple):
         return type(parts[0])(*(_cat_field(list(fs), dev)
                                 for fs in zip(*parts)))
@@ -292,7 +309,9 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
     drivers pin the blockings that would), and the torch reductions of
     the loops are ``utils.lane_sum``, so the result is the uninterrupted
     run's, bit for bit.  ``stats['lane_sweeps']`` counts the lane-sweeps
-    the chunks executed.
+    the chunks executed.  An H family carried as cell shards stays so:
+    lanes are taken and written back shard by shard, a checkpoint joins
+    the shards on the host and a resume lays them out as ``states``.
     """
     dev = states.lw.device
     ref_t = states.lw.dtype
@@ -313,7 +332,8 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
         def dev_t(a):
             return torch.as_tensor(a, device=dev)
 
-        gs = VBState(*(dev_t(z[f"st_{f}"]) for f in VBState._fields))
+        gs = VBState(*(hshards.like(z[f"st_{f}"], ref)
+                       for f, ref in zip(VBState._fields, states)))
         gh = Hyper(*(dev_t(z[f"hy_{f}"]) for f in Hyper._fields))
         glml = dev_t(z["lk0"]).to(ref_t)
         if verbose >= 1:
@@ -331,12 +351,12 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
             if nreal == 0:
                 break
         sel_t = torch.as_tensor(lanes, device=dev)
-        out = call(VBState(*(f[sel_t] for f in gs)),
+        out = call(VBState(*(hshards.take(f, sel_t) for f in gs)),
                    Hyper(*(f[sel_t] for f in gh)), end, it0, glml[sel_t],
                    lanes)
         real = sel_t[:nreal]
         for g, o in zip(gs + gh, out.state + out.hyper):
-            g[real] = o[:nreal]
+            hshards.put(g, real, hshards.lanes(o, slice(0, nreal)))
         glml[real] = out.lml[:nreal]
         o_niter = out.n_iter[:nreal].cpu().numpy()
         o_done = out.done[:nreal].cpu().numpy()
@@ -358,7 +378,7 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
         if ckpt_file is not None:
             save = dict(it0=it0, lk0=glml.cpu().numpy(), n_rec=n_rec, hf=hf)
             for f in VBState._fields:
-                save[f"st_{f}"] = getattr(gs, f).cpu().numpy()
+                save[f"st_{f}"] = hshards.to_numpy(getattr(gs, f))
             for f in Hyper._fields:
                 save[f"hy_{f}"] = getattr(gh, f).cpu().numpy()
             np.savez(ckpt_file, **save)
@@ -465,6 +485,35 @@ def _record_multihost(out, my_idx, ranks, nrun, n, m, Tol, unif_stop,
             print(f"Rank = {rank}: best log(evidence) = "
                   f"{rdat[imax, k]:.6g} (run {imax + 1}, process "
                   f"{owner})")
+
+
+_H_FIELDS = ("eh", "lh", "dh")
+
+
+def _place_sharded(lanes, nb, x, dev):
+    """The JAX driver's ``_place_sharded`` for the start of a lane batch:
+    ``lanes`` (an iterable of ``nb`` unbatched states, each on any
+    device) laid out lane by lane as one lane-batched state, the W
+    family and ``lkh`` on ``dev``, the H family as the cell shards of
+    the layout ``x`` (a runs row's ``ShardedCounts`` or sparse
+    ``Shards``), each on its shard's device.  No lane's H is ever whole
+    on a card, and a lane's start is dropped once it is laid out."""
+    lay = hshards.cell_layout(x)
+    bufs = {}
+    for b, st in enumerate(lanes):
+        for f, t in zip(VBState._fields, st):
+            if f not in bufs:
+                bufs[f] = (HShards(torch.empty(
+                    (nb,) + t.shape[:-1] + (c1 - c0,), dtype=t.dtype,
+                    device=d) for (c0, c1), d in lay) if f in _H_FIELDS
+                    else torch.empty((nb,) + t.shape, dtype=t.dtype,
+                                     device=dev))
+            if f in _H_FIELDS:
+                for p, ((c0, c1), _) in zip(bufs[f], lay):
+                    p[b].copy_(t[..., c0:c1])
+            else:
+                bufs[f][b].copy_(t)
+    return VBState(**bufs)
 
 
 def _mesh_layout(mesh, backend, mat, x_dtype, dtype, n_pad, m_pad,
@@ -816,6 +865,11 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             run_kwargs["fused"] = vb_ops.fused_dense
     itmax = int(Itmax)
     every = checkpoint_every or compact_every
+    # the eager loops of ops.vb on a mesh carry the H family as cell
+    # shards from the start (the JAX driver's _place_sharded); the
+    # cell-sharded kernel sweep shards it itself, and the user's passes
+    # take the whole padded X and a joined H, as JAX hands them its arrays
+    shard_h = rows is not None and run_fn is vb_ops.vb_run and not overrides
 
     def pinned(nb, r):
         """The run's keywords for ``nb`` lanes of rank ``r``: E1's and
@@ -867,9 +921,11 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     def init_state(rank):
         """A lane's initial state, drawn at the true shape and then
         padded to the mesh, so that a padded mesh run consumes the
-        random stream of a run on one device."""
+        random stream of a run on one device (a random start that is to
+        be laid out as cell shards stays on the host until it is)."""
         if initializer == "random":
-            st = vb_ops.vb_init_random(gen, n, m, rank, h1, dtype, device)
+            st = vb_ops.vb_init_random(gen, n, m, rank, h1, dtype,
+                                       "cpu" if shard_h else device)
         else:
             st = vb_ops.vb_init_svd(mat, rank, h1, variant=initializer,
                                     dtype=dtype, method=svd_method,
@@ -882,6 +938,13 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             eh=pad(st.eh, ph), dh=pad(st.dh, ph),
             lh=pad(st.lh, ph, value=1.0), ew=pad(st.ew, pw),
             dw=pad(st.dw, pw), lw=pad(st.lw, pw, value=1.0))
+
+    def start(lanes, nb):
+        """The lane batch's start from its lanes' states: stacked on
+        ``device``, or laid out as the first runs row's cell shards."""
+        if shard_h:
+            return _place_sharded(lanes, nb, rows[0], device)
+        return _stack(list(lanes))
 
     def hyper_batch(nb):
         return Hyper(*(torch.full((nb,), v, dtype=dtype, device=device)
@@ -949,20 +1012,22 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         nb = len(my_idx)
         owned = set(my_idx.tolist())
         if initializer == "random":
-            # every process draws every lane's start in order and keeps
-            # its own, so that lane t starts as in one process
-            drawn = {}
-            for t in range(nb_all):
-                st = init_state(rmax_)
-                if t in owned:
-                    drawn[t] = st
-            states = [drawn[int(t)] for t in my_idx]
+            def lane_starts():
+                # every process draws every lane's start in order and
+                # keeps its own, so that lane t starts as in one process
+                # (my_idx is in order); each is laid out as it is drawn
+                for t in range(nb_all):
+                    st = init_state(rmax_)
+                    if t in owned:
+                        yield st
         else:
             # deterministic starts, for the ranks of the owned lanes only
             per_rank = {r: _pad_state_rank(init_state(r), rmax_)
                         for r in sorted({int(rank_arr_all[t])
                                          for t in owned})}
-            states = [per_rank[int(rank_arr_all[t])] for t in my_idx]
+
+            def lane_starts():
+                return (per_rank[int(rank_arr_all[t])] for t in my_idx)
         out = None
         if nb == 0:
             # more processes than lanes: this one owns none, and joins
@@ -978,11 +1043,11 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
             rtrue = torch.as_tensor(rank_arr.astype(np_dtype), device=device)
             ckname = ("vb_sweeps_batch.npz" if nproc == 1
                       else f"vb_sweeps_batch_p{pid}.npz")
-            # the lanes' starts stacked, the per-lane copies dropped (a
-            # scan of 38 lanes at the oversize configuration holds 6.8
-            # GB of them)
-            states = _stack(states)
-            drawn = per_rank = None
+            # the lanes' starts stacked or laid out, the per-lane copies
+            # dropped (a scan of 38 lanes at the oversize configuration
+            # holds 6.8 GB of them)
+            states = start(lane_starts(), nb)
+            per_rank = None
             with timings.phase("vb_rank_batch", ranks=list(ranks),
                                nrun=nrun):
                 out, chunked = run_lanes(states, hyper_batch(nb),
@@ -1029,7 +1094,8 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
                 print(f"Rank = {rank}: restored from checkpoint")
             continue
         with timings.phase("vb_rank", rank=rank, nrun=nrun):
-            out, _ = run_lanes(_stack(states), hyper_batch(len(states)),
+            out, _ = run_lanes(start(states, len(states)),
+                               hyper_batch(len(states)),
                                f"vb_sweeps_rank{rank}.npz")
         timings.records[-1]["total_sweeps"] = int(out.n_iter.sum())
         timings.records[-1]["n_iter"] = out.n_iter.tolist()

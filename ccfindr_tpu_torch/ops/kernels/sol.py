@@ -33,6 +33,7 @@ import functools
 import torch
 
 from .build import TCODE, XCODE, launch
+from ...parallel import hshards
 from ...parallel.sharded import ShardedCounts
 from ...utils import lgamma_sum
 from ..vb import (VBRunResult, VBState, digamma_approx,
@@ -602,7 +603,7 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         out = torch.zeros(nb, rp_, mp_, dtype=ref_t, device=dev)
         out[:, :r, m:] = fill
         out[:, :r, :m] = a
-        return x.shard_h(out) if sharded else out
+        return hshards.shard_h(out, x) if sharded else out
 
     lw = pad_w(state0.lw, 1.0)
     ew = pad_w(state0.ew, 0.0)
@@ -676,7 +677,8 @@ def deferred_loop(x, state0: VBState, hyper0, sweep, *, w_rowmajor,
         return a[:, :r, :n].transpose(-1, -2)
 
     if sharded:
-        lh, eh, dh = (x.gather_h(t) for t in (lh, eh, dh))
+        lh, eh, dh = (hshards.gather(hshards.HShards(t), x.device)
+                      for t in (lh, eh, dh))
 
     state = VBState(ew=unpad_w(ew), eh=eh[:, :r, :m], lw=unpad_w(lw),
                     lh=lh[:, :r, :m], dw=unpad_w(dw), dh=dh[:, :r, :m],

@@ -18,6 +18,13 @@ explicit leading lane axis:
 
 The connectivity criterion decides partition equality from the r x r
 contingency table (see ``ccfindr_tpu.ops.ml``), O(m + r^2) a lane.
+
+On a mesh the deferred-likelihood loop may carry ``h`` and its cluster
+ids as cell shards (``parallel.hshards.HShards``), as the JAX driver
+places ``h0`` (``P(runs, None, cells)``): the H update, the frozen-lane
+selects and the hard assignments run on each shard's device, the sums
+over cells are finished from the shards' partials (``hshards.hsum``)
+and the contingency tables are added over the shards.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.hshards import HShards, hmap, hsum, to_numpy
 from ..utils import lane_colsum, lane_matmul, lane_sum, resolve_device
 
 
@@ -80,23 +88,35 @@ def likelihood_const(x, dtype=None):
     return xl.sum()
 
 
+def _argmax_rank(h):
+    return torch.argmax(h, dim=-2).to(torch.int32)
+
+
 def hard_assign(h):
     """argmax cluster id per cell (0-based) over the rank axis -2.
     Ties go to the first maximal index, as ``jnp.argmax`` has it
-    (``torch.argmax`` documents the same rule)."""
-    return torch.argmax(h, dim=-2).to(torch.int32)
+    (``torch.argmax`` documents the same rule).  Cell shards give the
+    ids as cell shards."""
+    return hmap(_argmax_rank, h)
+
+
+def _contingency(cid0, cid1, r):
+    idx = cid0.to(torch.int64) * r + cid1.to(torch.int64)
+    tab = torch.zeros(idx.shape[:-1] + (r * r,), dtype=torch.int64,
+                      device=idx.device)
+    return tab.scatter_add_(-1, idx, torch.ones_like(idx))
 
 
 def partitions_equal(cid0, cid1, r: int):
     """True iff two hard assignments induce the same comembership, per
     lane: the r x r contingency table of (cid0, cid1) has at most one
     nonzero entry in every row and every column.  ``cid0``/``cid1``
-    are (..., m); the result is (...,)."""
-    idx = cid0.to(torch.int64) * r + cid1.to(torch.int64)
-    tab = torch.zeros(idx.shape[:-1] + (r * r,), dtype=torch.int64,
-                      device=idx.device)
-    tab.scatter_add_(-1, idx, torch.ones_like(idx))
-    nz = (tab > 0).view(idx.shape[:-1] + (r, r))
+    are (..., m), or cell shards, whose tables (exact integer counts)
+    are added on the first shard's device; the result is (...,)."""
+    tab = hmap(lambda a, b: _contingency(a, b, r), cid0, cid1)
+    if isinstance(tab, HShards):
+        tab = sum(t.to(tab[0].device) for t in tab)
+    nz = (tab > 0).view(tab.shape[:-1] + (r, r))
     rows_ok = (nz.sum(-1) <= 1).all(-1)
     cols_ok = (nz.sum(-2) <= 1).all(-1)
     return rows_ok & cols_ok
@@ -136,21 +156,33 @@ def _lanes(flag, t):
     return flag.view(flag.shape + (1,) * (t.dim() - flag.dim()))
 
 
-def _pick(flag, new, old):
+def _where_lanes(flag, new, old):
     return torch.where(_lanes(flag, new), new, old)
 
 
+def _pick(flag, new, old):
+    """Per lane: ``new`` where ``flag``, else ``old`` (cell shards shard
+    by shard)."""
+    return hmap(_where_lanes, flag, new, old)
+
+
+def _cid_start(h, cid0):
+    nb, m = h.shape[0], h.shape[-1]
+    if cid0 is None:
+        return torch.zeros(nb, m, dtype=torch.int32, device=h.device)
+    return torch.as_tensor(cid0, device=h.device).to(torch.int32) \
+        .expand(nb, m).clone()
+
+
 def _loop_start(w0, h0, tol, lk0_init, it0, cid0, zstep0):
-    nb, m = w0.shape[0], h0.shape[-1]
+    nb = w0.shape[0]
     dev, ref_t = w0.device, w0.dtype
     eps = torch.tensor(torch.finfo(ref_t).eps, dtype=ref_t, device=dev)
     tol = torch.as_tensor(tol, dtype=ref_t, device=dev)
     lk = torch.as_tensor(-np.inf if lk0_init is None else lk0_init,
                          dtype=ref_t, device=dev).expand(nb).clone()
     it = torch.full((nb,), int(it0), dtype=torch.int64, device=dev)
-    cid = (torch.zeros(nb, m, dtype=torch.int32, device=dev) if cid0 is None
-           else torch.as_tensor(cid0, device=dev).to(torch.int32)
-           .expand(nb, m).clone())
+    cid = hmap(_cid_start, h0, cid0)
     zstep = (torch.zeros(nb, dtype=torch.int32, device=dev)
              if zstep0 is None
              else torch.as_tensor(zstep0, device=dev).to(torch.int32)
@@ -195,6 +227,9 @@ def ml_run(x, w0, h0, *, itmax=10000, tol: float = 1e-5,
     """
     if criterion not in ("likelihood", "connectivity"):
         raise ValueError("Unknown stopping criterion.")
+    if fused_h is None and isinstance(h0, HShards):
+        raise ValueError("h carried as cell shards needs the fused "
+                         "passes of a mesh (fused_h/fused_w)")
     if fused_h is not None:
         return _ml_run_fused(x, w0, h0, itmax=itmax, tol=tol,
                              criterion=criterion, ncnn_step=ncnn_step,
@@ -257,19 +292,25 @@ def _ml_run_fused(x, w0, h0, *, itmax, tol, criterion, ncnn_step,
     n, m = nm_true if nm_true is not None else (w0.shape[-2], h0.shape[-1])
     it_start = int(it0)
 
+    dev = w0.device
+
     def lk_of(xlw, w, h):
         # -sum(wh) reduces in rank space: colSums(w) . rowSums(h)
-        return ((xlw.to(ref_t) - lane_sum(lane_colsum(w) * lane_sum(h))
+        return ((xlw.to(ref_t) - lane_sum(lane_colsum(w) * hsum(h, 1, dev))
                  + lgconst)
                 / (n * m))
 
-    def do_sweep(w, h, hn):
-        h1 = torch.maximum((h * hn + pn) / (lane_colsum(w)[..., :, None]
-                                            + pd), eps)
+    def h_update(h, hn, csum, rank_mask, eps):
+        h1 = torch.maximum((h * hn + pn) / (csum + pd), eps)
         if rank_mask is not None:
             h1 = torch.where(rank_mask[..., :, None] > 0, h1, eps)
+        return h1
+
+    def do_sweep(w, h, hn):
+        h1 = hmap(h_update, h, hn, lane_colsum(w)[..., :, None], rank_mask,
+                  eps)
         wn = fused_w(x, w, h1)
-        w1 = torch.maximum((w * wn + pn) / (lane_sum(h1)[..., None, :]
+        w1 = torch.maximum((w * wn + pn) / (hsum(h1, 1, dev)[..., None, :]
                                             + pd), eps)
         if rank_mask is not None:
             w1 = torch.where(rank_mask[..., None, :] > 0, w1, eps)
@@ -303,7 +344,7 @@ def _ml_run_fused(x, w0, h0, *, itmax, tol, criterion, ncnn_step,
         hn, _ = fused_h(x, w, h)
         w1, h1 = do_sweep(w, h, hn)
         c1 = hard_assign(h1)
-        same = (it > 1) & partitions_equal(cid, c1, r)
+        same = (it > 1) & partitions_equal(cid, c1, r).to(it.device)
         z1 = torch.where(same, zstep + 1, 0).to(torch.int32)
         w = _pick(active, w1, w)
         h = _pick(active, h1, h)
@@ -354,7 +395,10 @@ def ml_state_from_numpy(obj, device="cuda", dtype=None):
 
 def ml_state_to_numpy(obj):
     """Inverse of :func:`ml_state_from_numpy`: the same tuple (or
-    ``MLRunResult``) with every tensor as a host numpy array."""
+    ``MLRunResult``) with every tensor as a host numpy array (cell
+    shards joined on the host)."""
+    if isinstance(obj, HShards):
+        return to_numpy(obj)
     if isinstance(obj, tuple):
         fields = [ml_state_to_numpy(f) for f in obj]
         return type(obj)(*fields) if hasattr(obj, "_fields") \

@@ -17,6 +17,15 @@ explicit leading lane axis:
   counter, and a lane whose stopping rule fired is frozen (its carry
   no longer changes), as ``vmap`` of a ``while_loop`` freezes it.
 
+On a mesh the H family (``eh``, ``lh``, ``dh``, the passes' ``shn`` and
+the ``cell_mask``) may be carried as its cell shards
+(``parallel.hshards.HShards``), as the JAX driver lays it out: every
+function here then runs the H side on each shard's device
+(``hshards.hmap``) and finishes every sum over cells on the W side's
+device from the shards' partials (``hshards.hsum``).  With every shard
+a multiple of 1,024 cells, the result is the joined state's, bit for
+bit.
+
 All functions preserve the factor dtype: float32 on the card, float64
 on the CPU for parity with the JAX package's x64 tests.
 """
@@ -28,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.hshards import HShards, hmap, hsum, to_numpy
 from ..utils import lane_colsum, lane_matmul, lane_sum, resolve_device
 
 
@@ -89,11 +99,12 @@ def state_from_numpy(obj, device="cuda", dtype=None):
 
 def state_to_numpy(obj):
     """Inverse of :func:`state_from_numpy`: the same NamedTuple with
-    every tensor as a host numpy array."""
+    every tensor as a host numpy array (an H family carried as shards
+    joined on the host)."""
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*(state_to_numpy(f) for f in obj))
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+    if isinstance(obj, (torch.Tensor, HShards)):
+        return to_numpy(obj)
     return np.asarray(obj)
 
 
@@ -271,65 +282,79 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
       mesh, ``n_true`` their count: padded ew (before it feeds the H
       beta) and dw rows are zeroed, lw rows pinned at 1, and U2 is
       mask-summed.
+
+    ``sh``, the state's H family and ``cell_mask`` may be cell shards
+    (``parallel.hshards.HShards``, see the module docstring).
     """
     n = n_true if n_true is not None else state.lw.shape[-2]
     r = state.lw.shape[-1]
     m = m_true if m_true is not None else state.lh.shape[-1]
     r_eff = r_true if r_true is not None else r
+    dev = state.lw.device
     aw, bw, ah, bh = hyper
     aw_, bw_, ah_, bh_ = _mat(aw), _mat(bw), _mat(ah), _mat(bh)
 
     alw = aw_ + sw
-    bew = 1.0 / (aw_ / bw_ + lane_sum(state.eh)[..., None, :])
+    bew = 1.0 / (aw_ / bw_ + hsum(state.eh, 1, dev)[..., None, :])
     ew = alw * bew                    # must precede the eh update
     if gene_mask is not None:
         # padded gene rows must be dead before colSums(ew) feeds beh
         ew = ew * gene_mask[:, None]
-    alh = ah_ + sh
     beh = 1.0 / (ah_ / bh_ + lane_colsum(ew)[..., :, None])
-    eh = alh * beh
 
     lw = torch.maximum(torch.exp(torch.digamma(alw)) * bew, fudge)
-    lh = torch.maximum(torch.exp(torch.digamma(alh)) * beh, fudge)
     dw = alw * bew ** 2
-    dh = alh * beh ** 2
     if rank_mask is not None:
         mw = rank_mask[..., None, :]
-        mh = rank_mask[..., :, None]
         ew = ew * mw
         dw = dw * mw
+        lw = torch.where(mw > 0, lw, fudge)
+    if gene_mask is not None:
+        mg = gene_mask[:, None]
+        dw = dw * mg
+        lw = torch.where(mg > 0, lw, 1.0)
+    eh, lh, dh, u3_elem = hmap(_h_posterior, sh, ah_, bh_, beh, fudge,
+                               rank_mask, cell_mask)
+
+    u1_part = -lane_sum(lane_colsum(ew) * hsum(eh, 1, dev)) - lgx
+    u2_elem = (-(aw_ / bw_) * ew + alw * (1.0 + torch.log(bew))
+               + torch.lgamma(alw))
+    if rank_mask is not None:
+        u2_elem = u2_elem * rank_mask[..., None, :]
+    if gene_mask is not None:
+        u2_elem = u2_elem * gene_mask[:, None]
+    u2 = (lane_sum(u2_elem, 2)
+          + n * r_eff * (aw * torch.log(aw / bw) - torch.lgamma(aw)))
+    u3 = (hsum(u3_elem, 2, dev)
+          + r_eff * m * (ah * torch.log(ah / bh) - torch.lgamma(ah)))
+    pending = u1_part + u2 + u3
+    return (VBState(ew=ew, eh=eh, lw=lw, lh=lh, dw=dw, dh=dh,
+                    lkh=state.lkh), pending)
+
+
+def _h_posterior(sh, ah_, bh_, beh, fudge, rank_mask, cell_mask):
+    """The H half of :func:`posterior_update` on one shard of cells (or
+    the whole H): ``(eh, lh, dh, u3_elem)``."""
+    alh = ah_ + sh
+    eh = alh * beh
+    lh = torch.maximum(torch.exp(torch.digamma(alh)) * beh, fudge)
+    dh = alh * beh ** 2
+    if rank_mask is not None:
+        mh = rank_mask[..., :, None]
         eh = eh * mh
         dh = dh * mh
-        lw = torch.where(mw > 0, lw, fudge)
         lh = torch.where(mh > 0, lh, fudge)
     if cell_mask is not None:
         eh = eh * cell_mask
         dh = dh * cell_mask
         lh = torch.where(cell_mask > 0, lh, fudge)
-    if gene_mask is not None:
-        mg = gene_mask[:, None]
-        dw = dw * mg
-        lw = torch.where(mg > 0, lw, 1.0)
-
-    u1_part = -lane_sum(lane_colsum(ew) * lane_sum(eh)) - lgx
-    u2_elem = (-(aw_ / bw_) * ew + alw * (1.0 + torch.log(bew))
-               + torch.lgamma(alw))
     u3_elem = (-(ah_ / bh_) * eh + alh * (1.0 + torch.log(beh))
                + torch.lgamma(alh))
     if rank_mask is not None:
-        u2_elem = u2_elem * rank_mask[..., None, :]
         u3_elem = u3_elem * rank_mask[..., :, None]
-    if gene_mask is not None:
-        u2_elem = u2_elem * gene_mask[:, None]
     if cell_mask is not None:
         u3_elem = u3_elem * cell_mask
-    u2 = (lane_sum(u2_elem, 2)
-          + n * r_eff * (aw * torch.log(aw / bw) - torch.lgamma(aw)))
-    u3 = (lane_sum(u3_elem, 2)
-          + r_eff * m * (ah * torch.log(ah / bh) - torch.lgamma(ah)))
-    pending = u1_part + u2 + u3
-    return (VBState(ew=ew, eh=eh, lw=lw, lh=lh, dw=dw, dh=dh,
-                    lkh=state.lkh), pending)
+    return eh, lh, dh, u3_elem
 
 
 def vb_sweep(x, state: VBState, hyper: Hyper, fudge, lgx,
@@ -367,34 +392,42 @@ def _factor_means(state: VBState, cell_mask=None, m_true=None,
     entries, as the JAX package masks them."""
     n_pad = state.lw.shape[-2]
     r_pad, m_pad = state.lh.shape[-2:]
+    dev = state.lw.device
     if cell_mask is None and rank_mask is None and gene_mask is None:
         return (lane_sum(torch.log(state.lw), 2) / (n_pad * r_pad),
                 lane_sum(state.ew, 2) / (n_pad * r_pad),
-                lane_sum(torch.log(state.lh), 2) / (r_pad * m_pad),
-                lane_sum(state.eh, 2) / (r_pad * m_pad))
+                hsum(hmap(torch.log, state.lh), 2, dev) / (r_pad * m_pad),
+                hsum(state.eh, 2, dev) / (r_pad * m_pad))
     n_eff = n_true if n_true is not None else n_pad
     m_eff = m_true if m_true is not None else m_pad
     r_eff = r_true if r_true is not None else r_pad
-    ones = torch.ones((1, 1), dtype=state.lw.dtype, device=state.lw.device)
+    ones = torch.ones((1, 1), dtype=state.lw.dtype, device=dev)
     mask_w = ones
-    mask_h = ones
     if rank_mask is not None:
         mask_w = mask_w * rank_mask[..., None, :]
-        mask_h = mask_h * rank_mask[..., :, None]
     if gene_mask is not None:
         mask_w = mask_w * gene_mask[:, None]
-    if cell_mask is not None:
-        mask_h = mask_h * cell_mask
     denom_w = n_eff * r_eff
     denom_h = r_eff * m_eff
     logw = torch.where(mask_w > 0, torch.log(state.lw), 0.0)
-    logh = torch.where(mask_h > 0, torch.log(state.lh), 0.0)
     lwm = (lane_sum(logw * mask_w, 2) if rank_mask is not None
            or gene_mask is not None else lane_sum(logw, 2)) / denom_w
+    logh = hmap(_masked_log, state.lh, ones, rank_mask, cell_mask)
     return (lwm,
             lane_sum(state.ew, 2) / denom_w,     # ew is 0 in padding
-            lane_sum(logh * mask_h, 2) / denom_h,
-            lane_sum(state.eh, 2) / denom_h)     # eh is 0 in padding
+            hsum(logh, 2, dev) / denom_h,
+            hsum(state.eh, 2, dev) / denom_h)    # eh is 0 in padding
+
+
+def _masked_log(lh, ones, rank_mask, cell_mask):
+    """log lh times the H mask, 0 where the mask is (one shard of
+    cells, or the whole H)."""
+    mask_h = ones
+    if rank_mask is not None:
+        mask_h = mask_h * rank_mask[..., :, None]
+    if cell_mask is not None:
+        mask_h = mask_h * cell_mask
+    return torch.where(mask_h > 0, torch.log(lh), 0.0) * mask_h
 
 
 def hyper_update(mask, state: VBState, hyper: Hyper, niter: int = 100,
@@ -617,10 +650,16 @@ def _lanes(active, t):
 
 def _select(active, new, old):
     """Per lane: ``new`` where ``active``, else ``old`` (NamedTuples
-    field by field)."""
+    field by field, cell shards shard by shard)."""
+    if isinstance(new, HShards):
+        return hmap(_where_lanes, active, new, old)
     if isinstance(new, tuple):
         return type(new)(*(_select(active, a, b)
                            for a, b in zip(new, old)))
+    return _where_lanes(active, new, old)
+
+
+def _where_lanes(active, new, old):
     return torch.where(_lanes(active, new), new, old)
 
 
@@ -631,22 +670,32 @@ def mask_initial_state(state0: VBState, rank_mask, fudge, cell_mask=None,
     at 1), as every JAX loop does on entry."""
     if rank_mask is not None:
         mw = rank_mask[..., None, :]
-        mh = rank_mask[..., :, None]
         state0 = state0._replace(
             ew=state0.ew * mw, dw=state0.dw * mw,
-            lw=torch.where(mw > 0, state0.lw, fudge),
-            eh=state0.eh * mh, dh=state0.dh * mh,
-            lh=torch.where(mh > 0, state0.lh, fudge))
-    if cell_mask is not None:
-        state0 = state0._replace(
-            eh=state0.eh * cell_mask, dh=state0.dh * cell_mask,
-            lh=torch.where(cell_mask > 0, state0.lh, fudge))
+            lw=torch.where(mw > 0, state0.lw, fudge))
+    if rank_mask is not None or cell_mask is not None:
+        eh, lh, dh = hmap(_mask_h, state0.eh, state0.lh, state0.dh,
+                          rank_mask, cell_mask, fudge)
+        state0 = state0._replace(eh=eh, lh=lh, dh=dh)
     if gene_mask is not None:
         mg = gene_mask[:, None]
         state0 = state0._replace(
             ew=state0.ew * mg, dw=state0.dw * mg,
             lw=torch.where(mg > 0, state0.lw, 1.0))
     return state0
+
+
+def _mask_h(eh, lh, dh, rank_mask, cell_mask, fudge):
+    """:func:`mask_initial_state` on the H family (one shard of cells,
+    or the whole H)."""
+    if rank_mask is not None:
+        mh = rank_mask[..., :, None]
+        eh, dh = eh * mh, dh * mh
+        lh = torch.where(mh > 0, lh, fudge)
+    if cell_mask is not None:
+        eh, dh = eh * cell_mask, dh * cell_mask
+        lh = torch.where(cell_mask > 0, lh, fudge)
+    return eh, lh, dh
 
 
 def _loop_scalars(x, state0, fudge, tol, lk0_init, it0):
@@ -782,7 +831,8 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
 
         do_sweep = (~stop) & (it <= itmax)
         new_state, new_pending = posterior_update(
-            state.lw * swn, state.lh * shn, st, hyper, fudge, lgx, **masks)
+            state.lw * swn, hmap(torch.mul, state.lh, shn), st, hyper,
+            fudge, lgx, **masks)
         # each (B, r, m) array is 3.4 GB at 38 lanes of the oversize
         # configuration: drop every one as soon as it is read
         del swn, shn

@@ -80,6 +80,10 @@ def parse(argv=None):
     p.add_argument("--cells", type=int, default=0,
                    help="run over a mesh of this many cell shards on "
                         "--device")
+    p.add_argument("--cophenetic-max-cells", type=int, default=10000,
+                   help="--mode ml: factorize's cophenetic_max_cells")
+    p.add_argument("--cophenetic-nsub", type=int, default=3,
+                   help="--mode ml: factorize's cophenetic_nsub")
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument("--checkpoint-dir")
     return p.parse_args(argv)
@@ -128,7 +132,8 @@ def main(argv=None):
         torch.cuda.synchronize(a.device)
     t0 = time.perf_counter()
     if a.mode == "ml":
-        out = ct.factorize(s, **kw)
+        out = ct.factorize(s, cophenetic_max_cells=a.cophenetic_max_cells,
+                           cophenetic_nsub=a.cophenetic_nsub, **kw)
         arrays = {c: out.measure[c].to_numpy()
                   for c in ("likelihood", "dispersion", "cophenetic")}
         arrays["lml"] = arrays["likelihood"]

@@ -37,8 +37,18 @@ leaves open):
 * :func:`make_pass2_sharded` (port only) — P1 + E1s and P2 on each
   block: ``backend='pallas2pass'`` on a mesh.
 
-A shard's lanes cross to its device and its outputs back; where every
-shard is on the lanes' device nothing crosses.  Each kernel runs on the
+Every pass takes ``lh``/``h`` joined or as its cell shards
+(``parallel.hshards.HShards``, each on its shard's device, as the drivers
+carry it on a mesh, the JAX driver's ``P(runs, None, cells)``): joined,
+a shard's columns cross to its device and its H-side output (``shn``,
+``hn``) comes back and is joined on the lanes' device, as before; as
+shards, each shard's ``lh`` is read where it lies and its H-side output
+stays there, added over gene shards on the shard's device, so that no
+H-family tensor is joined.  A shard on another device than its shard of
+X raises.  The W side (``lw``, the per-lane flags) crosses to each
+shard's device and its outputs (``swn``, ``wn``, the data terms) come
+back to the lanes' device; where every shard is on the lanes' device
+nothing crosses.  Each kernel runs on the
 card that holds its shard (``ops.kernels.build.launch``).  A pass over
 the shards goes in three stages: the lanes are copied to every shard's
 device, then every shard's work is issued, then the outputs come back.
@@ -57,6 +67,8 @@ import numpy as np
 import torch
 
 from ..utils import lane_matmul, lane_sum, lgamma_sum
+from . import hshards
+from .hshards import HShards, hmap, hsum
 
 
 def _bounds(extent, parts):
@@ -111,14 +123,14 @@ class ShardedCounts:
 
     def shard_h(self, t):
         """An H-family tensor (..., m) as its cell shards, each
-        contiguous on its shard's device (the gene-shard-0 row)."""
-        return tuple(t[..., c0:c1].to(self.devices[0, c]).contiguous()
-                     for c, (c0, c1) in enumerate(self.cols))
+        contiguous on its shard's device (the gene-shard-0 row):
+        ``hshards.shard_h``."""
+        return hshards.shard_h(t, self)
 
     def gather_h(self, parts):
         """Inverse of :meth:`shard_h`: the shards in order, joined on
         :attr:`device`."""
-        return torch.cat([p.to(self.device) for p in parts], -1)
+        return hshards.gather(HShards(parts), self.device)
 
 
 def place_counts(x, mesh):
@@ -142,21 +154,25 @@ def _xpass(x: ShardedCounts, lw, lh, with_xlog=True):
                 lane_sum(xf * torch.log(wth), 2) if with_xlog else None)
 
     return _fold_blocks(_blocks(x, block, lw, lh, x.blocks), len(x.rows),
-                        len(x.cols))
+                        len(x.cols), isinstance(lh, HShards))
+
+
+def _shn_term(shn, lh):
+    return shn * (lh * torch.log(lh))
 
 
 def fused_sharded(x: ShardedCounts, lw, lh):
     """``ops.vb.fused_dense`` over the blocks: (swn, shn, dterm)."""
     swn, shn, xlog = _xpass(x, lw, lh)
     dterm = (-(lane_sum(swn * (lw * torch.log(lw)), 2)
-               + lane_sum(shn * (lh * torch.log(lh)), 2)) + xlog)
+               + hsum(hmap(_shn_term, shn, lh), 2, lw.device)) + xlog)
     return swn, shn, dterm
 
 
 def suffstats_sharded(x: ShardedCounts, lw, lh):
     """``ops.vb.suffstats_dense`` over the blocks: (sw, sh)."""
     swn, shn, _ = _xpass(x, lw, lh, with_xlog=False)
-    return lw * swn, lh * shn
+    return lw * swn, hmap(torch.mul, lh, shn)
 
 
 def data_term_sharded(x: ShardedCounts, lw, lh):
@@ -193,26 +209,37 @@ def _blocks(x: ShardedCounts, fn, lw, lh, blocks=None):
     genes then cells: a list of (g, c, outputs) with the outputs moved to
     ``lw``'s device.  ``lw_g``/``lh_c`` are the lanes' gene rows and cell
     columns of the block, contiguous on its device; ``fn`` returns a
-    tuple.  ``blocks`` (default :meth:`ShardedCounts.packed`) are the
-    blocks ``fn`` reads.  In three stages (the module docstring): every
-    block's lanes cross first, then every ``fn`` is issued, then the
-    outputs come back."""
+    tuple ``(row part, column part, scalar)``.  ``lh`` given as cell
+    shards gives each block its shard, and the column part stays on the
+    shard's device.  ``blocks`` (default :meth:`ShardedCounts.packed`)
+    are the blocks ``fn`` reads.  In three stages (the module
+    docstring): every block's lanes cross first, then every ``fn`` is
+    issued, then the outputs come back."""
     dev = lw.device
     blocks = x.packed() if blocks is None else blocks
+    if isinstance(lh, HShards):
+        hshards.check(lh, x)
+        home = lh.devices
+        lh_of = list(lh)
+    else:
+        home = [dev] * len(x.cols)
+        lh_of = [lh[..., c0:c1] for c0, c1 in x.cols]
     work = [(g, c, blocks[g][c], lw[..., g0:g1, :].to(b.device).contiguous(),
-             lh[..., c0:c1].to(b.device).contiguous())
+             lh_of[c].to(b.device).contiguous())
             for g, (g0, g1) in enumerate(x.rows)
-            for c, ((c0, c1), b) in enumerate(zip(x.cols, blocks[g]))]
+            for c, b in enumerate(blocks[g])]
     res = [(g, c, fn(xb, lw_g, lh_c)) for g, c, xb, lw_g, lh_c in work]
     del work
-    return [(g, c, tuple(_to(t, dev) for t in r)) for g, c, r in res]
+    return [(g, c, tuple(_to(t, home[c] if i == 1 else dev)
+                         for i, t in enumerate(r))) for g, c, r in res]
 
 
-def _fold_blocks(parts, ng, nc):
+def _fold_blocks(parts, ng, nc, shards=False):
     """Block outputs ``(row part, column part, scalar)`` (each may be
     None) added in shard order: a gene shard's rows (``swn``, ``wn``)
     over cells, then joined over genes; a cell shard's columns (``shn``,
-    ``hn``) over genes, then joined over cells; the scalar over all
+    ``hn``) over genes, then joined over cells (``shards``: kept as the
+    cell shards, each where :func:`_blocks` left it); the scalar over all
     blocks."""
     rows, cols, tot = [None] * ng, [None] * nc, None
     for g, c, (rp, cp, sc) in parts:
@@ -222,8 +249,13 @@ def _fold_blocks(parts, ng, nc):
             cols[c] = _add(cols[c], cp)
         if sc is not None:
             tot = _add(tot, sc)
-    return (None if rows[0] is None else torch.cat(rows, -2),
-            None if cols[0] is None else torch.cat(cols, -1), tot)
+    if cols[0] is None:
+        cols = None
+    elif shards:
+        cols = HShards(cols)
+    else:
+        cols = torch.cat(cols, -1)
+    return (None if rows[0] is None else torch.cat(rows, -2), cols, tot)
 
 
 def make_fused_sharded(mesh, fused_local=None, bn: int = None,
@@ -259,34 +291,51 @@ def make_fused_sharded(mesh, fused_local=None, bn: int = None,
     def fused(x, lw, lh):
         _grid(mesh, x)
         return _fold_blocks(_blocks(x, lambda *a: tuple(fused_local(*a)),
-                                    lw, lh), len(x.rows), len(x.cols))
+                                    lw, lh), len(x.rows), len(x.cols),
+                            isinstance(lh, HShards))
 
     return fused
 
 
-def _cell_shards(x, fn, lh, *rest):
-    """``fn(shard, lh_c, *rest)`` on every cell shard of a sparse
+def _cell_shards(x, fn, lh, lw, *rest, cols=()):
+    """``fn(shard, lh_c, lw, *rest)`` on every cell shard of a sparse
     :class:`~ccfindr_tpu_torch.ops.sparse.Shards` layout in order, the
-    lanes (``rest``: factors replicated over the shards, or None) moved to
-    the shard's device; the outputs come back to ``lh``'s device.  In
-    :func:`_blocks`'s three stages."""
-    dev = lh.device
-    work = [(tc, lh[..., c * x.m:(c + 1) * x.m].to(tc.device).contiguous(),
-             [_to(t, tc.device) for t in rest]) for c, tc in enumerate(x)]
+    lanes (``lw`` and ``rest``: factors and flags replicated over the
+    shards, or None) moved to the shard's device; the outputs come back
+    to ``lw``'s device, but for those at the indices ``cols`` (the
+    H-side outputs) where ``lh`` is given as cell shards: those stay on
+    their shard's device.  In :func:`_blocks`'s three stages."""
+    dev = lw.device
+    keep = isinstance(lh, HShards)
+    if keep:
+        hshards.check(lh, x)
+        lh_of = list(lh)
+    else:
+        lh_of = [lh[..., c * x.m:(c + 1) * x.m] for c in range(len(x))]
+    work = [(tc, lh_of[c].to(tc.device).contiguous(),
+             [_to(t, tc.device) for t in (lw,) + rest])
+            for c, tc in enumerate(x)]
     res = [fn(tc, lh_c, *rest_c) for tc, lh_c, rest_c in work]
     del work
-    return [tuple(t.to(dev) for t in r) for r in res]
+    return [tuple(t if keep and i in cols else t.to(dev)
+                  for i, t in enumerate(r)) for r in res]
+
+
+def _join(parts, lh):
+    """Cell shards' H-side outputs: kept as shards where ``lh`` came as
+    shards, else joined on the lanes' device."""
+    return HShards(parts) if isinstance(lh, HShards) else torch.cat(parts, -1)
 
 
 def _sparse_fused(x, lw, lh, local):
     """The sparse VB pass over cell shards: ``swn`` and the folded data
-    terms added in shard order, ``shn`` joined."""
+    terms added in shard order, ``shn`` cell-local."""
     swn, shn, dterm = None, [], None
     for sw, sh, dt in local:
         swn = _add(swn, sw)
         shn.append(sh)
         dterm = _add(dterm, dt)
-    return swn, torch.cat(shn, -1), dterm
+    return swn, _join(shn, lh), dterm
 
 
 def make_sparse_fused_sharded(mesh, chunk: int = 1 << 16):
@@ -300,7 +349,8 @@ def make_sparse_fused_sharded(mesh, chunk: int = 1 << 16):
         _grid(mesh, x)
         return _sparse_fused(x, lw, lh, _cell_shards(
             x, lambda tc, lh_c, lw_d: sk.fused_coo(tc, lw_d, lh_c,
-                                                   chunk=chunk), lh, lw))
+                                                   chunk=chunk), lh, lw,
+            cols=(1,)))
 
     return fused
 
@@ -316,7 +366,8 @@ def make_ell_fused_sharded(mesh):
     def fused(x, lw, lh):
         _grid(mesh, x)
         return _sparse_fused(x, lw, lh, _cell_shards(
-            x, lambda ec, lh_c, lw_d: ek.fused_ell(ec, lw_d, lh_c), lh, lw))
+            x, lambda ec, lh_c, lw_d: ek.fused_ell(ec, lw_d, lh_c), lh, lw,
+            cols=(1,)))
 
     return fused
 
@@ -335,7 +386,7 @@ def make_tile_fused_sharded(mesh, mxu_bf16: bool = False):
         return _sparse_fused(x, lw, lh, _cell_shards(
             x, lambda tc, lh_c, lw_d, de: tl.fused_tile(
                 tc, lw_d, lh_c, do_elbo=de, mxu_bf16=mxu_bf16),
-            lh, lw, do_elbo))
+            lh, lw, do_elbo, cols=(1,)))
 
     return fused
 
@@ -351,10 +402,11 @@ def make_tile_ml_sharded(mesh):
         _grid(mesh, x, genes=False)
         hn, xlw = [], None
         for hn_c, xl in _cell_shards(
-                x, lambda tc, h_c, w_d: tl.tile_ml_h(tc, w_d, h_c), h, w):
+                x, lambda tc, h_c, w_d: tl.tile_ml_h(tc, w_d, h_c), h, w,
+                cols=(0,)):
             hn.append(hn_c)
             xlw = _add(xlw, xl)
-        return torch.cat(hn, -1), xlw
+        return _join(hn, h), xlw
 
     def fused_w(x, w, h):
         _grid(mesh, x, genes=False)
@@ -377,7 +429,7 @@ def _ml_block_pair(mesh, h_fn, w_fn):
         _grid(mesh, x, genes=False)
         _, hn, xlw = _fold_blocks(_blocks(
             x, lambda *a: (None,) + tuple(h_fn(*a)), w, h), len(x.rows),
-            len(x.cols))
+            len(x.cols), isinstance(h, HShards))
         return hn, xlw
 
     def fused_w(x, w, h):
@@ -438,8 +490,8 @@ def make_pass2_sharded(mesh):
         _grid(mesh, x)
         swn, shn, _ = _fold_blocks(_blocks(
             x, lambda *a: tuple(ss_block(*a)) + (None,), lw, lh),
-            len(x.rows), len(x.cols))
-        return lw * swn, lh * shn
+            len(x.rows), len(x.cols), isinstance(lh, HShards))
+        return lw * swn, hmap(torch.mul, lh, shn)
 
     def data_term(x, lw, lh):
         _grid(mesh, x)

@@ -53,6 +53,23 @@ def lane_sum(t, ndim=1, dtype=None):
             return v[..., 0]
 
 
+def lane_partials(t):
+    """The first two levels of :func:`lane_sum`'s tree over the last
+    axis of ``t``: (..., ceil(k / 1024)).  Where ``t``'s cells are a
+    piece of a longer row that starts on a multiple of 1,024 cells,
+    these are that row's partials at that level, so ``lane_sum`` over
+    the pieces' partials joined in order is the row's ``lane_sum``, bit
+    for bit (the cell shards of a mesh, ``parallel.hshards.hsum``)."""
+    w = _LANE_SUM_WIDTH
+    v = t
+    for _ in range(2):
+        k = v.shape[-1]
+        if k % w:
+            v = torch.nn.functional.pad(v, (0, w - k % w))
+        v = v.view(*v.shape[:-1], -1, w).sum(-1)
+    return v
+
+
 # lanes a product of lane_matmul: 4 had the least mean sweep time of the
 # forms timed by tools/bench_lane_matmul.py (1 to 4 lanes, bundled and
 # 10x shapes, both dense routes, VB and ML) on an H100

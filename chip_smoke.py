@@ -13,7 +13,10 @@ Phases (each prints its result and seconds):
 
 1. device and build: requires a CUDA device, prints the card's name
    and power limit (nvidia-smi), builds the kernels with nvcc (one
-   process a source, started together);
+   process a source, started together) while three threads make the
+   later phases' host data (Smoke.prefetch: the 10x matrices, the
+   gene-major X, the atlas CSR and its float64 host SVD, the oversize
+   CSR; each the value its phase would make);
 2. VB kernel vs plain, one sweep: a ragged case (737 x 450 X, 21 lanes
    of ranks 2..8 padded to 8) and the 10x-scale case (4096 x 8192,
    r=16, 3 lanes), X int8 and float32, do_elbo 1 and 0, factors in
@@ -170,8 +173,8 @@ Phases (each prints its result and seconds):
    overflow tail flagged (quantile 0.5: those nonzeros' operands left
    unrounded on both sides), and
    S2 on its (phase 8's skewed CSC) at the float32 tolerances; the
-   bundled sparse scan with precision='bf16' (ropt 5 for seed 0, seeds
-   1 and 2 printed); S1/S2 in both modes at phase 10's timing inputs;
+   bundled sparse scan with precision='bf16' (ropt 5 for seed 0; seeds
+   1 and 2, printed and not gated, left out for time: ~15 s each); S1/S2 in both modes at phase 10's timing inputs;
    the 10x sparse VB scan in bf16 beside float32 (Itmax 100);
 16. checkpoint and compaction: the bundled VB scan on backend='pallas'
    and on backend='sparse', and the bundled factorize(ranks [4, 5, 6],
@@ -227,8 +230,8 @@ Phases (each prints its result and seconds):
    COO API's make_sparse_fused_sharded is held against one device's
    fused_coo on its own), 'pallas' at 10x over genes=2,
    cells=2 (E1 'cm' + E1s a block; K1 not launched), the gene-major
-   100,000 x 4,096 X over cells=2 (E1 'gm' a shard; Itmax 30, where
-   phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
+   100,000 x 4,096 X over cells=2 (E1 'gm' a shard; Itmax
+   MESH_GM_ITMAX, where phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
    and 'sparse' (S1/S2) at 10x over cells=4 (their consensus on a
    1,000-cell subsample, for time), and 'pallas2pass' on the
    bundled data over cells=2 (P1 + E1s and P2 a block).  Each site's
@@ -238,17 +241,30 @@ Phases (each prints its result and seconds):
    x log wth summed by E1s) against the plain X pass at each E1 site,
    its time a launch (a CUDA graph of launches, the call by CUDA events
    beside) beside the same kernel on the one-device inputs, its bound
-   from the shard's bytes and operations;
+   from the shard's bytes and operations.  Then the mesh's layout
+   (parallel/hshards.py, the JAX driver's _place_sharded): every
+   eager-loop mesh route ('tile' with elbo_every 1 and 4, 'coo', 'ell',
+   'dense_fused', 'dense', 'pallas2pass' over cells=4, the E1 blocks
+   over genes=2 x cells=2, factorize's 'sparse' and 'pallas' passes)
+   run through ops.vb.vb_run / ops.ml.ml_run on the 10x-10% X (2,048-
+   or 4,096-cell shards), 6 lanes of rp 16, MESH_STATE_ITMAX sweeps at
+   Tol 0, from a start given as cell shards: the H family (and ML's h
+   and cluster ids) comes back as shards on the mesh's devices, and
+   every field is bit-identical to the same loop fed the joined start;
+   and the drivers' sparse mesh scans hand their loops the start as
+   cell shards;
 20. several processes: python -m ccfindr_tpu_torch.parallel._mh_worker
    started once a process, all sharing cuda:0 and joined in a gloo
    group on a free localhost port, each running its round-robin share
    of the (rank, run) grid (killed at MP_TIMEOUT): vb_factorize
    (backend='pallas', float32) on phase 4's 10x matrix, ranks [8, 12,
-   16], nrun 2, Itmax 300, over 2 processes (the one-process run first,
-   then the group, so that both walls are the card's alone);
-   factorize(backend='pallas') at phase 7's 10x shape over 2 processes
-   (beside the one process); the bundled data's vb_factorize(ranks [4,
-   5], nrun 1) over 3 processes, one of them idle.  Gates: every
+   16], nrun 2, Itmax 300, over 2 processes; factorize(backend=
+   'pallas') at phase 7's 10x shape over 2 processes (the consensus on
+   a 1,000-cell subsample, for time); the bundled data's
+   vb_factorize(ranks [4, 5], nrun 1) over 3 processes, one of them
+   idle; every case's one-process run and its group started at once
+   (10 processes on the card, for time: the walls printed are shared).
+   Gates: every
    process's measure table, factors and its lanes' sweep counts equal
    the one-process run (the same worker with --nproc 1) bit for bit;
    the processes' lanes add up to the grid; each working process
@@ -286,7 +302,7 @@ Phases (each prints its result and seconds):
    and 4 alone and as a pair give the batch's bits.
 22. the atlas workflow's scan at full width (examples/atlas_demo_torch.py's
    simulate_atlas, 20,480 x 100,352 int8, no QC): (a) vb_factorize(ranks
-   2..20, nrun 2 = 38 lanes of rp 24, Itmax 4, Tol 0, backend='pallas')
+   2..20, nrun 2 = 38 lanes of rp 24, Itmax ATLAS_ITMAX, Tol 0, backend='pallas')
    with every count set to 0 just before: its wall, set-up, loop, ms a
    sweep and peak device memory beside the card; gated on every lane's
    lml finite (the lanes as vb_run_sol returns them), no lane's hyper
@@ -343,8 +359,20 @@ Phases (each prints its result and seconds):
    24's oversize matrix over make_mesh(cells=k) in the tile and ELL
    layouts (6 lanes, Itmax MC_OVERSIZE_ITMAX, Tol 0) against one card
    at phase 19's tolerances, the walls in turns, each card's peak
-   memory, busy share and S1/S2 launches from card_trace
-   (``--parts g`` runs (g) alone);
+   memory, busy share and S1/S2 launches from card_trace, beside the
+   same cell before the H family was sharded (PERF.md §6: 7.13 / 2.72 /
+   2.72 / 2.72 GiB, card 0 busy 49.7%, the others 23%, the loop 0.85x of
+   one card),
+   gated on card 0's peak within MC_PEAK_SPREAD_GIB of the others;
+   (h) the oversize scan at MC_WIDE_RANKS x MC_WIDE_NRUN = 95 lanes of
+   rp 20 ('tile', float32, Itmax MC_WIDE_ITMAX at Tol 0) over
+   make_mesh(cells=k), which one card cannot hold: each card's peak
+   device memory (at most MC_WIDE_PEAK_GIB), the loop's seconds a pass,
+   each card's launches a sweep and busy share (card_trace), set-up
+   seconds (the random starts laid out lane by lane) and the host's
+   peak RSS, beside the one-card estimate from the per-lane sizes of
+   phase 25's 38-lane scan (ONE_CARD_WIDE); gated
+   on a finite lml for every rank (``--parts g,h`` runs those alone);
 24. the JAX package's sparse capacity configuration at its full shape,
    examples/oversize_sparse_torch.py's copy of bench.py's oversize
    matrix (16,384 x 1,114,112 at 2%, ~279 M nonzeros, int16, never
@@ -358,17 +386,21 @@ Phases (each prints its result and seconds):
    version, its bound (bytes over 3.35 TB/s) and, for S2, one
    torch.sparse.mm on an int32 block-diagonal CSR; (b) vb_factorize(
    backend='sparse', ranks [8, 12, 16], nrun 2, Itmax OVERSIZE_ITMAX,
-   Tol 0) on 'tile', 'ell' and 'coo' in float32 ('ell' and 'coo'
-   bit-identical to 'tile'), and 'tile' with precision='bf16' (the JAX
-   layout's overflow tail flagged) and with elbo_every=4: set-up and
-   loop seconds, lane-sweeps/s, peak device memory, S1/S2 launched
-   once a lane group a pass (every count set to 0 just before); (c)
-   ranks 2..20 x 2 = 38 lanes of rp 20 on 'tile' (S1's a = x/wth 42.4
-   GB a pass, run in lane groups of at most sol.LANE_GROUP_BYTES), Itmax
-   OVERSIZE_WIDE_ITMAX at Tol 0: its peak device memory beside the
-   card; then its last lane's start, hypers and masks, as the driver
-   handed them to the loop, run alone through the same loop on the same
-   layout, bit for bit (lml, sweeps, factors, hypers);
+   Tol 0) on 'tile' and 'ell' in float32 ('ell' bit-identical to
+   'tile'; the driver runs 'coo' on the CSR layout of 'tile', phase 19
+   over a mesh), and 'tile' with precision='bf16' (the JAX layout's
+   overflow tail flagged) and with elbo_every=4: set-up and loop
+   seconds, lane-sweeps/s, peak device memory, S1/S2 launched once a
+   lane group a pass (every count set to 0 just before);
+25. (only when asked, one card: ``--phases 1,25``) phase 24's X at the
+   atlas demo's scan width: ranks 2..20 x 2 = 38 lanes of rp 20 on
+   'tile' (S1's a = x/wth 42.4 GB a pass, run in lane groups of at
+   most sol.LANE_GROUP_BYTES), Itmax OVERSIZE_WIDE_ITMAX at Tol 0: its
+   peak device memory beside the card; then its last lane's start,
+   hypers and masks, as the driver handed them to the loop, run alone
+   through the same loop on the same layout, bit for bit (lml, sweeps,
+   factors, hypers).  Out of the default run for time: its 38 random
+   starts are ~62 s of the host's;
 
 Every kernel's entry in the kernels line has its launches on its path,
 its error against plain, its time (by CUDA events; for the posterior
@@ -385,8 +417,8 @@ The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.  Run from the root of the repository:
 ``python3 chip_smoke.py`` (phases 1-22 and 24; ``--phases 1,5`` runs a
-subset, ``--phases 1,23`` the several-card phase); it prints its total
-time.
+subset, ``--phases 1,23`` the several-card phase, ``--phases 1,25`` the
+38-lane oversize scan on one card); it prints its total time.
 """
 
 from __future__ import annotations
@@ -523,7 +555,7 @@ ATLAS = (20480, 100352, 20, 0.02)   # bench.py:696 shape, bench.py:330 density
 # lanes of rp 24), the last lane against itself alone, K1-K4 at the shape
 ATLAS_DEMO = "examples/atlas_demo_torch.py"
 ATLAS_RANKS = tuple(range(2, 21))
-ATLAS_ITMAX = 4          # (a)'s sweeps at Tol 0 (the demo runs up to 300)
+ATLAS_ITMAX = 2          # (a)'s sweeps at Tol 0 (the demo runs up to 300)
 ATLAS_LONE_ITMAX = 3     # (b)'s
 # (b)'s ranks: each takes its own randomized SVD start over the dense X
 # (~1.2 s a rank on the card, PR 16), so (b) scans 8..20, whose last
@@ -535,6 +567,19 @@ MC_ITMAX = 100           # (d)'s sweeps at Tol 0, as phase 19's
 MC_ATLAS = dict(base_cells=2048)   # (f)'s simulate_atlas: the full width
 MC_ATLAS_ITMAX = 20      # (f)'s sweeps held to one card's bits
 MC_OVERSIZE_ITMAX = 20   # (g)'s sweeps at Tol 0 over cells=k
+MC_PEAK_SPREAD_GIB = 1.5  # (g): card 0's peak at most this above the rest
+MC_WIDE_RANKS = tuple(range(2, 21))   # (h): 19 ranks x MC_WIDE_NRUN lanes
+MC_WIDE_NRUN = 5
+MC_WIDE_ITMAX = 4        # (h)'s sweeps at Tol 0
+MC_WIDE_PEAK_GIB = 60.0  # (h): each card's peak device memory at most
+# the oversize scan's 38 lanes of rp 20 on one card (phase 25), as
+# PERF.md §6 records
+# them (NVIDIA H100 80GB HBM3, 700 W), GiB: X's tile layout, then a lane's share of the state and of
+# the eager loop's H-side temporaries, and S1's lane group (bounded)
+ONE_CARD_WIDE = dict(x=3.6, state_lane=10.2 / 38, temps_lane=23.7 / 38,
+                     group=14.5)
+MESH_STATE_ITMAX = 6     # phase 19's layout gate: sweeps at Tol 0
+MESH_GM_ITMAX = 10       # phase 19's gene-major mesh: sweeps at Tol 0
 CHECK_CARDS = "tools/check_cards.py"
 # phase 24: the JAX package's sparse capacity configuration
 # (bench.py:330-397 bench_sparse_oversize on bench.py:242-274's matrix,
@@ -543,9 +588,9 @@ OVERSIZE_DEMO = "examples/oversize_sparse_torch.py"
 OVERSIZE = dict(n=16384, m=1114112, r=16, density=0.02, tile=128)
 OVERSIZE_SWEEPS = 3      # (a)'s sweeps of bench.py's body a layout
 OVERSIZE_RANKS = (8, 12, 16)    # (b): phase 10's scan, 6 lanes of rp 16
-OVERSIZE_ITMAX = 8       # (b)'s sweeps at Tol 0
+OVERSIZE_ITMAX = 4       # (b)'s sweeps at Tol 0 (8 before phase 19's layout gate)
 OVERSIZE_ELBO_EVERY = 4  # (b)'s elbo_every lever
-OVERSIZE_WIDE_ITMAX = 4  # (c)'s sweeps at Tol 0: ranks 2..20 x 2 = 38 lanes
+OVERSIZE_WIDE_ITMAX = 4  # phase 25's sweeps at Tol 0: ranks 2..20 x 2 = 38 lanes
 MARKERS = {                      # tests/test_integration_workflow.py:81-87
     "B cell": ["CD74", "IG", "HLA", "MS4A1", "CD79A"],
     "CD8+ T": ["CD8A", "CD8B", "GZMK", "CCR7", "LTB"],
@@ -1690,8 +1735,10 @@ def s2_library_csr(tc, a, lw):
 
 class host_timers:
     """Seconds the VB driver spends in its random starts
-    (``vb_init_random``) and in the tile layout (``from_scipy_tile``),
-    summed while entered; str() gives both."""
+    (``vb_init_random``), in the tile layout (``from_scipy_tile``) and
+    in the result's copy to the host (``state_to_numpy``, inside the
+    loop's timing record), summed while entered; str() gives the two
+    of the set-up."""
 
     def __init__(self):
         self.secs = {}
@@ -1704,18 +1751,25 @@ class host_timers:
 
         self.saved = []
         for mod, name in ((vb_driver.vb_ops, "vb_init_random"),
-                          (vb_driver.tile_ops, "from_scipy_tile")):
+                          (vb_driver.tile_ops, "from_scipy_tile"),
+                          (vb_driver.vb_ops, "state_to_numpy")):
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
             setattr(mod, name, self._timed(name, fn))
         return self
 
     def _timed(self, name, fn):
+        inside = [False]     # state_to_numpy calls itself by its name
+
         def call(*a, **k):
+            if inside[0]:
+                return fn(*a, **k)
+            inside[0] = True
             t0 = time.perf_counter()
             try:
                 return fn(*a, **k)
             finally:
+                inside[0] = False
                 self.secs[name] = (self.secs.get(name, 0.0)
                                    + time.perf_counter() - t0)
         return call
@@ -1726,7 +1780,8 @@ class host_timers:
         return False
 
     def __str__(self):
-        return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+        return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items()
+                         if k != "state_to_numpy")
 
 
 def _lane_of(out, lane):
@@ -2151,7 +2206,59 @@ def same_ml(a, b):
                       for u, v in zip(getattr(a, f), getattr(b, f)))
 
 
+def host_svd_reference(big, k=26, power=4, rank=16):
+    """The randomized SVD's range finder in float64 on the host, by
+    scipy's sparse products and numpy's QR and SVD, on the Omega that
+    ``rsvd.randomized_svd(seed=0)`` draws: (its ``rank`` singular
+    values, the seconds it took)."""
+    import torch
+
+    from ccfindr_tpu_torch.ops import rsvd
+
+    t0 = time.perf_counter()
+    om = rsvd._draw_omega(big.shape[1], k, torch.float64, 0,
+                          "cpu").numpy()
+    big64 = big.astype(np.float64)
+    q = np.linalg.qr(big64 @ om)[0]
+    for _ in range(power):
+        q = np.linalg.qr(big64 @ np.linalg.qr(big64.T @ q)[0])[0]
+    sv = np.linalg.svd((big64.T @ q).T, compute_uv=False)[:rank]
+    return sv, time.perf_counter() - t0
+
+
+def timed_call(fn, *args, **kwargs):
+    """(fn's value, its seconds)."""
+    t0 = time.perf_counter()
+    return fn(*args, **kwargs), time.perf_counter() - t0
+
+
+def _host_cache(name):
+    """A Smoke attribute holding host data made once a run: while it is
+    unset it waits for the prefetch's future of that name, if there is
+    one (see Smoke.prefetch)."""
+    def get(self):
+        if name not in self._host and name in self._pre:
+            self._host[name], self.host_secs[name] = \
+                self._pre.pop(name).result()
+            self._pre_made.add(name)
+        return self._host.get(name)
+
+    def put(self, value):
+        self._pre.pop(name, None)
+        self._host[name] = value
+
+    return property(get, put)
+
+
 class Smoke:
+    # host data made once a run, on the prefetch's threads where asked
+    x10 = _host_cache("x10")          # the planted 10x matrix (phase 4)
+    x10m = _host_cache("x10m")        # it masked to 10% density (phase 8)
+    xgm = _host_cache("xgm")          # phase 12's gene-major X (phase 11)
+    atlas = _host_cache("atlas")      # the atlas CSR (phase 18)
+    svd_ref = _host_cache("svd_ref")  # its float64 host SVD (phase 18)
+    _oversize_x = _host_cache("oversize")  # the oversize CSR (23-25)
+
     def __init__(self, verbose):
         self.verbose = verbose
         self.kernels = {k: dict(name=f"sol_{k}", route="cuda",
@@ -2193,11 +2300,11 @@ class Smoke:
         self.failed = []
         self.filtered = None     # the bundled data after QC (phase 3)
         self.vb_result = None    # phase 3's VB scan, for phase 6's GSEA
-        self.x10 = None          # the planted 10x matrix (phase 4)
-        self.x10m = None         # it masked to 10% density (phase 8)
-        self.xgm = None          # phase 12's gene-major X (phase 11)
-        self.atlas = None        # the atlas CSR (phase 18)
-        self._oversize_x = None  # the oversize CSR (phases 23 and 24)
+        self._host = {}          # the host caches' values (_host_cache)
+        self._pre = {}           # their futures, while being made
+        self.host_secs = {}      # seconds each prefetched value took
+        self._pre_made = set()   # the caches a prefetch thread made
+        self.wanted = ()         # the run's phases (main)
         self.mc_parts = ""       # phase 23's parts to run ("": all)
         self.sass = {}           # post_need's SASS counts
 
@@ -2215,7 +2322,8 @@ class Smoke:
         if lf.dtype != torch.float32:
             raise ValueError("the SASS count is of the float kernel")
         if not self.sass:
-            f, s = sass_entry_instructions(XPASS_ENTRIES["epi_w_post"])
+            f, s = (self._pre.pop("sass").result()[0] if "sass" in self._pre
+                    else sass_entry_instructions(XPASS_ENTRIES["epi_w_post"]))
             self.sass.update(fixed=f, step=s)
             print(f"  SASS epi_w_post: {f:g} instructions an entry and "
                   f"{s:g} a shift step it takes (the entry loop of "
@@ -2295,6 +2403,39 @@ class Smoke:
         if not ok:
             self.failed.append(name)
 
+    def prefetch(self, wanted):
+        """Start making the host data of the ``wanted`` phases on three
+        threads, while phase 1's nvcc processes run: the 10x matrices,
+        the gene-major X (drawn on the card, idle until the build is
+        done), the atlas CSR and its float64 host SVD, the oversize CSR.
+        Each is the value the phase would make itself; a phase reads it
+        through its ``_host_cache`` attribute, waiting if it is not
+        ready yet."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        wanted = set(wanted)
+        pool = ThreadPoolExecutor(3, thread_name_prefix="prefetch")
+
+        def submit(name, fn, *args):
+            self._pre[name] = pool.submit(timed_call, fn, *args)
+            return self._pre[name]
+
+        def value(fut):
+            return fut.result()[0]
+
+        if wanted & set(map(str, range(4, 24))):
+            x10 = submit("x10", planted_10x)
+            submit("x10m", lambda: masked_10x(value(x10)))
+        if wanted & {"11", "12", "19", "23"}:
+            submit("xgm", planted_gm)
+        if "18" in wanted:
+            big = submit("atlas", atlas_csr, *ATLAS)
+            submit("svd_ref", lambda: host_svd_reference(value(big)))
+        if wanted & {"23", "24", "25"}:
+            submit("oversize", lambda: self.oversize_demo()
+                   .oversize_matrix(**OVERSIZE))
+        pool.shutdown(wait=False)
+
     # -- 1 ------------------------------------------------------------
     def device_and_build(self):
         import torch
@@ -2310,11 +2451,22 @@ class Smoke:
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)} "
               f"count {torch.cuda.device_count()}", flush=True)
+        self.prefetch(self.wanted)
         t0 = time.perf_counter()
         so = build.build(verbose=self.verbose)
         build.library()
         print(f"build: {so.name} in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        if set(self.wanted) & {"4", "12"}:
+            # post_need's SASS count of this build (cuobjdump over the
+            # whole library, ~25 s of a host core), beside phases 2-3
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(1, thread_name_prefix="sass")
+            self._pre["sass"] = pool.submit(
+                timed_call, sass_entry_instructions,
+                XPASS_ENTRIES["epi_w_post"])
+            pool.shutdown(wait=False)
         return True
 
     # -- 2 ------------------------------------------------------------
@@ -2440,7 +2592,9 @@ class Smoke:
         from ccfindr_tpu_torch.ops.kernels import sol
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        x_np = self.x10 = planted_10x()
+        if self.x10 is None:
+            self.x10 = planted_10x()
+        x_np = self.x10
         n, m = x_np.shape
         print(f"  X {n} x {m}")
         ranks, nrun, itmax = [8, 12, 16], 2, 300
@@ -2871,7 +3025,8 @@ class Smoke:
             else bundled_filtered()
         if self.x10 is None:
             self.x10 = planted_10x()
-        self.x10m = masked_10x(self.x10)
+        if self.x10m is None:
+            self.x10m = masked_10x(self.x10)
         print(f"  10x masked: {self.x10m[1].shape}, nnz "
               f"{self.x10m[1].nnz}")
         cases = [("ragged", s.counts,
@@ -3073,15 +3228,20 @@ class Smoke:
 
         ok = True
         loop_rate = {}
-        for name, fn, xin, backend, rec_name in (
+        # factorize's consensus on a 1,000-cell subsample (~11 s a call
+        # of host work at this shape otherwise; phase 7 times the exact
+        # one): what is compared here is the loop records
+        sub = dict(cophenetic_max_cells=1000, cophenetic_nsub=1)
+        for name, fn, xin, backend, rec_name, extra in (
                 ("vb_factorize", ct.vb_factorize, csr, "sparse",
-                 "vb_rank_batch"),
+                 "vb_rank_batch", {}),
                 ("vb_factorize", ct.vb_factorize, dense, "pallas",
-                 "vb_rank_batch"),
-                ("factorize", ct.factorize, csr, "sparse", "ml_rank_batch"),
+                 "vb_rank_batch", {}),
+                ("factorize", ct.factorize, csr, "sparse", "ml_rank_batch",
+                 sub),
                 ("factorize", ct.factorize, dense, "pallas",
-                 "ml_rank_batch")):
-            f, secs, peak = timed(fn, xin, backend=backend, **kw)
+                 "ml_rank_batch", sub)):
+            f, secs, peak = timed(fn, xin, backend=backend, **kw, **extra)
             rec = next(r for r in f.metadata["timings"]
                        if r["name"] == rec_name)
             ls = rec["lane_sweeps_executed"]
@@ -3795,19 +3955,14 @@ class Smoke:
         kw = dict(ranks=list(range(2, 9)), nrun=3, Itmax=3000,
                   backend="sparse", device="cuda", verbose=0,
                   precision="bf16")
-        ok = ok_all
-        for seed in (0, 1, 2):
-            if seed == 0:
-                spk.reset_launches()
-            g = ct.vb_factorize(s, seed=seed, **kw)
-            ropt = ct.optimal_rank(g)["ropt"]
-            print(f"  sparse bf16 seed {seed}: ropt={ropt}"
-                  + (f" (gated: 5), launches {dict(spk.LAUNCHES)}"
-                     if seed == 0 else " (reported)"))
-            if seed == 0:
-                ok = ok and ropt == 5 and bool(
-                    np.isfinite(g.measure["lml"]).all()) and min(
-                    spk.LAUNCHES.values()) > 0
+        spk.reset_launches()
+        g = ct.vb_factorize(s, seed=0, **kw)
+        ropt = ct.optimal_rank(g)["ropt"]
+        print(f"  sparse bf16 seed 0: ropt={ropt} (gated: 5), launches "
+              f"{dict(spk.LAUNCHES)}")
+        ok = ok_all and ropt == 5 and bool(
+            np.isfinite(g.measure["lml"]).all()) and min(
+            spk.LAUNCHES.values()) > 0
 
         # the 10x sparse VB scan, bf16 beside float32
         kw10 = dict(ranks=[8, 12, 16], nrun=2, Itmax=100, device="cuda",
@@ -4282,13 +4437,14 @@ class Smoke:
         from ccfindr_tpu_torch.ops.kernels import sparse as spk
 
         ok = True
+        if self.atlas is None:
+            self.atlas, self.host_secs["atlas"] = timed_call(atlas_csr,
+                                                             *ATLAS)
         big = self.atlas
-        if big is None:
-            t0 = time.perf_counter()
-            big = self.atlas = atlas_csr(*ATLAS)
-            print(f"  atlas X {big.shape[0]} x {big.shape[1]}, nnz "
-                  f"{big.nnz}, built on the host in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"  atlas X {big.shape[0]} x {big.shape[1]}, nnz {big.nnz}, "
+              f"built on the host in {self.host_secs['atlas']:.1f} s"
+              + (" (on a prefetch thread during the build)"
+                 if "atlas" in self._pre_made else ""), flush=True)
         # the randomized SVD on the card (float32 range finder, CSR
         # products) against the float64 host one on the same Omega
         sc = tsk.from_scipy(big, dtype=torch.float32, device="cuda")
@@ -4313,17 +4469,10 @@ class Smoke:
                      torch.linalg.svd(z.T, full_matrices=False)))}
         print(f"  each step twice, bit-identical: {steps}", flush=True)
         del om, y, q, z
-        # the reference: the same range finder in float64 on the host,
-        # by scipy's sparse products and numpy's QR and SVD
-        t0 = time.perf_counter()
-        om = rsvd._draw_omega(big.shape[1], 26, torch.float64, 0,
-                              "cpu").numpy()
-        big64 = big.astype(np.float64)
-        q = np.linalg.qr(big64 @ om)[0]
-        for _ in range(4):
-            q = np.linalg.qr(big64 @ np.linalg.qr(big64.T @ q)[0])[0]
-        host_sv = np.linalg.svd((big64.T @ q).T, compute_uv=False)[:16]
-        host_s = time.perf_counter() - t0
+        # the reference: the same range finder in float64 on the host
+        if self.svd_ref is None:
+            self.svd_ref = host_svd_reference(big)
+        host_sv, host_s = self.svd_ref
         s_err = float(np.max(np.abs(outs[0][1].double().cpu().numpy()
                                     - host_sv) / host_sv))
         u_orth = float((outs[0][0].double().T @ outs[0][0].double()
@@ -4333,7 +4482,10 @@ class Smoke:
               f"float32 on the card): {secs * 1e3:.1f} ms (second call); "
               f"two calls bit-identical {same}; singular values against "
               f"the float64 host run on the same Omega (scipy/numpy, "
-              f"{host_s:.1f} s): max rel {s_err:.3g} (gate "
+              f"{host_s:.1f} s"
+              + (", on a prefetch thread during the build"
+                 if "svd_ref" in self._pre_made else "")
+              + f"): max rel {s_err:.3g} (gate "
               f"{RSVD_S_TOL:g}); |U^T U - I| {u_orth:.3g}; s[:4] "
               f"{outs[0][1][:4].tolist()}", flush=True)
         self.rsvd_ms = secs * 1e3
@@ -4637,16 +4789,19 @@ class Smoke:
         del x, xs, xb, lw, lh, lwb, lhb, e1o, summed
         torch.cuda.empty_cache()
 
-        # the gene-major shape over cells=2 (Itmax cut to 30 from phase
+        # the gene-major shape over cells=2 (Itmax cut to 10 from phase
         # 12's 100): E1 'gm' a shard
         if self.xgm is None:
             self.xgm = planted_gm()
-        kwg = dict(kw10, Itmax=30)
-        one, got, secs, counts = drive(ct.vb_factorize, self.xgm,
+        kwg = dict(kw10, Itmax=MESH_GM_ITMAX)
+        # one SCSet for both calls (its CSR of X is ~10 s of host work)
+        one, got, secs, counts = drive(ct.vb_factorize,
+                                       ct.SCSet(count=self.xgm,
+                                                remove_zeros=False),
                                        backend="pallas", mesh=mesh(2),
                                        **kwg)
         ok = close(one, got, "pallas gene-major 100,000 x 4,096 cells=2 "
-                   "(Itmax 30)", secs, counts) and ok
+                   f"(Itmax {MESH_GM_ITMAX})", secs, counts) and ok
         self.kernels["fused_xpass_gm_shard"]["launches"] = counts.get(
             "fused_xpass_gm", 0)
         ok = (ok and counts.get("fused_xpass_gm", 0) > 0
@@ -4786,7 +4941,161 @@ class Smoke:
             print(f"  {kd['name']}: bound {kd['bound_ms']:.4f} ms "
                   f"({kd['bound_by']}), launches {kd['launches']}",
                   flush=True)
-        return ok
+        del x, xs, xb, lw, lh, lhb
+        torch.cuda.empty_cache()
+        return self.mesh_state(csr10, mods) and ok
+
+    def mesh_state(self, csr, mods):
+        """Phase 19's layout gate (the JAX driver's _place_sharded, ported
+        as parallel/hshards.py): each eager-loop mesh route through
+        vb_run / ml_run on ``csr`` (the 10x-10% X, 8,192 cells: shards of
+        2,048 cells over cells=4, 4,096 over genes=2 x cells=2) from a
+        start given as cell shards and from the same start joined, 6
+        lanes of rp 16, MESH_STATE_ITMAX sweeps at Tol 0: the H family
+        back as shards on the mesh's devices, every field the joined
+        run's bits; then the drivers' sparse mesh scans hand their loops
+        the start as cell shards."""
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops import ell as tek
+        from ccfindr_tpu_torch.ops import ml as ml_ops
+        from ccfindr_tpu_torch.ops import sparse as tsk
+        from ccfindr_tpu_torch.ops import tile
+        from ccfindr_tpu_torch.ops import vb as vb_ops
+        from ccfindr_tpu_torch.parallel import hshards
+        from ccfindr_tpu_torch.parallel import sharded as tsh
+        from ccfindr_tpu_torch.parallel.hshards import HShards
+
+        dev = torch.device("cuda")
+        f32 = torch.float32
+        n, m = csr.shape
+        ranks = [8, 8, 12, 12, 16, 16]
+        nb, rp = len(ranks), 16
+        gen = torch.Generator().manual_seed(19)
+        w0 = (torch.rand(nb, n, rp, generator=gen) + 0.1).to(dev)
+        h0 = (torch.rand(nb, rp, m, generator=gen) + 0.1).to(dev)
+        zw, zh = torch.zeros_like(w0), torch.zeros_like(h0)
+        st0 = vb_ops.VBState(ew=w0, eh=h0, lw=w0, lh=h0, dw=zw, dh=zh,
+                             lkh=torch.full((nb,), -np.inf, device=dev))
+        hy0 = vb_ops.Hyper(*(torch.ones(nb, device=dev),) * 4)
+        rmask = torch.as_tensor((np.arange(rp)[None] < np.asarray(ranks)[
+            :, None]).astype(np.float32), device=dev)
+        masks = dict(rank_mask=rmask, r_true=torch.as_tensor(
+            ranks, dtype=f32, device=dev))
+
+        def mesh(cells, genes=1):
+            return ct.make_mesh(cells=cells, genes=genes,
+                                devices=[dev] * (cells * genes))
+
+        m4, m22 = mesh(4), mesh(2, 2)
+        dense = torch.as_tensor(csr.toarray().astype(np.float32))
+        xs4 = tsh.place_counts(dense, m4)[0]
+        pass2 = tsh.make_pass2_sharded(m4)
+        routes = (
+            ("sparse tile", tile.from_scipy_tile_sharded(
+                csr, 4, dtype=f32, device="cuda"),
+             dict(fused=tsh.make_tile_fused_sharded(m4))),
+            ("sparse tile elbo_every=4", None,
+             dict(fused=tsh.make_tile_fused_sharded(m4), elbo_every=4)),
+            ("sparse coo", tsk.from_scipy_sharded(csr, 4, dtype=f32,
+                                                  device="cuda"),
+             dict(fused=tsh.make_sparse_fused_sharded(m4))),
+            ("sparse ell", tek.from_scipy_ell_sharded(csr, 4, dtype=f32,
+                                                      device="cuda"),
+             dict(fused=tsh.make_ell_fused_sharded(m4))),
+            ("dense_fused", xs4, dict(fused=tsh.fused_sharded)),
+            ("dense", xs4, dict(suffstats=tsh.suffstats_sharded,
+                                data_term=tsh.data_term_sharded)),
+            ("pallas2pass", xs4, dict(suffstats=pass2[0],
+                                      data_term=pass2[1])),
+            ("pallas genes=2 x cells=2 (E1 blocks)",
+             tsh.place_counts(dense, m22)[0],
+             dict(fused=tsh.make_fused_sharded(m22))))
+        ok = True
+        x = None
+        for label, xr, kw in routes:
+            x = x if xr is None else xr
+            t0 = time.perf_counter()
+            want = vb_ops.vb_run(x, st0, hy0, itmax=MESH_STATE_ITMAX,
+                                 tol=0.0, **kw, **masks)
+            for mod in mods:
+                mod.reset_launches()
+            sst = st0._replace(**{f: hshards.shard_h(getattr(st0, f), x)
+                                  for f in ("eh", "lh", "dh")})
+            got = vb_ops.vb_run(x, sst, hy0, itmax=MESH_STATE_ITMAX,
+                                tol=0.0, **kw, **masks)
+            sync_cards()
+            counts = {}
+            for mod in mods:
+                counts.update({c: v for c, v in mod.LAUNCHES.items() if v})
+            lay = [str(d) for _, d in hshards.cell_layout(x)]
+            placed = all(isinstance(getattr(got.state, f), HShards)
+                         and [str(p.device) for p in getattr(got.state, f)]
+                         == lay for f in ("eh", "lh", "dh"))
+            same = (all(np.array_equal(hshards.to_numpy(a),
+                                       hshards.to_numpy(b))
+                        for a, b in zip(got.state, want.state))
+                    and all(torch.equal(a, b) for a, b in
+                            zip((got.lml, got.n_iter, *got.hyper),
+                                (want.lml, want.n_iter, *want.hyper))))
+            print(f"  layout {label}: H family as {len(lay)} shards on "
+                  f"{lay} {placed}; bit-identical to the joined start "
+                  f"{same}; sweeps {int(got.n_iter.max())}; "
+                  f"{time.perf_counter() - t0:.2f} s both; launches "
+                  f"{counts}", flush=True)
+            ok = ok and placed and same
+            del want, got, sst
+        del routes, xs4, x, dense
+        for label, xr, pair in (
+                ("ML sparse tile", tile.from_scipy_tile_sharded(
+                    csr, 4, dtype=f32, device="cuda"),
+                 tsh.make_tile_ml_sharded(m4)),
+                ("ML pallas (M1/M2 blocks)", tsh.place_counts(torch.as_tensor(
+                    csr.toarray().astype(np.int8)), m4)[0],
+                 tsh.make_ml_sharded(m4))):
+            kw = dict(itmax=MESH_STATE_ITMAX, tol=0.0, fused_h=pair[0],
+                      fused_w=pair[1], rank_mask=rmask, nm_true=(n, m))
+            want = ml_ops.ml_run(xr, w0, h0, **kw)
+            got = ml_ops.ml_run(xr, w0, hshards.shard_h(h0, xr), **kw)
+            lay = [str(d) for _, d in hshards.cell_layout(xr)]
+            placed = all(isinstance(t, HShards) and
+                         [str(p.device) for p in t] == lay
+                         for t in (got.h, got.cid))
+            same = all(np.array_equal(ml_ops.ml_state_to_numpy(a),
+                                      ml_ops.ml_state_to_numpy(b))
+                       for a, b in zip(got, want))
+            print(f"  layout {label}: h and the cluster ids as shards on "
+                  f"{lay} {placed}; bit-identical to the joined start "
+                  f"{same}", flush=True)
+            ok = ok and placed and same
+            del want, got
+        # the drivers hand their loops the start as shards
+        seen = []
+        vb_orig, ml_orig = vb_ops.vb_run, ml_ops.ml_run
+
+        def vb_spy(x_, st, *a, **k):
+            seen.append(("vb", isinstance(st.eh, HShards)))
+            return vb_orig(x_, st, *a, **k)
+
+        def ml_spy(x_, w, h, *a, **k):
+            seen.append(("ml", isinstance(h, HShards)))
+            return ml_orig(x_, w, h, *a, **k)
+
+        vb_ops.vb_run, ml_ops.ml_run = vb_spy, ml_spy
+        try:
+            kwd = dict(ranks=[8], nrun=2, Itmax=3, Tol=0.0, verbose=0,
+                       device="cuda", backend="sparse", mesh=m4)
+            ct.vb_factorize(csr, **kwd)
+            ct.factorize(csr, cophenetic_max_cells=500, cophenetic_nsub=1,
+                         **kwd)
+        finally:
+            vb_ops.vb_run, ml_ops.ml_run = vb_orig, ml_orig
+        handed = seen == [("vb", True), ("ml", True)]
+        print(f"  layout: the drivers' sparse scans over cells=4 hand their "
+              f"loops the start as cell shards: {seen} {handed}", flush=True)
+        torch.cuda.empty_cache()
+        return ok and handed
 
     # -- 20 -----------------------------------------------------------
     def multi_process(self):
@@ -4813,28 +5122,33 @@ class Smoke:
             bundf = os.path.join(tmp, "bundled.npz")
             np.savez(bundf, x=s.counts_dense(dtype=np.float64))
             cases = [
-                # (label, processes, worker arguments, the kernels it runs,
-                #  one process first, then the group: walls comparable)
+                # (label, processes, worker arguments, the kernels it runs)
                 ("VB 10x", 2, dict(mode="vb", x=x10f, ranks="8,12,16",
                                    nrun=2, itmax=300, backend="pallas",
-                                   dtype="float32"), vb_k, True),
-                ("ML 10x", 2, dict(mode="ml", x=x10f, ranks="8,12,16",
-                                   nrun=2, itmax=300, backend="pallas",
-                                   dtype="float32"), ml_k, False),
+                                   dtype="float32"), vb_k),
+                # (the consensus on a 1,000-cell subsample, as phase
+                # 19's ML mesh: the exact one is ~15 s of host work a
+                # process at the 10x shape, the same in every process)
+                ("ML 10x", 2, {"mode": "ml", "x": x10f, "ranks": "8,12,16",
+                               "nrun": 2, "itmax": 300, "backend": "pallas",
+                               "dtype": "float32",
+                               "cophenetic-max-cells": 1000,
+                               "cophenetic-nsub": 1}, ml_k),
                 ("VB bundled, 2 lanes over 3 processes", 3,
                  dict(mode="vb", x=bundf, ranks="4,5", nrun=1, itmax=3000,
-                      backend="pallas", dtype="float32"), vb_k, False),
+                      backend="pallas", dtype="float32"), vb_k),
             ]
-            for label, nproc, kw, kern, apart in cases:
+            # every case's one process and its group started at once
+            # (a worker takes ~20 s to reach the card; its wall is its
+            # scan's alone, shared with the others)
+            groups = []
+            for label, nproc, kw, _ in cases:
                 tag = label.split(",")[0].replace(" ", "_")
-                one_g = start_workers(tmp, f"{tag}_one", 1, **kw)
-                if apart:
-                    (one,), = finish_workers(one_g)
-                    (got,) = finish_workers(
-                        start_workers(tmp, f"{tag}_p", nproc, **kw))
-                else:
-                    (one,), got = finish_workers(
-                        one_g, start_workers(tmp, f"{tag}_p", nproc, **kw))
+                groups += [start_workers(tmp, f"{tag}_one", 1, **kw),
+                           start_workers(tmp, f"{tag}_p", nproc, **kw)]
+            outs = finish_workers(*groups)
+            for c, (label, nproc, kw, kern) in enumerate(cases):
+                (one,), got = outs[2 * c], outs[2 * c + 1]
                 lanes = sorted(int(t) for g in got for t in g["lanes"])
                 good = lanes == list(range(len(one["n_iter"])))
                 # one launch of each kernel a sweep of its own batch: a
@@ -4863,7 +5177,7 @@ class Smoke:
                       f"{ {k: int(one[f'launches_{k}']) for k in kern} }; "
                       f"{nproc} processes' wall "
                       f"{max(float(g['wall']) for g in got):.3f} s"
-                      + ("" if apart else " (run beside the one process)")
+                      + " (every case's processes at once)"
                       + f"; lanes add up: {lanes == list(range(len(one['n_iter'])))}"
                       f"; {'PASS' if good else 'FAIL'}", flush=True)
                 ok &= bool(good)
@@ -5516,7 +5830,7 @@ class Smoke:
         for part, fn in (("a", self.mc_kernels), ("b", self.mc_device),
                          ("c", self.mc_10x), ("d", self.mc_routes),
                          ("e", self.mc_processes), ("f", self.mc_atlas),
-                         ("g", self.mc_oversize)):
+                         ("g", self.mc_oversize), ("h", self.mc_wide)):
             if self.mc_parts and part not in self.mc_parts:
                 continue
             t0 = time.perf_counter()
@@ -5940,22 +6254,97 @@ class Smoke:
                 for kn in ("sp_rowpass", "sp_colpass"))
             good = close_to_one(one, got, f"(g) oversize {layout} cells={k}",
                                 sk["wall_s"], counts)
+            peaks = sk["peak_device_gib"] or [np.nan]
+            spread = peaks[0] - max(peaks[1:] or [np.nan])
+            even = bool(spread <= MC_PEAK_SPREAD_GIB)
             print(f"  (g) oversize {layout}: S1 and S2 on each of the {k} "
-                  f"cards {launched}", flush=True)
+                  f"cards {launched}; card 0's peak {spread:.2f} GiB above "
+                  f"the others' (at most {MC_PEAK_SPREAD_GIB}: {even}); the "
+                  f"loop {s1['loop_s'] / sk['loop_s']:.2f}x of one card's; "
+                  f"busy {[round(c['share'], 3) for c in tr['cards'].values()] if tr else None}"
+                  f" (before the H family was sharded, PERF.md §6: peaks "
+                  f"7.13 / 2.72 / 2.72 / 2.72 GiB, busy 0.497 / 0.23, "
+                  f"0.85x)", flush=True)
             ok = ok and good and launched and s1["lml_finite"] \
-                and sk["lml_finite"]
+                and sk["lml_finite"] and even
             del one, got
             torch.cuda.empty_cache()
         return ok
+
+    def mc_wide(self):
+        """(h) the oversize scan at 95 lanes of rp 20 over
+        make_mesh(cells=k) on k cards (one card cannot hold it): each
+        card's peak device memory, the loop's seconds a pass, each card's
+        launches a sweep and busy share, the set-up and the host's peak
+        RSS, beside the one-card estimate from the 38-lane scan's per-lane
+        sizes."""
+        import torch
+
+        import ccfindr_tpu_torch as ct
+        from ccfindr_tpu_torch.ops.kernels import sparse as spk
+
+        k, cards = len(self.cards), self.cards
+        demo = self.oversize_demo()
+        x = self.oversize_x()
+        nb = len(MC_WIDE_RANKS) * MC_WIDE_NRUN
+        est = ONE_CARD_WIDE
+        one_card = (est["x"] + nb * (est["state_lane"] + est["temps_lane"])
+                    + est["group"])
+        print(f"  (h) {nb} lanes of rp 20 ({len(MC_WIDE_RANKS)} ranks x "
+              f"{MC_WIDE_NRUN}): an H-side array (B, r, m) "
+              f"{nb * 20 * x.shape[1] * 4 / 2 ** 30:.2f} GiB whole, "
+              f"{nb * 20 * x.shape[1] * 4 / k / 2 ** 30:.2f} GiB a shard; one "
+              f"card would need ~{one_card:.1f} GiB (the 38-lane scan's sizes: X "
+              f"{est['x']}, state {nb * est['state_lane']:.1f}, S1 group "
+              f"{est['group']}, H-side temporaries "
+              f"{nb * est['temps_lane']:.1f}) of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}",
+              flush=True)
+        mesh = ct.make_mesh(cells=k, devices=cards)
+        host = host_timers()
+        spk.reset_launches()
+        try:
+            with host:
+                (f, sm), tr = card_trace(lambda: demo.run(
+                    x, ranks=MC_WIDE_RANKS, nrun=MC_WIDE_NRUN,
+                    itmax=MC_WIDE_ITMAX, tol=0.0, layout="tile", mesh=mesh,
+                    device="cuda:0", dtype=torch.float32))
+        except torch.cuda.OutOfMemoryError as exc:
+            print(f"  (h) out of device memory: {str(exc)[:300]}; peaks "
+                  f"{[round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 2) for d in cards]}",
+                  flush=True)
+            return False
+        counts = {c: v for c, v in spk.LAUNCHES.items() if v}
+        peaks = sm["peak_device_gib"] or [np.nan]
+        passes = sm["sweeps"] + 1
+        fits = bool(max(peaks) <= MC_WIDE_PEAK_GIB)
+        good = (sm["lml_finite"] and len(f.measure) == len(MC_WIDE_RANKS)
+                and fits)
+        copy = host.secs.get("state_to_numpy", 0.0)
+        print(f"  (h) oversize tile {nb} lanes over cells={k}: wall "
+              f"{sm['wall_s']:.2f} s, set-up {sm['setup_s']:.2f} s ({host}), "
+              f"loop record {sm['loop_s']:.3f} s of which the result's host "
+              f"copy {copy:.3f} s, the rest {sm['loop_s'] - copy:.3f} s for "
+              f"{sm['sweeps']} sweeps "
+              f"({(sm['loop_s'] - copy) / passes:.3f} s a pass without the "
+              f"copy); peak "
+              f"GiB by card {[round(p, 2) for p in peaks]} (at most "
+              f"{MC_WIDE_PEAK_GIB}: {fits}; one card ~{one_card:.1f}); host "
+              f"peak RSS {demo.peak_rss_gib():.2f} GiB; launches {counts}; "
+              f"ranks {len(f.measure)}, lml finite {sm['lml_finite']}, ropt "
+              f"{sm['ropt']}: {'ok' if good else 'FAIL'}", flush=True)
+        self.print_trace(f"(h) oversize {nb} lanes cells={k}", tr, passes)
+        del f
+        return good
 
     # -- 24 -----------------------------------------------------------
     def oversize(self):
         """The JAX package's sparse capacity configuration at its full
         shape (bench.py's oversize matrix, examples/oversize_sparse_torch.py):
         (a) bench.py's sweep body on 'tile' and 'ell', (b) the driver's
-        scan in every layout and with its two levers, (c) the atlas
-        demo's scan width, its last lane against itself alone, (d) S1/S2
-        against their plain versions at the full shape."""
+        scan on both layouts and with its two levers, (d) S1/S2 against
+        their plain versions at the full shape (phase 25: what was
+        (c))."""
         import torch
 
         from ccfindr_tpu_torch.ops import ell as ell_ops
@@ -6038,7 +6427,6 @@ class Smoke:
         for label, extra in (
                 ("tile", dict(layout="tile")),
                 ("ell", dict(layout="ell")),
-                ("coo", dict(layout="coo")),
                 ("tile bf16", dict(layout="tile", precision="bf16")),
                 (f"tile elbo_every={OVERSIZE_ELBO_EVERY}",
                  dict(layout="tile", elbo_every=OVERSIZE_ELBO_EVERY))):
@@ -6065,20 +6453,27 @@ class Smoke:
                     self.kernels[f"{k}_oversize"]["launches"] = counts[k]
             ok["b"] = ok["b"] and good
             torch.cuda.empty_cache()
-        for label in ("ell", "coo"):
-            same = same_vb(results["tile"], results[label])
-            print(f"  (b) {label} bit-identical to tile (lml, basis, coeff, "
-                  f"n_iter): {same}", flush=True)
-            ok["b"] = ok["b"] and same
+        same = same_vb(results["tile"], results["ell"])
+        print(f"  (b) ell bit-identical to tile (lml, basis, coeff, "
+              f"n_iter): {same}", flush=True)
+        ok["b"] = ok["b"] and same
         del results, f
-        torch.cuda.empty_cache()
-
-        # (c) the atlas demo's scan width: 38 lanes of rp 20, the last
-        # lane then run alone through the same loop from the same start
-        ok["c"] = self.oversize_wide(demo, x)
         torch.cuda.empty_cache()
         print(f"  gates: {ok}", flush=True)
         return all(ok.values())
+
+    # -- 25 -----------------------------------------------------------
+    def oversize_scan_wide(self):
+        """Phase 24's X at the atlas demo's scan width, 38 lanes of rp
+        20, the last lane then run alone through the same loop from the
+        same start (only when asked)."""
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.empty_cache()
+        ok = self.oversize_wide(self.oversize_demo(), self.oversize_x())
+        torch.cuda.empty_cache()
+        return ok
 
     def oversize_demo(self):
         """examples/oversize_sparse_torch.py as a module."""
@@ -6264,7 +6659,8 @@ class Smoke:
         return res["ok"]
 
 
-# phase 23 (several cards) only when asked
+# phases 23 (several cards) and 25 (the 38-lane oversize scan) only
+# when asked
 DEFAULT_PHASES = tuple(str(p) for p in (*range(1, 23), 24))
 MP_TIMEOUT = 300             # seconds a group of phase 20's workers may take
 MP_RESULT = ("lml", "likelihood", "dispersion", "cophenetic", "aw", "bw",
@@ -6340,12 +6736,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="phases to run, comma-separated (default 1-22 "
-                         "and 24; phase 23, on two cards or more, only when "
-                         "asked)")
+                         "and 24; phase 23, on two cards or more, and "
+                         "phase 25 only when asked)")
     ap.add_argument("--verbose", action="store_true",
                     help="print ptxas's register/spill report")
     ap.add_argument("--parts", default="",
-                    help="phase 23's parts to run, e.g. 'g' (default: all)")
+                    help="phase 23's parts to run, e.g. 'g,h' (default: "
+                         "all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -6387,10 +6784,12 @@ def main(argv=None):
               "21": ("ell", smoke.ell),
               "22": ("atlas", smoke.atlas_workflow),
               "23": ("multi-card", smoke.multi_card),
-              "24": ("oversize-sparse", smoke.oversize)}
+              "24": ("oversize-sparse", smoke.oversize),
+              "25": ("oversize-wide", smoke.oversize_scan_wide)}
     wanted = args.phases.split(",")
     if "1" not in wanted:
         wanted = ["1"] + wanted
+    smoke.wanted = wanted
     t0 = time.perf_counter()
     for p in wanted:
         smoke.phase(*phases[p])

@@ -11,6 +11,7 @@ and the order in which a sharded pass issues its copies and launches.
 
 import ast
 import importlib.util
+import sys
 import types
 from pathlib import Path
 
@@ -225,6 +226,38 @@ def test_worker_takes_a_card_of_its_own():
         _mh_worker.parse(base + ["--device", "gpu1"])
 
 
+@pytest.mark.parametrize("given, want", [
+    ([], (10000, 3)),
+    (["--cophenetic-max-cells", "20", "--cophenetic-nsub", "1"], (20, 1))])
+def test_worker_hands_factorize_its_consensus_options(tmp_path, monkeypatch,
+                                                      given, want):
+    """``--mode ml``'s consensus options reach ``factorize``, with
+    factorize's own defaults when they are not given; the run still
+    returns the consensus measures."""
+    import ccfindr_tpu_torch as ct
+
+    seen = {}
+    real = ct.factorize
+
+    def spy(s, **kw):
+        seen.update(kw)
+        return real(s, **kw)
+
+    monkeypatch.setattr(ct, "factorize", spy)
+    # the worker's own check that the port imported no JAX, which this
+    # test session's JAX tests have
+    monkeypatch.delitem(sys.modules, "jax", raising=False)
+    out = tmp_path / "one.npz"
+    _mh_worker.main(["--pid", "0", "--nproc", "1", "--port", "1", "--out",
+                     str(out), "--device", "cpu", "--mode", "ml",
+                     "--ranks", "2,3", "--nrun", "2", "--itmax", "30"]
+                    + given)
+    assert (seen["cophenetic_max_cells"], seen["cophenetic_nsub"]) == want
+    with np.load(out) as z:
+        assert np.isfinite(z["cophenetic"]).all()
+        assert z["likelihood"].shape == (2,)
+
+
 def test_sharded_sweep_copies_before_it_launches(monkeypatch):
     """The cell-sharded sweep queues every copy from the reduce device
     (the lanes and hypers, then K2's csum) before the launches behind
@@ -310,3 +343,87 @@ def test_block_passes_copy_then_launch_then_return(monkeypatch):
     first, last = log.index("fn"), len(log) - log[::-1].index("fn")
     assert log[first:last] == ["fn"] * 4
     assert log[:first] == ["to"] * 8 and set(log[last:]) == {"to"}
+
+
+# ---------------------------------------------------------------------
+# the H family as cell shards on several cards (needs two cards or more)
+# ---------------------------------------------------------------------
+
+def _cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the shards' cards are the "
+                    "point")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.device("cuda", i)
+            for i in range(min(4, torch.cuda.device_count()))]
+
+
+def _state_run(route, devices, x_np):
+    """``route``'s loop over a cells=len(devices) mesh of ``devices``
+    from a start given as cell shards (1,024 cells a shard): the result
+    and the layout."""
+    import scipy.sparse as sp
+
+    import ccfindr_tpu_torch as ct
+    from ccfindr_tpu_torch.ops import ml as tml
+    from ccfindr_tpu_torch.ops import tile as ttile
+    from ccfindr_tpu_torch.ops import vb as tvb
+    from ccfindr_tpu_torch.parallel import hshards
+
+    k = len(devices)
+    mesh = ct.make_mesh(cells=k, devices=devices)
+    dev = devices[0]
+    n, m = x_np.shape
+    gen = torch.Generator().manual_seed(7)
+    w = (torch.rand(4, n, 8, generator=gen) + 0.1).to(dev)
+    h = (torch.rand(4, 8, m, generator=gen) + 0.1).to(dev)
+    if route == "dense_fused":
+        x = tsh.place_counts(torch.as_tensor(x_np), mesh)[0]
+    else:
+        x = ttile.from_scipy_tile_sharded(
+            sp.csr_matrix(x_np), k, dtype=torch.float32,
+            device=dev).to(mesh.devices[0][0])
+    if route == "ml_tile":
+        fh, fw = tsh.make_tile_ml_sharded(mesh)
+        return tml.ml_run(x, w, hshards.shard_h(h, x), itmax=8, tol=0.0,
+                          fused_h=fh, fused_w=fw), x
+    fused = (tsh.fused_sharded if route == "dense_fused"
+             else tsh.make_tile_fused_sharded(mesh))
+    st = tvb.VBState(ew=w, eh=hshards.shard_h(h, x), lw=w,
+                     lh=hshards.shard_h(h, x),
+                     dw=torch.zeros_like(w),
+                     dh=hshards.shard_h(torch.zeros_like(h), x),
+                     lkh=torch.full((4,), -np.inf, device=dev))
+    hy = tvb.Hyper(*(torch.ones(4, device=dev),) * 4)
+    return tvb.vb_run(x, st, hy, itmax=8, tol=0.0, fused=fused), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tile", "dense_fused", "ml_tile"])
+def test_sharded_state_lies_on_its_cards(route):
+    """On k cards the loop keeps each shard of the H family (ML: h and
+    its cluster ids) on its cell shard's card, and gives the bits of the
+    same mesh laid out on cuda:0 alone."""
+    from ccfindr_tpu_torch.parallel import hshards
+
+    cards = _cards()
+    k = len(cards)
+    rng = np.random.default_rng(3)
+    x_np = ((rng.random((256, 1024 * k)) < 0.1)
+            * rng.poisson(3.0, (256, 1024 * k))).astype(np.float32)
+    x_np[:, 0] += 1
+    x_np[0, :] += 1
+    got, x = _state_run(route, cards, x_np)
+    want, _ = _state_run(route, [cards[0]] * k, x_np)
+    shards = ((got.h, got.cid) if route == "ml_tile"
+              else (got.state.eh, got.state.lh, got.state.dh))
+    for t in shards:
+        assert [p.device for p in t] == cards
+    for a, b in zip(got, want):
+        if isinstance(a, tuple) and not isinstance(a, hshards.HShards):
+            for u, v in zip(a, b):
+                np.testing.assert_array_equal(hshards.to_numpy(u),
+                                              hshards.to_numpy(v))
+        else:
+            np.testing.assert_array_equal(hshards.to_numpy(a),
+                                          hshards.to_numpy(b))
