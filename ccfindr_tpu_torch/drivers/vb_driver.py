@@ -26,9 +26,10 @@ Counterpart of ``ccfindr_tpu.drivers.vb_driver.vb_factorize``
   gene-major, the fused X pass a block), ``'sparse'``,
   ``'pallas2pass'``, ``'dense'`` and ``'dense_fused'`` with the shard
   passes of ``parallel.sharded`` in the eager loops of ``ops.vb``, whose
-  H family is laid out as the JAX driver's ``_place_sharded`` lays it
-  (:func:`_place_sharded`: each cell shard on its shard's device, the W
-  family and the hypers on the row's first device);
+  state is laid out as the JAX driver's ``_place_sharded`` lays it
+  (:func:`_place_sharded`: the H family a cell shard on its shard's
+  device, the W family with ``genes > 1`` a gene shard on its gene row's
+  first device, the hypers on the row's first device);
 * ``distributed`` splits the batched (rank, run) grid round-robin
   across processes (``parallel.schedule``) and exchanges the
   evidences and the winners, so every process returns the single
@@ -199,16 +200,17 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
     """The mesh's ``runs`` axis: the lane batch split into contiguous
     groups, one a runs row (``rows``, X laid out on each), each group run
     on its row's first device; the results joined in lane order on
-    ``dev``.  An H family carried as cell shards (:func:`_place_sharded`,
-    on the first row's shard devices) goes to each row's own shard
-    devices, shard by shard, and comes back so (``cell_mask`` is laid out
-    like it); a row's lanes are a view where they lie on the row's
-    devices already.  Every lane runs alone in its kernels' blocks and
-    is frozen on its own, so its numbers do not depend on the grouping.
-    The rows run one after the other, on one card or on distinct cards:
-    the runs axis divides the lanes, not the time (rows in threads of
-    their own, at once, were measured slower on one card and on four,
-    ROADMAP A13)."""
+    ``dev``.  An H family carried as cell shards and a W family carried
+    as gene shards (:func:`_place_sharded`, on the first row's shard
+    devices) go to each row's own shard devices, shard by shard, and
+    come back so (``cell_mask`` and ``gene_mask`` are laid out like
+    them); a row's lanes are a view where they lie on the row's devices
+    already.  Every lane runs alone in its kernels' blocks and is frozen
+    on its own, so its numbers do not depend on the grouping.  The rows
+    run one after the other, on one card or on distinct cards: the runs
+    axis divides the lanes, not the time (rows in threads of their own,
+    at once, were measured slower on one card and on four, ROADMAP
+    A13)."""
     nb = st.lw.shape[0]
     outs = []
     for x_row, lanes in zip(rows, np.array_split(np.arange(nb),
@@ -217,26 +219,28 @@ def _run_rows(run_fn, rows, st, hy, kw, dev):
             continue
         sel = slice(int(lanes[0]), int(lanes[-1]) + 1)
         d = x_row.device
-        devs = [dv for _, dv in hshards.cell_layout(x_row)] \
-            if isinstance(st.eh, HShards) else None
 
         def part(t):
             if isinstance(t, HShards):
-                return hshards.move(hshards.lanes(t, sel), devs)
+                return hshards.move(hshards.lanes(t, sel), [
+                    dv for _, dv in hshards.layout(t.axis, x_row)])
             return t[sel].to(d)
 
         kw_g = {k: ((v[sel] if k in _LANE_KW else v).to(d)
                     if isinstance(v, torch.Tensor) else v)
                 for k, v in kw.items()}
-        if devs is not None and kw.get("cell_mask") is not None:
+        if isinstance(st.eh, HShards) and kw.get("cell_mask") is not None:
             kw_g["cell_mask"] = hshards.shard_h(kw["cell_mask"], x_row)
+        if isinstance(st.lw, HShards) and kw.get("gene_mask") is not None:
+            kw_g["gene_mask"] = hshards.shard_w(kw["gene_mask"][:, None],
+                                                x_row)
         outs.append(run_fn(x_row, type(st)(*map(part, st)),
                            type(hy)(*map(part, hy)), **kw_g))
     return _cat_field(outs, dev)
 
 
 def _cat_field(parts, dev):
-    """Results of the lane groups joined field by field on ``dev``, cell
+    """Results of the lane groups joined field by field on ``dev``,
     shards shard by shard on the first group's shard devices."""
     if isinstance(parts[0], HShards):
         return hshards.cat_lanes(parts, parts[0].devices)
@@ -309,11 +313,12 @@ def _chunked_vb(call, states, hypers, nb, itmax, every, ckpt_file, verbose,
     drivers pin the blockings that would), and the torch reductions of
     the loops are ``utils.lane_sum``, so the result is the uninterrupted
     run's, bit for bit.  ``stats['lane_sweeps']`` counts the lane-sweeps
-    the chunks executed.  An H family carried as cell shards stays so:
-    lanes are taken and written back shard by shard, a checkpoint joins
-    the shards on the host and a resume lays them out as ``states``.
+    the chunks executed.  An H family carried as cell shards and a W
+    family carried as gene shards stay so: lanes are taken and written
+    back shard by shard, a checkpoint joins the shards on the host and a
+    resume lays them out as ``states``.
     """
-    dev = states.lw.device
+    dev = states.lkh.device
     ref_t = states.lw.dtype
     it0 = 1
     n_rec = np.full(nb, -1, np.int64)
@@ -488,31 +493,39 @@ def _record_multihost(out, my_idx, ranks, nrun, n, m, Tol, unif_stop,
 
 
 _H_FIELDS = ("eh", "lh", "dh")
+_W_FIELDS = ("ew", "lw", "dw")
 
 
 def _place_sharded(lanes, nb, x, dev):
     """The JAX driver's ``_place_sharded`` for the start of a lane batch:
     ``lanes`` (an iterable of ``nb`` unbatched states, each on any
-    device) laid out lane by lane as one lane-batched state, the W
-    family and ``lkh`` on ``dev``, the H family as the cell shards of
-    the layout ``x`` (a runs row's ``ShardedCounts`` or sparse
-    ``Shards``), each on its shard's device.  No lane's H is ever whole
-    on a card, and a lane's start is dropped once it is laid out."""
-    lay = hshards.cell_layout(x)
+    device) laid out lane by lane as one lane-batched state, ``lkh`` on
+    ``dev``, the H family as the cell shards of the layout ``x`` (a runs
+    row's ``ShardedCounts`` or sparse ``Shards``), each on its shard's
+    device, and the W family, where ``x`` splits the genes, as its gene
+    shards, each on its gene row's first device (else on ``dev``).  No
+    lane's H, nor a gene-sharded lane's W, is ever whole on a card, and a
+    lane's start is dropped once it is laid out."""
+    lays = {f: (hshards.CELLS, hshards.cell_layout(x)) for f in _H_FIELDS}
+    if hshards.gene_sharded(x):
+        lays.update({f: (hshards.GENES, hshards.gene_layout(x))
+                     for f in _W_FIELDS})
     bufs = {}
     for b, st in enumerate(lanes):
         for f, t in zip(VBState._fields, st):
-            if f not in bufs:
-                bufs[f] = (HShards(torch.empty(
-                    (nb,) + t.shape[:-1] + (c1 - c0,), dtype=t.dtype,
-                    device=d) for (c0, c1), d in lay) if f in _H_FIELDS
-                    else torch.empty((nb,) + t.shape, dtype=t.dtype,
-                                     device=dev))
-            if f in _H_FIELDS:
-                for p, ((c0, c1), _) in zip(bufs[f], lay):
-                    p[b].copy_(t[..., c0:c1])
-            else:
+            if f not in lays:
+                if f not in bufs:
+                    bufs[f] = torch.empty((nb,) + t.shape, dtype=t.dtype,
+                                          device=dev)
                 bufs[f][b].copy_(t)
+                continue
+            axis, lay = lays[f]
+            if f not in bufs:
+                bufs[f] = HShards((torch.empty(
+                    (nb,) + hshards.cut(t, axis, a0, a1).shape,
+                    dtype=t.dtype, device=d) for (a0, a1), d in lay), axis)
+            for p, ((a0, a1), _) in zip(bufs[f], lay):
+                p[b].copy_(hshards.cut(t, axis, a0, a1))
     return VBState(**bufs)
 
 
@@ -866,9 +879,10 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
     itmax = int(Itmax)
     every = checkpoint_every or compact_every
     # the eager loops of ops.vb on a mesh carry the H family as cell
-    # shards from the start (the JAX driver's _place_sharded); the
-    # cell-sharded kernel sweep shards it itself, and the user's passes
-    # take the whole padded X and a joined H, as JAX hands them its arrays
+    # shards and, with genes > 1, the W family as gene shards from the
+    # start (the JAX driver's _place_sharded); the cell-sharded kernel
+    # sweep shards H itself, and the user's passes take the whole padded
+    # X and a joined state, as JAX hands them its arrays
     shard_h = rows is not None and run_fn is vb_ops.vb_run and not overrides
 
     def pinned(nb, r):
@@ -922,7 +936,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
         """A lane's initial state, drawn at the true shape and then
         padded to the mesh, so that a padded mesh run consumes the
         random stream of a run on one device (a random start that is to
-        be laid out as cell shards stays on the host until it is)."""
+        be laid out as shards stays on the host until it is)."""
         if initializer == "random":
             st = vb_ops.vb_init_random(gen, n, m, rank, h1, dtype,
                                        "cpu" if shard_h else device)
@@ -941,7 +955,7 @@ def vb_factorize(object, ranks=2, nrun=1, verbose=2,
 
     def start(lanes, nb):
         """The lane batch's start from its lanes' states: stacked on
-        ``device``, or laid out as the first runs row's cell shards."""
+        ``device``, or laid out as the first runs row's shards."""
         if shard_h:
             return _place_sharded(lanes, nb, rows[0], device)
         return _stack(list(lanes))

@@ -18,13 +18,15 @@ explicit leading lane axis:
   no longer changes), as ``vmap`` of a ``while_loop`` freezes it.
 
 On a mesh the H family (``eh``, ``lh``, ``dh``, the passes' ``shn`` and
-the ``cell_mask``) may be carried as its cell shards
-(``parallel.hshards.HShards``), as the JAX driver lays it out: every
-function here then runs the H side on each shard's device
-(``hshards.hmap``) and finishes every sum over cells on the W side's
-device from the shards' partials (``hshards.hsum``).  With every shard
-a multiple of 1,024 cells, the result is the joined state's, bit for
-bit.
+the ``cell_mask``) may be carried as its cell shards, and on a mesh with
+``genes > 1`` the W family (``ew``, ``lw``, ``dw``, the passes' ``swn``
+and the ``gene_mask``, as its column) as its gene shards
+(``parallel.hshards.HShards``), as the JAX driver lays them out: every
+function here then runs each side on its shards' devices
+(``hshards.hmap``) and finishes every sum over cells or genes on the
+reduce device, the runs row's first, from the shards' partials
+(``hshards.hsum``, ``hshards.colsum``).  With every shard a multiple of
+1,024 cells or genes, the result is the joined state's, bit for bit.
 
 All functions preserve the factor dtype: float32 on the card, float64
 on the CPU for parity with the JAX package's x64 tests.
@@ -37,8 +39,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..parallel.hshards import HShards, hmap, hsum, to_numpy
-from ..utils import lane_colsum, lane_matmul, lane_sum, resolve_device
+from ..parallel.hshards import HShards, colsum, hmap, home, hsum, to_numpy
+from ..utils import lane_matmul, lane_sum, resolve_device
 
 
 class Hyper(NamedTuple):
@@ -260,6 +262,14 @@ def _mat(h):
     return h[..., None, None]
 
 
+def _gene_col(gene_mask):
+    """The gene mask as the column (n_pad, 1) that masks W's rows (its
+    gene shards already are)."""
+    if gene_mask is None or isinstance(gene_mask, HShards):
+        return gene_mask
+    return gene_mask[:, None]
+
+
 def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
                      cell_mask=None, m_true=None, rank_mask=None,
                      r_true=None, gene_mask=None, n_true=None):
@@ -283,25 +293,52 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
       beta) and dw rows are zeroed, lw rows pinned at 1, and U2 is
       mask-summed.
 
-    ``sh``, the state's H family and ``cell_mask`` may be cell shards
-    (``parallel.hshards.HShards``, see the module docstring).
+    ``sh``, the state's H family and ``cell_mask`` may be cell shards,
+    ``sw``, the state's W family and the gene mask's column (n_pad, 1)
+    gene shards (``parallel.hshards.HShards``, see the module
+    docstring).
     """
     n = n_true if n_true is not None else state.lw.shape[-2]
     r = state.lw.shape[-1]
     m = m_true if m_true is not None else state.lh.shape[-1]
     r_eff = r_true if r_true is not None else r
-    dev = state.lw.device
+    dev = home(state.lw)
     aw, bw, ah, bh = hyper
     aw_, bw_, ah_, bh_ = _mat(aw), _mat(bw), _mat(ah), _mat(bh)
+    mg = _gene_col(gene_mask)
 
-    alw = aw_ + sw
     bew = 1.0 / (aw_ / bw_ + hsum(state.eh, 1, dev)[..., None, :])
-    ew = alw * bew                    # must precede the eh update
-    if gene_mask is not None:
-        # padded gene rows must be dead before colSums(ew) feeds beh
-        ew = ew * gene_mask[:, None]
-    beh = 1.0 / (ah_ / bh_ + lane_colsum(ew)[..., :, None])
+    # padded gene rows must be dead before colSums(ew) feeds beh
+    alw, ew = hmap(_w_alpha, sw, aw_, bew, mg)
+    beh = 1.0 / (ah_ / bh_ + colsum(ew, dev)[..., :, None])
+    ew, lw, dw, u2_elem = hmap(_w_posterior, alw, ew, aw_, bw_, bew, fudge,
+                               rank_mask, mg)
+    eh, lh, dh, u3_elem = hmap(_h_posterior, sh, ah_, bh_, beh, fudge,
+                               rank_mask, cell_mask)
 
+    u1_part = -lane_sum(colsum(ew, dev) * hsum(eh, 1, dev)) - lgx
+    u2 = (hsum(u2_elem, 2, dev)
+          + n * r_eff * (aw * torch.log(aw / bw) - torch.lgamma(aw)))
+    u3 = (hsum(u3_elem, 2, dev)
+          + r_eff * m * (ah * torch.log(ah / bh) - torch.lgamma(ah)))
+    pending = u1_part + u2 + u3
+    return (VBState(ew=ew, eh=eh, lw=lw, lh=lh, dw=dw, dh=dh,
+                    lkh=state.lkh), pending)
+
+
+def _w_alpha(sw, aw_, bew, mg):
+    """The W posterior's shape and mean on one shard of genes (or the
+    whole W), the mean's padded gene rows zeroed: ``(alw, ew)``."""
+    alw = aw_ + sw
+    ew = alw * bew                    # must precede the eh update
+    if mg is not None:
+        ew = ew * mg
+    return alw, ew
+
+
+def _w_posterior(alw, ew, aw_, bw_, bew, fudge, rank_mask, mg):
+    """The rest of the W half of :func:`posterior_update` on one shard of
+    genes (or the whole W): ``(ew, lw, dw, u2_elem)``."""
     lw = torch.maximum(torch.exp(torch.digamma(alw)) * bew, fudge)
     dw = alw * bew ** 2
     if rank_mask is not None:
@@ -309,27 +346,16 @@ def posterior_update(sw, sh, state: VBState, hyper: Hyper, fudge, lgx,
         ew = ew * mw
         dw = dw * mw
         lw = torch.where(mw > 0, lw, fudge)
-    if gene_mask is not None:
-        mg = gene_mask[:, None]
+    if mg is not None:
         dw = dw * mg
         lw = torch.where(mg > 0, lw, 1.0)
-    eh, lh, dh, u3_elem = hmap(_h_posterior, sh, ah_, bh_, beh, fudge,
-                               rank_mask, cell_mask)
-
-    u1_part = -lane_sum(lane_colsum(ew) * hsum(eh, 1, dev)) - lgx
     u2_elem = (-(aw_ / bw_) * ew + alw * (1.0 + torch.log(bew))
                + torch.lgamma(alw))
     if rank_mask is not None:
         u2_elem = u2_elem * rank_mask[..., None, :]
-    if gene_mask is not None:
-        u2_elem = u2_elem * gene_mask[:, None]
-    u2 = (lane_sum(u2_elem, 2)
-          + n * r_eff * (aw * torch.log(aw / bw) - torch.lgamma(aw)))
-    u3 = (hsum(u3_elem, 2, dev)
-          + r_eff * m * (ah * torch.log(ah / bh) - torch.lgamma(ah)))
-    pending = u1_part + u2 + u3
-    return (VBState(ew=ew, eh=eh, lw=lw, lh=lh, dw=dw, dh=dh,
-                    lkh=state.lkh), pending)
+    if mg is not None:
+        u2_elem = u2_elem * mg
+    return ew, lw, dw, u2_elem
 
 
 def _h_posterior(sh, ah_, bh_, beh, fudge, rank_mask, cell_mask):
@@ -392,31 +418,39 @@ def _factor_means(state: VBState, cell_mask=None, m_true=None,
     entries, as the JAX package masks them."""
     n_pad = state.lw.shape[-2]
     r_pad, m_pad = state.lh.shape[-2:]
-    dev = state.lw.device
+    dev = home(state.lw)
     if cell_mask is None and rank_mask is None and gene_mask is None:
-        return (lane_sum(torch.log(state.lw), 2) / (n_pad * r_pad),
-                lane_sum(state.ew, 2) / (n_pad * r_pad),
+        return (hsum(hmap(torch.log, state.lw), 2, dev) / (n_pad * r_pad),
+                hsum(state.ew, 2, dev) / (n_pad * r_pad),
                 hsum(hmap(torch.log, state.lh), 2, dev) / (r_pad * m_pad),
                 hsum(state.eh, 2, dev) / (r_pad * m_pad))
     n_eff = n_true if n_true is not None else n_pad
     m_eff = m_true if m_true is not None else m_pad
     r_eff = r_true if r_true is not None else r_pad
     ones = torch.ones((1, 1), dtype=state.lw.dtype, device=dev)
+    denom_w = n_eff * r_eff
+    denom_h = r_eff * m_eff
+    logw = hmap(_masked_log_w, state.lw, ones, rank_mask,
+                _gene_col(gene_mask))
+    logh = hmap(_masked_log, state.lh, ones, rank_mask, cell_mask)
+    return (hsum(logw, 2, dev) / denom_w,
+            hsum(state.ew, 2, dev) / denom_w,     # ew is 0 in padding
+            hsum(logh, 2, dev) / denom_h,
+            hsum(state.eh, 2, dev) / denom_h)    # eh is 0 in padding
+
+
+def _masked_log_w(lw, ones, rank_mask, mg):
+    """log lw, 0 where the W mask is, times the mask where there is one
+    (one shard of genes, or the whole W)."""
     mask_w = ones
     if rank_mask is not None:
         mask_w = mask_w * rank_mask[..., None, :]
-    if gene_mask is not None:
-        mask_w = mask_w * gene_mask[:, None]
-    denom_w = n_eff * r_eff
-    denom_h = r_eff * m_eff
-    logw = torch.where(mask_w > 0, torch.log(state.lw), 0.0)
-    lwm = (lane_sum(logw * mask_w, 2) if rank_mask is not None
-           or gene_mask is not None else lane_sum(logw, 2)) / denom_w
-    logh = hmap(_masked_log, state.lh, ones, rank_mask, cell_mask)
-    return (lwm,
-            lane_sum(state.ew, 2) / denom_w,     # ew is 0 in padding
-            hsum(logh, 2, dev) / denom_h,
-            hsum(state.eh, 2, dev) / denom_h)    # eh is 0 in padding
+    if mg is not None:
+        mask_w = mask_w * mg
+    logw = torch.where(mask_w > 0, torch.log(lw), 0.0)
+    if rank_mask is not None or mg is not None:
+        return logw * mask_w
+    return logw
 
 
 def _masked_log(lh, ones, rank_mask, cell_mask):
@@ -650,7 +684,7 @@ def _lanes(active, t):
 
 def _select(active, new, old):
     """Per lane: ``new`` where ``active``, else ``old`` (NamedTuples
-    field by field, cell shards shard by shard)."""
+    field by field, shards shard by shard)."""
     if isinstance(new, HShards):
         return hmap(_where_lanes, active, new, old)
     if isinstance(new, tuple):
@@ -668,21 +702,28 @@ def mask_initial_state(state0: VBState, rank_mask, fudge, cell_mask=None,
     """Zero the padded rank components, mesh-padded cells and genes of a
     lane-batched initial state (lw/lh pinned at ``fudge``, padded lw rows
     at 1), as every JAX loop does on entry."""
-    if rank_mask is not None:
-        mw = rank_mask[..., None, :]
-        state0 = state0._replace(
-            ew=state0.ew * mw, dw=state0.dw * mw,
-            lw=torch.where(mw > 0, state0.lw, fudge))
+    if rank_mask is not None or gene_mask is not None:
+        ew, lw, dw = hmap(_mask_w, state0.ew, state0.lw, state0.dw,
+                          rank_mask, _gene_col(gene_mask), fudge)
+        state0 = state0._replace(ew=ew, lw=lw, dw=dw)
     if rank_mask is not None or cell_mask is not None:
         eh, lh, dh = hmap(_mask_h, state0.eh, state0.lh, state0.dh,
                           rank_mask, cell_mask, fudge)
         state0 = state0._replace(eh=eh, lh=lh, dh=dh)
-    if gene_mask is not None:
-        mg = gene_mask[:, None]
-        state0 = state0._replace(
-            ew=state0.ew * mg, dw=state0.dw * mg,
-            lw=torch.where(mg > 0, state0.lw, 1.0))
     return state0
+
+
+def _mask_w(ew, lw, dw, rank_mask, mg, fudge):
+    """:func:`mask_initial_state` on the W family (one shard of genes,
+    or the whole W)."""
+    if rank_mask is not None:
+        mw = rank_mask[..., None, :]
+        ew, dw = ew * mw, dw * mw
+        lw = torch.where(mw > 0, lw, fudge)
+    if mg is not None:
+        ew, dw = ew * mg, dw * mg
+        lw = torch.where(mg > 0, lw, 1.0)
+    return ew, lw, dw
 
 
 def _mask_h(eh, lh, dh, rank_mask, cell_mask, fudge):
@@ -700,7 +741,7 @@ def _mask_h(eh, lh, dh, rank_mask, cell_mask, fudge):
 
 def _loop_scalars(x, state0, fudge, tol, lk0_init, it0):
     ref_t = state0.lw.dtype
-    dev = state0.lw.device
+    dev = home(state0.lw)
     nb = state0.lw.shape[0]
     if fudge is None:
         fudge = torch.finfo(ref_t).eps
@@ -831,7 +872,8 @@ def _vb_run_fused(x, state0: VBState, hyper0: Hyper, *, itmax, tol,
 
         do_sweep = (~stop) & (it <= itmax)
         new_state, new_pending = posterior_update(
-            state.lw * swn, hmap(torch.mul, state.lh, shn), st, hyper,
+            hmap(torch.mul, state.lw, swn), hmap(torch.mul, state.lh, shn),
+            st, hyper,
             fudge, lgx, **masks)
         # each (B, r, m) array is 3.4 GB at 38 lanes of the oversize
         # configuration: drop every one as soon as it is read

@@ -44,9 +44,16 @@ a shard's columns cross to its device and its H-side output (``shn``,
 ``hn``) comes back and is joined on the lanes' device, as before; as
 shards, each shard's ``lh`` is read where it lies and its H-side output
 stays there, added over gene shards on the shard's device, so that no
-H-family tensor is joined.  A shard on another device than its shard of
-X raises.  The W side (``lw``, the per-lane flags) crosses to each
-shard's device and its outputs (``swn``, ``wn``, the data terms) come
+H-family tensor is joined.  The gene-sharded passes take ``lw`` likewise,
+joined or as its gene shards (the JAX driver's ``P(runs, genes, None)``,
+shard g on ``devices[g, 0]``): as shards, block (g, c) reads shard g,
+copied only where the block lies on another device, and the W-side
+output (``swn``) is added over cell shards on ``devices[g, 0]`` and
+stays there, so that no W-family tensor is joined either; the data
+terms are finished on the row's first device from the shards' partials
+(``hshards.hsum``).  A shard on another device than its shard of X
+raises.  A joined ``lw`` and the per-lane flags cross to each shard's
+device and the W-side outputs (``swn``, ``wn``, the data terms) come
 back to the lanes' device; where every shard is on the lanes' device
 nothing crosses.  Each kernel runs on the
 card that holds its shard (``ops.kernels.build.launch``).  A pass over
@@ -153,8 +160,7 @@ def _xpass(x: ShardedCounts, lw, lh, with_xlog=True):
         return (lane_matmul(u, _mT(lhc)), lane_matmul(_mT(lwg), u),
                 lane_sum(xf * torch.log(wth), 2) if with_xlog else None)
 
-    return _fold_blocks(_blocks(x, block, lw, lh, x.blocks), len(x.rows),
-                        len(x.cols), isinstance(lh, HShards))
+    return _fold_blocks(_blocks(x, block, lw, lh, x.blocks), lw, lh)
 
 
 def _shn_term(shn, lh):
@@ -164,15 +170,16 @@ def _shn_term(shn, lh):
 def fused_sharded(x: ShardedCounts, lw, lh):
     """``ops.vb.fused_dense`` over the blocks: (swn, shn, dterm)."""
     swn, shn, xlog = _xpass(x, lw, lh)
-    dterm = (-(lane_sum(swn * (lw * torch.log(lw)), 2)
-               + hsum(hmap(_shn_term, shn, lh), 2, lw.device)) + xlog)
+    dev = hshards.home(lw)
+    dterm = (-(hsum(hmap(_shn_term, swn, lw), 2, dev)
+               + hsum(hmap(_shn_term, shn, lh), 2, dev)) + xlog)
     return swn, shn, dterm
 
 
 def suffstats_sharded(x: ShardedCounts, lw, lh):
     """``ops.vb.suffstats_dense`` over the blocks: (sw, sh)."""
     swn, shn, _ = _xpass(x, lw, lh, with_xlog=False)
-    return lw * swn, hmap(torch.mul, lh, shn)
+    return hmap(torch.mul, lw, swn), hmap(torch.mul, lh, shn)
 
 
 def data_term_sharded(x: ShardedCounts, lw, lh):
@@ -207,40 +214,51 @@ def _to(t, dev):
 def _blocks(x: ShardedCounts, fn, lw, lh, blocks=None):
     """``fn(block, lw_g, lh_c)`` on every (gene, cell) block in order,
     genes then cells: a list of (g, c, outputs) with the outputs moved to
-    ``lw``'s device.  ``lw_g``/``lh_c`` are the lanes' gene rows and cell
-    columns of the block, contiguous on its device; ``fn`` returns a
+    the lanes' device.  ``lw_g``/``lh_c`` are the lanes' gene rows and
+    cell columns of the block, contiguous on its device; ``fn`` returns a
     tuple ``(row part, column part, scalar)``.  ``lh`` given as cell
     shards gives each block its shard, and the column part stays on the
-    shard's device.  ``blocks`` (default :meth:`ShardedCounts.packed`)
+    shard's device; ``lw`` given as gene shards gives each block its
+    gene shard, and the row part stays on the shard's device
+    (``devices[g, 0]``).  ``blocks`` (default :meth:`ShardedCounts.packed`)
     are the blocks ``fn`` reads.  In three stages (the module
     docstring): every block's lanes cross first, then every ``fn`` is
     issued, then the outputs come back."""
-    dev = lw.device
+    dev = hshards.home(lw)
     blocks = x.packed() if blocks is None else blocks
     if isinstance(lh, HShards):
         hshards.check(lh, x)
-        home = lh.devices
+        home_c = lh.devices
         lh_of = list(lh)
     else:
-        home = [dev] * len(x.cols)
+        home_c = [dev] * len(x.cols)
         lh_of = [lh[..., c0:c1] for c0, c1 in x.cols]
-    work = [(g, c, blocks[g][c], lw[..., g0:g1, :].to(b.device).contiguous(),
+    if isinstance(lw, HShards):
+        hshards.check(lw, x)
+        home_g = lw.devices
+        lw_of = list(lw)
+    else:
+        home_g = [dev] * len(x.rows)
+        lw_of = [lw[..., g0:g1, :] for g0, g1 in x.rows]
+    work = [(g, c, b, lw_of[g].to(b.device).contiguous(),
              lh_of[c].to(b.device).contiguous())
-            for g, (g0, g1) in enumerate(x.rows)
-            for c, b in enumerate(blocks[g])]
+            for g in range(len(x.rows)) for c, b in enumerate(blocks[g])]
     res = [(g, c, fn(xb, lw_g, lh_c)) for g, c, xb, lw_g, lh_c in work]
     del work
-    return [(g, c, tuple(_to(t, home[c] if i == 1 else dev)
+    return [(g, c, tuple(_to(t, (home_g[g], home_c[c], dev)[i])
                          for i, t in enumerate(r))) for g, c, r in res]
 
 
-def _fold_blocks(parts, ng, nc, shards=False):
+def _fold_blocks(parts, lw=None, lh=None):
     """Block outputs ``(row part, column part, scalar)`` (each may be
     None) added in shard order: a gene shard's rows (``swn``, ``wn``)
-    over cells, then joined over genes; a cell shard's columns (``shn``,
-    ``hn``) over genes, then joined over cells (``shards``: kept as the
-    cell shards, each where :func:`_blocks` left it); the scalar over all
-    blocks."""
+    over cells, then joined over genes (kept as the gene shards where
+    ``lw`` came as gene shards, each where :func:`_blocks` left it); a
+    cell shard's columns (``shn``, ``hn``) over genes, then joined over
+    cells (kept as the cell shards where ``lh`` came as cell shards);
+    the scalar over all blocks."""
+    ng = 1 + max(g for g, _, _ in parts)
+    nc = 1 + max(c for _, c, _ in parts)
     rows, cols, tot = [None] * ng, [None] * nc, None
     for g, c, (rp, cp, sc) in parts:
         if rp is not None:
@@ -249,13 +267,18 @@ def _fold_blocks(parts, ng, nc, shards=False):
             cols[c] = _add(cols[c], cp)
         if sc is not None:
             tot = _add(tot, sc)
-    if cols[0] is None:
-        cols = None
-    elif shards:
-        cols = HShards(cols)
-    else:
-        cols = torch.cat(cols, -1)
-    return (None if rows[0] is None else torch.cat(rows, -2), cols, tot)
+    return (_joined(rows, lw, hshards.GENES),
+            _joined(cols, lh, hshards.CELLS), tot)
+
+
+def _joined(parts, ref, axis):
+    """A fold's per-shard outputs: None, the shards on ``axis`` (``ref``
+    given as shards) or joined along it."""
+    if parts[0] is None:
+        return None
+    if isinstance(ref, HShards):
+        return HShards(parts, axis)
+    return torch.cat(parts, axis)
 
 
 def make_fused_sharded(mesh, fused_local=None, bn: int = None,
@@ -291,8 +314,7 @@ def make_fused_sharded(mesh, fused_local=None, bn: int = None,
     def fused(x, lw, lh):
         _grid(mesh, x)
         return _fold_blocks(_blocks(x, lambda *a: tuple(fused_local(*a)),
-                                    lw, lh), len(x.rows), len(x.cols),
-                            isinstance(lh, HShards))
+                                    lw, lh), lw, lh)
 
     return fused
 
@@ -428,15 +450,13 @@ def _ml_block_pair(mesh, h_fn, w_fn):
     def fused_h(x, w, h):
         _grid(mesh, x, genes=False)
         _, hn, xlw = _fold_blocks(_blocks(
-            x, lambda *a: (None,) + tuple(h_fn(*a)), w, h), len(x.rows),
-            len(x.cols), isinstance(h, HShards))
+            x, lambda *a: (None,) + tuple(h_fn(*a)), w, h), lh=h)
         return hn, xlw
 
     def fused_w(x, w, h):
         _grid(mesh, x, genes=False)
         return _fold_blocks(_blocks(
-            x, lambda *a: (w_fn(*a), None, None), w, h), len(x.rows),
-            len(x.cols))[0]
+            x, lambda *a: (w_fn(*a), None, None), w, h))[0]
 
     return fused_h, fused_w
 
@@ -489,13 +509,11 @@ def make_pass2_sharded(mesh):
     def suffstats(x, lw, lh):
         _grid(mesh, x)
         swn, shn, _ = _fold_blocks(_blocks(
-            x, lambda *a: tuple(ss_block(*a)) + (None,), lw, lh),
-            len(x.rows), len(x.cols), isinstance(lh, HShards))
-        return lw * swn, hmap(torch.mul, lh, shn)
+            x, lambda *a: tuple(ss_block(*a)) + (None,), lw, lh), lw, lh)
+        return hmap(torch.mul, lw, swn), hmap(torch.mul, lh, shn)
 
     def data_term(x, lw, lh):
         _grid(mesh, x)
-        return _fold_blocks(_blocks(x, dt_block, lw, lh), len(x.rows),
-                            len(x.cols))[2]
+        return _fold_blocks(_blocks(x, dt_block, lw, lh))[2]
 
     return suffstats, data_term

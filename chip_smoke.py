@@ -230,8 +230,10 @@ Phases (each prints its result and seconds):
    COO API's make_sparse_fused_sharded is held against one device's
    fused_coo on its own), 'pallas' at 10x over genes=2,
    cells=2 (E1 'cm' + E1s a block; K1 not launched), the gene-major
-   100,000 x 4,096 X over cells=2 (E1 'gm' a shard; Itmax
-   MESH_GM_ITMAX, where phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
+   100,000 x 4,096 X over cells=2 (E1 'gm' a shard) and over genes=2 x
+   cells=2 (the W family as gene shards, E1 'cm' + E1s on each ~50,000 x
+   2,048 block, E1 'gm' not launched), both against one one-device run
+   (Itmax MESH_GM_ITMAX, where phase 12 runs 100, for time), factorize 'pallas' (M1/M2 a shard)
    and 'sparse' (S1/S2) at 10x over cells=4 (their consensus on a
    1,000-cell subsample, for time), and 'pallas2pass' on the
    bundled data over cells=2 (P1 + E1s and P2 a block).  Each site's
@@ -244,15 +246,18 @@ Phases (each prints its result and seconds):
    from the shard's bytes and operations.  Then the mesh's layout
    (parallel/hshards.py, the JAX driver's _place_sharded): every
    eager-loop mesh route ('tile' with elbo_every 1 and 4, 'coo', 'ell',
-   'dense_fused', 'dense', 'pallas2pass' over cells=4, the E1 blocks
-   over genes=2 x cells=2, factorize's 'sparse' and 'pallas' passes)
-   run through ops.vb.vb_run / ops.ml.ml_run on the 10x-10% X (2,048-
-   or 4,096-cell shards), 6 lanes of rp 16, MESH_STATE_ITMAX sweeps at
-   Tol 0, from a start given as cell shards: the H family (and ML's h
-   and cluster ids) comes back as shards on the mesh's devices, and
-   every field is bit-identical to the same loop fed the joined start;
-   and the drivers' sparse mesh scans hand their loops the start as
-   cell shards;
+   'dense_fused', 'dense', 'pallas2pass' over cells=4; the E1 blocks,
+   'dense_fused', 'dense' and 'pallas2pass' over genes=2 x cells=2;
+   factorize's 'sparse' and 'pallas' passes) run through
+   ops.vb.vb_run / ops.ml.ml_run on the 10x-10% X (2,048- or 4,096-cell
+   shards, 2,048-gene shards), 6 lanes of rp 16, MESH_STATE_ITMAX
+   sweeps at Tol 0, from a start given as shards (the W family as gene
+   shards on the genes=2 routes): the H family (and ML's h and cluster
+   ids) comes back as cell shards on devices[0, c], the W family as
+   gene shards on devices[g, 0], and every field is bit-identical to
+   the same loop fed the joined start; and the drivers' sparse mesh
+   scans hand their loops the start as cell shards, the dense scan over
+   genes=2 x cells=2 as cell and gene shards;
 20. several processes: python -m ccfindr_tpu_torch.parallel._mh_worker
    started once a process, all sharing cuda:0 and joined in a gloo
    group on a free localhost port, each running its round-robin share
@@ -347,7 +352,12 @@ Phases (each prints its result and seconds):
    'ell' over k, 'pallas' genes=2 x cells=k/2, factorize 'pallas' and
    'sparse' over k, 'pallas2pass' over 2, the gene-major X over 2 at
    Itmax 10) and 'dense'/'dense_fused' over k in float64 to 1e-9 with
-   equal sweeps, each route's kernels launched; (e) the VB 10x scan over
+   equal sweeps, each route's kernels launched; then the routes that
+   carry the W family as gene shards (gene shard g on the card of block
+   (g, 0)): 'dense', 'dense_fused' and 'pallas2pass' at 10x and the
+   gene-major X on 'pallas' (Itmax 10) over genes=2 x cells=k/2 against
+   one device, each card's peak device memory, launches a sweep and busy
+   share (card_trace); (e) the VB 10x scan over
    k processes, process I on cuda:I, bit-identical to one process, the
    lanes adding up, walls printed; (f) the atlas at full width
    (simulate_atlas and the demo's QC, ranks 2..20 x 2): Itmax
@@ -520,6 +530,9 @@ MESH_SITES = {
                         f"{_VBK}:454"),
     "fused_xpass_gm_shard": ("fused_xpass_gm", "fused_xpass_gm a shard",
                              EPI_SOURCE, f"{_VBK}:454"),
+    "fused_xpass_cm_gmblock": ("fused_xpass_cm",
+                               "fused_xpass_cm a gene-major block",
+                               EPI_SOURCE, f"{_VBK}:454"),
     "ml_hpass_shard": ("ml_hpass", "ml_hpass a shard", ML_SOURCE,
                        f"{_MLK}:83"),
     "ml_wpass_shard": ("ml_wpass", "ml_wpass a shard", ML_SOURCE,
@@ -2114,12 +2127,10 @@ def peer_rate(src, dst, gib=1):
             f"= {rate:.1f} GB/s")
 
 
-def drive_mesh(mods, fn, x, **kw):
-    """The call on one device, then on the mesh with the launch counts
-    of ``mods`` set to 0 just before it and read just after: (one
-    device's result, the mesh's, the mesh call's seconds, its nonzero
+def mesh_call(mods, fn, x, **kw):
+    """``fn(x, **kw)`` with the launch counts of ``mods`` set to 0 just
+    before it and read just after: (its result, its seconds, its nonzero
     counts)."""
-    one = fn(x, **{k: v for k, v in kw.items() if k != "mesh"})
     for mod in mods:
         mod.reset_launches()
     sync_cards()
@@ -2130,7 +2141,15 @@ def drive_mesh(mods, fn, x, **kw):
     counts = {}
     for mod in mods:
         counts.update({k: v for k, v in mod.LAUNCHES.items() if v})
-    return one, got, secs, counts
+    return got, secs, counts
+
+
+def drive_mesh(mods, fn, x, **kw):
+    """The call on one device, then on the mesh (:func:`mesh_call`): (one
+    device's result, the mesh's, the mesh call's seconds, its nonzero
+    counts)."""
+    one = fn(x, **{k: v for k, v in kw.items() if k != "mesh"})
+    return (one,) + mesh_call(mods, fn, x, **kw)
 
 
 def close_to_one(one, got, label, secs, counts, ropt=True,
@@ -4794,10 +4813,10 @@ class Smoke:
         if self.xgm is None:
             self.xgm = planted_gm()
         kwg = dict(kw10, Itmax=MESH_GM_ITMAX)
-        # one SCSet for both calls (its CSR of X is ~10 s of host work)
-        one, got, secs, counts = drive(ct.vb_factorize,
-                                       ct.SCSet(count=self.xgm,
-                                                remove_zeros=False),
+        # one SCSet for the three calls (its CSR of X is ~10 s of host
+        # work), one one-device run for both meshes
+        scg = ct.SCSet(count=self.xgm, remove_zeros=False)
+        one, got, secs, counts = drive(ct.vb_factorize, scg,
                                        backend="pallas", mesh=mesh(2),
                                        **kwg)
         ok = close(one, got, "pallas gene-major 100,000 x 4,096 cells=2 "
@@ -4806,6 +4825,20 @@ class Smoke:
             "fused_xpass_gm", 0)
         ok = (ok and counts.get("fused_xpass_gm", 0) > 0
               and counts.get("epi_w_post", 0) == 0)
+        # the same X over genes=2 x cells=2: the W family as two gene
+        # shards, E1 'cm' + E1s on each ~50,000 x 2,048 block
+        got, secs, counts = mesh_call(mods, ct.vb_factorize, scg,
+                                      backend="pallas", mesh=mesh(2, 2),
+                                      **kwg)
+        ok = close(one, got, "pallas gene-major 100,000 x 4,096 genes=2 "
+                   f"cells=2 (Itmax {MESH_GM_ITMAX})", secs, counts) and ok
+        self.kernels["fused_xpass_cm_gmblock"]["launches"] = counts.get(
+            "fused_xpass_cm", 0)
+        ok = (ok and counts.get("fused_xpass_cm", 0) > 0
+              and counts.get("fused_sum", 0) == counts["fused_xpass_cm"]
+              and counts.get("fused_xpass_gm", 0) == 0
+              and counts.get("epi_w_post", 0) == 0)
+        del one, got, scg
         x = torch.as_tensor(self.xgm, device=dev)
         n, m = x.shape
         xs = tsh.place_counts(x, mesh(2))[0]
@@ -4831,7 +4864,31 @@ class Smoke:
         self.set_bound("fused_xpass_gm_shard",
                        nbytes(xb, lw, lhb, e1g(lw, lhb)),
                        6 * rp * nnzb * nb)
-        del x, xs, xb, lw, lh, lhb
+        # E1 'cm' on block (0, 0) of the genes=2 x cells=2 layout (X's
+        # genes padded to the mesh, as the driver pads them)
+        xs = tsh.place_counts(torch.nn.functional.pad(x, (0, 0, 0, n % 2)),
+                              mesh(2, 2))[0]
+        xb = xs.packed()[0][0]
+        g1, c1 = xs.rows[0][1], xs.cols[0][1]
+        lwb = lw[:, :g1].contiguous()
+        lhb = lh[..., :c1].contiguous()
+        chunk_b = vbk.fused_chunk(xb, "cm", 1, rp, 4)
+
+        def e1b(lw_, lh_):
+            return vbk.fused_xpass(xb, lw_, lh_, layout="cm", chunk=chunk_b)
+
+        ok = self.site(
+            "fused_xpass_cm_gmblock",
+            lambda: e1_outs(e1b(lwb, lhb), (1, 0)),
+            lambda: vbk.fused_xpass_plain(xb, lwb, lhb), "ffs", 3,
+            lambda: lanes_alone(e1b, (lwb, lhb), lanes=(0, 2)),
+            full=lambda: vbk.fused_xpass(x, lw, lh, layout="gm"),
+            launch=lambda: e1b(lwb, lhb)) and ok
+        nnzb = int((xb != 0).sum())
+        self.set_bound("fused_xpass_cm_gmblock",
+                       nbytes(xb, lwb, lhb, e1b(lwb, lhb)),
+                       6 * rp * nnzb * nb)
+        del x, xs, xb, lw, lh, lhb, lwb
         torch.cuda.empty_cache()
 
         # the ML mesh at 10x over cells=4: M1/M2 ('pallas') and S1/S2
@@ -4948,13 +5005,15 @@ class Smoke:
     def mesh_state(self, csr, mods):
         """Phase 19's layout gate (the JAX driver's _place_sharded, ported
         as parallel/hshards.py): each eager-loop mesh route through
-        vb_run / ml_run on ``csr`` (the 10x-10% X, 8,192 cells: shards of
-        2,048 cells over cells=4, 4,096 over genes=2 x cells=2) from a
-        start given as cell shards and from the same start joined, 6
-        lanes of rp 16, MESH_STATE_ITMAX sweeps at Tol 0: the H family
-        back as shards on the mesh's devices, every field the joined
-        run's bits; then the drivers' sparse mesh scans hand their loops
-        the start as cell shards."""
+        vb_run / ml_run on ``csr`` (the 10x-10% X, 4,096 x 8,192: shards
+        of 2,048 cells over cells=4; over genes=2 x cells=2 blocks of
+        2,048 genes x 4,096 cells) from a start given as shards (the H
+        family as cell shards, and on the genes=2 routes the W family as
+        gene shards) and from the same start joined, 6 lanes of rp 16,
+        MESH_STATE_ITMAX sweeps at Tol 0: H back as cell shards on
+        ``devices[0, c]``, W as gene shards on ``devices[g, 0]``, every
+        field the joined run's bits; then the drivers' mesh scans hand
+        their loops the start as shards."""
         import torch
 
         import ccfindr_tpu_torch as ct
@@ -4991,30 +5050,41 @@ class Smoke:
         m4, m22 = mesh(4), mesh(2, 2)
         dense = torch.as_tensor(csr.toarray().astype(np.float32))
         xs4 = tsh.place_counts(dense, m4)[0]
+        # 2,048-gene shards: every sum over genes from the W shards'
+        # partials is then the joined sum (hshards.py)
+        xs22 = tsh.place_counts(dense, m22)[0]
         pass2 = tsh.make_pass2_sharded(m4)
+        pass2g = tsh.make_pass2_sharded(m22)
         routes = (
             ("sparse tile", tile.from_scipy_tile_sharded(
                 csr, 4, dtype=f32, device="cuda"),
-             dict(fused=tsh.make_tile_fused_sharded(m4))),
+             dict(fused=tsh.make_tile_fused_sharded(m4)), False),
             ("sparse tile elbo_every=4", None,
-             dict(fused=tsh.make_tile_fused_sharded(m4), elbo_every=4)),
+             dict(fused=tsh.make_tile_fused_sharded(m4), elbo_every=4),
+             False),
             ("sparse coo", tsk.from_scipy_sharded(csr, 4, dtype=f32,
                                                   device="cuda"),
-             dict(fused=tsh.make_sparse_fused_sharded(m4))),
+             dict(fused=tsh.make_sparse_fused_sharded(m4)), False),
             ("sparse ell", tek.from_scipy_ell_sharded(csr, 4, dtype=f32,
                                                       device="cuda"),
-             dict(fused=tsh.make_ell_fused_sharded(m4))),
-            ("dense_fused", xs4, dict(fused=tsh.fused_sharded)),
+             dict(fused=tsh.make_ell_fused_sharded(m4)), False),
+            ("dense_fused", xs4, dict(fused=tsh.fused_sharded), False),
             ("dense", xs4, dict(suffstats=tsh.suffstats_sharded,
-                                data_term=tsh.data_term_sharded)),
+                                data_term=tsh.data_term_sharded), False),
             ("pallas2pass", xs4, dict(suffstats=pass2[0],
-                                      data_term=pass2[1])),
-            ("pallas genes=2 x cells=2 (E1 blocks)",
-             tsh.place_counts(dense, m22)[0],
-             dict(fused=tsh.make_fused_sharded(m22))))
+                                      data_term=pass2[1]), False),
+            ("pallas genes=2 x cells=2 (E1 blocks)", xs22,
+             dict(fused=tsh.make_fused_sharded(m22)), True),
+            ("dense_fused genes=2 x cells=2", xs22,
+             dict(fused=tsh.fused_sharded), True),
+            ("dense genes=2 x cells=2", xs22,
+             dict(suffstats=tsh.suffstats_sharded,
+                  data_term=tsh.data_term_sharded), True),
+            ("pallas2pass genes=2 x cells=2", xs22,
+             dict(suffstats=pass2g[0], data_term=pass2g[1]), True))
         ok = True
         x = None
-        for label, xr, kw in routes:
+        for label, xr, kw, genes in routes:
             x = x if xr is None else xr
             t0 = time.perf_counter()
             want = vb_ops.vb_run(x, st0, hy0, itmax=MESH_STATE_ITMAX,
@@ -5023,6 +5093,9 @@ class Smoke:
                 mod.reset_launches()
             sst = st0._replace(**{f: hshards.shard_h(getattr(st0, f), x)
                                   for f in ("eh", "lh", "dh")})
+            if genes:
+                sst = sst._replace(**{f: hshards.shard_w(getattr(st0, f), x)
+                                      for f in ("ew", "lw", "dw")})
             got = vb_ops.vb_run(x, sst, hy0, itmax=MESH_STATE_ITMAX,
                                 tol=0.0, **kw, **masks)
             sync_cards()
@@ -5033,6 +5106,18 @@ class Smoke:
             placed = all(isinstance(getattr(got.state, f), HShards)
                          and [str(p.device) for p in getattr(got.state, f)]
                          == lay for f in ("eh", "lh", "dh"))
+            wtxt = ""
+            if genes:
+                wlay = [str(d) for _, d in hshards.gene_layout(x)]
+                wplaced = all(
+                    isinstance(getattr(got.state, f), HShards)
+                    and getattr(got.state, f).axis == hshards.GENES
+                    and [str(p.device) for p in getattr(got.state, f)]
+                    == wlay for f in ("ew", "lw", "dw"))
+                wtxt = (f"; W family as {len(wlay)} gene shards of "
+                        f"{[p.shape[-2] for p in got.state.lw]} genes on "
+                        f"{wlay} {wplaced}")
+                placed = placed and wplaced
             same = (all(np.array_equal(hshards.to_numpy(a),
                                        hshards.to_numpy(b))
                         for a, b in zip(got.state, want.state))
@@ -5040,13 +5125,13 @@ class Smoke:
                             zip((got.lml, got.n_iter, *got.hyper),
                                 (want.lml, want.n_iter, *want.hyper))))
             print(f"  layout {label}: H family as {len(lay)} shards on "
-                  f"{lay} {placed}; bit-identical to the joined start "
-                  f"{same}; sweeps {int(got.n_iter.max())}; "
+                  f"{lay}{wtxt} {placed}; bit-identical to the joined "
+                  f"start {same}; sweeps {int(got.n_iter.max())}; "
                   f"{time.perf_counter() - t0:.2f} s both; launches "
                   f"{counts}", flush=True)
             ok = ok and placed and same
             del want, got, sst
-        del routes, xs4, x, dense
+        del routes, xs4, xs22, x, dense
         for label, xr, pair in (
                 ("ML sparse tile", tile.from_scipy_tile_sharded(
                     csr, 4, dtype=f32, device="cuda"),
@@ -5070,12 +5155,14 @@ class Smoke:
                   f"{same}", flush=True)
             ok = ok and placed and same
             del want, got
-        # the drivers hand their loops the start as shards
+        # the drivers hand their loops the start as shards (the W family
+        # too where the mesh splits the genes)
         seen = []
         vb_orig, ml_orig = vb_ops.vb_run, ml_ops.ml_run
 
         def vb_spy(x_, st, *a, **k):
-            seen.append(("vb", isinstance(st.eh, HShards)))
+            seen.append(("vb", isinstance(st.eh, HShards),
+                         isinstance(st.lw, HShards)))
             return vb_orig(x_, st, *a, **k)
 
         def ml_spy(x_, w, h, *a, **k):
@@ -5089,11 +5176,15 @@ class Smoke:
             ct.vb_factorize(csr, **kwd)
             ct.factorize(csr, cophenetic_max_cells=500, cophenetic_nsub=1,
                          **kwd)
+            ct.vb_factorize(csr, **dict(kwd, backend="dense", mesh=m22))
         finally:
             vb_ops.vb_run, ml_ops.ml_run = vb_orig, ml_orig
-        handed = seen == [("vb", True), ("ml", True)]
+        handed = seen == [("vb", True, False), ("ml", True),
+                          ("vb", True, True)]
         print(f"  layout: the drivers' sparse scans over cells=4 hand their "
-              f"loops the start as cell shards: {seen} {handed}", flush=True)
+              f"loops the start as cell shards, the dense scan over genes=2 "
+              f"x cells=2 as cell and gene shards: {seen} {handed}",
+              flush=True)
         torch.cuda.empty_cache()
         return ok and handed
 
@@ -5996,7 +6087,11 @@ class Smoke:
     def mc_routes(self):
         """(d) phase 19's mesh routes, the dense routes and 'ell' over
         distinct cards against one device (phase 19's tolerances; the
-        dense routes in float64 to 1e-9 as phase 17's)."""
+        dense routes in float64 to 1e-9 as phase 17's); the routes that
+        carry the W family as gene shards ('dense', 'dense_fused',
+        'pallas2pass' at 10x and the gene-major X on 'pallas') over
+        genes=2 x cells=k/2, each card's peak memory, launches a sweep
+        and busy share (card_trace)."""
         import torch
 
         import ccfindr_tpu_torch as ct
@@ -6062,17 +6157,49 @@ class Smoke:
             ok = ok and good and all(counts.get(n, 0) > 0 for n in kern)
             del one, got
         # the gene-major route over two cards (Itmax cut to 10: its set-up
-        # is what takes the time)
+        # is what takes the time); one SCSet and one one-device run for
+        # both meshes
         if self.xgm is None:
             self.xgm = planted_gm()
-        one, got, secs, counts = drive(ct.vb_factorize, self.xgm,
-                                       backend="pallas", mesh=mesh(2),
-                                       **dict(kw10, Itmax=10))
-        ok = close_to_one(one, got, "(d) pallas gene-major 100,000 x 4,096 "
-                          "cells=2 on distinct cards (Itmax 10)", secs,
+        scg = ct.SCSet(count=self.xgm, remove_zeros=False)
+        kwg = dict(kw10, backend="pallas", Itmax=10)
+        one_gm, got, secs, counts = drive(ct.vb_factorize, scg,
+                                          mesh=mesh(2), **kwg)
+        ok = close_to_one(one_gm, got, "(d) pallas gene-major 100,000 x "
+                          "4,096 cells=2 on distinct cards (Itmax 10)", secs,
                           counts) and ok
         ok = ok and counts.get("fused_xpass_gm", 0) > 0
-        del one, got
+        del got
+        # the W family as gene shards on distinct cards: gene shard g on
+        # the card of block (g, 0)
+        cg = max(k // 2, 1)
+        wruns = [(f"{b} 10x", self.x10, dict(kw10, backend=b), None, kern)
+                 for b, kern in (("dense", ()), ("dense_fused", ()),
+                                 ("pallas2pass", ("ss_xpass", "elbo_xpass")))]
+        wruns.append(("pallas gene-major 100,000 x 4,096 (Itmax 10)", scg,
+                      kwg, one_gm, ("fused_xpass_cm", "fused_sum")))
+        for label, x, kw, one, kern in wruns:
+            if one is None:
+                one = ct.vb_factorize(x, **kw)
+            torch.cuda.empty_cache()
+            for d in range(k):
+                torch.cuda.reset_peak_memory_stats(d)
+            (got, secs, counts), tr = card_trace(
+                lambda: mesh_call(mods, ct.vb_factorize, x,
+                                  mesh=mesh(cg, 2), **kw))
+            peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+                     for d in range(k)]
+            name = f"(d) {label} genes=2 cells={cg}"
+            good = close_to_one(one, got, name + " on distinct cards", secs,
+                                counts)
+            self.print_trace(name, tr, kw["Itmax"])
+            print(f"  {name}: peak GiB by card "
+                  f"{[round(p, 3) for p in peaks]}; busy "
+                  f"{[round(c['share'], 3) for c in tr['cards'].values()] if tr else None}",
+                  flush=True)
+            ok = ok and good and all(counts.get(n, 0) > 0 for n in kern)
+            del one, got
+        del one_gm, scg
         # 'dense' and 'dense_fused' (parallel/sharded.py::_xpass) in
         # float64 against one device
         kwd = dict(ranks=[4, 5, 6], nrun=2, Itmax=3000, device="cuda:0",
